@@ -1,0 +1,349 @@
+#!/usr/bin/env python3
+"""Chip smoke test of picha_tpu_torch, the PyTorch/CUDA port: drives the
+all-device JPEG transcode path on one CUDA card and checks it.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Phases (each prints one line; any failure raises and exits non-zero):
+  1. the card (nvidia-smi name, power limit); build kernels K1-K3 from
+     picha_tpu_torch/csrc/ into the gitignored csrc/build/;
+  2. each kernel against its plain torch version on the card, at the
+     main path's shapes (16 x 1920x1088 restart-8 -> 960x544 q85);
+  3. the slice end to end through JpegBatchPipeline(width=960,
+     height=544, encode_quality=85, encode_backend="device", fused=True,
+     upload="scan"): every output decodes, sits <=1 LSB (mean) from the
+     strict host path's output (libjpeg decode -> native resize ->
+     libjpeg encode, committed under tests/fixtures/port/ because the
+     card machine has no libjpeg for the native library), is byte for
+     byte the port's plain-torch path's output, takes no fallback, and
+     launched every kernel;
+  4. phase 3 again with TF32 matmuls allowed globally;
+  5. timing with CUDA events: kernel path vs plain path, end to end and
+     device-only (upload resident, decode->encode, byte-count readback),
+     and where one batch's time goes, stage by stage.
+Then one JSON line of per-kernel results, the card line, and the final
+JSON status line.
+"""
+import io
+import json
+import pathlib
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+FIXTURES = ROOT / "tests" / "fixtures" / "port"
+N_IMG, SRC_W, SRC_H, OUT_W, OUT_H, QUALITY = 16, 1920, 1088, 960, 544, 85
+K2_MAX_OFF_BY_ONE = 1e-4   # f32 summation order at exact .5 ties
+PARITY_LSB = 1.0           # mean |diff| vs the strict host path
+
+
+def phase(name, **kv):
+    print(json.dumps({"phase": name, **kv}), flush=True)
+
+
+def decode_rgb(buf):
+    import numpy as np
+    from PIL import Image
+
+    im = Image.open(io.BytesIO(bytes(buf)))
+    im.load()
+    if im.format != "JPEG" or im.size != (OUT_W, OUT_H):
+        raise AssertionError(f"not a {OUT_W}x{OUT_H} JPEG: {im.format} "
+                             f"{im.size}")
+    return np.asarray(im.convert("RGB"), dtype=np.int32)
+
+
+def mean_abs(a_bufs, b_bufs):
+    return [float(abs(decode_rgb(a) - decode_rgb(b)).mean())
+            for a, b in zip(a_bufs, b_bufs)]
+
+
+def timed(fn, reps, warm=1):
+    """CUDA-event ms per call of fn (enqueue + device work)."""
+    from picha_tpu_torch.runtime import CudaTimer
+
+    for _ in range(warm):
+        fn()
+    with CudaTimer() as t:
+        for _ in range(reps):
+            fn()
+    return t.ms / reps
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+
+    from picha_tpu_torch.kernels import (KERNELS, _build, launch_counts,
+                                         reset_launch_counts)
+    from picha_tpu_torch.ops.jpeg import encode_blocks, encode_blocks_plain
+    from picha_tpu_torch.ops.jpeg_fused import fused_decode_resize
+    from picha_tpu_torch.ops.jpeg_huffman import (scan_encode,
+                                                  scan_encode_plain)
+    from picha_tpu_torch.ops.jpeg_huffman_decode import (decode_scan,
+                                                         decode_scan_plain,
+                                                         scan_wire,
+                                                         split_planes,
+                                                         wire_unpack)
+    from picha_tpu_torch.pipeline import JpegBatchPipeline
+    from picha_tpu_torch.pipeline.jpeg_batch import device_graph, signature
+    from picha_tpu_torch.runtime import card_id
+
+    # 1. card and build ---------------------------------------------------
+    card = card_id()
+    phase("card", nvidia_smi=card, torch=torch.__version__,
+          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
+    _build.library()
+    phase("build", seconds=time.perf_counter() - t0,
+          library=str(_build.library_path().relative_to(ROOT)))
+
+    srcs = [(FIXTURES / f"src_{i}.jpg").read_bytes() for i in range(3)]
+    refs = [(FIXTURES / f"ref_{i}.jpg").read_bytes() for i in range(3)]
+    corpus = [srcs[i % 3] for i in range(N_IMG)]
+    strict = [refs[i % 3] for i in range(N_IMG)]
+    mpix = N_IMG * SRC_W * SRC_H / 1e6
+
+    pipe = JpegBatchPipeline(width=OUT_W, height=OUT_H,
+                             encode_quality=QUALITY, encode_backend="device",
+                             fused=True, upload="scan", device=dev)
+
+    def plain_graph(buf, ks, sig, consts, cap):
+        """device_graph's stages with each kernel's plain torch version
+        in its place, on the same device."""
+        dargs, qt = wire_unpack(buf, ks, len(sig[3]))
+        coefs, ok = decode_scan_plain(dargs, ks, consts.comp_of)
+        planes = split_planes(coefs, sig[3], consts.split_idx)
+        f255 = fused_decode_resize(sig[3], sig[2], planes, qt,
+                                   consts.weights)
+        blocks = encode_blocks_plain(f255, consts.qluma, consts.qchroma,
+                                     consts.kron)
+        return scan_encode_plain(blocks, consts.layout, consts.tab, cap), ok
+
+    # 2. kernels vs plain at the main path's shapes ------------------------
+    infos = pipe.entropy_decode(corpus)
+    ks, wire = scan_wire(infos)    # raises unless restart single-pass
+    sig = signature(infos[0])
+    consts = pipe.constants(sig)
+    cap = pipe._scan_cap_for(sig)
+    wire_dev = torch.from_numpy(wire).pin_memory().to(dev)
+    dargs, qtabs = wire_unpack(wire_dev, ks, len(sig[3]))
+    results = {}
+
+    before = launch_counts()
+    coefs_k, ok_k = decode_scan(dargs, ks, consts.comp_of)
+    coefs_p, ok_p = decode_scan_plain(dargs, ks, consts.comp_of)
+    torch.cuda.synchronize()
+    if not (bool(ok_k) and bool(ok_p)) or not torch.equal(coefs_k, coefs_p):
+        raise AssertionError("K1 disagrees with its plain version")
+    err = int((coefs_k - coefs_p).abs().max())
+    results["huffman_decode_restart"] = dict(
+        max_abs_err=err,
+        ms=timed(lambda: decode_scan(dargs, ks, consts.comp_of), 5),
+        plain_ms=timed(lambda: decode_scan_plain(dargs, ks, consts.comp_of),
+                       1))
+    phase("K1", equal=True, ok=True, shape=list(coefs_k.shape),
+          **results["huffman_decode_restart"])
+
+    planes = split_planes(coefs_k, sig[3], consts.split_idx)
+    f255 = fused_decode_resize(sig[3], sig[2], planes, qtabs,
+                               consts.weights)
+    front = (f255, consts.qluma, consts.qchroma, consts.kron)
+    blocks_k = encode_blocks(*front)
+    blocks_p = encode_blocks_plain(*front)
+    k2_off, n_all, err = 0, 0, 0
+    for g, w in zip(blocks_k, blocks_p):
+        d = (g.to(torch.int32) - w.to(torch.int32)).abs()
+        err = max(err, int(d.max()))
+        k2_off += int((d > 0).sum())
+        n_all += d.numel()
+    if err > 1 or k2_off > K2_MAX_OFF_BY_ONE * n_all:
+        raise AssertionError(f"K2: max |diff| {err}, {k2_off}/{n_all} off")
+    results["jpeg_encode_front"] = dict(
+        max_abs_err=err, ms=timed(lambda: encode_blocks(*front), 10),
+        plain_ms=timed(lambda: encode_blocks_plain(*front), 3))
+    phase("K2", off_by_one=k2_off, coefficients=n_all,
+          limit=K2_MAX_OFF_BY_ONE, **results["jpeg_encode_front"])
+
+    scan_k, nb_k = scan_encode(blocks_k, consts.layout, consts.tab, cap)
+    scan_p, nb_p = scan_encode_plain(blocks_k, consts.layout, consts.tab, cap)
+    if not (torch.equal(nb_k, nb_p) and torch.equal(scan_k, scan_p)):
+        raise AssertionError("K3 disagrees with its plain version")
+    if int(nb_k.max()) > cap:
+        raise AssertionError(f"K3 overflow at the default cap {cap}")
+    err = max(int((scan_k.int() - scan_p.int()).abs().max()),
+              int((nb_k - nb_p).abs().max()))
+    results["huffman_encode_scan"] = dict(
+        max_abs_err=err,
+        ms=timed(lambda: scan_encode(blocks_k, consts.layout, consts.tab,
+                                     cap), 10),
+        plain_ms=timed(lambda: scan_encode_plain(
+            blocks_k, consts.layout, consts.tab, cap), 3))
+    phase("K3", identical=True, nbytes_max=int(nb_k.max()), byte_cap=cap,
+          **results["huffman_encode_scan"])
+    after = launch_counts()
+    if any(after[k] <= before[k] for k in KERNELS):
+        raise AssertionError(f"launch counts did not move: {after}")
+
+    # 3. the slice end to end ----------------------------------------------
+    def plain_path(bufs):
+        infos = pipe.entropy_decode(bufs)
+        ks, wire = scan_wire(infos)
+        sig = signature(infos[0])
+        buf = torch.from_numpy(wire).pin_memory().to(dev, non_blocking=True)
+        out, ok = plain_graph(buf, ks, sig, pipe.constants(sig),
+                              pipe._scan_cap_for(sig))
+        if not bool(ok):
+            raise AssertionError("plain decoder flagged the corpus")
+        return pipe.scan_finish(out, sig)
+
+    def fallbacks():
+        return {k: getattr(pipe, k) for k in (
+            "scan_fallbacks", "no_restart_fallbacks", "overflow_retries",
+            "overflow_fallbacks")}
+
+    def check_slice(jpegs, label):
+        if len(jpegs) != N_IMG:
+            raise AssertionError(f"{label}: {len(jpegs)} outputs")
+        lsb = mean_abs(jpegs, strict)
+        if max(lsb) > PARITY_LSB:
+            raise AssertionError(f"{label}: {max(lsb)} LSB from strict")
+        if any(fallbacks().values()):
+            raise AssertionError(f"{label}: fallbacks {fallbacks()}")
+        return lsb
+
+    reset_launch_counts()
+    jpegs = pipe(corpus)
+    torch.cuda.synchronize()
+    main_launches = launch_counts()
+    if any(v == 0 for v in main_launches.values()):
+        raise AssertionError(f"main path skipped a kernel: {main_launches}")
+    lsb = check_slice(jpegs, "slice")
+    plain_jpegs = plain_path(corpus)
+    identical = sum(bytes(a) == bytes(b) for a, b in zip(jpegs, plain_jpegs))
+    # K1 and K3 are exact and the fused stage is shared, so only a K2
+    # off-by-one at an exact .5 tie (counted in phase 2 on these very
+    # inputs) may make an output differ from the plain path's
+    if identical != N_IMG and k2_off == 0:
+        raise AssertionError(f"kernel path differs from the plain path on "
+                             f"{N_IMG - identical} images")
+    phase("slice", images=N_IMG, lsb_vs_strict_mean=sum(lsb) / N_IMG,
+          lsb_vs_strict_max=max(lsb), limit_lsb=PARITY_LSB,
+          identical_to_plain=identical, launches=main_launches,
+          fallbacks=fallbacks(), bytes=[len(j) for j in jpegs])
+
+    # 4. TF32 switched on globally ------------------------------------------
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        jpegs_tf32 = pipe(corpus)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    lsb_tf32 = check_slice(jpegs_tf32, "tf32")
+    same = sum(bytes(a) == bytes(b) for a, b in zip(jpegs, jpegs_tf32))
+    if same != N_IMG:
+        raise AssertionError(f"TF32 on globally changed {N_IMG - same} "
+                             f"outputs")
+    phase("tf32_global", identical=same, lsb_vs_strict_max=max(lsb_tf32))
+
+    # 5. timing -------------------------------------------------------------
+    def wall(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return sorted(ts)[len(ts) // 2]
+
+    e2e_ms = wall(lambda: pipe(corpus), 5)
+    e2e_plain_ms = wall(lambda: plain_path(corpus), 2)
+    one_ms = wall(lambda: pipe(corpus[:1]), 9)
+
+    def device_loop():
+        out, _ok = device_graph(sig, [wire_dev], consts, scan_ks=ks,
+                                byte_cap=cap)
+        return out
+
+    dev_ms = timed(lambda: device_loop()[1].cpu(), 10)
+    dev_plain_ms = timed(
+        lambda: plain_graph(wire_dev, ks, sig, consts, cap)[0][1].cpu(), 2)
+    phase("timing", card=card, mpix_per_batch=mpix,
+          e2e_ms_per_batch=e2e_ms, e2e_mpix_s=mpix / e2e_ms * 1e3,
+          e2e_plain_ms_per_batch=e2e_plain_ms,
+          e2e_plain_mpix_s=mpix / e2e_plain_ms * 1e3,
+          p50_ms_one_1080p_image=one_ms,
+          device_only_ms=dev_ms, device_only_mpix_s=mpix / dev_ms * 1e3,
+          device_only_plain_ms=dev_plain_ms,
+          device_only_plain_mpix_s=mpix / dev_plain_ms * 1e3)
+
+    # where one batch's time goes: host stages by wall clock, device
+    # stages by CUDA events between them (medians of 5 batches)
+    def stages_once():
+        host, t = {}, time.perf_counter()
+        infos = pipe.entropy_decode(corpus)
+        host["parse"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
+        ks1, wire1 = scan_wire(infos)
+        host["wire"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
+        buf = torch.from_numpy(wire1).pin_memory().to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        host["upload"] = (time.perf_counter() - t) * 1e3
+        names = ["K1_decode", "split", "fused_matmuls", "K2_front",
+                 "K3_scan"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        dargs1, qt1 = wire_unpack(buf, ks1, len(sig[3]))
+        coefs1, ok1 = decode_scan(dargs1, ks1, consts.comp_of)
+        ev[1].record()
+        planes1 = split_planes(coefs1, sig[3], consts.split_idx)
+        ev[2].record()
+        f1 = fused_decode_resize(sig[3], sig[2], planes1, qt1,
+                                 consts.weights)
+        ev[3].record()
+        blocks1 = encode_blocks(f1, consts.qluma, consts.qchroma, consts.kron)
+        ev[4].record()
+        out1 = scan_encode(blocks1, consts.layout, consts.tab, cap)
+        ev[5].record()
+        torch.cuda.synchronize()
+        device = {n: ev[i].elapsed_time(ev[i + 1])
+                  for i, n in enumerate(names)}
+        t = time.perf_counter()
+        if not bool(ok1) or len(pipe.scan_finish(out1, sig)) != N_IMG:
+            raise AssertionError("stage run failed")
+        host["readback_assemble"] = (time.perf_counter() - t) * 1e3
+        return host, device
+
+    runs = [stages_once() for _ in range(6)][1:]
+
+    def median(key, which):
+        vals = sorted(r[which][key] for r in runs)
+        return vals[len(vals) // 2]
+
+    host_ms = {k: median(k, 0) for k in runs[0][0]}
+    device_ms = {k: median(k, 1) for k in runs[0][1]}
+    phase("stages", card=card, host_ms=host_ms, device_ms=device_ms,
+          host_sum_ms=sum(host_ms.values()),
+          device_sum_ms=sum(device_ms.values()))
+
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    kernels = [dict(name=k.name, route="cuda", source=k.source,
+                    replaces=k.replaces, launches=main_launches[k.name],
+                    **results[k.name]) for k in KERNELS.values()]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

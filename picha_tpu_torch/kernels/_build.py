@@ -1,0 +1,172 @@
+"""Build and bind the hand-written CUDA kernels (`picha_tpu_torch/csrc/`).
+
+Route: `nvcc` compiles every `csrc/*.cu` for sm_90a into one shared
+library with a plain C interface, loaded with ctypes. Pointers and the
+stream go across as `c_void_p`, sizes as `c_int`. Every C entry point
+launches on the caller's stream, does not synchronise, and returns
+`cudaGetLastError()`; `Kernel.__call__` raises when that is not 0.
+
+The build runs at first use, from the sources in this checkout only,
+into `csrc/build/` (gitignored). The library name carries a hash of the
+sources and flags, so an edited source rebuilds and concurrent
+processes never load a half-written file. Importing this module needs
+no nvcc and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+P, I = ctypes.c_void_p, ctypes.c_int
+
+# C entry point -> argument types (the stream is always last)
+SIGNATURES = {
+    "picha_huffman_decode_restart": [
+        P, P, P, P, P, P, P, P, I, P, P, I, I, I, P, P, P],
+    "picha_jpeg_encode_front": [
+        P, I, I, I, I, P, P, P, P, P, P, I, I, I, I, P],
+    "picha_huffman_encode_scan": [
+        P, I, I, I, P, P, P, P, P, P, P, P, I, P, P, I, P, P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "building the CUDA kernels needs nvcc (CUDA_HOME/bin or PATH)")
+    return found
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libpicha_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu unless this exact source set is built already.
+    Raises RuntimeError with nvcc's diagnostics on failure."""
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.picha_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.picha_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+class Kernel:
+    """One C entry point with its launch count. `launches` counts the
+    calls that launched the kernel and returned cudaSuccess."""
+
+    def __init__(self, name: str, symbol: str, source: str, replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.source = source        # path in the repo
+        self.replaces = replaces    # the JAX function it replaces
+        self.launches = 0
+
+    def __call__(self, *args):
+        lib = library()
+        rc = getattr(lib, self.symbol)(*args)
+        if rc != 0:
+            msg = lib.picha_cuda_error_string(rc).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
+        self.launches += 1
+
+
+KERNELS = {
+    k.name: k for k in (
+        Kernel("huffman_decode_restart", "picha_huffman_decode_restart",
+               "picha_tpu_torch/csrc/huffman_decode_restart.cu",
+               "picha_tpu/ops/jpeg_huffman_decode_tpu.py:428"),
+        Kernel("jpeg_encode_front", "picha_jpeg_encode_front",
+               "picha_tpu_torch/csrc/jpeg_encode_front.cu",
+               "picha_tpu/ops/jpeg_tpu.py:385"),
+        Kernel("huffman_encode_scan", "picha_huffman_encode_scan",
+               "picha_tpu_torch/csrc/huffman_encode_scan.cu",
+               "picha_tpu/ops/jpeg_huffman_tpu.py:173"),
+    )
+}
+
+
+def reset_launch_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def require_cuda(t, kernel: str):
+    """Raise unless `t` is a CUDA tensor: a wrapper runs its plain
+    version for CPU tensors and its kernel for CUDA tensors, nothing
+    else."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel} takes CPU tensors (plain version) or "
+                         f"CUDA tensors (kernel), got {t.device}")
+
+
+def ptr(t) -> int:
+    """Device pointer of a tensor for a c_void_p argument."""
+    return t.data_ptr()
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of the tensor's device, as an int."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,248 @@
+"""Baseline JPEG Huffman scan encode on the device, and the header
+writer for the scans it produces.
+
+Counterpart of `picha_tpu/ops/jpeg_huffman_tpu.py`:
+`build_scan_encoder` -> `scan_encode` (kernel K3,
+`csrc/huffman_encode_scan.cu`, for CUDA tensors; `scan_encode_plain`
+for CPU tensors), `std_huffman_tables` -> `ANNEX_K`, `jpeg_header` ->
+`jpeg_header`. The block layout (`_mcu_layout`), the per-symbol code
+arrays (`_code_arrays`), the DQT writer and `assemble` are the
+reference's own.
+
+The reference parses the standard tables out of a libjpeg-written DHT
+at run time. This package holds them as a constant (JPEG Annex K,
+K.3), so the device path needs no native library; a test pins them to
+the libjpeg-derived tables.
+"""
+from __future__ import annotations
+
+import struct
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from picha_tpu.ops.jpeg_huffman_tpu import _code_arrays, _dqt
+from picha_tpu.ops.jpeg_scan import ZIGZAG
+from picha_tpu.ops.jpeg_tpu import quality_tables
+
+from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
+
+
+def _table(bits_hex: str, vals_hex: str):
+    return list(bytes.fromhex(bits_hex)), list(bytes.fromhex(vals_hex))
+
+
+# {(class 0 DC | 1 AC, id 0 luma | 1 chroma): (bits[16], vals)}
+ANNEX_K = {
+    (0, 0): _table("00 01 05 01 01 01 01 01 01 00 00 00 00 00 00 00",
+                   "00 01 02 03 04 05 06 07 08 09 0a 0b"),
+    (0, 1): _table("00 03 01 01 01 01 01 01 01 01 01 00 00 00 00 00",
+                   "00 01 02 03 04 05 06 07 08 09 0a 0b"),
+    (1, 0): _table(
+        "00 02 01 03 03 02 04 03 05 05 04 04 00 00 01 7d",
+        "01 02 03 00 04 11 05 12 21 31 41 06 13 51 61 07 22 71 14 32 81 91"
+        "a1 08 23 42 b1 c1 15 52 d1 f0 24 33 62 72 82 09 0a 16 17 18 19 1a"
+        "25 26 27 28 29 2a 34 35 36 37 38 39 3a 43 44 45 46 47 48 49 4a 53"
+        "54 55 56 57 58 59 5a 63 64 65 66 67 68 69 6a 73 74 75 76 77 78 79"
+        "7a 83 84 85 86 87 88 89 8a 92 93 94 95 96 97 98 99 9a a2 a3 a4 a5"
+        "a6 a7 a8 a9 aa b2 b3 b4 b5 b6 b7 b8 b9 ba c2 c3 c4 c5 c6 c7 c8 c9"
+        "ca d2 d3 d4 d5 d6 d7 d8 d9 da e1 e2 e3 e4 e5 e6 e7 e8 e9 ea f1 f2"
+        "f3 f4 f5 f6 f7 f8 f9 fa"),
+    (1, 1): _table(
+        "00 02 01 02 04 04 03 04 07 05 04 04 00 01 02 77",
+        "00 01 02 03 11 04 05 21 31 06 12 41 51 07 61 71 13 22 32 81 08 14"
+        "42 91 a1 b1 c1 09 23 33 52 f0 15 62 72 d1 0a 16 24 34 e1 25 f1 17"
+        "18 19 1a 26 27 28 29 2a 35 36 37 38 39 3a 43 44 45 46 47 48 49 4a"
+        "53 54 55 56 57 58 59 5a 63 64 65 66 67 68 69 6a 73 74 75 76 77 78"
+        "79 7a 82 83 84 85 86 87 88 89 8a 92 93 94 95 96 97 98 99 9a a2 a3"
+        "a4 a5 a6 a7 a8 a9 aa b2 b3 b4 b5 b6 b7 b8 b9 ba c2 c3 c4 c5 c6 c7"
+        "c8 c9 ca d2 d3 d4 d5 d6 d7 d8 d9 da e2 e3 e4 e5 e6 e7 e8 e9 ea f2"
+        "f3 f4 f5 f6 f7 f8 f9 fa"),
+}
+
+
+def code_table() -> np.ndarray:
+    """(4, 256) int32 packed (len << 16 | code) rows: DC luma, DC
+    chroma, AC luma, AC chroma (the reference's `big_packed`)."""
+    out = np.zeros((4, 256), np.int32)
+    for (cls, tid), (bits, vals) in ANNEX_K.items():
+        code, length = _code_arrays(bits, vals, 12 if cls == 0 else 256)
+        out[cls * 2 + tid, :code.size] = (length << 16) | code
+    return out
+
+
+def jpeg_header(width: int, height: int, comp_sig, quality: int) -> bytes:
+    """SOI..SOS header for a baseline scan with the Annex K tables
+    (byte-identical to picha_tpu's jpeg_header, which a test pins)."""
+    qluma, qchroma = quality_tables(quality)
+    ncomp = len(comp_sig)
+    out = struct.pack(">H", 0xFFD8)
+    out += (struct.pack(">HH", 0xFFE0, 16) + b"JFIF\x00"
+            + struct.pack(">BBBHHBB", 1, 1, 0, 1, 1, 0, 0))
+    out += _dqt(qluma, 0)
+    if ncomp > 1:
+        out += _dqt(qchroma, 1)
+    sof = struct.pack(">HHBHHB", 0xFFC0, 8 + 3 * ncomp, 8, height, width,
+                      ncomp)
+    for ci, (_, _, hs, vs) in enumerate(comp_sig):
+        sof += struct.pack(">BBB", ci + 1, (hs << 4) | vs,
+                           0 if ci == 0 else 1)
+    out += sof
+    for (cls, tid), (bits, vals) in sorted(ANNEX_K.items()):
+        out += struct.pack(">HHB", 0xFFC4, 19 + len(vals), (cls << 4) | tid)
+        out += bytes(bits) + bytes(vals)
+    sos = struct.pack(">HHB", 0xFFDA, 6 + 2 * ncomp, ncomp)
+    for ci in range(ncomp):
+        tid = 0 if ci == 0 else 1
+        sos += struct.pack(">BB", ci + 1, (tid << 4) | tid)
+    return out + sos + struct.pack(">BBB", 0, 63, 0)
+
+
+class ScanLayout(NamedTuple):
+    """`_mcu_layout(comp_sig)` as (nblk,) int32 device tensors."""
+    gidx: torch.Tensor
+    dummy: torch.Tensor
+    tid: torch.Tensor
+    prev: torch.Tensor
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _bitsize(x):
+    a = x.abs()
+    return sum((a >= (1 << k)).to(torch.int64) for k in range(11))
+
+
+def _low_bits(x, s):
+    return torch.where(x < 0, x - 1, x) & ((1 << s) - 1)
+
+
+def scan_encode_plain(coefs, layout: ScanLayout, tab, byte_cap: int):
+    """Plain torch version of K3, after the reference's dense 65-slot
+    packet layout: packets by table lookup, bit offsets by cumsum, words
+    by scatter-add of disjoint bit fields, bytes with 0xFF stuffing.
+    Returns (scan (N, byte_cap) uint8, nbytes (N,) int32)."""
+    n_img = coefs[0].shape[0]
+    dev = coefs[0].device
+    i64 = torch.int64
+    flat = torch.cat([c.reshape(n_img, -1, 64) for c in coefs], 1).to(i64)
+    gidx, tid, prev = (t.to(i64) for t in (layout.gidx, layout.tid,
+                                           layout.prev))
+    dummy = layout.dummy != 0
+    zz = torch.as_tensor(ZIGZAG, dtype=i64, device=dev)
+    tabl = tab.to(i64).view(4, 256)
+    blocks = flat[:, gidx][:, :, zz]                  # (N, nblk, 64) zigzag
+    dc = blocks[:, :, 0]
+    prev_dc = torch.where(prev[None] < 0, 0, dc[:, prev.clamp(min=0)])
+    diff = torch.where(dummy[None], 0, dc - prev_dc)
+    s = _bitsize(diff)
+    cl = tabl[tid[None].expand_as(diff), s]
+    dc_pkt = ((cl & 0xFFFF) << s) | _low_bits(diff, s)
+    dc_len = (cl >> 16) + s
+
+    ac = torch.where(dummy[None, :, None], 0, blocks[:, :, 1:])
+    nz = ac != 0
+    pos = torch.arange(1, 64, device=dev)
+    prev_nz = torch.where(nz, pos, 0).cummax(2).values
+    prev_nz = torch.cat([torch.zeros_like(prev_nz[:, :, :1]),
+                         prev_nz[:, :, :-1]], 2)
+    s_ac = _bitsize(ac)
+    has_next = nz.flip(2).to(i64).cummax(2).values.flip(2) != 0
+    d = pos - prev_nz
+    zrl = ~nz & has_next & (d % 16 == 0)
+    sym = torch.where(nz, (((pos - prev_nz - 1) & 15) << 4) | s_ac, 0xF0)
+    cl_ac = tabl[(2 + tid)[None, :, None].expand_as(sym), sym]
+    sval = torch.where(nz, s_ac, 0)
+    ac_pkt = ((cl_ac & 0xFFFF) << sval) | torch.where(
+        nz, _low_bits(ac, s_ac), 0)
+    live = nz | zrl
+    ac_pkt = torch.where(live, ac_pkt, 0)
+    ac_len = torch.where(live, (cl_ac >> 16) + sval, 0)
+
+    eob = ~nz[:, :, 62]
+    cl_eob = tabl[2 + tid, 0][None].expand_as(eob)
+    eob_pkt = torch.where(eob, cl_eob & 0xFFFF, 0)
+    eob_len = torch.where(eob, cl_eob >> 16, 0)
+
+    pkt = torch.cat([dc_pkt[..., None], ac_pkt, eob_pkt[..., None]],
+                    2).view(n_img, -1)
+    ln = torch.cat([dc_len[..., None], ac_len, eob_len[..., None]],
+                   2).view(n_img, -1)
+    ends = ln.cumsum(1)
+    total = ends[:, -1]
+    pad = (-total) % 8                        # final 1-bits packet
+    offs = torch.cat([ends - ln, total[:, None]], 1)
+    pkt = torch.cat([pkt, ((1 << pad) - 1)[:, None]], 1)
+    ln = torch.cat([ln, pad[:, None]], 1)
+
+    nwords = _cdiv(byte_cap, 4)
+    wi = offs >> 5
+    rem = (offs & 31) + ln - 32
+    live = ln > 0
+    c1 = torch.where(rem <= 0, pkt << (-rem).clamp(0, 32),
+                     pkt >> rem.clamp(min=0))
+    c2 = torch.where(rem > 0, (pkt << (32 - rem).clamp(0, 32)) & 0xFFFFFFFF,
+                     0)
+    words = torch.zeros((n_img, nwords + 1), dtype=i64, device=dev)
+    # packets occupy disjoint bits: the sum of their fields IS the OR;
+    # words past the buffer land in the trash column
+    words.scatter_add_(1, wi.clamp(max=nwords), torch.where(live, c1, 0))
+    words.scatter_add_(1, (wi + 1).clamp(max=nwords),
+                       torch.where(live, c2, 0))
+    words = words[:, :nwords]
+    shifts = torch.tensor([24, 16, 8, 0], dtype=i64, device=dev)
+    byte = ((words[:, :, None] >> shifts) & 0xFF).reshape(
+        n_img, nwords * 4)[:, :byte_cap]
+
+    nraw = (total + pad) // 8
+    b = torch.arange(byte_cap, device=dev)[None]
+    in_range = b < nraw[:, None]
+    is_ff = (byte == 0xFF) & in_range
+    nff_before = is_ff.to(i64).cumsum(1) - is_ff.to(i64)
+    out_idx = torch.where(in_range, (b + nff_before).clamp(max=byte_cap),
+                          byte_cap)
+    out = torch.zeros((n_img, byte_cap + 1), dtype=i64, device=dev)
+    out.scatter_add_(1, out_idx, torch.where(in_range, byte, 0))
+    nbytes = nraw + is_ff.sum(1)
+    return out[:, :byte_cap].to(torch.uint8), nbytes.to(torch.int32)
+
+
+def scan_encode(coefs, layout: ScanLayout, tab, byte_cap: int):
+    """Quantised planes (tuple of (N, bh, bw, 64) int, natural order)
+    -> (scan (N, byte_cap) uint8, nbytes (N,) int32); nbytes > byte_cap
+    signals overflow (the bytes are then invalid). `layout` and `tab`
+    (the (4, 256) int32 `code_table()`) live on the planes' device.
+    Launches K3 for CUDA tensors; the plain version runs only for CPU
+    tensors."""
+    if coefs[0].device.type == "cpu":
+        return scan_encode_plain(coefs, layout, tab, byte_cap)
+    require_cuda(coefs[0], "K3")
+    dev = coefs[0].device
+    n_img = coefs[0].shape[0]
+    flat = torch.cat([c.reshape(n_img, -1, 64) for c in coefs], 1)
+    flat = flat.to(torch.int16).contiguous()
+    nblk = layout.gidx.numel()
+    for t in (*layout, tab):
+        if t.device != dev or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise TypeError("K3 layout and table must be contiguous int32 "
+                            "tensors on the planes' device")
+    if any(t.numel() != nblk for t in layout) or tab.numel() != 4 * 256:
+        raise ValueError("K3 layout arrays must all be (nblk,)")
+    nwords = _cdiv(byte_cap, 4)
+    i32 = torch.int32
+    bits = torch.empty(n_img * nblk, dtype=i32, device=dev)
+    offs = torch.empty(n_img * nblk, dtype=i32, device=dev)
+    words = torch.zeros(n_img * nwords, dtype=i32, device=dev)
+    nraw = torch.empty(n_img, dtype=i32, device=dev)
+    out = torch.zeros((n_img, byte_cap), dtype=torch.uint8, device=dev)
+    nbytes = torch.empty(n_img, dtype=i32, device=dev)
+    KERNELS["huffman_encode_scan"](
+        ptr(flat), n_img, flat.shape[1], nblk, ptr(layout.gidx),
+        ptr(layout.dummy), ptr(layout.tid), ptr(layout.prev), ptr(tab),
+        ptr(bits), ptr(offs), ptr(words), nwords, ptr(nraw), ptr(out),
+        byte_cap, ptr(nbytes), stream_of(flat))
+    return out, nbytes

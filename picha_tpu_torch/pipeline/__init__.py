@@ -1,0 +1,7 @@
+"""Batched pipelines of the port (counterpart of picha_tpu/pipeline/).
+
+  JpegBatchPipeline — decode -> resize -> {uint8 | re-encode} on one
+  device; the all-device JPEG transcode path.
+"""
+
+from .jpeg_batch import JpegBatchPipeline, device_constants  # noqa: F401

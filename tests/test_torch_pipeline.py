@@ -1,0 +1,183 @@
+"""The port's whole slice, JpegBatchPipeline(fused=True, upload="scan",
+encode_backend="device") on device="cpu", against picha_tpu's same
+configuration (JAX on the CPU) and the strict host path (libjpeg decode
+-> native resize -> libjpeg encode), plus the content fallbacks the
+reference keeps: decoder flag -> host decode, encode overflow -> retry
+at twice the cap -> host encode."""
+import numpy as np
+import pytest
+import torch
+
+from torch_helpers import smooth_rgb
+
+from picha_tpu.native import lib as native
+from picha_tpu_torch.pipeline import JpegBatchPipeline
+from picha_tpu_torch.pipeline import jpeg_batch as port_jb
+
+W, H = 64, 48
+KW = dict(width=W, height=H, encode_quality=85, encode_backend="device",
+          fused=True, upload="scan")
+
+
+def _corpus(n=4, h=96, w=128, restart=2):
+    return [bytes(native.jpeg_encode(smooth_rgb(h, w, i), 85,
+                                     restart=restart + i % 3))
+            for i in range(n)]
+
+
+def _lsb(a, b, w=W, h=H):
+    da = native.jpeg_decode(bytes(a), 3, w, h).astype(np.int32)
+    db = native.jpeg_decode(bytes(b), 3, w, h).astype(np.int32)
+    return float(np.abs(da - db).mean())
+
+
+def _strict(bufs, w=W, h=H):
+    from picha_tpu.pipeline import JpegBatchPipeline as Ref
+
+    return Ref(width=w, height=h, encode_quality=85,
+               encode_backend="host").host_encode_batch(bufs)
+
+
+def _counters(p):
+    return (p.scan_fallbacks, p.no_restart_fallbacks, p.overflow_retries,
+            p.overflow_fallbacks)
+
+
+def test_slice_matches_reference_and_strict_host():
+    from picha_tpu.pipeline import JpegBatchPipeline as Ref
+
+    bufs = _corpus()
+    port = JpegBatchPipeline(device="cpu", **KW)
+    got = port(bufs)
+    want = Ref(**KW)(bufs)
+    assert _counters(port) == (0, 0, 0, 0)
+    for g, w, s in zip(got, want, _strict(bufs)):
+        assert bytes(g) == bytes(w) or _lsb(g, w) <= 0.05
+        assert _lsb(g, s) <= 1.0
+
+
+def test_decode_only_matches_reference():
+    from picha_tpu.pipeline import JpegBatchPipeline as Ref
+
+    bufs = _corpus(2)
+    got = JpegBatchPipeline(width=W, height=H, device="cpu")(bufs)
+    want = np.asarray(Ref(width=W, height=H, fused=True,
+                          upload="scan")(bufs))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
+    d = np.abs(got.numpy().astype(np.int32) - want)
+    assert d.max() <= 1 and d.mean() <= 0.01
+
+
+def test_flagged_decode_falls_back_to_host_decode(monkeypatch):
+    """A batch whose lanes run out of the decoder's symbol budget (here
+    forced by a tiny budget) is redone through host libjpeg entropy
+    decode and the dense upload: same output, counted once."""
+    bufs = _corpus(2)
+    want = JpegBatchPipeline(device="cpu", **KW)(bufs)
+
+    from picha_tpu_torch.ops import jpeg_huffman_decode as port_dec
+
+    class TinyBudget(port_dec.ScanBatch):
+        def __init__(self, infos):
+            super().__init__(infos)
+            self.steps = 64
+
+    monkeypatch.setattr(port_dec, "ScanBatch", TinyBudget)
+    p = JpegBatchPipeline(device="cpu", **KW)
+    got = p(bufs)
+    assert _counters(p) == (1, 0, 0, 0)
+    assert [bytes(g) for g in got] == [bytes(w) for w in want]
+
+
+def test_no_restart_batch_takes_host_decode():
+    bufs = _corpus(2, restart=0)[:1] + [bytes(native.jpeg_encode(
+        smooth_rgb(96, 128, 5), 85))]
+    p = JpegBatchPipeline(device="cpu", **KW)
+    got = p(bufs)
+    assert _counters(p) == (0, 1, 0, 0)
+    for g, s in zip(got, _strict(bufs)):
+        assert _lsb(g, s) <= 1.0
+
+
+@pytest.mark.parametrize("second_fits", [True, False])
+def test_encode_overflow_retries_then_host_encode(second_fits):
+    """Overflow of the quality-derived cap: one retry at twice the cap;
+    if that overflows too, host libjpeg encode of the same pixels."""
+    bufs = _corpus(2)
+    want = JpegBatchPipeline(device="cpu", **KW)(bufs)
+    p = JpegBatchPipeline(device="cpu", **KW)
+    small = 256 if not second_fits else 1 << 16
+    p._scan_cap_for = lambda sig: 256 if p._cap_boost == 1 else small
+    got = p(bufs)
+    if second_fits:
+        assert _counters(p) == (0, 0, 1, 0)
+        assert [bytes(g) for g in got] == [bytes(w) for w in want]
+    else:
+        assert _counters(p) == (0, 0, 1, 1)
+        # the host encoder got the very pixels the device path decoded
+        pixels = JpegBatchPipeline(width=W, height=H, device="cpu")(bufs)
+        assert [bytes(g) for g in got] == [
+            bytes(native.jpeg_encode(a, 85)) for a in pixels.numpy()]
+
+
+def test_mixed_batch_keeps_input_order():
+    a = _corpus(2)
+    b = [bytes(native.jpeg_encode(smooth_rgb(80, 112, 9), 85, restart=3))]
+    mixed = [a[0], b[0], a[1]]
+    p = JpegBatchPipeline(device="cpu", **KW)
+    got = p(mixed)
+    same_a = JpegBatchPipeline(device="cpu", **KW)(a)
+    same_b = JpegBatchPipeline(device="cpu", **KW)(b)
+    assert [bytes(x) for x in got] == [bytes(same_a[0]), bytes(same_b[0]),
+                                       bytes(same_a[1])]
+
+
+def test_batching_helpers_match_reference():
+    from picha_tpu.ops.jpeg_scan import parse_baseline
+    from picha_tpu.pipeline import jpeg_batch as ref_jb
+
+    bufs = _corpus(3) + [bytes(native.jpeg_encode(smooth_rgb(40, 56, 1),
+                                                  85))]
+    infos = [parse_baseline(b) for b in bufs]
+    cos = [native.JpegCoefficients(b) for b in bufs]
+    for items in (infos, cos):
+        assert [port_jb.signature(x) for x in items] == \
+            [ref_jb.signature(x) for x in items]
+        got = port_jb.bucket_by_signature(items)
+        want = ref_jb.bucket_by_signature(items)
+        assert [(s, i) for s, i, _ in got] == [(s, i) for s, i, _ in want]
+    for n in (1, 8, 9):
+        assert port_jb.pad_group(list(range(n))) == \
+            ref_jb.pad_group(list(range(n)))
+    for h, w, c in ((544, 960, 3), (31, 33, 1), (13, 17, 3)):
+        assert port_jb.resized_comp_sig(h, w, c) == \
+            ref_jb._resized_comp_sig(h, w, c)
+
+
+# each unported option -> the ROADMAP.md item that lists it
+_UNPORTED_WHERE = {"fused": "queue 1 item 6, queue 2 item 7",
+                   "normalize": "queue 1 item 6",
+                   "raw420": "queue 1 item 1 (Slice A)",
+                   "tpu": "queue 1 item 5",
+                   "upload": "queue 1 item 5"}
+
+
+@pytest.mark.parametrize("kw", [dict(fused=False), dict(normalize=True),
+                                dict(encode_backend="raw420"),
+                                dict(upload="gap4"),
+                                dict(encode_backend="tpu")])
+def test_unported_options_raise(kw):
+    (key, value), = kw.items()
+    where = _UNPORTED_WHERE.get(value, _UNPORTED_WHERE.get(key))
+    with pytest.raises(NotImplementedError) as err:
+        JpegBatchPipeline(device="cpu", **{**KW, **kw})
+    assert str(err.value).endswith(f"ROADMAP.md {where}"), str(err.value)
+
+
+def test_port_fixtures_are_the_strict_host_output():
+    """tests/fixtures/port/ref_<i>.jpg is what the strict host path makes
+    of src_<i>.jpg (the card-side parity anchor of chip_smoke.py)."""
+    from torch_helpers import N_FIXTURES, port_corpus, port_refs
+
+    srcs, refs = port_corpus(N_FIXTURES), port_refs(N_FIXTURES)
+    assert [bytes(r) for r in _strict(srcs, 960, 544)] == refs
