@@ -5,22 +5,28 @@ all-device JPEG transcode path on one CUDA card and checks it.
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (each prints one line; any failure raises and exits non-zero):
-  1. the card (nvidia-smi name, power limit); build kernels K1-K3 from
+  1. the card (nvidia-smi name, power limit); build kernels K1-K5 from
      picha_tpu_torch/csrc/ into the gitignored csrc/build/;
   2. each kernel against its plain torch version on the card, at the
-     main path's shapes (16 x 1920x1088 restart-8 -> 960x544 q85);
+     main path's shapes (16 x 1920x1088 -> 960x544 q85): K1-K3 on the
+     restart-8 corpus, the chunked decoder K4 and its DC scan K5 on the
+     same pixels encoded without restart markers, where K4 must also
+     give K1's coefficients exactly;
   3. the slice end to end through JpegBatchPipeline(width=960,
      height=544, encode_quality=85, encode_backend="device", fused=True,
-     upload="scan"): every output decodes, sits <=1 LSB (mean) from the
-     strict host path's output (libjpeg decode -> native resize ->
-     libjpeg encode, committed under tests/fixtures/port/ because the
-     card machine has no libjpeg for the native library), is byte for
-     byte the port's plain-torch path's output, takes no fallback, and
-     launched every kernel;
-  4. phase 3 again with TF32 matmuls allowed globally;
+     upload="scan") on the restart corpus: every output decodes, sits
+     <=1 LSB (mean) from the strict host path's output (libjpeg decode ->
+     native resize -> libjpeg encode, committed under
+     tests/fixtures/port/ because the card machine has no libjpeg for
+     the native library), is byte for byte the port's plain-torch path's
+     output, takes no fallback, and launched every kernel of its path;
+     then the same on the corpus without restart markers, whose outputs
+     must equal the restart corpus's byte for byte, through K4 and K5
+     and not K1;
+  4. phase 3's restart slice again with TF32 matmuls allowed globally;
   5. timing with CUDA events: kernel path vs plain path, end to end and
      device-only (upload resident, decode->encode, byte-count readback),
-     and where one batch's time goes, stage by stage.
+     for both corpora, and where one batch's time goes, stage by stage.
 Then one JSON line of per-kernel results, the card line, and the final
 JSON status line.
 """
@@ -85,11 +91,10 @@ def main():
     from picha_tpu_torch.ops.jpeg_fused import fused_decode_resize
     from picha_tpu_torch.ops.jpeg_huffman import (scan_encode,
                                                   scan_encode_plain)
-    from picha_tpu_torch.ops.jpeg_huffman_decode import (decode_scan,
-                                                         decode_scan_plain,
-                                                         scan_wire,
-                                                         split_planes,
-                                                         wire_unpack)
+    from picha_tpu_torch.ops.jpeg_huffman_decode import (
+        dc_integrate, dc_integrate_plain, decode_scan, decode_scan_chunked,
+        decode_scan_chunked_plain, decode_scan_plain, scan_wire,
+        split_planes, wire_unpack)
     from picha_tpu_torch.pipeline import JpegBatchPipeline
     from picha_tpu_torch.pipeline.jpeg_batch import device_graph, signature
     from picha_tpu_torch.runtime import card_id
@@ -104,8 +109,10 @@ def main():
           library=str(_build.library_path().relative_to(ROOT)))
 
     srcs = [(FIXTURES / f"src_{i}.jpg").read_bytes() for i in range(3)]
+    srcs_nr = [(FIXTURES / f"src_nr_{i}.jpg").read_bytes() for i in range(3)]
     refs = [(FIXTURES / f"ref_{i}.jpg").read_bytes() for i in range(3)]
     corpus = [srcs[i % 3] for i in range(N_IMG)]
+    corpus_nr = [srcs_nr[i % 3] for i in range(N_IMG)]
     strict = [refs[i % 3] for i in range(N_IMG)]
     mpix = N_IMG * SRC_W * SRC_H / 1e6
 
@@ -117,7 +124,11 @@ def main():
         """device_graph's stages with each kernel's plain torch version
         in its place, on the same device."""
         dargs, qt = wire_unpack(buf, ks, len(sig[3]))
-        coefs, ok = decode_scan_plain(dargs, ks, consts.comp_of)
+        if ks[9]:
+            coefs, ok = decode_scan_plain(dargs, ks, consts.comp_of)
+        else:
+            coefs, ok, _passes = decode_scan_chunked_plain(dargs, ks,
+                                                           consts.comp_of)
         planes = split_planes(coefs, sig[3], consts.split_idx)
         f255 = fused_decode_resize(sig[3], sig[2], planes, qt,
                                    consts.weights)
@@ -186,6 +197,55 @@ def main():
             blocks_k, consts.layout, consts.tab, cap), 3))
     phase("K3", identical=True, nbytes_max=int(nb_k.max()), byte_cap=cap,
           **results["huffman_encode_scan"])
+
+    # K4 + K5: the same pixels without restart markers (chunked mode)
+    infos_nr = pipe.entropy_decode(corpus_nr)
+    ks_nr, wire_nr = scan_wire(infos_nr)
+    if ks_nr[9] or signature(infos_nr[0]) != sig:
+        raise AssertionError(f"no-restart corpus not chunked: {ks_nr}")
+    wire_nr_dev = torch.from_numpy(wire_nr).pin_memory().to(dev)
+    dargs_nr, _qt = wire_unpack(wire_nr_dev, ks_nr, len(sig[3]))
+
+    def k4():
+        return decode_scan_chunked(dargs_nr, ks_nr, consts.comp_of)
+
+    def k4_plain():
+        return decode_scan_chunked_plain(dargs_nr, ks_nr, consts.comp_of)
+
+    coefs4, ok4, passes4 = k4()
+    coefs4_p, ok4_p, passes4_p = k4_plain()
+    torch.cuda.synchronize()
+    if not (bool(ok4) and bool(ok4_p)) or int(passes4) != int(passes4_p):
+        raise AssertionError(f"K4 ok {bool(ok4)} / plain {bool(ok4_p)}, "
+                             f"passes {int(passes4)} / {int(passes4_p)}")
+    if not torch.equal(coefs4, coefs4_p):
+        raise AssertionError("K4 disagrees with its plain version")
+    if not torch.equal(coefs4, coefs_k):
+        raise AssertionError("K4 on the no-restart corpus disagrees with K1 "
+                             "on the restart corpus")
+    results["huffman_decode_chunked"] = dict(
+        max_abs_err=int((coefs4 - coefs4_p).abs().max()),
+        ms=timed(k4, 5), plain_ms=timed(k4_plain, 1, warm=0))
+    phase("K4", equal=True, ok=True, equal_to_K1=True, passes=int(passes4),
+          chunk_bits=ks_nr[0], lanes=ks_nr[1], steps=ks_nr[2],
+          note="ms: K4 + K5, plain_ms: decode_scan_chunked_plain",
+          **results["huffman_decode_chunked"])
+
+    # K5 alone: K4's output read as DC diffs
+    ri_blk = dargs_nr.ri_blk
+    x5 = coefs4.clone()
+    got5 = dc_integrate(x5.clone(), consts.comp_of, ri_blk, infos_nr[0].mcus)
+    want5 = dc_integrate_plain(x5.clone(), consts.comp_of, ri_blk,
+                               infos_nr[0].mcus)
+    if not torch.equal(got5, want5):
+        raise AssertionError("K5 disagrees with dc_integrate_plain")
+    results["dc_integrate"] = dict(
+        max_abs_err=int((got5 - want5).abs().max()),
+        ms=timed(lambda: dc_integrate(x5, consts.comp_of, ri_blk,
+                                      infos_nr[0].mcus), 10),
+        plain_ms=timed(lambda: dc_integrate_plain(
+            x5, consts.comp_of, ri_blk, infos_nr[0].mcus), 3))
+    phase("K5", equal=True, shape=list(x5.shape), **results["dc_integrate"])
     after = launch_counts()
     if any(after[k] <= before[k] for k in KERNELS):
         raise AssertionError(f"launch counts did not move: {after}")
@@ -204,8 +264,7 @@ def main():
 
     def fallbacks():
         return {k: getattr(pipe, k) for k in (
-            "scan_fallbacks", "no_restart_fallbacks", "overflow_retries",
-            "overflow_fallbacks")}
+            "scan_fallbacks", "overflow_retries", "overflow_fallbacks")}
 
     def check_slice(jpegs, label):
         if len(jpegs) != N_IMG:
@@ -217,11 +276,15 @@ def main():
             raise AssertionError(f"{label}: fallbacks {fallbacks()}")
         return lsb
 
+    restart_path = ("huffman_decode_restart", "jpeg_encode_front",
+                    "huffman_encode_scan")
+    chunked_path = ("huffman_decode_chunked", "dc_integrate",
+                    "jpeg_encode_front", "huffman_encode_scan")
     reset_launch_counts()
     jpegs = pipe(corpus)
     torch.cuda.synchronize()
     main_launches = launch_counts()
-    if any(v == 0 for v in main_launches.values()):
+    if any(main_launches[k] == 0 for k in restart_path):
         raise AssertionError(f"main path skipped a kernel: {main_launches}")
     lsb = check_slice(jpegs, "slice")
     plain_jpegs = plain_path(corpus)
@@ -236,6 +299,24 @@ def main():
           lsb_vs_strict_max=max(lsb), limit_lsb=PARITY_LSB,
           identical_to_plain=identical, launches=main_launches,
           fallbacks=fallbacks(), bytes=[len(j) for j in jpegs])
+
+    reset_launch_counts()
+    jpegs_nr = pipe(corpus_nr)
+    torch.cuda.synchronize()
+    nr_launches = launch_counts()
+    if (any(nr_launches[k] == 0 for k in chunked_path)
+            or nr_launches["huffman_decode_restart"]):
+        raise AssertionError(f"no-restart path launches: {nr_launches}")
+    lsb_nr = check_slice(jpegs_nr, "slice_no_restart")
+    same_nr = sum(bytes(a) == bytes(b) for a, b in zip(jpegs_nr, jpegs))
+    if same_nr != N_IMG:
+        raise AssertionError(f"no-restart outputs differ from the restart "
+                             f"slice's on {N_IMG - same_nr} images")
+    phase("slice_no_restart", images=N_IMG,
+          lsb_vs_strict_mean=sum(lsb_nr) / N_IMG,
+          lsb_vs_strict_max=max(lsb_nr), limit_lsb=PARITY_LSB,
+          identical_to_restart_slice=same_nr, launches=nr_launches,
+          fallbacks=fallbacks())
 
     # 4. TF32 switched on globally ------------------------------------------
     prev = torch.get_float32_matmul_precision()
@@ -267,12 +348,12 @@ def main():
     e2e_plain_ms = wall(lambda: plain_path(corpus), 2)
     one_ms = wall(lambda: pipe(corpus[:1]), 9)
 
-    def device_loop():
-        out, _ok = device_graph(sig, [wire_dev], consts, scan_ks=ks,
+    def device_loop(wire_buf, scan_ks):
+        out, _ok = device_graph(sig, [wire_buf], consts, scan_ks=scan_ks,
                                 byte_cap=cap)
         return out
 
-    dev_ms = timed(lambda: device_loop()[1].cpu(), 10)
+    dev_ms = timed(lambda: device_loop(wire_dev, ks)[1].cpu(), 10)
     dev_plain_ms = timed(
         lambda: plain_graph(wire_dev, ks, sig, consts, cap)[0][1].cpu(), 2)
     phase("timing", card=card, mpix_per_batch=mpix,
@@ -284,18 +365,27 @@ def main():
           device_only_plain_ms=dev_plain_ms,
           device_only_plain_mpix_s=mpix / dev_plain_ms * 1e3)
 
+    e2e_nr_ms = wall(lambda: pipe(corpus_nr), 5)
+    one_nr_ms = wall(lambda: pipe(corpus_nr[:1]), 9)
+    dev_nr_ms = timed(lambda: device_loop(wire_nr_dev, ks_nr)[1].cpu(), 10)
+    phase("timing_no_restart", card=card, mpix_per_batch=mpix,
+          e2e_ms_per_batch=e2e_nr_ms, e2e_mpix_s=mpix / e2e_nr_ms * 1e3,
+          p50_ms_one_1080p_image=one_nr_ms,
+          device_only_ms=dev_nr_ms,
+          device_only_mpix_s=mpix / dev_nr_ms * 1e3)
+
     # where one batch's time goes: host stages by wall clock, device
     # stages by CUDA events between them (medians of 5 batches)
-    def stages_once():
+    def stages_once(bufs, decode_name):
         host, t = {}, time.perf_counter()
-        infos = pipe.entropy_decode(corpus)
+        infos = pipe.entropy_decode(bufs)
         host["parse"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
         ks1, wire1 = scan_wire(infos)
         host["wire"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
         buf = torch.from_numpy(wire1).pin_memory().to(dev, non_blocking=True)
         torch.cuda.synchronize()
         host["upload"] = (time.perf_counter() - t) * 1e3
-        names = ["K1_decode", "split", "fused_matmuls", "K2_front",
+        names = [decode_name, "split", "fused_matmuls", "K2_front",
                  "K3_scan"]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
@@ -320,28 +410,32 @@ def main():
         host["readback_assemble"] = (time.perf_counter() - t) * 1e3
         return host, device
 
-    runs = [stages_once() for _ in range(6)][1:]
-
-    def median(key, which):
-        vals = sorted(r[which][key] for r in runs)
-        return vals[len(vals) // 2]
-
-    host_ms = {k: median(k, 0) for k in runs[0][0]}
-    device_ms = {k: median(k, 1) for k in runs[0][1]}
-    phase("stages", card=card, host_ms=host_ms, device_ms=device_ms,
-          host_sum_ms=sum(host_ms.values()),
-          device_sum_ms=sum(device_ms.values()))
+    for label, bufs, decode_name in (
+            ("stages", corpus, "K1_decode"),
+            ("stages_no_restart", corpus_nr, "K4_K5_decode")):
+        runs = [stages_once(bufs, decode_name) for _ in range(6)][1:]
+        host_ms = {k: sorted(r[0][k] for r in runs)[len(runs) // 2]
+                   for k in runs[0][0]}
+        device_ms = {k: sorted(r[1][k] for r in runs)[len(runs) // 2]
+                     for k in runs[0][1]}
+        phase(label, card=card, host_ms=host_ms, device_ms=device_ms,
+              host_sum_ms=sum(host_ms.values()),
+              device_sum_ms=sum(device_ms.values()))
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    # launches: each kernel's count in the run of the path it serves
+    # (K1-K3: the restart slice; K4, K5: the no-restart slice)
+    path_launches = {**main_launches,
+                     **{k: nr_launches[k] for k in chunked_path[:2]}}
     kernels = [dict(name=k.name, route="cuda", source=k.source,
-                    replaces=k.replaces, launches=main_launches[k.name],
+                    replaces=k.replaces, launches=path_launches[k.name],
                     **results[k.name]) for k in KERNELS.values()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

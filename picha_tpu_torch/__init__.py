@@ -8,9 +8,11 @@ libjpeg bindings) instead of copying them.
 
 Ported so far: the all-device JPEG transcode path
 (`pipeline.JpegBatchPipeline(fused=True, upload="scan",
-encode_backend="device")`), with three hand-written CUDA kernels
-(`csrc/`): restart-segment Huffman decode, the encoder front
-(colour convert, downsample, fDCT, quantise) and Huffman scan encode.
+encode_backend="device")`), with hand-written CUDA kernels (`csrc/`):
+Huffman decode of restart segments (K1) and of scans without restart
+markers (speculative chunked decode K4 and its DC scan K5), the encoder
+front (K2: colour convert, downsample, fDCT, quantise) and Huffman scan
+encode (K3).
 """
 
 __version__ = "0.1.0"

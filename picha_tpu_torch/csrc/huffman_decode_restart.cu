@@ -33,15 +33,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "huffman_symbol.cuh"
+
 namespace {
 
-__constant__ int kZigzag[64] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+using picha::decode_symbol;
+using picha::kRowInts;
+using picha::kZigzag;
+using picha::Symbol;
 
-constexpr int kRowInts = 16 + 17 + 256;  // limit | delta | hv per row
 constexpr int kMaxB = 64;                // blocks per MCU handled here
 constexpr int kMaxComp = 4;
 constexpr int kThreads = 64;
@@ -92,46 +92,27 @@ __global__ void huffman_decode_restart_kernel(
     const int b = pos & 31;
     const uint32_t w0 = words[wl];
     const uint32_t w32 = b ? (w0 << b) | (words[wl + 1] >> (32 - b)) : w0;
-    const int P = static_cast<int>(w32 >> 16);
     const int comp = comp_of[slot];
     const int u = uid6[comp * 2 + (z > 0 ? 1 : 0)];
-    const int* lim = lim_t + u * 16;
-    int cnt = 0;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) cnt += (P >= lim[k]) ? 1 : 0;
-    const int clen = min(1 + cnt, 16);
-    int idx = (P >> (16 - clen)) + dlt_t[u * 17 + clen];
-    idx = min(max(idx, 0), 255);
-    const int sym = hv_t[u * 256 + idx];
-    const int run = z > 0 ? (sym >> 4) : 0;
-    const int size = sym & 15;
-    int val = 0;
-    if (size > 0) {
-      val = static_cast<int>((w32 << clen) >> (32 - size));
-      if (val < (1 << (size - 1))) val = val - (1 << size) + 1;
-    }
-    const bool is_dc = z == 0;
-    const bool is_eob = !is_dc && size == 0 && run != 15;
-    const bool is_zrl = !is_dc && size == 0 && run == 15;
-    const int z_coef = is_dc ? 0 : z + run;
-    const int z_new = is_dc ? 1 : (is_eob ? 64 : (is_zrl ? z + 16 : z + run + 1));
+    const Symbol s = decode_symbol(w32, z, lim_t + u * 16, dlt_t + u * 17,
+                                   hv_t + u * 256);
     const int blk = blk_base + nblk;
-    if ((is_dc || size > 0) && z_coef < 64 && blk < blk_limit) {
+    if (s.has_value && blk < blk_limit) {
       int* cell = out + static_cast<int64_t>(blk) * 64;
-      if (is_dc) {
-        pred[comp] += val;
+      if (z == 0) {
+        pred[comp] += s.val;
         cell[0] = pred[comp];
       } else {
-        cell[kZigzag[z_coef]] = val;
+        cell[kZigzag[s.z_coef]] = s.val;
       }
     }
-    pos += clen + size;
-    if (z_new >= 64) {
+    pos += s.adv;
+    if (s.z_new >= 64) {
       z = 0;
       slot = (slot + 1 == B) ? 0 : slot + 1;
       ++nblk;
     } else {
-      z = z_new;
+      z = s.z_new;
     }
   }
   if (pos < bit_end) *ok = 0;  // step budget ran out: malformed stream

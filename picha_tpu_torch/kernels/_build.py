@@ -38,6 +38,9 @@ SIGNATURES = {
         P, I, I, I, I, P, P, P, P, P, P, I, I, I, I, P],
     "picha_huffman_encode_scan": [
         P, I, I, I, P, P, P, P, P, P, P, P, I, P, P, I, P, P],
+    "picha_huffman_decode_chunked": [
+        P, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, P, P, P, P],
+    "picha_dc_integrate": [P, P, P, I, I, I, P],
 }
 
 _lock = threading.Lock()
@@ -138,6 +141,13 @@ KERNELS = {
         Kernel("huffman_encode_scan", "picha_huffman_encode_scan",
                "picha_tpu_torch/csrc/huffman_encode_scan.cu",
                "picha_tpu/ops/jpeg_huffman_tpu.py:173"),
+        Kernel("huffman_decode_chunked", "picha_huffman_decode_chunked",
+               "picha_tpu_torch/csrc/huffman_decode_chunked.cu",
+               "picha_tpu/ops/jpeg_huffman_decode_tpu.py:428 "
+               "(single_pass=False)"),
+        Kernel("dc_integrate", "picha_dc_integrate",
+               "picha_tpu_torch/csrc/huffman_decode_chunked.cu",
+               "picha_tpu/ops/jpeg_huffman_decode_tpu.py:1218"),
     )
 }
 

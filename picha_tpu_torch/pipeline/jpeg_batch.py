@@ -8,11 +8,15 @@ configuration
 
 Host: header parse (`parse_baseline`) and the scan wire (`scan_wire`,
 over the reference's `ScanBatch`), both the reference's own numpy
-code. Device, per same-signature batch: one coalesced pinned upload -> `wire_unpack` -> restart-segment Huffman
-decode (kernel K1) -> `split_planes` -> fused dequant+IDCT+upsample+
-resize matmuls -> encoder front (kernel K2) -> Huffman scan encode
-(kernel K3). Host again: read back the byte counts and the used prefix
-of the scan buffer, prepend the cached header.
+code. Device, per same-signature batch: one coalesced pinned upload ->
+`wire_unpack` -> Huffman decode -> `split_planes` -> fused
+dequant+IDCT+upsample+resize matmuls -> encoder front (kernel K2) ->
+Huffman scan encode (kernel K3). The decode is kernel K1 (one thread
+per restart segment) for batches that carry restart markers, and the
+speculative chunked decoder, kernels K4 + K5, for the rest: scans
+without restart markers, and restart scans whose segments are too long
+or too few for one lane each. Host again: read back the byte counts
+and the used prefix of the scan buffer, prepend the cached header.
 
 Ported options: `upload` "scan" (and "dense", which the scan fallback
 goes through), `encode_backend` "device" (and "host", the overflow
@@ -20,12 +24,12 @@ target), `encode_quality=None` (uint8 images out). Everything else
 raises NotImplementedError naming its ROADMAP.md item.
 
 The reference's content fallbacks stay, each counted on the instance:
-`scan_fallbacks` (decoder `ok` false -> host libjpeg entropy decode +
-dense upload through the same device stages), `no_restart_fallbacks`
-(batches without restart markers, whose speculative decoder is not
-ported, take the same host route), `overflow_retries` (encode overflow
--> one retry at twice the quality-derived cap) and `overflow_fallbacks`
-(-> host libjpeg encode).
+`scan_fallbacks` (decoder `ok` false: a chunked decode that did not
+converge within its pass budget, or a lane that ran out of its symbol
+budget -> host libjpeg entropy decode + dense upload through the same
+device stages), `overflow_retries` (encode overflow -> one retry at
+twice the quality-derived cap) and `overflow_fallbacks` (-> host
+libjpeg encode).
 """
 from __future__ import annotations
 
@@ -241,7 +245,6 @@ class JpegBatchPipeline:
         self._consts = {}
         self.device = resolve_device(device)
         self.scan_fallbacks = 0
-        self.no_restart_fallbacks = 0
         self.overflow_retries = 0
         self.overflow_fallbacks = 0
 
@@ -369,10 +372,6 @@ class JpegBatchPipeline:
             except ValueError:
                 # ScanBatch's own capacity gates: host decode instead
                 return self._process(self._host_decode(srcs))
-            except NotImplementedError:
-                # no restart markers: the speculative decoder is unported
-                self.no_restart_fallbacks += 1
-                return self._process(self._host_decode(srcs))
             sig = signature(cos[0])
             out = self.run_bucket(sig, [self._put(wire)], scan_ks=ks)
             return sig, ("scan", out, srcs)
@@ -394,9 +393,9 @@ class JpegBatchPipeline:
         return self.scan_finish(out, sig)
 
     def _scan_fallback(self, bufs):
-        """The device decoder flagged the batch (malformed stream): host
-        libjpeg entropy decode, then the dense upload through the same
-        device stages."""
+        """The device decoder flagged the batch (malformed stream, or no
+        fixpoint within the pass budget): host libjpeg entropy decode,
+        then the dense upload through the same device stages."""
         self.scan_fallbacks += 1
         sig, args = self.stack_bucket(self._host_decode(bufs))
         return self._finish(sig, self.run_bucket(

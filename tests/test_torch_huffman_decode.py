@@ -1,13 +1,16 @@
-"""Port restart-segment Huffman decoder (picha_tpu_torch/ops/
-jpeg_huffman_decode.py, plain torch path on the CPU) against the JAX
-reference decoder `build_decoder_core(single_pass=True)` on the CPU and
-against libjpeg's coefficients. Entropy decode is lossless: every
-comparison is exact."""
+"""Port Huffman decoder (picha_tpu_torch/ops/jpeg_huffman_decode.py,
+plain torch path on the CPU) against the JAX reference decoder
+`build_decoder_core` on the CPU and against libjpeg's coefficients:
+restart single-pass batches, the dispatch of batches without restart
+markers, and the chunked decoder on faulty streams and exhausted
+budgets (valid chunked streams: test_torch_huffman_decode_chunked.py).
+Entropy decode is lossless: every comparison is exact."""
 import numpy as np
 import pytest
 import torch
 
-from torch_helpers import scan_batch_inputs, smooth_rgb
+from torch_helpers import (CHUNKED_FAULTS, chunked_fault_batch,
+                           scan_batch_inputs, smooth_rgb)
 
 from picha_tpu.native import lib as native
 from picha_tpu.ops import jpeg_scan
@@ -19,10 +22,10 @@ from picha_tpu_torch.ops.jpeg_huffman_decode import (decode_scan,
                                                      wire_unpack)
 
 
-def _reference(sb):
+def _reference(sb, **kw):
     import jax.numpy as jnp
 
-    out, ok = build_decoder(*sb.static_key())(
+    out, ok = build_decoder(*sb.static_key(), **kw)(
         *[jnp.asarray(a) for a in sb.args()])
     return np.asarray(out), bool(np.asarray(ok))
 
@@ -108,26 +111,56 @@ def test_wire_unpack_matches_scanbatch_args():
 
 
 def test_no_restart_batch_raises_not_implemented():
-    info = jpeg_scan.parse_baseline(_encode(64, 96, 3, 0, 1))
+    """A batch without restart markers (once refused) now decodes
+    through the chunked decoder: ok, and libjpeg's coefficients."""
+    buf = _encode(64, 96, 3, 0, 1)
+    info = jpeg_scan.parse_baseline(buf)
     sb = ScanBatch([info])
     assert not sb.single_pass
     ks, wire = sb.wire()
     args, _q = wire_unpack(torch.from_numpy(wire), ks, 3)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 4"):
-        decode_scan(args, ks, torch.as_tensor(sb.comp_of))
+    out, ok = decode_scan(args, ks, torch.as_tensor(sb.comp_of))
+    assert bool(ok)
+    idx = [torch.as_tensor(i, dtype=torch.int64)
+           for i in split_indices(sb.comp_sig)]
+    planes = split_planes(out, sb.comp_sig, idx)
+    co = native.JpegCoefficients(buf)
+    for ci, c in enumerate(co.comps):
+        np.testing.assert_array_equal(planes[ci][0].numpy(),
+                                      c["coefs"].astype(np.int32))
 
 
 def test_scan_wire_is_scanbatch_wire():
-    """The port's host entry point gives ScanBatch's own key and wire for
-    a restart batch, and refuses a batch without restart markers."""
-    infos = [jpeg_scan.parse_baseline(_encode(64, 96, 3, r, r))
-             for r in (2, 3)]
-    ks, wire = scan_wire(infos)
-    ks_want, wire_want = ScanBatch(infos).wire()
-    assert ks == ks_want
-    np.testing.assert_array_equal(wire, wire_want)
-    flat = [jpeg_scan.parse_baseline(_encode(64, 96, 3, 0, 1))]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 4"):
-        scan_wire(flat)
+    """The port's host entry point gives ScanBatch's own key and wire,
+    for a restart batch and for a batch without restart markers."""
+    for restarts in ((2, 3), (0, 0)):
+        infos = [jpeg_scan.parse_baseline(_encode(64, 96, 3, r, s))
+                 for s, r in enumerate(restarts)]
+        ks, wire = scan_wire(infos)
+        ks_want, wire_want = ScanBatch(infos).wire()
+        assert ks == ks_want and ks[9] == (restarts[0] > 0)
+        np.testing.assert_array_equal(wire, wire_want)
+
+
+# -- chunked decode of malformed streams and exhausted budgets ----------------
+
+@pytest.mark.parametrize("case", CHUNKED_FAULTS)
+def test_chunked_faults_flag_like_reference(case):
+    """`ok` equals the reference's on every faulty stream and budget;
+    coefficients equal wherever ok is true."""
+    from picha_tpu_torch.ops.jpeg_huffman_decode import decode_scan_chunked
+
+    sb, kw = chunked_fault_batch(case)
+    assert sb is not None and not sb.single_pass
+    ks, wire = sb.wire()
+    args, _q = wire_unpack(torch.from_numpy(wire), ks, 3)
+    out, ok, passes = decode_scan_chunked(
+        args, ks, torch.as_tensor(sb.comp_of, dtype=torch.int32), **kw)
+    want, ok_want = _reference(sb, **kw)
+    assert bool(ok) == ok_want
+    if case in ("max_passes_1", "tiny_steps"):
+        assert not ok_want
+    if case == "max_passes_1":
+        assert int(passes) == 1
+    if ok_want:
+        np.testing.assert_array_equal(out.numpy(), want)

@@ -1,10 +1,12 @@
 """Shared inputs for the port's tests (tests/test_torch_*.py).
 
 The same numpy inputs go to picha_tpu (JAX on the CPU) and to
-picha_tpu_torch. The 1080p restart-8 corpus under fixtures/port/ is
-the main path's input on machines without the native library
-(fixtures/port/make_fixtures.py regenerates it).
+picha_tpu_torch. The 1080p corpora under fixtures/port/ (restart-8 and
+restart-free encodes of the same pixels) are the main path's input on
+machines without the native library (fixtures/port/make_fixtures.py
+regenerates them).
 """
+import io
 import pathlib
 
 import numpy as np
@@ -13,9 +15,12 @@ PORT_FIXTURES = pathlib.Path(__file__).parent / "fixtures" / "port"
 N_FIXTURES = 3
 
 
-def port_corpus(n: int = 16):
-    """n 1920x1088 q85 restart-8 JPEGs: the committed sources, tiled."""
-    srcs = [(PORT_FIXTURES / f"src_{i}.jpg").read_bytes()
+def port_corpus(n: int = 16, restart: bool = True):
+    """n 1920x1088 q85 JPEGs, the committed sources tiled: restart-8
+    encodes, or with restart=False the same pixels encoded without
+    restart markers."""
+    stem = "src_" if restart else "src_nr_"
+    srcs = [(PORT_FIXTURES / f"{stem}{i}.jpg").read_bytes()
             for i in range(N_FIXTURES)]
     return [srcs[i % N_FIXTURES] for i in range(n)]
 
@@ -40,9 +45,10 @@ def smooth_rgb(h: int, w: int, seed: int) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def scan_batch_inputs(bufs, device="cpu"):
+def scan_batch_inputs(bufs, device="cpu", **batch_kw):
     """JPEG bytes (or parsed ScanInfos) -> (ScanBatch, scan key, port
-    DecoderArgs, qtabs, comp_of tensor) with the wire on `device`."""
+    DecoderArgs, qtabs, comp_of tensor) with the wire on `device`.
+    `batch_kw` goes to ScanBatch (chunk_bits)."""
     import torch
 
     from picha_tpu.ops import jpeg_scan
@@ -52,9 +58,94 @@ def scan_batch_inputs(bufs, device="cpu"):
     infos = [b if isinstance(b, jpeg_scan.ScanInfo)
              else jpeg_scan.parse_baseline(bytes(b)) for b in bufs]
     assert all(i is not None for i in infos)
-    sb = ScanBatch(infos)
+    sb = ScanBatch(infos, **batch_kw)
     ks, wire = sb.wire()
     args, qtabs = wire_unpack(torch.from_numpy(wire).to(device), ks,
                               infos[0].ncomp)
     comp_of = torch.as_tensor(sb.comp_of, dtype=torch.int32, device=device)
     return sb, ks, args, qtabs, comp_of
+
+
+def pil_jpeg(img: np.ndarray, **kw) -> bytes:
+    """Pillow's (bundled libjpeg) baseline encode of an (h, w, 3) or
+    (h, w) uint8 image; works where picha_tpu/native does not build."""
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.fromarray(img).save(b, "JPEG", **kw)
+    return b.getvalue()
+
+
+def noisy(seed: int, h: int = 120, w: int = 200, c: int = 3) -> np.ndarray:
+    """Uniform noise: dense scans, many chunks even for small images."""
+    img = np.random.default_rng(seed).integers(0, 256, (h, w, c), np.uint8)
+    return img[..., 0] if c == 1 else img
+
+
+def _chunked_batch():
+    smooth = np.clip(np.linspace(0, 255, 200)[None, :, None]
+                     + np.zeros((120, 1, 3)), 0, 255).astype(np.uint8)
+    return [pil_jpeg(noisy(3), quality=85), pil_jpeg(smooth, quality=90),
+            pil_jpeg(noisy(3), quality=40)]
+
+
+def _image_2k():
+    rng = np.random.default_rng(30)
+    base = np.clip(np.linspace(0, 255, 2560)[None, :, None]
+                   + rng.normal(0, 12, (1440, 2560, 3)), 0, 255)
+    return [pil_jpeg(base.astype(np.uint8), quality=85)]
+
+
+# Valid streams for the chunked decoder (scans without usable restart
+# markers): name -> (maker of the JPEG streams, ScanBatch chunk_bits).
+# "batch" puts three images in one batch, so a segment's last chunk
+# decodes the 1-bit padding after its image's last block next to the
+# next image's first block. chunk_bits=512 keeps the JAX reference's CPU
+# compile short while small images still span many chunks.
+CHUNKED_STREAMS = {
+    "batch": (_chunked_batch, 512),
+    "grey": (lambda: [pil_jpeg(noisy(4, 64, 100, 1), quality=85)], 512),
+    "odd_dims": (lambda: [pil_jpeg(noisy(4, 77, 115), quality=85)], 512),
+    "custom_tables": (lambda: [pil_jpeg(noisy(5), quality=80,
+                                        optimize=True)], 512),
+    "444": (lambda: [pil_jpeg(noisy(20), quality=85, subsampling=0)], 512),
+    "422": (lambda: [pil_jpeg(noisy(21), quality=85, subsampling=1)], 512),
+    "420": (lambda: [pil_jpeg(noisy(22), quality=85, subsampling=2)], 512),
+    "dri_exceeds_mcus": (lambda: [pil_jpeg(noisy(31, 48, 64), quality=85,
+                                           restart_marker_blocks=10_000)],
+                         512),
+    "2560x1440": (_image_2k, 4096),
+}
+
+# Chunked-decoder fault cases: a scan cut inside a block, five scans
+# with 3 flipped bits each, a pass budget of 1, a symbol budget of 16.
+CHUNKED_FAULTS = ["truncated", "flip0", "flip1", "flip2", "flip3", "flip4",
+                  "max_passes_1", "tiny_steps"]
+
+
+def chunked_fault_batch(case: str):
+    """(ScanBatch at chunk_bits=512, decoder kwargs) for one of
+    CHUNKED_FAULTS, or (None, None) when a flip broke the header. All
+    cases share one geometry and table set (one reference compile for
+    the stream faults)."""
+    from picha_tpu.ops import jpeg_scan
+    from picha_tpu.ops.jpeg_huffman_decode_tpu import ScanBatch
+
+    rng = np.random.default_rng(14)
+    base = pil_jpeg(noisy(14, 48, 64), quality=85)
+    flips = []
+    for _ in range(5):
+        buf = bytearray(base)
+        for _ in range(3):
+            buf[rng.integers(len(buf) // 2, len(buf))] ^= 1 << rng.integers(8)
+        flips.append(bytes(buf))
+    info = jpeg_scan.parse_baseline(
+        flips[int(case[4:])] if case.startswith("flip") else base)
+    if info is None:
+        return None, None
+    if case == "truncated":
+        info.segments[0] = info.segments[0][: len(info.segments[0]) * 2 // 3]
+    sb = ScanBatch([info], chunk_bits=512)
+    if case == "tiny_steps":
+        sb.steps = 16
+    return sb, {"max_passes": 1} if case == "max_passes_1" else {}
