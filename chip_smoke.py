@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Chip smoke test of picha_tpu_torch, the PyTorch/CUDA port: drives the
-all-device JPEG transcode path on one CUDA card and checks it.
+all-device JPEG transcode paths (fused and staged pixel stages) on one
+CUDA card and checks them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (each prints one line; any failure raises and exits non-zero):
-  1. the card (nvidia-smi name, power limit); build kernels K1-K5 from
+  1. the card (nvidia-smi name, power limit); build kernels K1-K8 from
      picha_tpu_torch/csrc/ into the gitignored csrc/build/;
   2. each kernel against its plain torch version on the card, at the
      main path's shapes (16 x 1920x1088 -> 960x544 q85): K1-K3 on the
      restart-8 corpus, the chunked decoder K4 and its DC scan K5 on the
      same pixels encoded without restart markers, where K4 must also
-     give K1's coefficients exactly;
+     give K1's coefficients exactly; the staged decode's K6 (dequant +
+     IDCT; off by one only at near-.5 ties) and K7 (upsample + colour,
+     exact) on K1's coefficients, and K8 (one resize axis) on K7's
+     output, exactly its windowed twin and within 1e-6 of the
+     reference's banded plan;
   3. the slice end to end through JpegBatchPipeline(width=960,
      height=544, encode_quality=85, encode_backend="device", fused=True,
      upload="scan") on the restart corpus: every output decodes, sits
@@ -23,10 +28,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      then the same on the corpus without restart markers, whose outputs
      must equal the restart corpus's byte for byte, through K4 and K5
      and not K1;
+     then the staged slice (fused=False: K6 -> K7 -> K8 width, height
+     -> K2 -> K3) on both corpora, with the same checks (its restart and
+     no-restart outputs byte-identical), and the staged decode-only
+     output (encode_quality=None) against Pillow's decode of the sources;
   4. phase 3's restart slice again with TF32 matmuls allowed globally;
   5. timing with CUDA events: kernel path vs plain path, end to end and
      device-only (upload resident, decode->encode, byte-count readback),
-     for both corpora, and where one batch's time goes, stage by stage.
+     for both corpora and both pixel paths, and where one batch's time
+     goes, stage by stage.
 Then one JSON line of per-kernel results, the card line, and the final
 JSON status line.
 """
@@ -40,7 +50,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures" / "port"
 N_IMG, SRC_W, SRC_H, OUT_W, OUT_H, QUALITY = 16, 1920, 1088, 960, 544, 85
 K2_MAX_OFF_BY_ONE = 1e-4   # f32 summation order at exact .5 ties
+K6_NEAR_TIE = 1e-4         # K6 may be off by one only this close to .5
+RESIZE_TOL = 1e-6          # K8 vs the reference's banded plan, 0-1 scale
 PARITY_LSB = 1.0           # mean |diff| vs the strict host path
+DECODE_LSB = 1.0           # staged decode-only, mean |diff| vs Pillow
 
 
 def phase(name, **kv):
@@ -57,6 +70,15 @@ def decode_rgb(buf):
         raise AssertionError(f"not a {OUT_W}x{OUT_H} JPEG: {im.format} "
                              f"{im.size}")
     return np.asarray(im.convert("RGB"), dtype=np.int32)
+
+
+def decode_source(buf):
+    """Pillow's (libjpeg's) full-size RGB decode of a source JPEG."""
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(bytes(buf))).convert("RGB"),
+                      dtype=np.int32)
 
 
 def mean_abs(a_bufs, b_bufs):
@@ -87,7 +109,10 @@ def main():
 
     from picha_tpu_torch.kernels import (KERNELS, _build, launch_counts,
                                          reset_launch_counts)
-    from picha_tpu_torch.ops.jpeg import encode_blocks, encode_blocks_plain
+    from picha_tpu_torch.ops.jpeg import (
+        dequant_idct_plane, dequant_idct_plane_plain, encode_blocks,
+        encode_blocks_plain, idct_samples, plane_geometry, upsample_color,
+        upsample_color_plain)
     from picha_tpu_torch.ops.jpeg_fused import fused_decode_resize
     from picha_tpu_torch.ops.jpeg_huffman import (scan_encode,
                                                   scan_encode_plain)
@@ -95,6 +120,9 @@ def main():
         dc_integrate, dc_integrate_plain, decode_scan, decode_scan_chunked,
         decode_scan_chunked_plain, decode_scan_plain, scan_wire,
         split_planes, wire_unpack)
+    from picha_tpu_torch.ops.resize import (INV255, resize_axis,
+                                            resize_axis_windowed_plain,
+                                            resize_f32_plain)
     from picha_tpu_torch.pipeline import JpegBatchPipeline
     from picha_tpu_torch.pipeline.jpeg_batch import device_graph, signature
     from picha_tpu_torch.runtime import card_id
@@ -119,10 +147,25 @@ def main():
     pipe = JpegBatchPipeline(width=OUT_W, height=OUT_H,
                              encode_quality=QUALITY, encode_backend="device",
                              fused=True, upload="scan", device=dev)
+    pipe_s = JpegBatchPipeline(width=OUT_W, height=OUT_H,
+                               encode_quality=QUALITY,
+                               encode_backend="device", fused=False,
+                               upload="scan", device=dev)
+
+    def staged_plain(sig, planes, qt, consts):
+        """The staged pixel stages through K6-K8's plain versions."""
+        geom = plane_geometry(sig[3], sig[0], sig[1])
+        ys = [dequant_idct_plane_plain(p, q, consts.kron, dh, dw)
+              for p, q, (dh, dw, _fx, _fy) in zip(planes, qt, geom)]
+        rgb = upsample_color_plain(ys, sig[3], sig[2], sig[0], sig[1])
+        (sw, tw), (sh, th) = consts.windows
+        return resize_axis_windowed_plain(
+            resize_axis_windowed_plain(rgb, sw, tw, -2), sh, th, -3, 255.0)
 
     def plain_graph(buf, ks, sig, consts, cap):
         """device_graph's stages with each kernel's plain torch version
-        in its place, on the same device."""
+        in its place, on the same device (staged when the constants
+        carry resize windows, else fused)."""
         dargs, qt = wire_unpack(buf, ks, len(sig[3]))
         if ks[9]:
             coefs, ok = decode_scan_plain(dargs, ks, consts.comp_of)
@@ -130,8 +173,11 @@ def main():
             coefs, ok, _passes = decode_scan_chunked_plain(dargs, ks,
                                                            consts.comp_of)
         planes = split_planes(coefs, sig[3], consts.split_idx)
-        f255 = fused_decode_resize(sig[3], sig[2], planes, qt,
-                                   consts.weights)
+        if consts.windows is not None:
+            f255 = staged_plain(sig, planes, qt, consts)
+        else:
+            f255 = fused_decode_resize(sig[3], sig[2], planes, qt,
+                                       consts.weights)
         blocks = encode_blocks_plain(f255, consts.qluma, consts.qchroma,
                                      consts.kron)
         return scan_encode_plain(blocks, consts.layout, consts.tab, cap), ok
@@ -246,34 +292,112 @@ def main():
         plain_ms=timed(lambda: dc_integrate_plain(
             x5, consts.comp_of, ri_blk, infos_nr[0].mcus), 3))
     phase("K5", equal=True, shape=list(x5.shape), **results["dc_integrate"])
+
+    # K6-K8: the staged pixel stages on K1's coefficients
+    consts_s = pipe_s.constants(sig)
+    geom = plane_geometry(sig[3], SRC_W, SRC_H)
+
+    def k6(plain=False):
+        fn = dequant_idct_plane_plain if plain else dequant_idct_plane
+        return [fn(p, q, consts_s.kron, dh, dw)
+                for p, q, (dh, dw, _fx, _fy) in zip(planes, qtabs, geom)]
+
+    ys_k, ys_p = k6(), k6(plain=True)
+    k6_off, k6_ties, n6, err = 0, 0, 0, 0
+    for p, q, g, w, (dh, dw, _fx, _fy) in zip(planes, qtabs, ys_k, ys_p,
+                                              geom):
+        d = (g.to(torch.int32) - w.to(torch.int32)).abs()
+        pre = idct_samples(p, q, consts_s.kron)[:, :dh, :dw]
+        near = (pre - pre.floor() - 0.5).abs() < K6_NEAR_TIE
+        err = max(err, int(d.max()))
+        k6_off += int((d > 0).sum())
+        k6_ties += int(near.sum())
+        n6 += d.numel()
+        if bool(((d > 0) & ~near).any()):
+            raise AssertionError("K6 differs from its plain version away "
+                                 "from a .5 tie")
+    if err > 1:
+        raise AssertionError(f"K6: max |diff| {err}")
+    results["idct_plane"] = dict(
+        max_abs_err=err, ms=timed(k6, 10),
+        plain_ms=timed(lambda: k6(plain=True), 3))
+    phase("K6", off_by_one=k6_off, near_ties=k6_ties, samples=n6,
+          near_tie_limit=K6_NEAR_TIE, planes=[list(y.shape) for y in ys_k],
+          **results["idct_plane"])
+
+    color = (sig[3], sig[2], SRC_W, SRC_H)
+    rgb_k = upsample_color(ys_k, *color)
+    rgb_p = upsample_color_plain(ys_k, *color)
+    if not torch.equal(rgb_k, rgb_p):
+        raise AssertionError("K7 disagrees with its plain version")
+    results["upsample_color"] = dict(
+        max_abs_err=int((rgb_k.int() - rgb_p.int()).abs().max()),
+        ms=timed(lambda: upsample_color(ys_k, *color), 10),
+        plain_ms=timed(lambda: upsample_color_plain(ys_k, *color), 3))
+    phase("K7", equal=True, shape=list(rgb_k.shape),
+          **results["upsample_color"])
+
+    (sw, tw), (sh, th) = consts_s.windows
+    xw_k = resize_axis(rgb_k, sw, tw, -2)
+    xw_p = resize_axis_windowed_plain(rgb_k, sw, tw, -2)
+    xh_k = resize_axis(xw_k, sh, th, -3, 255.0)
+    xh_p = resize_axis_windowed_plain(xw_k, sh, th, -3, 255.0)
+    if not (torch.equal(xw_k, xw_p) and torch.equal(xh_k, xh_p)):
+        raise AssertionError("K8 disagrees with its windowed plain version")
+    x01 = rgb_k.to(torch.float32) * INV255
+    banded = resize_f32_plain(x01, OUT_W, OUT_H, pipe_s._filter,
+                              pipe_s._fscale)
+    vs_banded = float((resize_axis(xw_k, sh, th, -3) - banded).abs().max())
+    if vs_banded > RESIZE_TOL:
+        raise AssertionError(f"K8 vs the banded plan: {vs_banded}")
+    k8 = dict(
+        width_ms=timed(lambda: resize_axis(rgb_k, sw, tw, -2), 10),
+        width_plain_ms=timed(
+            lambda: resize_axis_windowed_plain(rgb_k, sw, tw, -2), 3),
+        height_ms=timed(lambda: resize_axis(xw_k, sh, th, -3, 255.0), 10),
+        height_plain_ms=timed(lambda: resize_axis_windowed_plain(
+            xw_k, sh, th, -3, 255.0), 3),
+        banded_plain_ms=timed(lambda: resize_f32_plain(
+            x01, OUT_W, OUT_H, pipe_s._filter, pipe_s._fscale), 3))
+    results["resize_axis"] = dict(
+        max_abs_err=max(float((xw_k - xw_p).abs().max()),
+                        float((xh_k - xh_p).abs().max())),
+        ms=k8["width_ms"] + k8["height_ms"],
+        plain_ms=k8["width_plain_ms"] + k8["height_plain_ms"])
+    phase("K8", equal_to_windowed=True, max_abs_vs_banded=vs_banded,
+          banded_limit=RESIZE_TOL, taps=[tw.shape[1], th.shape[1]],
+          width_out=list(xw_k.shape), height_out=list(xh_k.shape),
+          note="ms: width + height pass, plain_ms: their windowed twins",
+          **k8, **results["resize_axis"])
+    del ys_p, rgb_p, xw_p, xh_p, x01, banded
     after = launch_counts()
     if any(after[k] <= before[k] for k in KERNELS):
         raise AssertionError(f"launch counts did not move: {after}")
 
     # 3. the slice end to end ----------------------------------------------
-    def plain_path(bufs):
-        infos = pipe.entropy_decode(bufs)
+    def plain_path(bufs, p=pipe):
+        infos = p.entropy_decode(bufs)
         ks, wire = scan_wire(infos)
         sig = signature(infos[0])
         buf = torch.from_numpy(wire).pin_memory().to(dev, non_blocking=True)
-        out, ok = plain_graph(buf, ks, sig, pipe.constants(sig),
-                              pipe._scan_cap_for(sig))
+        out, ok = plain_graph(buf, ks, sig, p.constants(sig),
+                              p._scan_cap_for(sig))
         if not bool(ok):
             raise AssertionError("plain decoder flagged the corpus")
-        return pipe.scan_finish(out, sig)
+        return p.scan_finish(out, sig)
 
-    def fallbacks():
-        return {k: getattr(pipe, k) for k in (
+    def fallbacks(p=pipe):
+        return {k: getattr(p, k) for k in (
             "scan_fallbacks", "overflow_retries", "overflow_fallbacks")}
 
-    def check_slice(jpegs, label):
+    def check_slice(jpegs, label, p=pipe):
         if len(jpegs) != N_IMG:
             raise AssertionError(f"{label}: {len(jpegs)} outputs")
         lsb = mean_abs(jpegs, strict)
         if max(lsb) > PARITY_LSB:
             raise AssertionError(f"{label}: {max(lsb)} LSB from strict")
-        if any(fallbacks().values()):
-            raise AssertionError(f"{label}: fallbacks {fallbacks()}")
+        if any(fallbacks(p).values()):
+            raise AssertionError(f"{label}: fallbacks {fallbacks(p)}")
         return lsb
 
     restart_path = ("huffman_decode_restart", "jpeg_encode_front",
@@ -318,6 +442,78 @@ def main():
           identical_to_restart_slice=same_nr, launches=nr_launches,
           fallbacks=fallbacks())
 
+    # the staged slice (fused=False) on both corpora
+    staged_path = ("idct_plane", "upsample_color", "resize_axis",
+                   "jpeg_encode_front", "huffman_encode_scan")
+    reset_launch_counts()
+    jpegs_s = pipe_s(corpus)
+    torch.cuda.synchronize()
+    s_launches = launch_counts()
+    if any(s_launches[k] == 0
+           for k in ("huffman_decode_restart",) + staged_path):
+        raise AssertionError(f"staged path skipped a kernel: {s_launches}")
+    lsb_s = check_slice(jpegs_s, "slice_staged", pipe_s)
+    vs_fused = mean_abs(jpegs_s, jpegs)
+    plain_s = plain_path(corpus, pipe_s)
+    identical_s = sum(bytes(a) == bytes(b) for a, b in zip(jpegs_s, plain_s))
+    # K1, K7, K8 and K3 are exact: only a K6 or K2 off-by-one at a .5
+    # tie (counted in phase 2 on these very inputs) may change an output
+    if identical_s != N_IMG and k6_off == 0 and k2_off == 0:
+        raise AssertionError(f"staged kernel path differs from its plain "
+                             f"path on {N_IMG - identical_s} images")
+    phase("slice_staged", images=N_IMG, lsb_vs_strict_mean=sum(lsb_s) / N_IMG,
+          lsb_vs_strict_max=max(lsb_s), limit_lsb=PARITY_LSB,
+          lsb_vs_fused_mean=sum(vs_fused) / N_IMG,
+          lsb_vs_fused_max=max(vs_fused), identical_to_plain=identical_s,
+          launches=s_launches, fallbacks=fallbacks(pipe_s),
+          bytes=[len(j) for j in jpegs_s])
+
+    reset_launch_counts()
+    jpegs_s_nr = pipe_s(corpus_nr)
+    torch.cuda.synchronize()
+    s_nr_launches = launch_counts()
+    if (any(s_nr_launches[k] == 0 for k in chunked_path[:2] + staged_path)
+            or s_nr_launches["huffman_decode_restart"]):
+        raise AssertionError(f"staged no-restart launches: {s_nr_launches}")
+    lsb_s_nr = check_slice(jpegs_s_nr, "slice_staged_no_restart", pipe_s)
+    same_s_nr = sum(bytes(a) == bytes(b)
+                    for a, b in zip(jpegs_s_nr, jpegs_s))
+    if same_s_nr != N_IMG:
+        raise AssertionError(f"staged no-restart outputs differ from the "
+                             f"restart ones on {N_IMG - same_s_nr} images")
+    phase("slice_staged_no_restart", images=N_IMG,
+          lsb_vs_strict_mean=sum(lsb_s_nr) / N_IMG,
+          lsb_vs_strict_max=max(lsb_s_nr), limit_lsb=PARITY_LSB,
+          identical_to_restart_slice=same_s_nr, launches=s_nr_launches,
+          fallbacks=fallbacks(pipe_s))
+
+    # staged decode-only: full-size uint8 images against Pillow's decode
+    pipe_d = JpegBatchPipeline(encode_quality=None, fused=False, device=dev)
+    reset_launch_counts()
+    imgs = pipe_d(corpus)
+    torch.cuda.synchronize()
+    d_launches = launch_counts()
+    if (any(d_launches[k] == 0 for k in ("huffman_decode_restart",
+                                         "idct_plane", "upsample_color"))
+            or any(d_launches[k] for k in staged_path[2:])):
+        raise AssertionError(f"staged decode-only launches: {d_launches}")
+    if tuple(imgs.shape) != (N_IMG, SRC_H, SRC_W, 3) or any(
+            fallbacks(pipe_d).values()):
+        raise AssertionError(f"decode-only: shape {tuple(imgs.shape)}, "
+                             f"fallbacks {fallbacks(pipe_d)}")
+    pil = [decode_source(s) for s in srcs]
+    host_imgs = imgs.cpu().numpy().astype("int32")
+    dec = [abs(host_imgs[i] - pil[i % 3]) for i in range(N_IMG)]
+    dec_mean = [float(d.mean()) for d in dec]
+    if max(dec_mean) > DECODE_LSB:
+        raise AssertionError(f"decode-only: {max(dec_mean)} LSB from Pillow")
+    phase("decode_only_staged", images=N_IMG, shape=list(imgs.shape),
+          lsb_vs_pillow_mean=sum(dec_mean) / N_IMG,
+          lsb_vs_pillow_max_mean=max(dec_mean),
+          max_abs_vs_pillow=int(max(d.max() for d in dec)),
+          limit_lsb=DECODE_LSB, launches=d_launches)
+    del imgs, host_imgs, dec
+
     # 4. TF32 switched on globally ------------------------------------------
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
@@ -348,9 +544,10 @@ def main():
     e2e_plain_ms = wall(lambda: plain_path(corpus), 2)
     one_ms = wall(lambda: pipe(corpus[:1]), 9)
 
-    def device_loop(wire_buf, scan_ks):
-        out, _ok = device_graph(sig, [wire_buf], consts, scan_ks=scan_ks,
-                                byte_cap=cap)
+    def device_loop(wire_buf, scan_ks, fused=True):
+        out, _ok = device_graph(sig, [wire_buf],
+                                consts if fused else consts_s,
+                                scan_ks=scan_ks, byte_cap=cap, fused=fused)
         return out
 
     dev_ms = timed(lambda: device_loop(wire_dev, ks)[1].cpu(), 10)
@@ -374,9 +571,26 @@ def main():
           device_only_ms=dev_nr_ms,
           device_only_mpix_s=mpix / dev_nr_ms * 1e3)
 
+    # the staged path, beside the fused numbers of this call
+    for label, bufs, wbuf, wks, fused_ms in (
+            ("timing_staged", corpus, wire_dev, ks, (e2e_ms, one_ms, dev_ms)),
+            ("timing_staged_no_restart", corpus_nr, wire_nr_dev, ks_nr,
+             (e2e_nr_ms, one_nr_ms, dev_nr_ms))):
+        s_e2e = wall(lambda: pipe_s(bufs), 5)
+        s_one = wall(lambda: pipe_s(bufs[:1]), 9)
+        s_dev = timed(lambda: device_loop(wbuf, wks, fused=False)[1].cpu(),
+                      10)
+        phase(label, card=card, mpix_per_batch=mpix,
+              e2e_ms_per_batch=s_e2e, e2e_mpix_s=mpix / s_e2e * 1e3,
+              p50_ms_one_1080p_image=s_one, device_only_ms=s_dev,
+              device_only_mpix_s=mpix / s_dev * 1e3,
+              fused_e2e_ms_per_batch=fused_ms[0],
+              fused_p50_ms_one_1080p_image=fused_ms[1],
+              fused_device_only_ms=fused_ms[2])
+
     # where one batch's time goes: host stages by wall clock, device
     # stages by CUDA events between them (medians of 5 batches)
-    def stages_once(bufs, decode_name):
+    def stages_once(bufs, decode_name, staged=False):
         host, t = {}, time.perf_counter()
         infos = pipe.entropy_decode(bufs)
         host["parse"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
@@ -385,22 +599,34 @@ def main():
         buf = torch.from_numpy(wire1).pin_memory().to(dev, non_blocking=True)
         torch.cuda.synchronize()
         host["upload"] = (time.perf_counter() - t) * 1e3
-        names = [decode_name, "split", "fused_matmuls", "K2_front",
-                 "K3_scan"]
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        pixel = (["K6_idct", "K7_upsample_color", "K8_width", "K8_height"]
+                 if staged else ["fused_matmuls"])
+        names = [decode_name, "split", *pixel, "K2_front", "K3_scan"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(
+            len(names) + 1)]
         ev[0].record()
         dargs1, qt1 = wire_unpack(buf, ks1, len(sig[3]))
         coefs1, ok1 = decode_scan(dargs1, ks1, consts.comp_of)
         ev[1].record()
         planes1 = split_planes(coefs1, sig[3], consts.split_idx)
         ev[2].record()
-        f1 = fused_decode_resize(sig[3], sig[2], planes1, qt1,
-                                 consts.weights)
-        ev[3].record()
+        if staged:
+            ys1 = [dequant_idct_plane(p, q, consts_s.kron, dh, dw)
+                   for p, q, (dh, dw, _fx, _fy) in zip(planes1, qt1, geom)]
+            ev[3].record()
+            rgb1 = upsample_color(ys1, *color)
+            ev[4].record()
+            xw1 = resize_axis(rgb1, sw, tw, -2)
+            ev[5].record()
+            f1 = resize_axis(xw1, sh, th, -3, 255.0)
+        else:
+            f1 = fused_decode_resize(sig[3], sig[2], planes1, qt1,
+                                     consts.weights)
+        ev[-3].record()
         blocks1 = encode_blocks(f1, consts.qluma, consts.qchroma, consts.kron)
-        ev[4].record()
+        ev[-2].record()
         out1 = scan_encode(blocks1, consts.layout, consts.tab, cap)
-        ev[5].record()
+        ev[-1].record()
         torch.cuda.synchronize()
         device = {n: ev[i].elapsed_time(ev[i + 1])
                   for i, n in enumerate(names)}
@@ -410,10 +636,13 @@ def main():
         host["readback_assemble"] = (time.perf_counter() - t) * 1e3
         return host, device
 
-    for label, bufs, decode_name in (
-            ("stages", corpus, "K1_decode"),
-            ("stages_no_restart", corpus_nr, "K4_K5_decode")):
-        runs = [stages_once(bufs, decode_name) for _ in range(6)][1:]
+    for label, bufs, decode_name, staged in (
+            ("stages", corpus, "K1_decode", False),
+            ("stages_no_restart", corpus_nr, "K4_K5_decode", False),
+            ("stages_staged", corpus, "K1_decode", True),
+            ("stages_staged_no_restart", corpus_nr, "K4_K5_decode", True)):
+        runs = [stages_once(bufs, decode_name, staged)
+                for _ in range(6)][1:]
         host_ms = {k: sorted(r[0][k] for r in runs)[len(runs) // 2]
                    for k in runs[0][0]}
         device_ms = {k: sorted(r[1][k] for r in runs)[len(runs) // 2]
@@ -425,9 +654,11 @@ def main():
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # launches: each kernel's count in the run of the path it serves
-    # (K1-K3: the restart slice; K4, K5: the no-restart slice)
+    # (K1-K3: the restart slice; K4, K5: the no-restart slice; K6-K8:
+    # the staged restart slice)
     path_launches = {**main_launches,
-                     **{k: nr_launches[k] for k in chunked_path[:2]}}
+                     **{k: nr_launches[k] for k in chunked_path[:2]},
+                     **{k: s_launches[k] for k in staged_path[:3]}}
     kernels = [dict(name=k.name, route="cuda", source=k.source,
                     replaces=k.replaces, launches=path_launches[k.name],
                     **results[k.name]) for k in KERNELS.values()]

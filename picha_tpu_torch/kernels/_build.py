@@ -2,7 +2,8 @@
 
 Route: `nvcc` compiles every `csrc/*.cu` for sm_90a into one shared
 library with a plain C interface, loaded with ctypes. Pointers and the
-stream go across as `c_void_p`, sizes as `c_int`. Every C entry point
+stream go across as `c_void_p`, sizes as `c_int` (`c_int64` where a
+size may pass 2^31), scales as `c_float`. Every C entry point
 launches on the caller's stream, does not synchronise, and returns
 `cudaGetLastError()`; `Kernel.__call__` raises when that is not 0.
 
@@ -28,7 +29,7 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 # C entry point -> argument types (the stream is always last)
 SIGNATURES = {
@@ -41,6 +42,9 @@ SIGNATURES = {
     "picha_huffman_decode_chunked": [
         P, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, P, P, P, P],
     "picha_dc_integrate": [P, P, P, I, I, I, P],
+    "picha_idct_plane": [P, I, P, P, I, I, I, I, I, P, P],
+    "picha_upsample_color": [P, P, P, P, *[I] * 16, I, I, I, I, I, P, P],
+    "picha_resize_axis": [P, I, L, I, I, L, P, P, I, F, F, P, P],
 }
 
 _lock = threading.Lock()
@@ -148,6 +152,16 @@ KERNELS = {
         Kernel("dc_integrate", "picha_dc_integrate",
                "picha_tpu_torch/csrc/huffman_decode_chunked.cu",
                "picha_tpu/ops/jpeg_huffman_decode_tpu.py:1218"),
+        Kernel("idct_plane", "picha_idct_plane",
+               "picha_tpu_torch/csrc/jpeg_idct_plane.cu",
+               "picha_tpu/ops/jpeg_tpu.py:66"),
+        Kernel("upsample_color", "picha_upsample_color",
+               "picha_tpu_torch/csrc/jpeg_upsample_color.cu",
+               "picha_tpu/ops/jpeg_tpu.py:140 (with :177, :190, :199 and "
+               ":234-260)"),
+        Kernel("resize_axis", "picha_resize_axis",
+               "picha_tpu_torch/csrc/resize_axis.cu",
+               "picha_tpu/ops/resize.py:296 (and resize_f32 :330)"),
     )
 }
 

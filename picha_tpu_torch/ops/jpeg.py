@@ -1,14 +1,22 @@
-"""JPEG encoder front on the device: RGB float image -> quantised DCT
-coefficients.
+"""JPEG pixel stages on the device: the staged decode (quantised DCT
+coefficients -> RGB/grey bytes) and the encoder front (RGB float image
+-> quantised DCT coefficients).
 
-Counterpart of the encode half of `picha_tpu/ops/jpeg_tpu.py`
-(`rgb_to_ycbcr`, `box_downsample_2x2`, `plane_to_blocks`, `fdct_quant`,
-`_jit_encode`) plus the u8 pack the reference pipeline applies first
-(`picha_tpu/pipeline/jpeg_batch.py`, floor(clip(v + 0.5))).
+Counterpart of `picha_tpu/ops/jpeg_tpu.py`. Decode half:
+`dequant_idct_plane`, `fancy_upsample_h/v/h2v2`, `upsample_to`,
+`ycbcr_to_rgb_int`, `cmyk_fold_to_rgb`, `ycck_to_cmyk` and
+`build_decode_stage`, with the reference's names and libjpeg(-turbo)
+integer semantics. Encode half: `rgb_to_ycbcr`, `box_downsample_2x2`,
+`plane_to_blocks`, `fdct_quant`, `_jit_encode`, plus the u8 pack the
+reference pipeline applies first (`picha_tpu/pipeline/jpeg_batch.py`,
+floor(clip(v + 0.5))).
 
-`encode_blocks` launches kernel K2 (`csrc/jpeg_encode_front.cu`) for
-CUDA tensors and runs `encode_blocks_plain` for CPU tensors. The
-quantisation tables (`quality_tables`) and the 64x64 Kronecker DCT
+Kernel wrappers, each running its plain torch twin for CPU tensors and
+launching its kernel for CUDA tensors (or raising):
+  `dequant_idct_plane`  K6 `csrc/jpeg_idct_plane.cu`
+  `upsample_color`      K7 `csrc/jpeg_upsample_color.cu`
+  `encode_blocks`       K2 `csrc/jpeg_encode_front.cu`
+The quantisation tables (`quality_tables`) and the 64x64 Kronecker DCT
 (`_idct_kron`) are the reference's numpy constants, uploaded once per
 configuration by the caller.
 """
@@ -16,7 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from picha_tpu.ops.jpeg_tpu import FIX, _ONE_HALF
+from picha_tpu.ops.jpeg_tpu import (CS_CMYK, CS_GRAYSCALE, CS_RGB, CS_YCBCR,
+                                    CS_YCCK, FIX, _ONE_HALF,
+                                    _plane_geometry, check_integer_sampling)
 
 from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
 from .jpeg_fused import full_fp32, pack_u8
@@ -127,3 +137,253 @@ def encode_blocks(f255, qluma, qchroma, kron):
         ptr(kron), ptr(out_y), ptr(out_cb), ptr(out_cr), ybh, ybw, cbh,
         cbw, stream_of(f255))
     return (out_y,) if c == 1 else (out_y, out_cb, out_cr)
+
+
+# -- staged decode ----------------------------------------------------------
+
+def idct_samples(coefs, qtable, kron):
+    """(N, bh, bw, 64) int coefficients x (N, 1, 1, 64) qtables -> the
+    (N, bh*8, bw*8) float32 samples before rounding: dequantise in f32,
+    Kronecker IDCT as one full-f32 matmul, blocks -> raster, +128."""
+    n, bh, bw = coefs.shape[0], coefs.shape[1], coefs.shape[2]
+    f = coefs.to(torch.float32) * qtable.to(torch.float32)
+    with full_fp32():
+        pix = torch.matmul(f, kron)
+    pix = pix.view(n, bh, bw, 8, 8).transpose(2, 3)
+    return pix.reshape(n, bh * 8, bw * 8) + 128.0
+
+
+def dequant_idct_plane_plain(coefs, qtable, kron, out_h, out_w):
+    """Plain torch version of K6: -> (N, out_h, out_w) uint8, rounded
+    half to even and clipped to [0, 255] like the reference's
+    `jnp.round`."""
+    plane = torch.round(idct_samples(coefs, qtable, kron)).clamp(0, 255)
+    return plane[:, :out_h, :out_w].to(torch.uint8)
+
+
+def dequant_idct_plane(coefs, qtable, kron, out_h, out_w):
+    """Dequantise + IDCT one component: coefs (N, bh, bw, 64) int16 or
+    int32, qtable (N, 1, 1, 64) int32 (one table per image), kron the
+    (64, 64) float32 `_idct_kron()` -> (N, out_h, out_w) uint8 samples.
+    Launches K6 for CUDA tensors; the plain version runs only for CPU
+    tensors."""
+    if coefs.device.type == "cpu":
+        return dequant_idct_plane_plain(coefs, qtable, kron, out_h, out_w)
+    require_cuda(coefs, "K6")
+    dev = coefs.device
+    if coefs.dtype not in (torch.int16, torch.int32) or coefs.dim() != 4 \
+            or coefs.shape[3] != 64:
+        raise TypeError("K6 takes (N, bh, bw, 64) int16 or int32 blocks")
+    n, bh, bw = coefs.shape[0], coefs.shape[1], coefs.shape[2]
+    if not 0 < out_h <= bh * 8 or not 0 < out_w <= bw * 8:
+        raise ValueError(f"K6 crop ({out_h}, {out_w}) outside the "
+                         f"{bh * 8}x{bw * 8} block grid")
+    if qtable.dtype != torch.int32 or qtable.device != dev \
+            or qtable.numel() != n * 64:
+        raise TypeError("K6 takes (N, 1, 1, 64) int32 qtables on the "
+                        "coefficients' device")
+    if kron.dtype != torch.float32 or kron.device != dev \
+            or tuple(kron.shape) != (64, 64):
+        raise TypeError("K6 takes the (64, 64) float32 Kronecker IDCT on "
+                        "the coefficients' device")
+    coefs, qtable, kron = (t.contiguous() for t in (coefs, qtable, kron))
+    out = torch.empty((n, out_h, out_w), dtype=torch.uint8, device=dev)
+    KERNELS["idct_plane"](ptr(coefs), coefs.element_size(), ptr(qtable),
+                          ptr(kron), n, bh, bw, out_h, out_w, ptr(out),
+                          stream_of(coefs))
+    return out
+
+
+def _shift(s, axis, step):
+    """s shifted by one along `axis` with edge replication: step -1 gives
+    each sample's predecessor, +1 its successor."""
+    L = s.shape[axis]
+    idx = torch.arange(L, device=s.device) + step
+    return s.index_select(axis, idx.clamp(0, L - 1))
+
+
+def _interleave(a, b, axis):
+    """Stack a and b along a new axis after `axis` and merge: a, b, a,
+    b, ... (axis is -1 or -2)."""
+    out = torch.stack([a, b], dim=axis)
+    shape = list(a.shape)
+    shape[axis] *= 2
+    return out.reshape(shape)
+
+
+def fancy_upsample_h(plane):
+    """Horizontal 2x fancy upsample, libjpeg h2v1 semantics (int32)."""
+    s = plane
+    even = (3 * s + _shift(s, -1, -1) + 1) >> 2
+    odd = (3 * s + _shift(s, -1, 1) + 2) >> 2
+    return _interleave(even, odd, -1)
+
+
+def fancy_upsample_v(plane):
+    """Vertical 2x: colsum stage of libjpeg h2v2 (returns 4x-scaled
+    sums)."""
+    s = plane
+    return _interleave(3 * s + _shift(s, -2, -1), 3 * s + _shift(s, -2, 1),
+                       -2)
+
+
+def fancy_upsample_h2v2(plane):
+    """Full 2x2 fancy upsample (libjpeg h2v2_fancy_upsample, exact)."""
+    s = fancy_upsample_v(plane)
+    even = (3 * s + _shift(s, -1, -1) + 8) >> 4
+    odd = (3 * s + _shift(s, -1, 1) + 7) >> 4
+    return _interleave(even, odd, -1)
+
+
+def upsample_to(plane, h_factor, v_factor, out_h, out_w):
+    """Upsample an int32 chroma plane by the component's sampling ratio
+    and crop to the luma grid: libjpeg's fancy (triangle) kernels for
+    2x2 and 2x1, libjpeg-turbo's h1v2 fancy kernel (per-parity biases
+    +1 above, +2 below) for 1x2, and int_upsample replication for any
+    other integer ratio."""
+    if (h_factor, v_factor) == (2, 2):
+        plane = fancy_upsample_h2v2(plane)
+    elif (h_factor, v_factor) == (2, 1):
+        plane = fancy_upsample_h(plane)
+    elif (h_factor, v_factor) == (1, 2):
+        s = plane
+        up = (3 * s + _shift(s, -2, -1) + 1) >> 2
+        down = (3 * s + _shift(s, -2, 1) + 2) >> 2
+        plane = _interleave(up, down, -2)
+    else:
+        if h_factor > 1:
+            plane = plane.repeat_interleave(h_factor, dim=-1)
+        if v_factor > 1:
+            plane = plane.repeat_interleave(v_factor, dim=-2)
+    return plane[..., :out_h, :out_w]
+
+
+def ycbcr_to_rgb_int(y, cb, cr):
+    """libjpeg jdcolor.c fixed-point YCbCr->RGB (int32 in, [0, 255] out;
+    `>>` on int32 is an arithmetic shift, a floor)."""
+    cbs, crs = cb - 128, cr - 128
+    r = y + ((FIX(1.40200) * crs + _ONE_HALF) >> 16)
+    b = y + ((FIX(1.77200) * cbs + _ONE_HALF) >> 16)
+    g = y + (((-FIX(0.34414)) * cbs + (-FIX(0.71414)) * crs + _ONE_HALF)
+             >> 16)
+    return torch.stack([r, g, b], dim=-1).clamp(0, 255)
+
+
+def cmyk_fold_to_rgb(c, m, y_, k):
+    """The reference's Adobe-inverted-CMYK fold rgb = c*k // 255."""
+    return torch.div(torch.stack([c, m, y_], dim=-1) * k[..., None], 255,
+                     rounding_mode="floor")
+
+
+def ycck_to_cmyk(y, cb, cr, k):
+    """libjpeg ycck_cmyk_convert: invert the YCC->RGB result, K passes."""
+    cmy = 255 - ycbcr_to_rgb_int(y, cb, cr)
+    return cmy[..., 0], cmy[..., 1], cmy[..., 2], k
+
+
+def plane_geometry(comp_sig, width, height):
+    """Per component (dh, dw, h_factor, v_factor): the cropped plane K6
+    writes and its upsampling ratio to the luma grid."""
+    max_h = max(s[2] for s in comp_sig)
+    max_v = max(s[3] for s in comp_sig)
+    out = []
+    for _bh, _bw, hs, vs in comp_sig:
+        dw, dh = _plane_geometry(width, height, hs, vs, max_h, max_v)
+        out.append((dh, dw, max_h // hs, max_v // vs))
+    return out
+
+
+# K7's colour modes (csrc/jpeg_upsample_color.cu)
+GREY, YCBCR, RGB, YCCK, CMYK = 0, 1, 2, 3, 4
+
+
+def color_mode(color_space, ncomp):
+    """The reference's colour dispatch -> a K7 mode: one component is
+    grey whatever the colour space says."""
+    if color_space == CS_GRAYSCALE or ncomp == 1:
+        return GREY
+    modes = {CS_YCBCR: YCBCR, CS_RGB: RGB, CS_YCCK: YCCK, CS_CMYK: CMYK}
+    if color_space not in modes:
+        raise ValueError(f"unsupported jpeg colour space {color_space}")
+    return modes[color_space]
+
+
+def upsample_color_plain(planes, comp_sig, color_space, width, height,
+                         force_rgb=False):
+    """Plain torch version of K7: uint8 planes (N, dh, dw) -> (N, height,
+    width, C) uint8 (C = 1 for grey unless force_rgb, else 3)."""
+    mode = color_mode(color_space, len(planes))
+    up = []
+    for p, (_dh, _dw, fx, fy) in zip(planes,
+                                     plane_geometry(comp_sig, width, height)):
+        p = p.to(torch.int32)
+        if (fx, fy) != (1, 1):
+            p = upsample_to(p, fx, fy, height, width)
+        up.append(p[..., :height, :width])
+    if mode == GREY:
+        g = up[0][..., None]
+        out = g.expand(*g.shape[:-1], 3) if force_rgb else g
+    elif mode == YCBCR:
+        out = ycbcr_to_rgb_int(*up[:3])
+    elif mode == RGB:
+        out = torch.stack(up[:3], dim=-1)
+    elif mode == YCCK:
+        out = cmyk_fold_to_rgb(*ycck_to_cmyk(*up[:4]))
+    else:
+        out = cmyk_fold_to_rgb(*up[:4])
+    return out.to(torch.uint8)
+
+
+def upsample_color(planes, comp_sig, color_space, width, height,
+                   force_rgb=False):
+    """Chroma upsample + colour transform: per-component uint8 planes
+    (N, dh, dw) as `dequant_idct_plane` crops them -> (N, height, width,
+    C) uint8. Launches K7 for CUDA tensors; the plain version runs only
+    for CPU tensors."""
+    if planes[0].device.type == "cpu":
+        return upsample_color_plain(planes, comp_sig, color_space, width,
+                                    height, force_rgb)
+    require_cuda(planes[0], "K7")
+    mode = color_mode(color_space, len(planes))
+    geom = plane_geometry(comp_sig, width, height)
+    used = 1 if mode == GREY else (4 if mode in (YCCK, CMYK) else 3)
+    if len(planes) < used or len(planes) > 4:
+        raise ValueError(f"K7: {len(planes)} planes for colour space "
+                         f"{color_space}")
+    n, dev = planes[0].shape[0], planes[0].device
+    for p, (dh, dw, _fx, _fy) in zip(planes, geom):
+        if p.dtype != torch.uint8 or p.device != dev \
+                or tuple(p.shape) != (n, dh, dw) or not p.is_contiguous():
+            raise TypeError(f"K7 takes contiguous (N, {dh}, {dw}) uint8 "
+                            f"planes on one device")
+    c = 3 if mode != GREY or force_rgb else 1
+    out = torch.empty((n, height, width, c), dtype=torch.uint8, device=dev)
+    ptrs, dims = [], []
+    for i in range(4):
+        j = min(i, used - 1)
+        ptrs.append(ptr(planes[j]))
+        dims.extend(geom[j])
+    KERNELS["upsample_color"](*ptrs, *dims, n, height, width, mode, c,
+                              ptr(out), stream_of(out))
+    return out
+
+
+def build_decode_stage(comp_sig, color_space, width, height,
+                       force_rgb: bool = False):
+    """The staged decode for one signature: `stage(coefs, qtabs, kron)`
+    -> (N, height, width, C) uint8, C = 1 (grey) or 3. Per component
+    dequant + IDCT cropped to its plane (K6), then chroma upsample and
+    colour transform (K7). `comp_sig` entries are (bh, bw, h_samp,
+    v_samp); coefs per component (N, bh, bw, 64) int16/int32, qtabs
+    (N, 1, 1, 64) int32, kron the (64, 64) float32 `_idct_kron()`."""
+    check_integer_sampling(comp_sig)
+    geom = plane_geometry(comp_sig, width, height)
+    color_mode(color_space, len(comp_sig))
+
+    def decode_stage(coefs, qtabs, kron):
+        planes = [dequant_idct_plane(coefs[i], qtabs[i], kron, dh, dw)
+                  for i, (dh, dw, _fx, _fy) in enumerate(geom)]
+        return upsample_color(planes, comp_sig, color_space, width, height,
+                              force_rgb)
+
+    return decode_stage

@@ -1,27 +1,34 @@
 """Batched JPEG transcode on one CUDA device: the throughput path.
 
 Counterpart of `picha_tpu/pipeline/jpeg_batch.py` for the all-device
-configuration
+configurations
 
     JpegBatchPipeline(width, height, encode_quality=85,
-                      encode_backend="device", fused=True, upload="scan")
+                      encode_backend="device", fused=True|False,
+                      upload="scan")
 
 Host: header parse (`parse_baseline`) and the scan wire (`scan_wire`,
 over the reference's `ScanBatch`), both the reference's own numpy
 code. Device, per same-signature batch: one coalesced pinned upload ->
-`wire_unpack` -> Huffman decode -> `split_planes` -> fused
-dequant+IDCT+upsample+resize matmuls -> encoder front (kernel K2) ->
-Huffman scan encode (kernel K3). The decode is kernel K1 (one thread
-per restart segment) for batches that carry restart markers, and the
-speculative chunked decoder, kernels K4 + K5, for the rest: scans
-without restart markers, and restart scans whose segments are too long
-or too few for one lane each. Host again: read back the byte counts
-and the used prefix of the scan buffer, prepend the cached header.
+`wire_unpack` -> Huffman decode -> `split_planes` -> pixel stages ->
+encoder front (kernel K2) -> Huffman scan encode (kernel K3). The
+decode is kernel K1 (one thread per restart segment) for batches that
+carry restart markers, and the speculative chunked decoder, kernels
+K4 + K5, for the rest: scans without restart markers, and restart scans
+whose segments are too long or too few for one lane each. The pixel
+stages are the reference's `pixel_stages`: with `fused=True` the
+folded dequant+IDCT+upsample+resize matmuls; with `fused=False` the
+staged, libjpeg-exact decode (dequant+IDCT, kernel K6; fancy upsample +
+colour, kernel K7) and then the separable resize (kernel K8, width pass
+then height pass). Host again: read back the byte counts and the used
+prefix of the scan buffer, prepend the cached header.
 
-Ported options: `upload` "scan" (and "dense", which the scan fallback
-goes through), `encode_backend` "device" (and "host", the overflow
-target), `encode_quality=None` (uint8 images out). Everything else
-raises NotImplementedError naming its ROADMAP.md item.
+Ported options: `fused` True and False; `normalize` (float32 images on
+the 0-1 scale, as the reference's training output); `upload` "scan"
+(and "dense", which the scan fallback goes through); `encode_backend`
+"device" (and "host", the overflow target); `encode_quality=None`
+(uint8 images out). Everything else raises NotImplementedError naming
+its ROADMAP.md item.
 
 The reference's content fallbacks stay, each counted on the instance:
 `scan_fallbacks` (decoder `ok` false: a chunked decode that did not
@@ -46,12 +53,13 @@ from picha_tpu.ops.jpeg_scan import ScanInfo, mcu_slot_tables, parse_baseline
 from picha_tpu.ops.jpeg_tpu import _idct_kron, quality_tables
 from picha_tpu.ops.resize import parse_resize_options
 
-from ..ops.jpeg import encode_blocks
+from ..ops.jpeg import build_decode_stage, encode_blocks
 from ..ops.jpeg_fused import fused_decode_resize, pack_u8
 from ..ops.jpeg_huffman import (ScanLayout, code_table, jpeg_header,
                                 scan_encode)
 from ..ops.jpeg_huffman_decode import (decode_scan, scan_wire, split_planes,
                                        wire_unpack)
+from ..ops.resize import INV255, resize_windowed, window_tensors
 from ..runtime.device import resolve_device
 
 # -- batching helpers ------------------------------------------------------
@@ -105,15 +113,19 @@ def pad_group(group, multiple: int = 8):
 
 class DeviceConstants(NamedTuple):
     """Per-signature device tensors: the fused (th, tv) weights per
-    component, the scan decoder's slot->component table and split
-    indices, and (when encoding) the quantisation tables, the Kronecker
-    DCT, the scan block layout and the Huffman code table."""
-    weights: list
+    component (fused path), the resize windows ((starts, taps) for the
+    width, then the height axis; staged path with a resize target), the
+    scan decoder's slot->component table and split indices, the
+    Kronecker DCT (the staged IDCT and the encoder's fDCT), and (when
+    encoding) the quantisation tables, the scan block layout and the
+    Huffman code table."""
+    weights: Optional[list]
+    windows: Optional[tuple]
     comp_of: torch.Tensor
     split_idx: list
+    kron: torch.Tensor
     qluma: Optional[torch.Tensor]
     qchroma: Optional[torch.Tensor]
-    kron: Optional[torch.Tensor]
     layout: Optional[ScanLayout]
     tab: Optional[torch.Tensor]
 
@@ -138,45 +150,78 @@ def fused_weights(comp_sig, width, height, out_w, out_h, filter_name,
     return out
 
 
-def device_constants(sig, out_w, out_h, filter, fscale, quality, device):
+def device_constants(sig, out_w, out_h, filter, fscale, quality, device,
+                     fused: bool = True):
     """The path's numpy constants (picha_tpu's) -> cached device tensors
     for one signature and configuration."""
     width, height, _cs, comp_sig = sig
-    if out_w is None:
-        out_w, out_h, filter = width, height, IDENTITY
 
     def dev(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(
             device=device, dtype=dtype)
 
-    weights = [(dev(th, torch.float32), dev(tv, torch.float32))
-               for th, tv in fused_weights(comp_sig, width, height, out_w,
-                                           out_h, filter, fscale)]
+    weights = windows = None
+    if fused:
+        fw, fh, fname = ((out_w, out_h, filter) if out_w is not None
+                         else (width, height, IDENTITY))
+        weights = [(dev(th, torch.float32), dev(tv, torch.float32))
+                   for th, tv in fused_weights(comp_sig, width, height, fw,
+                                               fh, fname, fscale)]
+    elif out_w is not None:
+        windows = (window_tensors(out_w, width, filter, fscale, device),
+                   window_tensors(out_h, height, filter, fscale, device))
     comp_of = dev(mcu_slot_tables(comp_sig), torch.int32)
     split_idx = [dev(i, torch.int64) for i in split_indices(comp_sig)]
-    enc = [None] * 5
+    kron = dev(_idct_kron(), torch.float32)
+    enc = [None] * 4
     if quality is not None:
         qluma, qchroma = quality_tables(quality)
         channels = 1 if len(comp_sig) == 1 else 3
+        ew, eh = (out_w, out_h) if out_w is not None else (width, height)
         layout = ScanLayout(*(dev(a, torch.int32) for a in _mcu_layout(
-            resized_comp_sig(out_h, out_w, channels))))
-        enc = [dev(qluma, torch.int32), dev(qchroma, torch.int32),
-               dev(_idct_kron(), torch.float32), layout,
+            resized_comp_sig(eh, ew, channels))))
+        enc = [dev(qluma, torch.int32), dev(qchroma, torch.int32), layout,
                dev(code_table(), torch.int32)]
-    return DeviceConstants(weights, comp_of, split_idx, *enc)
+    return DeviceConstants(weights, windows, comp_of, split_idx, kron, *enc)
 
 
 # -- the device graph ---------------------------------------------------------
 
+def pixel_stages(sig, coefs, qtabs, consts: DeviceConstants,
+                 fused: bool, normalize: bool = False):
+    """The reference's `pixel_stages` before the encode: coefficients ->
+    either (N, H', W', C) float32 normalised to 0-1 (`normalize`), or
+    the pixels on the 0-255 scale that the u8 pack or the encoder front
+    takes: float32 (fused, or staged with a resize) or the staged
+    decode's uint8 (staged without a resize)."""
+    width, height, color_space, comp_sig = sig
+    if fused:
+        f255 = fused_decode_resize(comp_sig, color_space, coefs, qtabs,
+                                   consts.weights)
+        if normalize:
+            return f255.clamp(0.0, 255.0) * INV255
+        return f255
+    rgb = build_decode_stage(comp_sig, color_space, width, height)(
+        coefs, qtabs, consts.kron)
+    if consts.windows is None:
+        return rgb.to(torch.float32) * INV255 if normalize else rgb
+    if normalize:
+        # clip resize overshoot so staged and fused agree
+        return resize_windowed(rgb, consts.windows).clamp(0.0, 1.0)
+    return resize_windowed(rgb, consts.windows, out_scale=255.0)
+
+
 def device_graph(sig, args, consts: DeviceConstants, scan_ks=None,
-                 encode: bool = True, byte_cap: Optional[int] = None):
+                 encode: bool = True, byte_cap: Optional[int] = None,
+                 fused: bool = True, normalize: bool = False):
     """One batch through the device stages.
 
     args: [wire] (scan upload) or per-component coefficient planes then
     (N, 1, 1, 64) qtables (dense upload), on the device. Returns
     (scan (N, byte_cap) uint8, nbytes (N,) int32) when `encode`, else
-    the (N, H, W, C) uint8 images; scan uploads return (result, ok)."""
-    _width, _height, color_space, comp_sig = sig
+    the (N, H, W, C) images, uint8 or (`normalize`) float32; scan
+    uploads return (result, ok)."""
+    comp_sig = sig[3]
     n = len(comp_sig)
     ok = None
     if scan_ks is not None:
@@ -185,13 +230,14 @@ def device_graph(sig, args, consts: DeviceConstants, scan_ks=None,
         coefs = split_planes(scan_out, comp_sig, consts.split_idx)
     else:
         coefs, qtabs = args[:n], args[n:2 * n]
-    f255 = fused_decode_resize(comp_sig, color_space, coefs, qtabs,
-                               consts.weights)
-    if not encode:
-        result = pack_u8(f255)
+    px = pixel_stages(sig, coefs, qtabs, consts, fused, normalize)
+    if normalize:
+        result = px
+    elif not encode:
+        result = px if px.dtype == torch.uint8 else pack_u8(px)
     else:
-        blocks = encode_blocks(f255, consts.qluma, consts.qchroma,
-                               consts.kron)
+        blocks = encode_blocks(px.to(torch.float32), consts.qluma,
+                               consts.qchroma, consts.kron)
         result = scan_encode(blocks, consts.layout, consts.tab, byte_cap)
     return result if ok is None else (result, ok)
 
@@ -216,11 +262,9 @@ class JpegBatchPipeline:
                  fused: bool = True,
                  scan_byte_cap: Optional[int] = None,
                  device="cuda"):
-        if not fused:
-            raise _unported("the staged decode (fused=False)",
-                            "queue 1 item 6, queue 2 item 7")
-        if normalize:
-            raise _unported("normalized training output", "queue 1 item 6")
+        if normalize and encode_quality is not None:
+            raise ValueError("normalize=True returns float32 images and "
+                             "takes no encode_quality")
         if encode_backend == "raw420":
             raise _unported("encode_backend='raw420'",
                             "queue 1 item 1 (Slice A)")
@@ -236,6 +280,8 @@ class JpegBatchPipeline:
             opts["filterScale"] = filter_scale
         self._filter, self._fscale = parse_resize_options(opts)
         self._width, self._height = width, height
+        self._normalize = normalize
+        self._fused = fused
         self._encode_quality = encode_quality
         self._encode_backend = encode_backend
         self._upload = upload
@@ -303,7 +349,7 @@ class JpegBatchPipeline:
         if key not in self._consts:
             self._consts[key] = device_constants(
                 sig, self._width, self._height, self._filter, self._fscale,
-                quality, self.device)
+                quality, self.device, fused=self._fused)
         return self._consts[key]
 
     def run_bucket(self, sig, args, scan_ks=None):
@@ -313,7 +359,8 @@ class JpegBatchPipeline:
                   and self._encode_backend == "device")
         cap = self._scan_cap_for(sig) if encode else None
         return device_graph(sig, args, self.constants(sig), scan_ks=scan_ks,
-                            encode=encode, byte_cap=cap)
+                            encode=encode, byte_cap=cap, fused=self._fused,
+                            normalize=self._normalize)
 
     def _scan_cap_for(self, sig) -> int:
         if self._scan_byte_cap is not None:
@@ -357,7 +404,7 @@ class JpegBatchPipeline:
                 width=self._width, height=self._height, filter=self._filter,
                 filter_scale=self._fscale,
                 encode_quality=self._encode_quality, encode_backend="host",
-                upload="dense", device=self.device)
+                upload="dense", fused=self._fused, device=self.device)
         clone = self._overflow_clone
         if isinstance(cos[0], ScanInfo):
             cos = self._host_decode([i.src for i in cos])

@@ -1,9 +1,10 @@
-"""The port's whole slice, JpegBatchPipeline(fused=True, upload="scan",
+"""The port's slices, JpegBatchPipeline(fused=True|False, upload="scan",
 encode_backend="device") on device="cpu", against picha_tpu's same
 configuration (JAX on the CPU) and the strict host path (libjpeg decode
--> native resize -> libjpeg encode), plus the content fallbacks the
-reference keeps: decoder flag -> host decode, encode overflow -> retry
-at twice the cap -> host encode."""
+-> native resize -> libjpeg encode), the decode-only and normalized
+outputs of both pixel paths, plus the content fallbacks the reference
+keeps: decoder flag -> host decode, encode overflow -> retry at twice
+the cap -> host encode."""
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,7 @@ from picha_tpu_torch.pipeline import jpeg_batch as port_jb
 W, H = 64, 48
 KW = dict(width=W, height=H, encode_quality=85, encode_backend="device",
           fused=True, upload="scan")
+KW_STAGED = {**KW, "fused": False}
 
 
 def _corpus(n=4, h=96, w=128, restart=2):
@@ -88,7 +90,7 @@ def test_flagged_decode_falls_back_to_host_decode(monkeypatch):
     assert [bytes(g) for g in got] == [bytes(w) for w in want]
 
 
-def test_no_restart_batch_takes_host_decode():
+def test_no_restart_batch_decodes_on_device():
     """A batch without restart markers (once sent to host libjpeg) now
     decodes on the device through the chunked decoder: no fallback,
     picha_tpu's output for the same configuration, and <= 1 LSB from
@@ -185,15 +187,12 @@ def test_batching_helpers_match_reference():
 
 
 # each unported option -> the ROADMAP.md item that lists it
-_UNPORTED_WHERE = {"fused": "queue 1 item 6, queue 2 item 7",
-                   "normalize": "queue 1 item 6",
-                   "raw420": "queue 1 item 1 (Slice A)",
+_UNPORTED_WHERE = {"raw420": "queue 1 item 1 (Slice A)",
                    "tpu": "queue 1 item 5",
                    "upload": "queue 1 item 5"}
 
 
-@pytest.mark.parametrize("kw", [dict(fused=False), dict(normalize=True),
-                                dict(encode_backend="raw420"),
+@pytest.mark.parametrize("kw", [dict(encode_backend="raw420"),
                                 dict(upload="gap4"),
                                 dict(encode_backend="tpu")])
 def test_unported_options_raise(kw):
@@ -202,6 +201,83 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError) as err:
         JpegBatchPipeline(device="cpu", **{**KW, **kw})
     assert str(err.value).endswith(f"ROADMAP.md {where}"), str(err.value)
+
+
+@pytest.mark.parametrize("restart", [2, 0])
+def test_staged_slice_matches_reference_and_strict_host(restart):
+    """fused=False: staged decode (K6, K7 twins) -> windowed resize (K8
+    twin) -> K2 -> K3, with and without restart markers, against
+    picha_tpu's staged configuration and the strict host path."""
+    from picha_tpu.pipeline import JpegBatchPipeline as Ref
+
+    bufs = _corpus(restart=restart)
+    port = JpegBatchPipeline(device="cpu", **KW_STAGED)
+    got = port(bufs)
+    want = Ref(**KW_STAGED)(bufs)
+    assert _counters(port) == (0, 0, 0)
+    for g, w, s in zip(got, want, _strict(bufs)):
+        assert bytes(g) == bytes(w) or _lsb(g, w) <= 0.05
+        assert _lsb(g, s) <= 1.0
+
+
+@pytest.mark.parametrize("resize", [True, False])
+def test_staged_decode_only_matches_reference(resize):
+    """encode_quality=None, fused=False: uint8 images, with a resize
+    target (pack of the resized floats) and without one (the staged
+    decode's own bytes)."""
+    from picha_tpu.pipeline import JpegBatchPipeline as Ref
+
+    bufs = _corpus(2)
+    kw = dict(width=W, height=H) if resize else {}
+    got = JpegBatchPipeline(fused=False, device="cpu", **kw)(bufs)
+    want = np.asarray(Ref(fused=False, upload="scan", **kw)(bufs))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
+    d = np.abs(got.numpy().astype(np.int32) - want)
+    assert d.max() <= 1 and d.mean() <= 0.01
+    if not resize:   # the staged decode is libjpeg's within 1 LSB
+        host = np.stack([native.jpeg_decode(b, 3, 128, 96) for b in bufs])
+        assert np.abs(got.numpy().astype(np.int32) - host).mean() <= 0.1
+
+
+@pytest.mark.parametrize("fused,resize", [(False, True), (False, False),
+                                          (True, True)])
+def test_normalize_matches_reference(fused, resize):
+    """normalize=True: float32 images on the 0-1 scale. Staged within
+    1e-6 of the reference (resize sums in another order); fused within
+    the fused matmuls' own 2e-3 on the 0-255 scale."""
+    from picha_tpu.pipeline import JpegBatchPipeline as Ref
+
+    bufs = _corpus(2)
+    kw = dict(width=W, height=H) if resize else {}
+    got = JpegBatchPipeline(fused=fused, normalize=True, device="cpu",
+                            **kw)(bufs)
+    want = np.asarray(Ref(fused=fused, normalize=True, upload="scan",
+                          **kw)(bufs))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    tol = 2e-3 / 255 if fused else 1e-6
+    assert float(np.abs(got.numpy() - want).max()) <= tol
+    assert float(got.min()) >= 0.0 and float(got.max()) <= 1.0
+
+
+def test_normalize_takes_no_encode_quality():
+    with pytest.raises(ValueError):
+        JpegBatchPipeline(device="cpu", normalize=True, **KW)
+
+
+def test_staged_overflow_host_encodes_staged_pixels():
+    """A staged batch that overflows twice is host-encoded from the
+    staged path's own pixels, not the fused path's."""
+    bufs = _corpus(2)
+    p = JpegBatchPipeline(device="cpu", **KW_STAGED)
+    p._scan_cap_for = lambda sig: 256
+    got = p(bufs)
+    assert _counters(p) == (0, 1, 1)
+    staged = JpegBatchPipeline(width=W, height=H, fused=False,
+                               device="cpu")(bufs)
+    fused = JpegBatchPipeline(width=W, height=H, device="cpu")(bufs)
+    assert not torch.equal(staged, fused)
+    assert [bytes(g) for g in got] == [
+        bytes(native.jpeg_encode(a, 85)) for a in staged.numpy()]
 
 
 def test_port_fixtures_are_the_strict_host_output():

@@ -11,6 +11,8 @@ import pathlib
 
 import numpy as np
 
+from picha_tpu.ops.jpeg_tpu import CS_GRAYSCALE, CS_RGB, CS_YCBCR, CS_YCCK
+
 PORT_FIXTURES = pathlib.Path(__file__).parent / "fixtures" / "port"
 N_FIXTURES = 3
 
@@ -149,3 +151,84 @@ def chunked_fault_batch(case: str):
     if case == "tiny_steps":
         sb.steps = 16
     return sb, {"max_passes": 1} if case == "max_passes_1" else {}
+
+
+def synthetic_coefs(width: int, height: int, samp, seed: int,
+                    qualities=(85, 50)):
+    """Quantised DCT blocks of smooth, noisy, in-gamut planes (with some
+    flat blocks whose DC is 4 mod 8, so that with an odd DC step their
+    IDCT samples land within f32 rounding of a .5 tie), one image
+    per entry of `qualities`, each quantised with that quality's
+    tables. samp: per component (h_samp, v_samp). Returns (comp_sig,
+    coefs [(N, bh, bw, 64) int32], qtabs [(N, 1, 1, 64) int32]) with the
+    block grids libjpeg uses (MCU-padded when there are several
+    components)."""
+    from picha_tpu.ops.jpeg_tpu import idct_matrix, quality_tables
+
+    rng = np.random.default_rng(seed)
+    max_h = max(h for h, _ in samp)
+    max_v = max(v for _, v in samp)
+    comp_sig = []
+    for hs, vs in samp:
+        if len(samp) == 1:
+            comp_sig.append((-(-height // 8), -(-width // 8), hs, vs))
+        else:
+            comp_sig.append((-(-height // (8 * max_v)) * vs,
+                             -(-width // (8 * max_h)) * hs, hs, vs))
+    a = idct_matrix().astype(np.float64)
+    coefs = [np.zeros((len(qualities), bh, bw, 64), np.int32)
+             for bh, bw, _, _ in comp_sig]
+    qtabs = [np.zeros((len(qualities), 1, 1, 64), np.int32)
+             for _ in comp_sig]
+    for n, q in enumerate(qualities):
+        qluma, qchroma = quality_tables(q)
+        for i, (bh, bw, _, _) in enumerate(comp_sig):
+            yy, xx = np.mgrid[0:bh * 8, 0:bw * 8].astype(np.float64)
+            fx, fy = rng.uniform(1, 3, 2)
+            plane = (128 + 70 * np.sin(2 * np.pi * fx * xx / (bw * 8))
+                     * np.cos(2 * np.pi * fy * yy / (bh * 8))
+                     + rng.normal(0, 6, yy.shape))
+            blocks = np.clip(plane, 20, 235).reshape(bh, 8, bw, 8)
+            blocks = blocks.transpose(0, 2, 1, 3).copy()
+            flat = rng.random((bh, bw)) < 0.2
+            blocks[flat] = rng.integers(20, 236, (int(flat.sum()), 1, 1))
+            c = np.einsum("uy,abyx,vx->abuv", a, blocks - 128.0, a)
+            qt = (qluma if i == 0 else qchroma).astype(np.int32)
+            coefs[i][n] = np.round(c.reshape(bh, bw, 64) / qt)
+            dc = coefs[i][n, ..., 0]
+            dc[flat] = dc[flat] // 8 * 8 + 4
+            qtabs[i][n, 0, 0] = qt
+    return tuple(comp_sig), coefs, qtabs
+
+
+_Y420 = ((2, 2), (1, 1), (1, 1))
+_Y422 = ((2, 1), (1, 1), (1, 1))
+_Y440 = ((1, 2), (1, 1), (1, 1))
+
+# Staged-decode cases: name -> (width, height, per-component (h_samp,
+# v_samp), colour space, force_rgb). Every case carries two images
+# quantised with different tables.
+DECODE_CASES = {
+    "420": (64, 48, _Y420, CS_YCBCR, False),
+    "422": (64, 48, _Y422, CS_YCBCR, False),
+    "440": (64, 48, _Y440, CS_YCBCR, False),
+    "444": (40, 32, ((1, 1),) * 3, CS_YCBCR, False),
+    "grey": (45, 37, ((1, 1),), CS_GRAYSCALE, False),
+    "grey_force_rgb": (45, 37, ((1, 1),), CS_GRAYSCALE, True),
+    "odd_420": (77, 115, _Y420, CS_YCBCR, False),
+    "odd_422": (61, 90, _Y422, CS_YCBCR, False),
+    "odd_440": (61, 90, _Y440, CS_YCBCR, False),
+    "h4v1_replicate": (75, 20, ((4, 1), (1, 1), (1, 1)), CS_YCBCR, False),
+    "h2v4_replicate": (30, 70, ((2, 4), (1, 1), (1, 1)), CS_YCBCR, False),
+    "rgb": (33, 21, ((1, 1),) * 3, CS_RGB, False),
+    "ycck": (34, 26, ((2, 2), (1, 1), (1, 1), (2, 2)), CS_YCCK, False),
+}
+
+
+def synthetic_decode_case(name: str):
+    """(width, height, colour space, comp_sig, coefs, qtabs, force_rgb)
+    of one of DECODE_CASES, from `synthetic_coefs` seeded by the name."""
+    width, height, samp, cs, force = DECODE_CASES[name]
+    comp_sig, coefs, qtabs = synthetic_coefs(width, height, samp,
+                                             seed=len(name))
+    return width, height, cs, comp_sig, coefs, qtabs, force
