@@ -36,9 +36,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
   5. timing with CUDA events: kernel path vs plain path, end to end and
      device-only (upload resident, decode->encode, byte-count readback),
      for both corpora and both pixel paths, and where one batch's time
-     goes, stage by stage.
-Then one JSON line of per-kernel results, the card line, and the final
-JSON status line.
+     goes, stage by stage;
+  6. the training ingest, TrainingInput(batch=256, crop=192, size=224,
+     augment=brightness/contrast/saturation .2 + 32-px cutout) over 256
+     1920x1088 q85 JPEGs without restart markers: K9 (crop + flip +
+     width pass; bitwise its plain twin) and K10 (clip + augment; within
+     1e-6 of its twin) at that shape; three steps, each checked for
+     shape, range, zero fallbacks, the launches of K4, K5, K6, K7, K9, K8
+     and K10, and against the same draws through the plain chain; the
+     second step resumed from state() bit for bit; a fourth step without
+     augment held to a host anchor (Pillow decode, the host-drawn window,
+     the port's flip, the CPU windowed resize) within 1/255 mean; one
+     pre_crop=False step on 16 images;
+  7. the ingest's timing: ms per step by stage (host parse and draws,
+     wire, upload, decode, K6/K7, K9, K8-H, K10), images/s, peak device
+     memory.
+Every kernel also gets its bound (the larger of its bytes over 3.35 TB/s
+and its FLOPs over 67 TFLOP/s, counted from this run's shapes) and, where
+one PyTorch call computes the same function, that call's time. Then one
+JSON line of per-kernel results, the card line, and the final JSON
+status line.
 """
 import io
 import json
@@ -54,6 +71,23 @@ K6_NEAR_TIE = 1e-4         # K6 may be off by one only this close to .5
 RESIZE_TOL = 1e-6          # K8 vs the reference's banded plan, 0-1 scale
 PARITY_LSB = 1.0           # mean |diff| vs the strict host path
 DECODE_LSB = 1.0           # staged decode-only, mean |diff| vs Pillow
+TRAIN_N, CROP, SIZE = 256, 192, 224
+AUGMENT = {"brightness_s": .2, "contrast_s": .2, "saturation_s": .2,
+           "cutout_size": 32}
+K10_TOL = 1e-6             # K10 vs its twin: the contrast mean's sum order
+ANCHOR_LSB = 1.0           # ingest vs the host anchor, mean, in 1/255
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12   # H100 SXM peaks, 700 W
+
+
+def bound(nbytes, flops=0):
+    """The least time for the work at the card's peaks: bytes moved
+    (each input read once, each output written once) over HBM, or FP32
+    FLOPs over the FFMA peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / FP32_FLOP_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(nbytes), bound_flops=int(flops))
 
 
 def phase(name, **kv):
@@ -111,8 +145,8 @@ def main():
                                          reset_launch_counts)
     from picha_tpu_torch.ops.jpeg import (
         dequant_idct_plane, dequant_idct_plane_plain, encode_blocks,
-        encode_blocks_plain, idct_samples, plane_geometry, upsample_color,
-        upsample_color_plain)
+        encode_blocks_plain, front_samples, full_fp32, idct_samples,
+        plane_geometry, upsample_color, upsample_color_plain)
     from picha_tpu_torch.ops.jpeg_fused import fused_decode_resize
     from picha_tpu_torch.ops.jpeg_huffman import (scan_encode,
                                                   scan_encode_plain)
@@ -123,6 +157,7 @@ def main():
     from picha_tpu_torch.ops.resize import (INV255, resize_axis,
                                             resize_axis_windowed_plain,
                                             resize_f32_plain)
+    from picha_tpu_torch.ops.resize_weights import resize_weights
     from picha_tpu_torch.pipeline import JpegBatchPipeline
     from picha_tpu_torch.pipeline.jpeg_batch import device_graph, signature
     from picha_tpu_torch.runtime import card_id
@@ -369,9 +404,77 @@ def main():
           width_out=list(xw_k.shape), height_out=list(xh_k.shape),
           note="ms: width + height pass, plain_ms: their windowed twins",
           **k8, **results["resize_axis"])
-    del ys_p, rgb_p, xw_p, xh_p, x01, banded
+    # bounds (this run's shapes) and the one-call PyTorch yardsticks: the
+    # (..., 64) @ kron product for K2's fDCT and K6's IDCT, dense
+    # torch.matmul resizes for K8; the other kernels have none
+    blk_elems = sum(b.numel() for b in blocks_k)
+    results["huffman_decode_restart"].update(
+        bound(wire.nbytes + coefs_k.numel() * 4), library_ms=None)
+    samples = torch.cat([smp.reshape(-1, 64) for smp in front_samples(f255)])
+    samples = samples.to(torch.float32) - 128.0
+    kron_t = consts.kron.t().contiguous()
+    with full_fp32():
+        k2_lib = timed(lambda: torch.matmul(samples, kron_t), 10)
+    results["jpeg_encode_front"].update(
+        bound(f255.numel() * 4 + blk_elems * 2, blk_elems * 128),
+        library_ms=k2_lib)
+    results["huffman_encode_scan"].update(
+        bound(blk_elems * 2 + int(nb_k.sum()) + nb_k.numel() * 4),
+        library_ms=None)
+    results["huffman_decode_chunked"].update(
+        bound(wire_nr.nbytes + coefs4.numel() * 4), library_ms=None)
+    results["dc_integrate"].update(
+        bound(x5.shape[0] * x5.shape[1] * 4 * 2), library_ms=None)
+    deq = torch.cat([(pl.to(torch.float32) * q.to(torch.float32)).reshape(
+        -1, 64) for pl, q in zip(planes, qtabs)])
+    with full_fp32():
+        k6_lib = timed(lambda: torch.matmul(deq, consts_s.kron), 10)
+    coef_elems = sum(pl.numel() for pl in planes)
+    results["idct_plane"].update(
+        bound(coef_elems * 4 + sum(y.numel() for y in ys_k),
+              coef_elems * 128), library_ms=k6_lib)
+    results["upsample_color"].update(
+        bound(sum(y.numel() for y in ys_k) + rgb_k.numel()), library_ms=None)
+    w_dense = torch.as_tensor(resize_weights(OUT_W, SRC_W, pipe_s._filter,
+                                             pipe_s._fscale), device=dev)
+    h_dense = torch.as_tensor(resize_weights(OUT_H, SRC_H, pipe_s._filter,
+                                             pipe_s._fscale), device=dev)
+    x01_rows = x01.view(N_IMG * SRC_H, SRC_W, 3)
+    xw_cols = xw_k.view(N_IMG, SRC_H, OUT_W * 3)
+    with full_fp32():
+        k8_lib = (timed(lambda: torch.matmul(w_dense, x01_rows), 5)
+                  + timed(lambda: torch.matmul(h_dense, xw_cols), 5))
+    results["resize_axis"].update(
+        bound(rgb_k.numel() + xw_k.numel() * 8 + xh_k.numel() * 4,
+              2 * (tw.shape[1] * xw_k.numel() + th.shape[1] * xh_k.numel())),
+        library_ms=k8_lib)
+    phase("bounds", card=card, note="bound_ms: max(bytes / 3.35 TB/s, "
+          "FP32 FLOPs / 67 TFLOP/s); library_ms: one PyTorch call for the "
+          "same function (K2, K6: the (..., 64) @ kron product; K8: dense "
+          "torch.matmul, width + height)",
+          **{k: {f: r[f] for f in ("bound_ms", "bound_by", "bound_bytes",
+                                   "bound_flops", "library_ms")}
+             for k, r in results.items()})
+    # the two ported graphs that stay plain torch: the fused decode+resize
+    # products (two contractions per component) and the split
+    fused_flops = sum(
+        2 * pl.shape[0] * pl.shape[1] * 8 * th_.shape[0] * pl.shape[2] * 8
+        + 2 * pl.shape[0] * tv_.shape[0] * th_.shape[0] * pl.shape[1] * 8
+        for pl, (th_, tv_) in zip(planes, consts.weights))
+    phase("plain_graphs", card=card,
+          fused_matmuls=dict(
+              launches=2 * len(planes),
+              ms=timed(lambda: fused_decode_resize(sig[3], sig[2], planes,
+                                                   qtabs, consts.weights), 5),
+              **bound(coef_elems * 4 + f255.numel() * 4, fused_flops)),
+          split=dict(
+              launches=len(planes),
+              ms=timed(lambda: split_planes(coefs_k, sig[3],
+                                            consts.split_idx), 10),
+              **bound(coefs_k.numel() * 4 * 2)))
+    del ys_p, rgb_p, xw_p, xh_p, x01, banded, samples, deq, x01_rows, xw_cols
     after = launch_counts()
-    if any(after[k] <= before[k] for k in KERNELS):
+    if any(after[k] <= before[k] for k in results):
         raise AssertionError(f"launch counts did not move: {after}")
 
     # 3. the slice end to end ----------------------------------------------
@@ -545,9 +648,9 @@ def main():
     one_ms = wall(lambda: pipe(corpus[:1]), 9)
 
     def device_loop(wire_buf, scan_ks, fused=True):
-        out, _ok = device_graph(sig, [wire_buf],
-                                consts if fused else consts_s,
-                                scan_ks=scan_ks, byte_cap=cap, fused=fused)
+        out, _ok = device_graph(sig, wire_buf,
+                                consts if fused else consts_s, scan_ks,
+                                byte_cap=cap, fused=fused)
         return out
 
     dev_ms = timed(lambda: device_loop(wire_dev, ks)[1].cpu(), 10)
@@ -651,23 +754,319 @@ def main():
               host_sum_ms=sum(host_ms.values()),
               device_sum_ms=sum(device_ms.values()))
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    # 6. the training ingest ------------------------------------------------
+    ingest_launches = training_phases(dev, card, results, phase, timed, wall)
+
+    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                 or m == "picha_tpu" or m.startswith("picha_tpu."))
+    if bad:
+        raise AssertionError(f"the port imported the reference: {bad}")
     # launches: each kernel's count in the run of the path it serves
     # (K1-K3: the restart slice; K4, K5: the no-restart slice; K6-K8:
     # the staged restart slice)
     path_launches = {**main_launches,
                      **{k: nr_launches[k] for k in chunked_path[:2]},
-                     **{k: s_launches[k] for k in staged_path[:3]}}
+                     **{k: s_launches[k] for k in staged_path[:3]},
+                     **{k: ingest_launches[k]
+                        for k in ("crop_flip_resize_w", "augment")}}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [dict(name=k.name, route="cuda", source=k.source,
                     replaces=k.replaces, launches=path_launches[k.name],
-                    **results[k.name]) for k in KERNELS.values()]
+                    **{f: results[k.name][f] for f in keys})
+               for k in KERNELS.values()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}), flush=True)
     return 0
+
+
+def training_phases(dev, card, results, phase, timed, wall):
+    """Phases 6 and 7: the training ingest at 256 x 1080p -> 224 (see the
+    module doc). Fills results for K9 and K10; returns the launch counts
+    of the main ingest step."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.ops.jpeg import _idct_kron, build_decode_stage
+    from picha_tpu_torch.ops.jpeg_huffman_decode import (
+        decode_scan, scan_wire, split_planes, wire_unpack)
+    from picha_tpu_torch.ops.jpeg_scan import mcu_slot_tables
+    from picha_tpu_torch.ops.resize import (
+        crop_flip_resize_w, crop_flip_resize_w_plain, resize_axis,
+        resize_axis_windowed_plain)
+    from picha_tpu_torch.ops.resize_weights import resize_weights
+    from picha_tpu_torch.ops.scan_batch import split_indices
+    from picha_tpu_torch.ops.jpeg import full_fp32
+    from picha_tpu_torch.pipeline import TrainingInput
+    from picha_tpu_torch.pipeline.augment import (augment_fused,
+                                                  augment_fused_plain)
+    from picha_tpu_torch.pipeline.jpeg_batch import signature
+
+    srcs_nr = [(FIXTURES / f"src_nr_{i}.jpg").read_bytes() for i in range(3)]
+    corpus = [srcs_nr[i % 3] for i in range(TRAIN_N)]
+    ingest_path = ("huffman_decode_chunked", "dc_integrate", "idct_plane",
+                   "upsample_color", "crop_flip_resize_w", "resize_axis",
+                   "augment")
+
+    def make(augment=AUGMENT, **kw):
+        kw = {"batch": TRAIN_N, "crop": CROP, "size": SIZE, "seed": 0,
+              "augment": augment, "device": dev, **kw}
+        return TrainingInput(kw.pop("items", corpus), **kw)
+
+    def step_of(ti):
+        """(epoch, pos, bufs) of the step `ti` has just taken."""
+        st = ti.state()
+        pos = st["pos"] - ti.batch
+        return st["epoch"], pos, [ti.items[i] for i in
+                                  ti._perm[pos:pos + ti.batch]]
+
+    def check_out(out, label, n=TRAIN_N):
+        if (tuple(out.shape) != (n, SIZE, SIZE, 3)
+                or out.dtype != torch.float32 or out.device != dev):
+            raise AssertionError(f"{label}: {tuple(out.shape)} {out.dtype} "
+                                 f"{out.device}")
+        lo, hi = float(out.min()), float(out.max())
+        if not (bool(torch.isfinite(out).all()) and lo >= 0.0 and hi <= 1.0):
+            raise AssertionError(f"{label}: range [{lo}, {hi}]")
+        return lo, hi
+
+    def chains(ti, epoch, pos, bufs):
+        """The step's decoded frames and draws, through the kernel chain
+        and through the plain chain: (k9, k9_plain, out, out_plain,
+        inputs)."""
+        groups, windows = ti.plan(epoch, pos, bufs)
+        if len(groups) != 1:
+            raise AssertionError(f"{len(groups)} signatures in the corpus")
+        rgb, ok = ti.decode(groups[0][2])
+        draws = groups[0][3]
+        if windows is not None:
+            xs = torch.as_tensor(windows[:, 0]).to(dev)
+            ys = torch.as_tensor(windows[:, 1]).to(dev)
+        else:
+            xs, ys = draws.xs.to(dev), draws.ys.to(dev)
+        flip = draws.flip.to(dev)
+        aug = None if draws.aug is None else draws.aug.to(dev)
+        (sw, tw), (sh, th) = ti._windows
+        k9 = crop_flip_resize_w(rgb, xs, ys, flip, CROP, sw, tw)
+        k9p = crop_flip_resize_w_plain(rgb, xs, ys, flip, CROP, sw, tw)
+        hk = resize_axis(k9, sh, th, -3)
+        hp = resize_axis_windowed_plain(k9p, sh, th, -3)
+        if aug is None:
+            outk, outp = hk.clamp(0.0, 1.0), hp.clamp(0.0, 1.0)
+        else:
+            outk = augment_fused(hk, aug, ti.augment)
+            outp = augment_fused_plain(hp, aug, ti.augment)
+        torch.cuda.synchronize()
+        if not bool(ok):
+            raise AssertionError("the decoder flagged the ingest corpus")
+        return k9, k9p, hk, outk, outp, (rgb, xs, ys, flip, aug, windows,
+                                         draws)
+
+    # the main ingest run: three steps with augment
+    ti = make()
+    steps, main_launches, step_ms = [], None, []
+    for k in range(3):
+        saved = ti.state()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = ti.__next__()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = launch_counts()
+        if k == 0:
+            main_launches = counts
+        if any(counts[name] == 0 for name in ingest_path) \
+                or counts["huffman_decode_restart"]:
+            raise AssertionError(f"ingest step {k} launches: {counts}")
+        if ti.scan_fallbacks:
+            raise AssertionError(f"ingest fallbacks: {ti.scan_fallbacks}")
+        lo, hi = check_out(out, f"ingest step {k}")
+        epoch, pos, bufs = step_of(ti)
+        k9, k9p, hk, outk, outp, inputs = chains(ti, epoch, pos, bufs)
+        if not torch.equal(k9, k9p):
+            raise AssertionError(f"step {k}: K9 differs from its plain twin")
+        err10 = float((outk - outp).abs().max())
+        if err10 > K10_TOL:
+            raise AssertionError(f"step {k}: K10 {err10} from its twin")
+        if not torch.equal(outk, out):
+            raise AssertionError(f"step {k}: the step differs from its "
+                                 f"chain rerun")
+        resumed = None
+        if k == 1:
+            resumed = torch.equal(make(state=saved).__next__(), out)
+            if not resumed:
+                raise AssertionError("step resumed from state() differs")
+        steps.append(dict(epoch=epoch, pos=pos, min=lo, max=hi,
+                          mean=float(out.mean()), k9_equal_plain=True,
+                          k10_max_abs_vs_plain=err10,
+                          resume_bit_equal=resumed, launches=counts))
+        if k == 0:
+            first = (k9, k9p, hk, outk, outp, inputs)
+        del out, k9, k9p, hk, outk, outp, inputs
+    phase("training", card=card, images=TRAIN_N, crop=CROP, size=SIZE,
+          augment=AUGMENT, steps=steps, step_ms=step_ms,
+          scan_fallbacks=ti.scan_fallbacks)
+
+    # K9 and K10 against their plain versions at the slice's shape
+    k9, k9p, hk, outk, outp, (rgb, xs, ys, flip, aug, _w, _d) = first
+    (sw, tw), (sh, th) = ti._windows
+    results["crop_flip_resize_w"] = dict(
+        max_abs_err=float((k9 - k9p).abs().max()),
+        ms=timed(lambda: crop_flip_resize_w(rgb, xs, ys, flip, CROP, sw,
+                                            tw), 10),
+        plain_ms=timed(lambda: crop_flip_resize_w_plain(
+            rgb, xs, ys, flip, CROP, sw, tw), 3),
+        library_ms=None,
+        **bound(TRAIN_N * CROP * CROP * 3 + k9.numel() * 4,
+                2 * tw.shape[1] * k9.numel()))
+    phase("K9", card=card, equal=True, shape=list(k9.shape),
+          source_frames=list(rgb.shape), taps=tw.shape[1],
+          **results["crop_flip_resize_w"])
+    results["augment"] = dict(
+        max_abs_err=float((outk - outp).abs().max()),
+        ms=timed(lambda: augment_fused(hk, aug, AUGMENT), 10),
+        plain_ms=timed(lambda: augment_fused_plain(hk, aug, AUGMENT), 3),
+        library_ms=None, **bound(hk.numel() * 4 * 2, hk.numel() * 12))
+    phase("K10", card=card, limit=K10_TOL, shape=list(outk.shape),
+          deterministic=torch.equal(outk, augment_fused(hk, aug, AUGMENT)),
+          note="bound: one read and one write of the batch; the kernel "
+               "reads it twice (the contrast mean, then the chain)",
+          **results["augment"])
+    h_dense = torch.as_tensor(resize_weights(SIZE, CROP, ti.filter,
+                                             ti.fscale), device=dev)
+    k9_cols = k9.view(TRAIN_N, CROP, SIZE * 3)
+    with full_fp32():
+        k8h_lib = timed(lambda: torch.matmul(h_dense, k9_cols), 10)
+    k8h = dict(ms=timed(lambda: resize_axis(k9, sh, th, -3), 10),
+               plain_ms=timed(lambda: resize_axis_windowed_plain(
+                   k9, sh, th, -3), 3),
+               library_ms=k8h_lib,
+               **bound(k9.numel() * 4 + hk.numel() * 4,
+                       2 * th.shape[1] * hk.numel()))
+    phase("K8_height_ingest", card=card, shape=list(hk.shape),
+          note="library_ms: dense torch.matmul (224 x 192 weights)", **k8h)
+    del first, k9, k9p, hk, outk, outp, rgb, k9_cols
+
+    # a step without augment, held to a host anchor
+    ti_a = make(augment=None, seed=1)
+    reset_launch_counts()
+    out = ti_a.__next__()
+    torch.cuda.synchronize()
+    a_counts = launch_counts()
+    if a_counts["augment"] or any(a_counts[name] == 0
+                                  for name in ingest_path[:-1]):
+        raise AssertionError(f"anchor step launches: {a_counts}")
+    check_out(out, "anchor step")
+    epoch, pos, bufs = step_of(ti_a)
+    groups, windows = ti_a.plan(epoch, pos, bufs)
+    flips = groups[0][3].flip
+    win_cpu = tuple(tuple(t.cpu() for t in w) for w in ti_a._windows)
+    anchor = []
+    for i in range(4):
+        img = np.asarray(Image.open(io.BytesIO(bufs[i])).convert("RGB"))
+        x, y = int(windows[i, 0]), int(windows[i, 1])
+        crop = img[y:y + CROP, x:x + CROP]
+        if bool(flips[i]):
+            crop = crop[:, ::-1]
+        t = torch.from_numpy(np.ascontiguousarray(crop))[None]
+        (sw_c, tw_c), (sh_c, th_c) = win_cpu
+        ref = resize_axis_windowed_plain(
+            resize_axis_windowed_plain(t, sw_c, tw_c, -2), sh_c, th_c,
+            -3).clamp(0.0, 1.0)[0]
+        anchor.append(float((out[i].cpu() - ref).abs().mean()) * 255)
+    if max(anchor) > ANCHOR_LSB:
+        raise AssertionError(f"ingest vs host anchor: {anchor} (1/255)")
+    phase("training_anchor", card=card, images=4,
+          lsb_vs_host_mean=anchor, limit_lsb=ANCHOR_LSB, launches=a_counts,
+          flips=[bool(f) for f in flips[:4]],
+          windows=windows[:4].tolist())
+    del out
+
+    # pre_crop=False: offsets from the port's generator, 16 images
+    ti_p = make(items=corpus[:16], batch=16, pre_crop=False)
+    out = ti_p.__next__()
+    check_out(out, "pre_crop=False", n=16)
+    epoch, pos, bufs = step_of(ti_p)
+    _k9, _k9p, _hk, outk, outp, _in = chains(ti_p, epoch, pos, bufs)
+    err_p = float((outk - outp).abs().max())
+    if not torch.equal(outk, out) or err_p > K10_TOL \
+            or ti_p.scan_fallbacks:
+        raise AssertionError(f"pre_crop=False: {err_p}, fallbacks "
+                             f"{ti_p.scan_fallbacks}")
+    phase("training_no_pre_crop", card=card, images=16,
+          max_abs_vs_plain=err_p,
+          scan_fallbacks=ti_p.scan_fallbacks)
+    del out, _k9, _k9p, _hk, outk, outp, _in
+
+    # 7. where one ingest step's time goes
+    kron = torch.as_tensor(_idct_kron()).to(dev)
+
+    def stages_once(ti, epoch):
+        """The stages of epoch `epoch`'s first step, one by one."""
+        perm = np.random.default_rng((ti.seed, epoch)).permutation(TRAIN_N)
+        bufs = [ti.items[i] for i in perm]
+        host, t = {}, time.perf_counter()
+        groups, windows = ti.plan(epoch, 0, bufs)
+        host["parse_and_draws"], t = ((time.perf_counter() - t) * 1e3,
+                                      time.perf_counter())
+        sig, _idxs, items, draws = groups[0]
+        ks, wire = scan_wire(items)
+        host["wire"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
+        buf = torch.from_numpy(wire).pin_memory().to(dev, non_blocking=True)
+        xs = torch.as_tensor(windows[:, 0]).to(dev)
+        ys = torch.as_tensor(windows[:, 1]).to(dev)
+        flip, aug = draws.flip.to(dev), draws.aug.to(dev)
+        torch.cuda.synchronize()
+        host["upload"] = (time.perf_counter() - t) * 1e3
+        comp_of = torch.as_tensor(mcu_slot_tables(sig[3])).to(dev,
+                                                               torch.int32)
+        split_idx = [torch.as_tensor(i).to(dev, torch.int64)
+                     for i in split_indices(sig[3])]
+        names = ["decode_K4_K5_split", "K6_K7", "K9", "K8_height", "K10"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        dargs, qt = wire_unpack(buf, ks, len(sig[3]))
+        coefs, ok = decode_scan(dargs, ks, comp_of)
+        planes = split_planes(coefs, sig[3], split_idx)
+        ev[1].record()
+        rgb = build_decode_stage(sig[3], sig[2], sig[0], sig[1],
+                                 force_rgb=True)(planes, qt, kron)
+        ev[2].record()
+        f = crop_flip_resize_w(rgb, xs, ys, flip, CROP, sw, tw)
+        ev[3].record()
+        f = resize_axis(f, sh, th, -3)
+        ev[4].record()
+        f = augment_fused(f, aug, AUGMENT)
+        ev[5].record()
+        torch.cuda.synchronize()
+        if not bool(ok):
+            raise AssertionError("stage run flagged")
+        return host, {n: ev[i].elapsed_time(ev[i + 1])
+                      for i, n in enumerate(names)}
+
+    ti_t = make()
+    runs = [stages_once(ti_t, epoch) for epoch in range(4)][1:]
+    host_ms = {k: sorted(r[0][k] for r in runs)[len(runs) // 2]
+               for k in runs[0][0]}
+    device_ms = {k: sorted(r[1][k] for r in runs)[len(runs) // 2]
+                 for k in runs[0][1]}
+    torch.cuda.reset_peak_memory_stats(dev)
+    ti_m = make()
+    step = wall(ti_m.__next__, 3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    phase("timing_training", card=card, images=TRAIN_N,
+          ms_per_step=step, images_per_s=TRAIN_N / step * 1e3,
+          host_ms=host_ms, device_ms=device_ms,
+          host_sum_ms=sum(host_ms.values()),
+          device_sum_ms=sum(device_ms.values()),
+          idle_share=1.0 - sum(device_ms.values()) / step,
+          peak_device_bytes=peak, peak_device_gb=peak / 1e9)
+    return main_launches
 
 
 if __name__ == "__main__":

@@ -45,6 +45,9 @@ SIGNATURES = {
     "picha_idct_plane": [P, I, P, P, I, I, I, I, I, P, P],
     "picha_upsample_color": [P, P, P, P, *[I] * 16, I, I, I, I, I, P, P],
     "picha_resize_axis": [P, I, L, I, I, L, P, P, I, F, F, P, P],
+    "picha_crop_flip_resize_w": [P, I, I, I, I, P, P, P, I, P, P, I, I, F,
+                                 P, P],
+    "picha_augment": [P, I, I, I, P, P, P, P, P, P, I, F, I, F, F, F, P, P],
 }
 
 _lock = threading.Lock()
@@ -162,6 +165,13 @@ KERNELS = {
         Kernel("resize_axis", "picha_resize_axis",
                "picha_tpu_torch/csrc/resize_axis.cu",
                "picha_tpu/ops/resize.py:296 (and resize_f32 :330)"),
+        Kernel("crop_flip_resize_w", "picha_crop_flip_resize_w",
+               "picha_tpu_torch/csrc/crop_resize.cu",
+               "picha_tpu/pipeline/training.py:64 (crop, flip, unpack and "
+               "the width pass of resize_f32, :64-70)"),
+        Kernel("augment", "picha_augment", "picha_tpu_torch/csrc/augment.cu",
+               "picha_tpu/pipeline/augment.py:105 (with :42-89, and the "
+               "clip of training.py:70)"),
     )
 }
 

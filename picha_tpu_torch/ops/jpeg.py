@@ -17,19 +17,133 @@ launching its kernel for CUDA tensors (or raising):
   `upsample_color`      K7 `csrc/jpeg_upsample_color.cu`
   `encode_blocks`       K2 `csrc/jpeg_encode_front.cu`
 The quantisation tables (`quality_tables`) and the 64x64 Kronecker DCT
-(`_idct_kron`) are the reference's numpy constants, uploaded once per
-configuration by the caller.
+(`_idct_kron`) are numpy constants (the port's copies of the
+reference's, pinned by `tests/test_torch_host_copies.py`), uploaded once
+per configuration by the caller. `full_fp32` keeps every float32 matmul
+of the port in IEEE float32.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import math
+
+import numpy as np
 import torch
 
-from picha_tpu.ops.jpeg_tpu import (CS_CMYK, CS_GRAYSCALE, CS_RGB, CS_YCBCR,
-                                    CS_YCCK, FIX, _ONE_HALF,
-                                    _plane_geometry, check_integer_sampling)
-
+from ..errors import CodecError
 from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
-from .jpeg_fused import full_fp32, pack_u8
+
+# JPEG colour spaces (libjpeg J_COLOR_SPACE numbering)
+CS_GRAYSCALE, CS_RGB, CS_YCBCR, CS_CMYK, CS_YCCK = 1, 2, 3, 4, 5
+
+
+def FIX(x):
+    """libjpeg's 16-bit fixed-point constant."""
+    return int(x * 65536 + 0.5)
+
+
+_ONE_HALF = 32768
+
+
+def idct_matrix() -> np.ndarray:
+    """A[u, x] = C(u)/2 * cos((2x+1) u pi / 16); IDCT: P = A^T B A."""
+    A = np.zeros((8, 8), dtype=np.float64)
+    for u in range(8):
+        cu = math.sqrt(0.5) if u == 0 else 1.0
+        for x in range(8):
+            A[u, x] = 0.5 * cu * math.cos((2 * x + 1) * u * math.pi / 16)
+    return A.astype(np.float32)
+
+
+_IDCT_A = idct_matrix()
+
+
+@functools.lru_cache(maxsize=1)
+def _idct_kron() -> np.ndarray:
+    """(64, 64) Kronecker IDCT: pixel_flat = coef_flat @ M with
+    M[(v,u),(y,x)] = A[v,y] * A[u,x]."""
+    a = _IDCT_A.astype(np.float64)
+    m = np.einsum("vy,ux->vuyx", a, a).reshape(64, 64)
+    return m.astype(np.float32)
+
+
+def check_integer_sampling(comp_sig):
+    """Raise CodecError for fractional upsampling ratios, as libjpeg's
+    pixel path does ('fractional sampling not implemented')."""
+    max_h = max(s[2] for s in comp_sig)
+    max_v = max(s[3] for s in comp_sig)
+    for _, _, hs, vs in comp_sig:
+        if max_h % hs or max_v % vs:
+            raise CodecError("fractional sampling not implemented")
+
+
+def _plane_geometry(width, height, h_samp, v_samp, max_h, max_v):
+    """(dw, dh): a component's cropped plane at its sampling."""
+    return (math.ceil(width * h_samp / max_h),
+            math.ceil(height * v_samp / max_v))
+
+
+# IJG standard base tables (natural order), jcparam.c
+_STD_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61,
+    12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77,
+    24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101,
+    72, 92, 95, 98, 112, 100, 103, 99], dtype=np.int32)
+_STD_CHROMA_Q = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99,
+    18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99,
+    47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99], dtype=np.int32)
+
+
+def quality_tables(quality: int):
+    """jpeg_set_quality / jpeg_quality_scaling (jcparam.c) with
+    force_baseline: (luma, chroma) (64,) uint16, natural order."""
+    quality = min(100, max(1, quality))
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+
+    def scale_tab(base):
+        t = (base * scale + 50) // 100
+        return np.clip(t, 1, 255).astype(np.uint16)
+
+    return scale_tab(_STD_LUMA_Q), scale_tab(_STD_CHROMA_Q)
+
+
+_FP32_BACKENDS = (torch.backends.cuda.matmul, torch.backends.cudnn.conv,
+                  torch.backends.mkldnn.matmul)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """IEEE float32 matmuls and convolutions (cuBLAS, cuDNN, oneDNN)
+    inside the block, whatever `torch.set_float32_matmul_precision` or
+    the `allow_tf32` flags say outside; the previous per-backend
+    settings are restored exactly. (Only the per-backend
+    `fp32_precision` API is touched: writing the legacy flags back after
+    a global precision change leaves torch in a "mixed" state whose
+    legacy getter raises.)"""
+    prev = [b.fp32_precision for b in _FP32_BACKENDS]
+    for b in _FP32_BACKENDS:
+        b.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for b, p in zip(_FP32_BACKENDS, prev):
+            b.fp32_precision = p
+
+
+def pack_u8(f255):
+    """The pipeline's pack rule floor(clip(v + 0.5, 0, 255)) -> uint8."""
+    return torch.floor((f255 + 0.5).clamp(0.0, 255.0)).to(torch.uint8)
 
 
 def _cdiv(a, b):

@@ -3,8 +3,10 @@ matmuls per component.
 
 Counterpart of `picha_tpu/ops/jpeg_fused.py` (`fused_component`,
 `fused_decode_resize`). The folded per-axis weights (resize o upsample
-o IDCT, `component_weights`) are the reference's own numpy arrays,
-converted to device tensors once per signature by the caller
+o IDCT, `component_weights`) are built here in numpy, as the port's copy
+of the reference's weight functions (`upsample_matrix`, `component_weights`;
+pinned by `tests/test_torch_host_copies.py`), and converted to device
+tensors once per signature by the caller
 (`pipeline.jpeg_batch.device_constants`):
 
     tmp[n,bh,v,ox] = sum_{bw,u} coefq[n,bh,bw,v,u] * Th[ox,bw,u]
@@ -17,35 +19,63 @@ off for the call whatever the process set globally, and restores it.
 """
 from __future__ import annotations
 
-import contextlib
+import functools
 
+import numpy as np
 import torch
 
-from picha_tpu.ops.jpeg_tpu import (CS_CMYK, CS_GRAYSCALE, CS_RGB, CS_YCBCR,
-                                    CS_YCCK, check_integer_sampling)
+from .jpeg import (_IDCT_A, CS_CMYK, CS_GRAYSCALE, CS_RGB, CS_YCBCR, CS_YCCK,
+                   check_integer_sampling, full_fp32)
+from .resize_weights import resize_weights
 
 
-_FP32_BACKENDS = (torch.backends.cuda.matmul, torch.backends.cudnn.conv,
-                  torch.backends.mkldnn.matmul)
+def upsample_matrix(factor: int, n_out: int, n_in: int,
+                    fancy: bool = True) -> np.ndarray:
+    """(n_out, n_in) linear operator of libjpeg's upsampler: triangle
+    ("fancy") weights for 2x when `fancy`, replication otherwise;
+    edge-replicated."""
+    U = np.zeros((n_out, n_in), dtype=np.float32)
+    if factor == 1:
+        for i in range(n_out):
+            U[i, min(i, n_in - 1)] = 1.0
+        return U
+    if factor == 2 and fancy:
+        for o in range(n_out):
+            i = o // 2
+            if o % 2 == 0:
+                far = max(i - 1, 0)
+            else:
+                far = min(i + 1, n_in - 1)
+            U[o, min(i, n_in - 1)] += 0.75
+            U[o, far] += 0.25
+        return U
+    for o in range(n_out):
+        U[o, min(o // factor, n_in - 1)] = 1.0
+    return U
 
 
-@contextlib.contextmanager
-def full_fp32():
-    """IEEE float32 matmuls and convolutions (cuBLAS, cuDNN, oneDNN)
-    inside the block, whatever `torch.set_float32_matmul_precision` or
-    the `allow_tf32` flags say outside; the previous per-backend
-    settings are restored exactly. (Only the per-backend
-    `fp32_precision` API is touched: writing the legacy flags back after
-    a global precision change leaves torch in a "mixed" state whose
-    legacy getter raises.)"""
-    prev = [b.fp32_precision for b in _FP32_BACKENDS]
-    for b in _FP32_BACKENDS:
-        b.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        for b, p in zip(_FP32_BACKENDS, prev):
-            b.fp32_precision = p
+IDENTITY = "__identity__"  # decode-only: no resampling, W = I
+
+
+@functools.lru_cache(maxsize=64)
+def component_weights(dst_size: int, full_size: int, comp_size: int,
+                      factor: int, filter_name: str, fscale: float,
+                      fancy: bool = True):
+    """(dst_size, blocks, 8) float32: resize o upsample o IDCT folded."""
+    if filter_name == IDENTITY:
+        W = np.eye(dst_size, full_size, dtype=np.float32)
+    else:
+        W = resize_weights(dst_size, full_size, filter_name, fscale)
+    if factor != 1 or comp_size != full_size:
+        U = upsample_matrix(factor, full_size, comp_size, fancy)
+        W = W @ U  # (dst, comp_size)
+    # zero-pad to the block grid
+    blocks = -(-comp_size // 8)
+    Wp = np.zeros((dst_size, blocks * 8), dtype=np.float32)
+    Wp[:, :comp_size] = W[:, :comp_size]
+    Wb = Wp.reshape(dst_size, blocks, 8)
+    # fold the IDCT basis: T[o, b, u] = sum_x Wb[o, b, x] * A[u, x]
+    return np.einsum("obx,ux->obu", Wb, _IDCT_A).astype(np.float32)
 
 
 def fused_component(coefs, qtable, th, tv):
@@ -102,8 +132,3 @@ def fused_decode_resize(comp_sig, color_space, coefs, qtabs, weights):
         return (cmy.clamp(0.0, 255.0) * k.clamp(0.0, 255.0)[..., None]
                 * (1.0 / 255.0)) - 0.5
     raise ValueError(f"unsupported colour space {color_space}")
-
-
-def pack_u8(f255):
-    """The pipeline's pack rule floor(clip(v + 0.5, 0, 255)) -> uint8."""
-    return torch.floor((f255 + 0.5).clamp(0.0, 255.0)).to(torch.uint8)

@@ -6,8 +6,9 @@ Counterpart of `picha_tpu/ops/jpeg_huffman_tpu.py`:
 `csrc/huffman_encode_scan.cu`, for CUDA tensors; `scan_encode_plain`
 for CPU tensors), `std_huffman_tables` -> `ANNEX_K`, `jpeg_header` ->
 `jpeg_header`. The block layout (`_mcu_layout`), the per-symbol code
-arrays (`_code_arrays`), the DQT writer and `assemble` are the
-reference's own.
+arrays (`_code_arrays`), the DQT writer (`_dqt`) and `assemble` are the
+port's copies of the reference's, pinned by
+`tests/test_torch_host_copies.py`.
 
 The reference parses the standard tables out of a libjpeg-written DHT
 at run time. This package holds them as a constant (JPEG Annex K,
@@ -22,11 +23,74 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from picha_tpu.ops.jpeg_huffman_tpu import _code_arrays, _dqt
-from picha_tpu.ops.jpeg_scan import ZIGZAG
-from picha_tpu.ops.jpeg_tpu import quality_tables
-
 from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
+from .jpeg import quality_tables
+from .jpeg_scan import ZIGZAG
+
+
+def _code_arrays(bits, vals, nsyms):
+    """(bits, vals) -> (code, length) arrays indexed by symbol."""
+    code = np.zeros(nsyms, np.int32)
+    length = np.zeros(nsyms, np.int32)
+    c = 0
+    for ln in range(1, 17):
+        for v in vals[sum(bits[: ln - 1]) : sum(bits[:ln])]:
+            code[v] = c
+            length[v] = ln
+            c += 1
+        c <<= 1
+    return code, length
+
+
+def _mcu_layout(comp_sig):
+    """Block order of an interleaved baseline scan. comp_sig: ((bh, bw,
+    h_samp, v_samp), ...). Returns (gather_idx (nblk,) into the flat
+    concat of the component grids, dummy_mask (nblk,) bool for blocks
+    past a grid (AC zeroed), table_id (nblk,) 0 luma / 1 chroma,
+    prev_idx (nblk,) the previous real block of the same component, -1
+    for each component's first; dummies emit DC diff 0, so the DC chain
+    passes through them)."""
+    bh0, bw0 = comp_sig[0][0], comp_sig[0][1]
+    mcu_y = -(-bh0 // comp_sig[0][3])
+    mcu_x = -(-bw0 // comp_sig[0][2])
+    bases = np.cumsum([0] + [c[0] * c[1] for c in comp_sig])[:-1]
+    idx, dummy, tid, comp_of = [], [], [], []
+    for r in range(mcu_y):
+        for c in range(mcu_x):
+            for ci, (bh, bw, hs, vs) in enumerate(comp_sig):
+                for dy in range(vs):
+                    for dx in range(hs):
+                        row, col = r * vs + dy, c * hs + dx
+                        dum = row >= bh or col >= bw
+                        row, col = min(row, bh - 1), min(col, bw - 1)
+                        idx.append(bases[ci] + row * bw + col)
+                        dummy.append(dum)
+                        tid.append(0 if ci == 0 else 1)
+                        comp_of.append(ci)
+    idx = np.array(idx, np.int32)
+    dummy = np.array(dummy, bool)
+    tid = np.array(tid, np.int32)
+    prev = np.full(len(idx), -1, np.int32)
+    last = {}
+    for j, ci in enumerate(comp_of):
+        if ci in last:
+            prev[j] = last[ci]
+        if not dummy[j]:
+            last[ci] = j
+    return idx, dummy, tid, prev
+
+
+def _dqt(qtab, tid):
+    return struct.pack(">HHB", 0xFFDB, 67, tid) + bytes(
+        int(qtab[z]) & 0xFF for z in ZIGZAG)
+
+
+def assemble(header: bytes, scan: np.ndarray, nbytes: int) -> bytes:
+    """Header + the scan's first nbytes + EOI."""
+    if nbytes > scan.size:
+        raise OverflowError(
+            f"Huffman scan overflowed its {scan.size}-byte buffer")
+    return header + scan[:nbytes].tobytes() + b"\xff\xd9"
 
 
 def _table(bits_hex: str, vals_hex: str):

@@ -4,7 +4,7 @@ Counterpart of `picha_tpu/ops/jpeg_huffman_decode_tpu.py`:
 `build_wire_unpack` -> `wire_unpack`, `build_decoder_core` ->
 `decode_scan`, `split_planes` -> `split_planes`. The host side
 (`ScanBatch`: segment geometry, deduplicated tables, the coalesced
-wire) is the reference's own, reused unchanged behind `scan_wire`.
+wire) is the port's copy in `ops/scan_batch.py`, behind `scan_wire`.
 
 `decode_scan` dispatches on the batch's mode (`ScanBatch.single_pass`):
 - restart single-pass (one lane per restart segment, exact entries):
@@ -25,10 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from picha_tpu.ops.jpeg_huffman_decode_tpu import MAX_PASSES, ScanBatch
-from picha_tpu.ops.jpeg_scan import ZIGZAG
-
 from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
+from .jpeg_scan import ZIGZAG
+from .scan_batch import MAX_PASSES, ScanBatch
 
 
 class DecoderArgs(NamedTuple):
@@ -457,8 +456,7 @@ def dc_integrate(out: torch.Tensor, comp_of: torch.Tensor,
 def split_planes(out: torch.Tensor, comp_sig, split_idx):
     """(N, mcus*B, 64) scan-order blocks -> tuple of (N, bh, bw, 64)
     per-component planes. `split_idx`: per-component int64 index
-    tensors from `picha_tpu.ops.jpeg_huffman_decode_tpu.split_indices`,
-    on `out`'s device."""
+    tensors from `scan_batch.split_indices`, on `out`'s device."""
     n_img = out.shape[0]
     return tuple(
         out.index_select(1, idx).view(n_img, comp_sig[ci][0],

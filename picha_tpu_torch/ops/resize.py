@@ -1,9 +1,10 @@
 """Separable image resize on the device.
 
 Counterpart of `picha_tpu/ops/resize.py` (`_apply_axis`, `resize_f32`).
-The weights come from the reference's own numpy functions (`resize_weights`,
-`banded_resize_plan`, `resize_windows`), so the taps are the reference's
-float32 values; the caller uploads them once per configuration.
+The weights come from `ops/resize_weights.py` (`resize_weights`,
+`banded_resize_plan`, `resize_windows`: the port's copies of the
+reference's weight functions), so the taps are the reference's float32 values;
+the caller uploads them once per configuration.
 
   `resize_f32_plain`            the reference's semantics: per axis a
                                 dense einsum at a source <= 512, the
@@ -17,6 +18,12 @@ float32 values; the caller uploads them once per configuration.
   `resize_windowed`             width pass, then height pass, through
                                 `resize_axis`
   `resize_f32`                  the same with the windows built here
+  `crop_flip_resize_w`          the training ingest's per-image crop,
+                                horizontal flip and width pass: K9
+                                (`csrc/crop_resize.cu`) for CUDA
+                                tensors, `crop_flip_resize_w_plain` (the
+                                flipped crop gathered, then K8's twin)
+                                for CPU tensors
 
 Tensors are (N, H, W, C); the width axis is -2 and the height axis -3,
 as in the reference. A uint8 input is unpacked as v * f32(1/255) before
@@ -27,11 +34,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from picha_tpu.ops.resize import (BANDED_THRESHOLD, banded_resize_plan,
-                                  resize_weights, resize_windows)
-
 from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
-from .jpeg_fused import full_fp32
+from .jpeg import full_fp32
+from .resize_weights import (BANDED_THRESHOLD, banded_resize_plan,
+                             resize_weights, resize_windows)
 
 INV255 = float(np.float32(1.0 / 255.0))
 
@@ -119,6 +125,73 @@ def resize_axis(x, starts, taps, axis, out_scale=1.0):
     KERNELS["resize_axis"](ptr(x), x.element_size(), outer, src, dst, inner,
                            ptr(starts), ptr(taps), k, in_scale, out_scale,
                            ptr(out), stream_of(x))
+    return out
+
+
+def flipped_crops(rgb, xs, ys, flip, crop):
+    """(N, H, W, C) images -> (N, crop, crop, C) crops at per-image
+    corners (xs, ys), mirrored left-right where `flip`: column c of a
+    crop is source column xs + (crop - 1 - c) when flipped, else xs + c.
+    Corners are clamped into the frame, as the reference's
+    `lax.dynamic_slice` clamps them."""
+    n, h, w = rgb.shape[0], rgb.shape[1], rgb.shape[2]
+    dev = rgb.device
+    ar = torch.arange(crop, device=dev)
+    x0 = xs.to(device=dev, dtype=torch.int64).clamp(0, w - crop)[:, None]
+    y0 = ys.to(device=dev, dtype=torch.int64).clamp(0, h - crop)[:, None]
+    fl = flip.to(device=dev, dtype=torch.bool)[:, None]
+    cols = torch.where(fl, x0 + (crop - 1 - ar), x0 + ar)       # (N, crop)
+    rows = y0 + ar                                              # (N, crop)
+    img = torch.arange(n, device=dev)[:, None, None]
+    return rgb[img, rows[:, :, None], cols[:, None, :]]
+
+
+def crop_flip_resize_w_plain(rgb, xs, ys, flip, crop, starts, taps):
+    """Plain torch version of K9: the flipped crops (`flipped_crops`),
+    then K8's windowed twin on their width axis -> (N, crop, dst, C)
+    float32 (uint8 unpacked as v * f32(1/255) before any tap)."""
+    return resize_axis_windowed_plain(flipped_crops(rgb, xs, ys, flip, crop),
+                                      starts, taps, -2)
+
+
+def crop_flip_resize_w(rgb, xs, ys, flip, crop, starts, taps):
+    """Per-image crop at (xs, ys) (clamped into the frame), optional
+    left-right flip, and the width pass of the resize with per-output
+    windows (`resize_windows(dst, crop, ...)` as device tensors): (N, H,
+    W, C) uint8 -> (N, crop, dst, C) float32 on the 0-1 scale. xs, ys
+    (N,) int32, flip (N,) bool, all on rgb's device. Launches K9 for
+    CUDA tensors; the plain version runs only for CPU tensors. Equals
+    `resize_axis` (K8) on the flipped crops bit for bit."""
+    if rgb.device.type == "cpu":
+        return crop_flip_resize_w_plain(rgb, xs, ys, flip, crop, starts,
+                                        taps)
+    require_cuda(rgb, "K9")
+    dev = rgb.device
+    if rgb.dtype != torch.uint8 or rgb.dim() != 4:
+        raise TypeError("K9 takes an (N, H, W, C) uint8 tensor")
+    n, h, w, c = rgb.shape
+    if not 0 < crop <= min(h, w):
+        raise ValueError(f"K9: crop {crop} outside the {h}x{w} frame")
+    dst, k = taps.shape
+    if starts.dtype != torch.int32 or taps.dtype != torch.float32 \
+            or tuple(starts.shape) != (dst,) or k > crop:
+        raise TypeError("K9 takes (dst,) int32 starts and (dst, k <= crop) "
+                        "float32 taps")
+    for t, dt in ((xs, torch.int32), (ys, torch.int32), (flip, torch.bool),
+                  (starts, torch.int32), (taps, torch.float32)):
+        if t.device != dev or t.dtype != dt:
+            raise TypeError("K9 takes int32 xs/ys, bool flip, int32 starts "
+                            "and float32 taps on the image's device")
+        if t is xs or t is ys or t is flip:
+            if tuple(t.shape) != (n,):
+                raise TypeError("K9 takes one xs, ys and flip per image")
+    rgb, xs, ys = rgb.contiguous(), xs.contiguous(), ys.contiguous()
+    flip, starts, taps = flip.contiguous(), starts.contiguous(), \
+        taps.contiguous()
+    out = torch.empty((n, crop, dst, c), dtype=torch.float32, device=dev)
+    KERNELS["crop_flip_resize_w"](
+        ptr(rgb), n, h, w, c, ptr(xs), ptr(ys), ptr(flip), crop, ptr(starts),
+        ptr(taps), dst, k, INV255, ptr(out), stream_of(rgb))
     return out
 
 

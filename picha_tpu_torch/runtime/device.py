@@ -9,7 +9,17 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
+
+
+def upload(arr, device: torch.device) -> torch.Tensor:
+    """A host numpy array -> a tensor on `device`: through pinned memory
+    and asynchronous on CUDA, the array's own memory on the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -19,8 +19,8 @@ from torch_helpers import DECODE_CASES, synthetic_decode_case
 from picha_tpu.native import lib as native
 from picha_tpu.ops import jpeg_tpu as ref
 from picha_tpu.ops.jpeg_tpu import CS_CMYK, CS_YCBCR, CS_YCCK, _idct_kron
+from picha_tpu.pipeline.jpeg_batch import signature
 from picha_tpu_torch.ops import jpeg as port
-from picha_tpu_torch.pipeline.jpeg_batch import signature
 
 NEAR_TIE = 1e-4
 KRON = torch.as_tensor(_idct_kron())
@@ -132,7 +132,7 @@ def test_colour_helpers_match_reference(fn):
 
 
 def test_fractional_sampling_raises():
-    from picha_tpu.errors import CodecError
+    from picha_tpu_torch.errors import CodecError
 
     with pytest.raises(CodecError):
         port.build_decode_stage(((2, 3, 3, 1), (2, 2, 2, 1)), CS_YCBCR,

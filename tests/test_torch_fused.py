@@ -13,8 +13,10 @@ from torch_helpers import smooth_rgb
 from picha_tpu.native import lib as native
 from picha_tpu.ops.jpeg_fused import fused_decode_resize as ref_fused
 from picha_tpu.ops.resize import parse_resize_options
-from picha_tpu_torch.ops.jpeg_fused import fused_decode_resize, pack_u8
-from picha_tpu_torch.pipeline.jpeg_batch import device_constants, signature
+from picha_tpu.pipeline.jpeg_batch import signature
+from picha_tpu_torch.ops.jpeg import pack_u8
+from picha_tpu_torch.ops.jpeg_fused import fused_decode_resize
+from picha_tpu_torch.pipeline.jpeg_batch import device_constants
 
 TOL = 2e-3
 

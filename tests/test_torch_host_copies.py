@@ -1,0 +1,272 @@
+"""The port's own copies of the reference's host code (header parse,
+scan wire, decode tables, resize weights, fused folds, quantisation
+tables, scan layout) against their originals in picha_tpu on the same
+inputs, and the rule that the port imports nothing of picha_tpu or jax."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from torch_helpers import PORT_FIXTURES, noisy, pil_jpeg
+
+from picha_tpu.ops import jpeg_fused as ref_fused
+from picha_tpu.ops import jpeg_huffman_decode_tpu as ref_dec
+from picha_tpu.ops import jpeg_huffman_tpu as ref_huff
+from picha_tpu.ops import jpeg_scan as ref_scan
+from picha_tpu.ops import jpeg_tpu as ref_jpeg
+from picha_tpu.ops import resize as ref_resize
+from picha_tpu_torch.ops import jpeg as port_jpeg
+from picha_tpu_torch.ops import jpeg_fused as port_fused
+from picha_tpu_torch.ops import jpeg_huffman as port_huff
+from picha_tpu_torch.ops import jpeg_scan as port_scan
+from picha_tpu_torch.ops import resize_weights as port_resize
+from picha_tpu_torch.ops import scan_batch as port_sb
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILTERS = sorted(ref_resize.FILTERS)
+
+
+def _stream(kind):
+    """JPEG bytes of one kind: the 1080p fixtures (restart-8, no restart)
+    or small Pillow encodes of each sampling mode."""
+    if kind == "restart":
+        return (PORT_FIXTURES / "src_0.jpg").read_bytes()
+    if kind == "no_restart":
+        return (PORT_FIXTURES / "src_nr_0.jpg").read_bytes()
+    if kind == "grey":
+        return pil_jpeg(noisy(40, 37, 45, 1), quality=85)
+    sub = {"420": 2, "422": 1, "444": 0}[kind]
+    return pil_jpeg(noisy(41, 37, 45), quality=85, subsampling=sub)
+
+
+SAMPLING = ["420", "422", "444", "grey"]
+STREAMS = ["restart", "no_restart"] + SAMPLING
+
+
+def _fields(info):
+    return (info.width, info.height, info.ncomp,
+            [(h, v, q.tolist()) for h, v, q in info.comps],
+            info.scan_tables, info.huffman, info.restart_interval,
+            info.segments, info.color_space, info.comp_sig, info.mcus)
+
+
+@pytest.mark.parametrize("kind", STREAMS + ["progressive", "truncated"])
+def test_parse_baseline_matches(kind):
+    if kind == "progressive":
+        buf = pil_jpeg(noisy(42, 37, 45), quality=85, progressive=True)
+    elif kind == "truncated":
+        buf = _stream("420")[:-200]
+    else:
+        buf = _stream(kind)
+    got, want = port_scan.parse_baseline(buf), ref_scan.parse_baseline(buf)
+    if want is None:
+        assert got is None
+        return
+    assert _fields(got) == _fields(want)
+
+
+@pytest.mark.parametrize("kind", ["restart", "no_restart"])
+def test_scan_batch_wire_matches(kind):
+    bufs = [(PORT_FIXTURES / f"src_{'nr_' if kind == 'no_restart' else ''}"
+             f"{i}.jpg").read_bytes() for i in range(3)]
+    got = port_sb.ScanBatch([port_scan.parse_baseline(b) for b in bufs])
+    want = ref_dec.ScanBatch([ref_scan.parse_baseline(b) for b in bufs])
+    (gks, gwire), (wks, wwire) = got.wire(), want.wire()
+    assert gks == wks
+    assert got.single_pass == (kind == "restart")
+    np.testing.assert_array_equal(gwire, wwire)
+
+
+@pytest.mark.parametrize("kind", SAMPLING)
+def test_prep_tables_matches(kind):
+    buf = _stream(kind)
+    got = port_sb.prep_tables(port_scan.parse_baseline(buf))
+    want = ref_dec.prep_tables(ref_scan.parse_baseline(buf))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert port_sb.min_bits_per_symbol(port_scan.parse_baseline(buf)) == \
+        ref_dec.min_bits_per_symbol(ref_scan.parse_baseline(buf))
+
+
+@pytest.mark.parametrize("kind", SAMPLING)
+def test_split_indices_matches(kind):
+    sig = ref_scan.parse_baseline(_stream(kind)).comp_sig
+    for g, w in zip(port_sb.split_indices(sig), ref_dec.split_indices(sig)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("kind", SAMPLING)
+def test_mcu_slot_tables_matches(kind):
+    sig = ref_scan.parse_baseline(_stream(kind)).comp_sig
+    np.testing.assert_array_equal(port_scan.mcu_slot_tables(sig),
+                                  ref_scan.mcu_slot_tables(sig))
+    for g, w in zip(port_scan.scatter_layout(sig),
+                    ref_scan.scatter_layout(sig)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("kind", SAMPLING)
+def test_mcu_layout_matches(kind):
+    sig = ref_scan.parse_baseline(_stream(kind)).comp_sig
+    for g, w in zip(port_huff._mcu_layout(sig), ref_huff._mcu_layout(sig)):
+        np.testing.assert_array_equal(g, w)
+
+
+# (dst, src) pairs: downscale, upscale, the training crop, and a source
+# past BANDED_THRESHOLD
+_SIZES = [(17, 61), (90, 37), (224, 192), (960, 1920), (7, 7)]
+
+
+def _same(name, *args):
+    """port_resize.<name>(*args) against ref_resize.<name>(*args): equal
+    arrays, or the same error (a degenerate window) from both."""
+    try:
+        want = getattr(ref_resize, name)(*args)
+    except Exception as e:  # noqa: BLE001 - the same refusal, by name
+        with pytest.raises(Exception) as got:
+            getattr(port_resize, name)(*args)
+        assert (type(got.value).__name__, str(got.value)) == \
+            (type(e).__name__, str(e))
+        return
+    got = getattr(port_resize, name)(*args)
+    if isinstance(want, np.ndarray):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("filt", FILTERS)
+def test_resize_weights_matches(filt):
+    for dst, src in _SIZES:
+        for fscale in (1.0, 0.7):
+            _same("resize_weights", dst, src, filt, fscale)
+
+
+@pytest.mark.parametrize("filt", FILTERS)
+def test_banded_resize_plan_matches(filt):
+    for dst, src in _SIZES:
+        _same("banded_resize_plan", dst, src, filt, 1.0)
+
+
+@pytest.mark.parametrize("filt", FILTERS)
+def test_resize_windows_matches(filt):
+    for dst, src in _SIZES:
+        for fscale in (1.0, 0.7):
+            _same("resize_windows", dst, src, filt, fscale)
+
+
+@pytest.mark.parametrize("opts", [{}, {"filter": "lanczos"},
+                                  {"filter": "box", "filterScale": 2},
+                                  {"filterScale": "0.5"}, {"filter": "nope"},
+                                  {"filterScale": -1}])
+def test_parse_resize_options_matches(opts):
+    try:
+        want = ref_resize.parse_resize_options(opts)
+    except Exception as e:  # noqa: BLE001 - the same refusal, by name
+        with pytest.raises(Exception) as got:
+            port_resize.parse_resize_options(opts)
+        assert type(got.value).__name__ == type(e).__name__
+        assert str(got.value) == str(e)
+        return
+    assert port_resize.parse_resize_options(opts) == want
+
+
+@pytest.mark.parametrize("args", [
+    (45, 90, 45, 2, "cubic", 1.0, True), (30, 61, 31, 2, "lanczos", 0.7, True),
+    (61, 61, 31, 2, "__identity__", 1.0, True), (20, 75, 19, 4, "box", 1.0,
+                                                 False),
+    (37, 45, 45, 1, "triangle", 1.0, True)])
+def test_component_weights_matches(args):
+    np.testing.assert_array_equal(port_fused.component_weights(*args),
+                                  ref_fused.component_weights(*args))
+    factor, n_in = args[3], args[2]
+    np.testing.assert_array_equal(
+        port_fused.upsample_matrix(factor, args[1], n_in, args[6]),
+        ref_fused.upsample_matrix(factor, args[1], n_in, args[6]))
+
+
+@pytest.mark.parametrize("quality", [50, 85, 95])
+def test_quality_tables_matches(quality):
+    for g, w in zip(port_jpeg.quality_tables(quality),
+                    ref_jpeg.quality_tables(quality)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_idct_kron_matches():
+    np.testing.assert_array_equal(port_jpeg._idct_kron(), ref_jpeg._idct_kron())
+    np.testing.assert_array_equal(port_jpeg.idct_matrix(),
+                                  ref_jpeg.idct_matrix())
+    assert (port_jpeg.CS_GRAYSCALE, port_jpeg.CS_RGB, port_jpeg.CS_YCBCR,
+            port_jpeg.CS_CMYK, port_jpeg.CS_YCCK) == (
+        ref_jpeg.CS_GRAYSCALE, ref_jpeg.CS_RGB, ref_jpeg.CS_YCBCR,
+        ref_jpeg.CS_CMYK, ref_jpeg.CS_YCCK)
+    assert [port_jpeg.FIX(x) for x in (0.299, 1.402, 0.71414)] == \
+        [ref_jpeg.FIX(x) for x in (0.299, 1.402, 0.71414)]
+
+
+@pytest.mark.parametrize("nbytes", [0, 5, 64])
+def test_assemble_matches(nbytes):
+    scan = np.arange(64, dtype=np.uint8)
+    header = port_huff.jpeg_header(32, 16, ((2, 4, 2, 2), (1, 2, 1, 1),
+                                            (1, 2, 1, 1)), 85)
+    assert port_huff.assemble(header, scan, nbytes) == \
+        ref_huff.assemble(header, scan, nbytes)
+    assert port_huff._dqt(port_jpeg.quality_tables(85)[0], 0) == \
+        ref_huff._dqt(ref_jpeg.quality_tables(85)[0], 0)
+    bits, vals = port_huff.ANNEX_K[(1, 0)]
+    for g, w in zip(port_huff._code_arrays(bits, vals, 256),
+                    ref_huff._code_arrays(bits, vals, 256)):
+        np.testing.assert_array_equal(g, w)
+
+
+def _port_modules():
+    pkg = ROOT / "picha_tpu_torch"
+    return sorted(
+        "picha_tpu_torch" + "".join(
+            "." + part for part in p.relative_to(pkg).with_suffix("").parts
+            if part != "__init__")
+        for p in pkg.rglob("*.py"))
+
+
+def test_port_imports_nothing_of_the_reference():
+    """Importing picha_tpu_torch and every one of its submodules loads
+    neither jax nor picha_tpu nor any picha_tpu.* module."""
+    mods = _port_modules()
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+            "             or m.startswith('jax.') or m == 'picha_tpu'\n"
+            "             or m.startswith('picha_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('clean', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+    assert "picha_tpu_torch.pipeline.jpeg_batch" in mods
+
+
+_REF_IMPORT = re.compile(
+    r"^\s*(from\s+picha_tpu(\.|\s)|import\s+picha_tpu(\.|\s|$|,))",
+    re.MULTILINE)
+
+
+def test_port_sources_name_no_reference_import():
+    """No file under picha_tpu_torch/ (nor chip_smoke.py) imports
+    picha_tpu or a picha_tpu.* module."""
+    files = sorted((ROOT / "picha_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = [str(f.relative_to(ROOT)) for f in files
+           if _REF_IMPORT.search(f.read_text())]
+    assert not bad, bad
+    assert _REF_IMPORT.search("from picha_tpu.ops import x\n")
+    assert _REF_IMPORT.search("import picha_tpu\n")
+    assert not _REF_IMPORT.search("from picha_tpu_torch.ops import x\n")

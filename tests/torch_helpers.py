@@ -48,17 +48,18 @@ def smooth_rgb(h: int, w: int, seed: int) -> np.ndarray:
 
 
 def scan_batch_inputs(bufs, device="cpu", **batch_kw):
-    """JPEG bytes (or parsed ScanInfos) -> (ScanBatch, scan key, port
-    DecoderArgs, qtabs, comp_of tensor) with the wire on `device`.
-    `batch_kw` goes to ScanBatch (chunk_bits)."""
+    """JPEG bytes (or parsed ScanInfos, the reference's or the port's) ->
+    (ScanBatch, scan key, port DecoderArgs, qtabs, comp_of tensor) with
+    the wire on `device`. `batch_kw` goes to ScanBatch (chunk_bits)."""
     import torch
 
     from picha_tpu.ops import jpeg_scan
     from picha_tpu.ops.jpeg_huffman_decode_tpu import ScanBatch
     from picha_tpu_torch.ops.jpeg_huffman_decode import wire_unpack
 
-    infos = [b if isinstance(b, jpeg_scan.ScanInfo)
-             else jpeg_scan.parse_baseline(bytes(b)) for b in bufs]
+    infos = [jpeg_scan.parse_baseline(bytes(b))
+             if isinstance(b, (bytes, bytearray, memoryview)) else b
+             for b in bufs]
     assert all(i is not None for i in infos)
     sb = ScanBatch(infos, **batch_kw)
     ks, wire = sb.wire()
