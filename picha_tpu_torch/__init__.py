@@ -2,17 +2,71 @@
 
 The JAX package `picha_tpu` stays the reference: every module here names
 its counterpart there, and the tests feed the same numpy inputs to both.
-This package imports `torch` and never `jax`; it reuses picha_tpu's
-numpy-only host modules (header parse, scan wire layout, weight folds,
-libjpeg bindings) instead of copying them.
+This package imports `torch` and never `jax`, and nothing of
+`picha_tpu`: it keeps its own copies of the host code it needs (header
+parse, scan wire, weight folds, pixel formats, the Image model, PNG
+chunks), each pinned to its original by `tests/test_torch_host_copies.py`,
+and its host codecs go through Pillow (`codecs/`).
 
-Ported so far: the all-device JPEG transcode path
-(`pipeline.JpegBatchPipeline(fused=True, upload="scan",
-encode_backend="device")`), with hand-written CUDA kernels (`csrc/`):
-Huffman decode of restart segments (K1) and of scans without restart
-markers (speculative chunked decode K4 and its DC scan K5), the encoder
-front (K2: colour convert, downsample, fDCT, quantise) and Huffman scan
-encode (K3).
+Ported so far, with hand-written CUDA kernels (`csrc/`, built by nvcc at
+first use):
+- the JPEG transcode, `pipeline.JpegBatchPipeline` (fused or staged
+  pixel path, scan upload, device encode): Huffman decode of restart
+  segments (K1) and of scans without restart markers (K4, with its DC
+  scan K5), the encoder front (K2) and the Huffman scan encode (K3);
+  the staged decode's dequant + IDCT (K6), upsample + colour (K7) and
+  the resize, one axis per launch (K8);
+- the training ingest, `pipeline.TrainingInput`: crop + flip + width
+  pass (K9), clip + augment (K10);
+- the pixel-array path: unpack, crop window, channel map and pack (K11)
+  behind `resize_sync` / `color_convert_sync` and
+  `pipeline.ImageBatchPipeline` (BASELINE config 4), and the PNG encode
+  filters with the adaptive pick (K12) behind
+  `pipeline.encode_filtered`.
+
+The public single-image functions below run on the card unless
+`device="cpu"` is asked for; the async forms run on a pool thread and
+return a Future (or call `cb(err, result)`).
 """
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+from .errors import (CodecError, InvalidImageError, InvalidOptionsError,
+                     PichaError, UnsupportedFormatError)
+from .image import Image
+from .ops.colorconvert import color_convert_image
+from .ops.resize import resize_image
+from .runtime.executor import run_async
 
 __version__ = "0.1.0"
+
+__all__ = [
+    "Image", "PichaError", "InvalidImageError", "InvalidOptionsError",
+    "UnsupportedFormatError", "CodecError",
+    "resize", "resizeSync", "resize_sync",
+    "colorConvert", "colorConvertSync", "color_convert", "color_convert_sync",
+]
+
+
+def resize_sync(img: Image, opts: dict, device="cuda") -> Image:
+    return resize_image(img, opts, device)
+
+
+def resize(img: Image, opts: dict, cb: Optional[Callable] = None,
+           device="cuda"):
+    return run_async(lambda: resize_image(img, opts, device), cb)
+
+
+def color_convert_sync(img: Image, opts: dict, device="cuda") -> Image:
+    return color_convert_image(img, opts, device)
+
+
+def color_convert(img: Image, opts: dict, cb: Optional[Callable] = None,
+                  device="cuda"):
+    return run_async(lambda: color_convert_image(img, opts, device), cb)
+
+
+resizeSync = resize_sync
+colorConvert = color_convert
+colorConvertSync = color_convert_sync

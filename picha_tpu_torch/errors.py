@@ -16,5 +16,9 @@ class InvalidOptionsError(PichaError):
     """An option is out of range or unknown (bad filter, filter width)."""
 
 
+class UnsupportedFormatError(PichaError):
+    """No codec recognises the supplied bytes."""
+
+
 class CodecError(PichaError):
     """A codec failed on a bitstream (e.g. fractional chroma sampling)."""

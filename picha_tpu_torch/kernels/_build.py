@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (`picha_tpu_torch/csrc/`).
 
-Route: `nvcc` compiles every `csrc/*.cu` for sm_90a into one shared
-library with a plain C interface, loaded with ctypes. Pointers and the
+Route: `nvcc` compiles every `csrc/*.cu` for sm_90a (one process per
+source, all at once) and links them into one shared library with a
+plain C interface, loaded with ctypes. Pointers and the
 stream go across as `c_void_p`, sizes as `c_int` (`c_int64` where a
 size may pass 2^31), scales as `c_float`. Every C entry point
 launches on the caller's stream, does not synchronise, and returns
@@ -48,6 +49,8 @@ SIGNATURES = {
     "picha_crop_flip_resize_w": [P, I, I, I, I, P, P, P, I, P, P, I, I, F,
                                  P, P],
     "picha_augment": [P, I, I, I, P, P, P, P, P, P, I, F, I, F, F, F, P, P],
+    "picha_pixel_map": [P, I, L, I, I, I, I, I, I, I, I, I, F, F, F, P, P],
+    "picha_png_filter": [P, I, I, I, I, I, P, P],
 }
 
 _lock = threading.Lock()
@@ -79,25 +82,35 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu unless this exact source set is built already.
-    Raises RuntimeError with nvcc's diagnostics on failure."""
+    """Compile csrc/*.cu unless this exact source set is built already:
+    one nvcc per source, all started together, then one link. Raises
+    RuntimeError with nvcc's diagnostics on failure."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *compile_flags, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+        failed = [f"{src} ({rc}):\n{log}" for src, log, rc in logs if rc]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", lib, *objs],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"nvcc link failed ({res.returncode}):\n{res.stdout}\n"
+                f"{res.stderr}")
+        os.replace(lib, path)
     return path
 
 
@@ -172,6 +185,14 @@ KERNELS = {
         Kernel("augment", "picha_augment", "picha_tpu_torch/csrc/augment.cu",
                "picha_tpu/pipeline/augment.py:105 (with :42-89, and the "
                "clip of training.py:70)"),
+        Kernel("pixel_map", "picha_pixel_map",
+               "picha_tpu_torch/csrc/pixel_map.cu",
+               "picha_tpu/pixels.py:112 (junpack_f32, jpack :119), "
+               "ops/colorconvert.py:136 (_jit_convert, map_channels :66) "
+               "and pipeline/image_batch.py:27 (_jit_transform)"),
+        Kernel("png_filter", "picha_png_filter",
+               "picha_tpu_torch/csrc/png_filter.cu",
+               "picha_tpu/ops/png_filter_tpu.py:33 (_build)"),
     )
 }
 

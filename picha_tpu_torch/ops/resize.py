@@ -18,6 +18,15 @@ the caller uploads them once per configuration.
   `resize_windowed`             width pass, then height pass, through
                                 `resize_axis`
   `resize_f32`                  the same with the windows built here
+  `crop_resize_map`             the pixel-array chain: K11 (unpack
+                                v / MAX, crop window) -> K8 width -> K8
+                                height -> K11 (channel map, pack or
+                                clip); one K11 launch without a resize
+  `resize_batch`                the reference's `_jit_resize` through
+                                that chain, uint8 or uint16 in and out
+  `resize_array`, `resize_image` the single-image API on the device (the
+                                reference's native host resize has no
+                                counterpart here)
   `crop_flip_resize_w`          the training ingest's per-image crop,
                                 horizontal flip and width pass: K9
                                 (`csrc/crop_resize.cu`) for CUDA
@@ -26,18 +35,24 @@ the caller uploads them once per configuration.
                                 for CPU tensors
 
 Tensors are (N, H, W, C); the width axis is -2 and the height axis -3,
-as in the reference. A uint8 input is unpacked as v * f32(1/255) before
-any tap, as the reference unpacks before resizing.
+as in the reference. K8 unpacks a uint8 input as v * f32(1/255) before
+any tap (the decode paths' rule); `resize_batch` unpacks with K11's IEEE
+division first, as the reference's `junpack_f32` does.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..errors import InvalidImageError, InvalidOptionsError
+from ..image import Image
 from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
+from ..runtime.device import resolve_device, to_device
+from .colorconvert import pixel_map
 from .jpeg import full_fp32
 from .resize_weights import (BANDED_THRESHOLD, banded_resize_plan,
-                             resize_weights, resize_windows)
+                             parse_resize_options, resize_weights,
+                             resize_windows)
 
 INV255 = float(np.float32(1.0 / 255.0))
 
@@ -220,3 +235,65 @@ def resize_f32(x, dst_w, dst_h, filter_name, fscale, out_scale=1.0):
                window_tensors(dst_h, x.shape[-3], filter_name, fscale,
                               x.device))
     return resize_windowed(x, windows, out_scale)
+
+
+def crop_resize_map(x, windows, dst_channels, out_dtype, crop=None,
+                    clip=False):
+    """(N, H, W, C) uint8 / uint16 pixels -> the crop window `crop` (x0,
+    y0, w, h), resized with `windows` (as `resize_windowed` takes them;
+    None: no resize), mapped to `dst_channels` and packed to `out_dtype`
+    (or float32 clipped to [0, 1] with `clip`): K11 -> K8 W -> K8 H ->
+    K11, or one K11 without a resize. The reference composes the same
+    stages in `image_batch._jit_transform` and `_jit_resize`."""
+    if windows is None:
+        return pixel_map(x, dst_channels, out_dtype, crop=crop, clip=clip)
+    f = pixel_map(x, x.shape[-1], torch.float32, crop=crop)
+    return pixel_map(resize_windowed(f, windows), dst_channels, out_dtype,
+                     clip=clip)
+
+
+def resize_batch(x, dst_w, dst_h, filter_name, fscale):
+    """The reference's `_jit_resize` on an (N, H, W, C) uint8 or uint16
+    tensor (1-4 channels) -> (N, dst_h, dst_w, C) of the same dtype,
+    through `crop_resize_map`. On CPU tensors every stage runs its plain
+    version."""
+    if x.dim() != 4 or x.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError("resize_batch takes an (N, H, W, C) uint8 or uint16 "
+                        "tensor")
+    windows = (window_tensors(dst_w, x.shape[2], filter_name, fscale,
+                              x.device),
+               window_tensors(dst_h, x.shape[1], filter_name, fscale,
+                              x.device))
+    return crop_resize_map(x, windows, x.shape[-1], x.dtype)
+
+
+def resize_array(arr, width: int, height: int, filter: str = None,
+                 filter_scale: float = None, device="cuda") -> np.ndarray:
+    """(H, W, C) or (N, H, W, C) uint8 / uint16 channel array -> the
+    resized array (same rank), through `resize_batch` on `device`."""
+    opts = {}
+    if filter is not None:
+        opts["filter"] = filter
+    if filter_scale is not None:
+        opts["filterScale"] = filter_scale
+    name, fscale = parse_resize_options(opts)
+    arr = np.asarray(arr)
+    single = arr.ndim == 3
+    x = to_device(arr[None] if single else arr, resolve_device(device))
+    out = resize_batch(x, width, height, name, fscale).cpu().numpy()
+    return out[0] if single else out
+
+
+def resize_image(img: Image, opts: dict, device="cuda") -> Image:
+    """Image-level resize with the reference's resize(Sync) semantics:
+    the output keeps the source pixel format."""
+    width = int(opts.get("width", 0))
+    height = int(opts.get("height", 0))
+    if width <= 0 or height <= 0:
+        raise InvalidOptionsError("invalid dimensions")
+    if img.width <= 0 or img.height <= 0:
+        raise InvalidImageError("invalid image")
+    name, fscale = parse_resize_options(opts)
+    out = resize_array(img.to_array(), width, height, filter=name,
+                       filter_scale=fscale, device=device)
+    return Image.from_array(out, img.pixel)

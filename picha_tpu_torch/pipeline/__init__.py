@@ -4,7 +4,13 @@
   device; the all-device JPEG transcode path.
   TrainingInput — decode -> random crop + flip -> resize -> clip (+
   augment) on one device; the training ingest.
+  ImageBatchPipeline — host decode (Pillow) -> crop -> resize -> convert
+  on one device (K11, K8) -> host encode; BASELINE config 4.
+  encode_filtered — batched PNG encode with the filter pass on the
+  device (K12), deflate on the host.
 """
 
+from .image_batch import ImageBatchPipeline  # noqa: F401
 from .jpeg_batch import JpegBatchPipeline, device_constants  # noqa: F401
+from .png_batch import encode_filtered  # noqa: F401
 from .training import TrainingInput  # noqa: F401

@@ -1,3 +1,4 @@
 """Device resolution, timing and card identification."""
 
-from .device import CudaTimer, card_id, resolve_device, upload  # noqa: F401
+from .device import (CudaTimer, card_id, resolve_device,  # noqa: F401
+                     to_device, upload)

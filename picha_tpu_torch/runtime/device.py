@@ -22,6 +22,14 @@ def upload(arr, device: torch.device) -> torch.Tensor:
     return t
 
 
+def to_device(arr, device: torch.device) -> torch.Tensor:
+    """A host numpy array or a tensor -> a tensor on `device` (numpy
+    through `upload`; a tensor already there is returned as it is)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
+    return upload(np.asarray(arr), device)
+
+
 def resolve_device(device="cuda") -> torch.device:
     """`device` (str or torch.device) -> torch.device. Raises
     RuntimeError when a CUDA device is asked for and none is present."""

@@ -1,10 +1,13 @@
 """The port's own copies of the reference's host code (header parse,
 scan wire, decode tables, resize weights, fused folds, quantisation
-tables, scan layout) against their originals in picha_tpu on the same
-inputs, and the rule that the port imports nothing of picha_tpu or jax."""
+tables, scan layout, pixel formats, luma weights, the Image model, the
+TIFF orientation map, PNG chunks) against their originals in picha_tpu
+on the same inputs, and the rule that the port imports nothing of
+picha_tpu or jax."""
 import os
 import pathlib
 import re
+import struct
 import subprocess
 import sys
 
@@ -18,7 +21,16 @@ from picha_tpu.ops import jpeg_huffman_decode_tpu as ref_dec
 from picha_tpu.ops import jpeg_huffman_tpu as ref_huff
 from picha_tpu.ops import jpeg_scan as ref_scan
 from picha_tpu.ops import jpeg_tpu as ref_jpeg
+from picha_tpu import image as ref_image
+from picha_tpu import pixels as ref_pixels
+from picha_tpu.codecs import tiff as ref_tiff
+from picha_tpu.ops import colorconvert as ref_cc
 from picha_tpu.ops import resize as ref_resize
+from picha_tpu_torch import image as port_image
+from picha_tpu_torch import pixels as port_pixels
+from picha_tpu_torch.codecs import image_host as port_image_host
+from picha_tpu_torch.codecs import png_host as port_png
+from picha_tpu_torch.ops import colorconvert as port_cc
 from picha_tpu_torch.ops import jpeg as port_jpeg
 from picha_tpu_torch.ops import jpeg_fused as port_fused
 from picha_tpu_torch.ops import jpeg_huffman as port_huff
@@ -224,6 +236,115 @@ def test_assemble_matches(nbytes):
         np.testing.assert_array_equal(g, w)
 
 
+def test_pixel_formats_match():
+    assert port_pixels.PIXEL_FORMATS.keys() == ref_pixels.PIXEL_FORMATS.keys()
+    for name, fmt in ref_pixels.PIXEL_FORMATS.items():
+        got = port_pixels.PIXEL_FORMATS[name]
+        assert (got.name, got.bytes_per_pixel, got.channels, got.dtype,
+                got.max_value, got.is_deep, got.has_alpha, got.is_color) == (
+            fmt.name, fmt.bytes_per_pixel, fmt.channels, fmt.dtype,
+            fmt.max_value, fmt.is_deep, fmt.has_alpha, fmt.is_color)
+        assert port_pixels.pixel_size(name) == ref_pixels.pixel_size(name)
+    assert port_pixels.DEEP_OF == ref_pixels.DEEP_OF
+    assert port_pixels.SHALLOW_OF == ref_pixels.SHALLOW_OF
+    assert port_pixels.pixel_size("cmyk") == ref_pixels.pixel_size("cmyk")
+    with pytest.raises(Exception) as got:
+        port_pixels.pixel_format("cmyk")
+    with pytest.raises(Exception) as want:
+        ref_pixels.pixel_format("cmyk")
+    assert (type(got.value).__name__, str(got.value)) == \
+        (type(want.value).__name__, str(want.value))
+
+
+@pytest.mark.parametrize("args", [
+    (), (0.2, 0.3, 0.5), (1, 0, 0), (2, 5, 1), (float("nan"), 1, None),
+    ("0.5", None, "2"), (0, 0, 0), ("x", 1, 1), (None, [1], None)])
+def test_normalize_weights_matches(args):
+    try:
+        want = ref_cc.normalize_weights(*args)
+    except Exception as e:  # noqa: BLE001 - the same refusal, by name
+        with pytest.raises(Exception) as got:
+            port_cc.normalize_weights(*args)
+        assert (type(got.value).__name__, str(got.value)) == \
+            (type(e).__name__, str(e))
+        return
+    got = port_cc.normalize_weights(*args)
+    assert [type(g) for g in got] == [type(w) for w in want]
+    assert got == want
+
+
+def _image_pair(arr, pixel, **kw):
+    return (port_image.Image.from_array(arr, pixel, **kw),
+            ref_image.Image.from_array(arr, pixel, **kw))
+
+
+@pytest.mark.parametrize("pixel", list(port_pixels.PIXEL_FORMATS))
+def test_image_model_matches(pixel):
+    """from_array, rows, stride, sub_view, clone, equal_pixels,
+    avg_channel_diff and _infer_pixel on the same arrays."""
+    fmt = ref_pixels.PIXEL_FORMATS[pixel]
+    rng = np.random.default_rng(len(pixel))
+    a = rng.integers(0, fmt.max_value + 1, (9, 7, fmt.channels),
+                     dtype=fmt.dtype)
+    b = a.copy()
+    b[2:5, 1:3] ^= 1
+    pa, ra = _image_pair(a, pixel)
+    pb, rb = _image_pair(b, pixel)
+    assert (pa.width, pa.height, pa.pixel, pa.stride) == \
+        (ra.width, ra.height, ra.pixel, ra.stride)
+    np.testing.assert_array_equal(pa.data, ra.data)
+    np.testing.assert_array_equal(pa.to_array(), ra.to_array())
+    assert pa.avg_channel_diff(pb) == ra.avg_channel_diff(rb)
+    assert pa.equal_pixels(pb) == ra.equal_pixels(rb) is False
+    assert pa.clone().equal_pixels(pa)
+    for rect in ((1, 2, 4, 5), (0, 0, 7, 9), (6, 8, 1, 1)):
+        ps, rs = pa.sub_view(*rect), ra.sub_view(*rect)
+        assert (ps.width, ps.height, ps.stride) == \
+            (rs.width, rs.height, rs.stride)
+        np.testing.assert_array_equal(ps.to_array(), rs.to_array())
+        assert ps.avg_channel_diff(pb.sub_view(*rect)) == \
+            rs.avg_channel_diff(rb.sub_view(*rect))
+    for rect in ((-1, 0, 2, 2), (0, 0, 8, 1), (0, 0, 0, 1)):
+        with pytest.raises(port_image.InvalidImageError):
+            pa.sub_view(*rect)
+        with pytest.raises(ref_image.InvalidImageError):
+            ra.sub_view(*rect)
+    assert port_image._infer_pixel(a.dtype, fmt.channels) == \
+        ref_image._infer_pixel(a.dtype, fmt.channels) == pixel
+    assert pa.avg_channel_diff(port_image.Image(3, 3, pixel)) == \
+        ra.avg_channel_diff(ref_image.Image(3, 3, pixel)) == 255.0
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_tiff_orientation_matches(orientation):
+    a = np.arange(4 * 6 * 4, dtype=np.uint8).reshape(4, 6, 4)
+    np.testing.assert_array_equal(port_image_host._orient(a, orientation),
+                                  ref_tiff._orient(a, orientation))
+
+
+@pytest.mark.parametrize("name", ["test.png", "test2.png", "greytest.png",
+                                  "test16.png"])
+def test_png_chunks_rebuild_fixture_bytes(name):
+    """Every chunk of the fixture PNGs (written by libpng), rebuilt by
+    the port's `chunk` from its type and payload, is byte for byte the
+    file's chunk (length, type, payload, CRC); the IHDR payload packs
+    back from its fields. (The reference's `_chunk` computes its CRC in
+    picha_tpu/native, which these tests do not call.)"""
+    buf = (ROOT / "tests" / "fixtures" / name).read_bytes()
+    assert buf[:8] == port_png.PNG_SIGNATURE
+    pos = 8
+    while pos < len(buf):
+        (n,) = struct.unpack(">I", buf[pos:pos + 4])
+        ctype, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + n]
+        assert port_png.chunk(ctype, data) == buf[pos:pos + 12 + n]
+        if ctype == b"IHDR":
+            w, h, depth, ct, comp, filt, lace = struct.unpack(">IIBBBBB",
+                                                              data)
+            if (comp, filt, lace) == (0, 0, 0):
+                assert port_png.ihdr(w, h, depth, ct) == data
+        pos += 12 + n
+
+
 def _port_modules():
     pkg = ROOT / "picha_tpu_torch"
     return sorted(
@@ -251,7 +372,14 @@ def test_port_imports_nothing_of_the_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "clean" in out.stdout
-    assert "picha_tpu_torch.pipeline.jpeg_batch" in mods
+    assert {"picha_tpu_torch.pipeline.jpeg_batch",
+            "picha_tpu_torch.pipeline.image_batch",
+            "picha_tpu_torch.pipeline.png_batch",
+            "picha_tpu_torch.ops.colorconvert", "picha_tpu_torch.ops.png_filter",
+            "picha_tpu_torch.codecs.image_host",
+            "picha_tpu_torch.codecs.png_host", "picha_tpu_torch.pixels",
+            "picha_tpu_torch.image",
+            "picha_tpu_torch.runtime.executor"} <= set(mods)
 
 
 _REF_IMPORT = re.compile(
