@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of picha_tpu_torch, the PyTorch/CUDA port: drives the
 all-device JPEG transcode paths (fused and staged pixel stages), the
-training ingest and the pixel-array path (BASELINE config 4, the
-single-image resize and convert, the batched PNG encode) on one CUDA
-card and checks them.
+training ingest, the pixel-array path (BASELINE config 4, the
+single-image resize and convert, the batched PNG encode) and the batched
+PNG and TIFF decode on one CUDA card and checks them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (each prints one line; any failure raises and exits non-zero):
-  1. the card (nvidia-smi name, power limit); build kernels K1-K12 from
+  1. the card (nvidia-smi name, power limit); build kernels K1-K16 from
      picha_tpu_torch/csrc/ (one nvcc per source, in parallel) into the
      gitignored csrc/build/;
   2. each kernel against its plain torch version on the card, at the
@@ -76,7 +76,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
  10. where a config-4 call's time goes (host decode, upload, K11 head,
      K8 W, K8 H, K11 tail, readback, host TIFF encode), Mpix/s of source
      and images/s (TIFF and WebP legs), the idle share, and the PNG
-     encode's K12 launches against its readback and host deflate.
+     encode's K12 launches against its readback and host deflate;
+ 11. the decode kernels against their plain versions, bit for bit, on
+     config 4's 256 sources: K15 (LZW strips) on their TIFF-LZW files
+     (Pillow's writer, 7 strips each; the pure-Python twin on the 8
+     distinct images), K16 (TIFF transform) on the rows, K13 (unfilter)
+     on their PNGs (the port's encode, default probe; the twin on the 8
+     distinct images), K14 (PNG transform) on the samples. Both
+     transforms are the identity on these rgba buckets, so a clone of
+     their input is their one-call yardstick; K16 is also timed on the
+     same sources written with predictor 2 and orientation 6, K14 on a
+     palette + tRNS bucket;
+ 12. TiffBatchPipeline over the 256 TIFF-LZW files (K15 and K16 once
+     each, nothing else; equal to image_host.decode_tiff of each file
+     and to the sources) and over their predictor-2 orientation-6 twins
+     (equal to the turned sources), PngBatchPipeline over the 256 PNGs
+     (K13 and K14 once each; equal to the sources), a 16-bit rgb bucket
+     (the sources x 257 through the 16-bit encode, decoded deep, exact)
+     and a palette bucket with tRNS (equal to Pillow's decode); where
+     each call's time goes (host stage, pack, upload, each kernel, the
+     status readback, timed through the decode functions' `mark` hook)
+     with the bytes uploaded and its end-to-end time beside Pillow's
+     decode of the same 256 files on 8 pool threads.
 Every kernel also gets its bound (the larger of its bytes over 3.35 TB/s
 and its FLOPs over 67 TFLOP/s, counted from this run's shapes) and, where
 one PyTorch call computes the same function, that call's time. Then one
@@ -791,6 +812,9 @@ def main():
     # 8-10. the pixel-array path ---------------------------------------------
     pixel_launches = pixel_phases(dev, card, results, phase, timed, wall)
 
+    # 11-12. the batched PNG and TIFF decode -----------------------------------
+    decode_launches = decode_phases(dev, card, results, phase, timed, wall)
+
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "picha_tpu" or m.startswith("picha_tpu."))
     if bad:
@@ -798,18 +822,21 @@ def main():
     # launches: each kernel's count in the run of the path it serves
     # (K1-K3: the restart slice; K4, K5: the no-restart slice; K6-K8:
     # the staged restart slice; K9, K10: an ingest step; K11: the
-    # config-4 call; K12: the batched PNG encode)
+    # config-4 call; K12: the batched PNG encode; K13-K16: the full-size
+    # PNG and TIFF decode calls)
     path_launches = {**main_launches,
                      **{k: nr_launches[k] for k in chunked_path[:2]},
                      **{k: s_launches[k] for k in staged_path[:3]},
                      **{k: ingest_launches[k]
                         for k in ("crop_flip_resize_w", "augment")},
-                     **pixel_launches}
+                     **pixel_launches, **decode_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # "buckets": a kernel also timed on another bucket of its path
     kernels = [dict(name=k.name, route="cuda", source=k.source,
                     replaces=k.replaces, launches=path_launches[k.name],
-                    **{f: results[k.name][f] for f in keys})
+                    **{f: results[k.name][f] for f in keys
+                       + ("buckets",) * ("buckets" in results[k.name])})
                for k in KERNELS.values()]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1105,6 +1132,14 @@ def training_phases(dev, card, results, phase, timed, wall):
     return main_launches
 
 
+def only(counts, want, label):
+    """Raise unless the launch counts are exactly `want` (others 0)."""
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{label} launches: {got}, want {want}")
+    return got
+
+
 def config4_sources():
     """bench.py's config-4 recipe (seed 9): 8 RGBA 384x256 images (the
     call tiles them to IMG_N, as bench.py does)."""
@@ -1143,13 +1178,6 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     from picha_tpu_torch.pipeline import ImageBatchPipeline, encode_filtered
     from picha_tpu_torch.pipeline.png_batch import assemble, filter_candidates
     from picha_tpu_torch.runtime import to_device
-
-    def only(counts, want, label):
-        """Raise unless the launch counts are exactly `want` (others 0)."""
-        got = {k: v for k, v in counts.items() if v}
-        if got != want:
-            raise AssertionError(f"{label} launches: {got}, want {want}")
-        return got
 
     srcs = config4_sources()
     tiffs = [image_host.encode_tiff(Image.from_array(a, "rgba"),
@@ -1415,6 +1443,337 @@ def pixel_phases(dev, card, results, phase, timed, wall):
                           images_s=IMG_N / png_e2e * 1e3),
           note="stage rows: medians of 3 runs; e2e: median of 3 calls")
     return {"pixel_map": c4["pixel_map"], "png_filter": pe["png_filter"]}
+
+
+def decode_phases(dev, card, results, phase, timed, wall):
+    """Phases 11-12: the batched PNG and TIFF decode (see the module
+    doc). Fills results for K13-K16; returns their launch counts on the
+    full-size TIFF (K15, K16) and PNG (K13, K14) calls."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image as PILImage
+
+    from picha_tpu_torch import Image
+    from picha_tpu_torch.codecs import image_host
+    from picha_tpu_torch.codecs.png_host import (PNG_SIGNATURE, chunk,
+                                                 ihdr)
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.ops.lzw import check_strips, lzw_decode
+    from picha_tpu_torch.ops.png_transform import (png_transform,
+                                                   png_transform_plain)
+    from picha_tpu_torch.ops.png_unfilter import (check_status,
+                                                  png_unfilter,
+                                                  png_unfilter_plain)
+    from picha_tpu_torch.ops.tiff_transform import (tiff_transform,
+                                                    tiff_transform_plain)
+    from picha_tpu_torch.pipeline import (PngBatchPipeline,
+                                          TiffBatchPipeline, encode_filtered)
+    from picha_tpu_torch.pipeline import png_batch, tiff_batch
+    from picha_tpu_torch.runtime import upload
+
+    def tile(files):
+        return [files[i % len(files)] for i in range(IMG_N)]
+
+    def turned_tiff(a):
+        """TIFF-LZW through Pillow's libtiff with predictor 2 (tag 317)
+        and orientation 6 (tag 274)."""
+        out = io.BytesIO()
+        PILImage.fromarray(a, "RGBA").save(out, "TIFF",
+                                           compression="tiff_lzw",
+                                           tiffinfo={317: 2, 274: 6})
+        return out.getvalue()
+
+    # inputs: config 4's sources as TIFF-LZW (Pillow; once plain, once
+    # with predictor 2 and orientation 6), PNG (the port's encode,
+    # default probe), 16-bit rgb PNG and palette + tRNS PNG
+    srcs = config4_sources()
+    src = np.stack(srcs)
+    want8 = np.stack(tile(srcs))
+    tiffs = tile([image_host.encode_tiff(Image.from_array(a, "rgba"),
+                                         {"compression": "lzw"})
+                  for a in srcs])
+    tiffs26 = tile([turned_tiff(a) for a in srcs])
+    want26 = np.ascontiguousarray(want8.transpose(0, 2, 1, 3)[:, :, ::-1])
+    pngs = tile(encode_filtered(src, 4, None, device=dev))
+    deep = src[..., :3].astype(np.uint16) * 257
+    pngs16 = tile(encode_filtered(deep, 4, None, device=dev))
+    rng = np.random.default_rng(11)
+    pals = []
+    for g in encode_filtered(src[..., :1], 4, None, device=dev):
+        pals.append(
+            PNG_SIGNATURE + chunk(b"IHDR", ihdr(IMG_W, IMG_H, 8, 3))
+            + chunk(b"PLTE", rng.integers(0, 256, 768, np.uint8).tobytes())
+            + chunk(b"tRNS", rng.integers(0, 256, 200, np.uint8).tobytes())
+            + chunk(b"IDAT", _idat(g)) + chunk(b"IEND", b""))
+    pals = tile(pals)
+    tpipe = TiffBatchPipeline(device=dev)
+    ppipe = PngBatchPipeline(device=dev)
+    ppal = PngBatchPipeline(pixel="rgba", device=dev)
+
+    # 11. the four kernels against their plain versions on the card's
+    # inputs (K13 and K15's plain versions on the 8 distinct images);
+    # K14 and K16 also on a second bucket whose arithmetic is not the
+    # identity of the rgba buckets -----------------------------------------
+    sub = len(srcs)
+    rb = IMG_W * 4
+
+    def lzw_rows(items):
+        """One bucket's upload and K15 -> (rows, strip table, segments)."""
+        host, lay = tiff_batch.pack(items)
+        buf = upload(host, dev)
+        table = buf[:lay.segs].view(torch.int64).view(4, lay.nstrips)
+        segs = buf[lay.segs:lay.rows]
+        rows = torch.empty((IMG_N, IMG_H, rb), dtype=torch.uint8,
+                           device=dev)
+        n, st = lzw_decode(segs, table[0], table[1], rows, table[2],
+                           table[3])
+        check_strips(n, st, table[3])
+        return rows, n, table, segs
+
+    items = tpipe.host_stage(tiffs)
+    rows, n15, table, segs = lzw_rows(items)
+    k_sub = sum(len(it.strips) for it in items[:sub])
+    rows_p = torch.zeros((sub, IMG_H, rb), dtype=torch.uint8)
+    tab_c, segs_c = table[:, :k_sub].cpu(), segs.cpu()
+    t0 = time.perf_counter()     # the plain version's one (checked) run
+    n_p, st_p = lzw_decode(segs_c, tab_c[0], tab_c[1], rows_p, tab_c[2],
+                           tab_c[3])
+    k15_plain = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if not (torch.equal(rows[:sub].cpu(), rows_p)
+            and torch.equal(n15[:k_sub].cpu(), n_p)
+            and not bool(st_p.any())):
+        raise AssertionError("K15 differs from its plain version")
+    sig = items[0].sig
+    rgba = tiff_transform(rows, sig)
+    if not torch.equal(rgba, tiff_transform_plain(rows, sig)):
+        raise AssertionError("K16 differs from its plain version")
+    # 8-bit rgba, predictor 1, orientation 1: K16 is the identity here,
+    # so one copy of the rows is the same function
+    if not torch.equal(rgba.view_as(rows), rows):
+        raise AssertionError("the rgba TIFF bucket is not the identity")
+    results["lzw_decode"] = dict(
+        max_abs_err=0, ms=timed(lambda: lzw_decode(
+            segs, table[0], table[1], rows, table[2], table[3]), 5),
+        plain_ms=k15_plain, library_ms=None,
+        **bound(segs.numel() + rows.numel()))
+    results["tiff_transform"] = dict(
+        max_abs_err=0, ms=timed(lambda: tiff_transform(rows, sig), 10),
+        plain_ms=timed(lambda: tiff_transform_plain(rows, sig), 3),
+        library_ms=timed(lambda: rows.clone(), 10),
+        **bound(rows.numel() + rgba.numel()))
+    items26 = tpipe.host_stage(tiffs26)
+    sig26 = items26[0].sig
+    if sig26[5:7] != (2, 6):
+        raise AssertionError(f"predictor/orientation not written: {sig26}")
+    rows26 = lzw_rows(items26)[0]
+    rgba26 = tiff_transform(rows26, sig26)
+    if not torch.equal(rgba26, tiff_transform_plain(rows26, sig26)) or \
+            not np.array_equal(rgba26.cpu().numpy(), want26):
+        raise AssertionError("K16 (predictor 2, orientation 6) differs")
+    results["tiff_transform"]["buckets"] = [dict(
+        bucket="rgba8, predictor 2, orientation 6", max_abs_err=0,
+        ms=timed(lambda: tiff_transform(rows26, sig26), 10),
+        plain_ms=timed(lambda: tiff_transform_plain(rows26, sig26), 3),
+        library_ms=None, **bound(rows26.numel() + rgba26.numel()))]
+    phase("K15_K16", card=card, strips=table.shape[1],
+          segment_bytes=segs.numel(), rows=list(rows.shape),
+          rgba=list(rgba.shape), rgba_p2_o6=list(rgba26.shape), equal=True,
+          note=f"K15: kernel on all {IMG_N} images, plain (pure Python, "
+               f"on the host, one run) on the {sub} distinct ones ({k_sub} "
+               f"strips); K16: both on all {IMG_N}, library_ms a clone of "
+               f"the rows (K16 is the identity on this bucket), buckets: "
+               f"K16 on the predictor-2 orientation-6 files, equal to the "
+               f"turned sources",
+          K15=results["lzw_decode"], K16=results["tiff_transform"])
+    del rows, rgba, rows26, rgba26
+
+    parts = ppipe.host_stage(pngs)
+    phost, groups, _tables = png_batch.pack(parts)
+    pbuf = upload(phost, dev)
+    prows = pbuf[:groups[0][3] * IMG_N].view(IMG_N, IMG_H, rb + 1)
+    plane, st13 = png_unfilter(prows, 4)
+    check_status(st13)
+    prows_c = prows[:sub].cpu()
+    t0 = time.perf_counter()     # the plain version's one (checked) run
+    plane_p, st_p = png_unfilter_plain(prows_c, 4)
+    k13_plain = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if not torch.equal(plane[:sub].cpu(), plane_p) or bool(st_p.any()):
+        raise AssertionError("K13 differs from its plain version")
+    samples = png_batch.unpack_samples(plane, IMG_W, 4, 8)
+    px = png_transform(samples, 6, 8, "rgba")
+    if not torch.equal(px, png_transform_plain(samples, 6, 8, "rgba")):
+        raise AssertionError("K14 differs from its plain version")
+    # colour type 6 at depth 8 to rgba: K14 is the identity here
+    if not torch.equal(px, samples):
+        raise AssertionError("the rgba PNG bucket is not the identity")
+    filt = [int(t) for t in prows[:, :, 0].reshape(-1).to(
+        torch.int64).bincount(minlength=5).cpu()]
+    results["png_unfilter"] = dict(
+        max_abs_err=0, ms=timed(lambda: png_unfilter(prows, 4), 10),
+        plain_ms=k13_plain, library_ms=None,
+        **bound(prows.numel() + plane.numel()))
+    results["png_transform"] = dict(
+        max_abs_err=0,
+        ms=timed(lambda: png_transform(samples, 6, 8, "rgba"), 10),
+        plain_ms=timed(lambda: png_transform_plain(samples, 6, 8, "rgba"),
+                       3),
+        library_ms=timed(lambda: samples.clone(), 10),
+        **bound(samples.numel() + px.numel()))
+    del plane, samples, px
+    pparts = ppal.host_stage(pals)
+    phost, groups, tables = png_batch.pack(pparts)
+    pbuf = upload(phost, dev)
+    samples, statuses = png_batch.unfilter_groups(pbuf, pparts, groups)
+    check_status(*statuses)
+    pal = pbuf[tables[0]:tables[0] + IMG_N * 768].view(IMG_N, 256, 3)
+    trns = pbuf[tables[1]:tables[1] + IMG_N * 256].view(IMG_N, 256)
+    px = png_transform(samples, 3, 8, "rgba", pal, trns)
+    if not torch.equal(px, png_transform_plain(samples, 3, 8, "rgba", pal,
+                                               trns)):
+        raise AssertionError("K14 (palette + tRNS) differs")
+    results["png_transform"]["buckets"] = [dict(
+        bucket="palette + tRNS to rgba", max_abs_err=0,
+        ms=timed(lambda: png_transform(samples, 3, 8, "rgba", pal, trns),
+                 10),
+        plain_ms=timed(lambda: png_transform_plain(samples, 3, 8, "rgba",
+                                                   pal, trns), 3),
+        library_ms=None,
+        **bound(samples.numel() + pal.numel() + trns.numel() + px.numel()))]
+    phase("K13_K14", card=card, rows=list(prows.shape), bpp=4,
+          filter_types=filt, equal=True,
+          note=f"K13: kernel on all {IMG_N} images, plain (on the host, "
+               f"one run) on the {sub} distinct ones; K14: both on all "
+               f"{IMG_N}, library_ms a clone of the samples (K14 is the "
+               f"identity on this bucket), buckets: K14 on the palette + "
+               f"tRNS files",
+          K13=results["png_unfilter"], K14=results["png_transform"])
+    del samples, px, pbuf
+
+    # 12. the pipelines at full size, checked, then timed -------------------
+    reset_launch_counts()
+    got = tpipe(tiffs)
+    torch.cuda.synchronize()
+    tl = only(launch_counts(), {"lzw_decode": 1, "tiff_transform": 1},
+              "TiffBatchPipeline")
+    pil = np.stack(tile([image_host.decode_tiff(b).to_array()
+                         for b in tiffs[:sub]]))
+    if tpipe.fallbacks or not np.array_equal(got.cpu().numpy(), pil) or \
+            not np.array_equal(pil, want8):
+        raise AssertionError("TiffBatchPipeline differs from decode_tiff")
+    reset_launch_counts()
+    got = tpipe(tiffs26)
+    torch.cuda.synchronize()
+    only(launch_counts(), {"lzw_decode": 1, "tiff_transform": 1},
+         "predictor-2 orientation-6 TIFF bucket")
+    if tpipe.fallbacks or not np.array_equal(got.cpu().numpy(), want26):
+        raise AssertionError("predictor-2 orientation-6 bucket differs")
+    reset_launch_counts()
+    got = ppipe(pngs)
+    torch.cuda.synchronize()
+    pl = only(launch_counts(), {"png_unfilter": 1, "png_transform": 1},
+              "PngBatchPipeline")
+    if not np.array_equal(got.cpu().numpy(), want8):
+        raise AssertionError("PngBatchPipeline differs from the sources")
+    reset_launch_counts()
+    got16 = PngBatchPipeline(deep=True, device=dev)(pngs16)
+    torch.cuda.synchronize()
+    only(launch_counts(), {"png_unfilter": 1, "png_transform": 1},
+         "16-bit PNG bucket")
+    if got16.dtype != torch.uint16 or not np.array_equal(
+            got16.cpu().numpy(), np.stack(tile(list(deep)))):
+        raise AssertionError("16-bit PNG bucket differs from its sources")
+    reset_launch_counts()
+    gotp = ppal(pals)
+    torch.cuda.synchronize()
+    only(launch_counts(), {"png_unfilter": 1, "png_transform": 1},
+         "palette PNG bucket")
+    wantp = np.stack(tile([np.asarray(PILImage.open(io.BytesIO(b)).convert(
+        "RGBA")) for b in pals[:sub]]))
+    if not np.array_equal(gotp.cpu().numpy(), wantp):
+        raise AssertionError("palette + tRNS bucket differs from Pillow")
+    phase("decode_batch", card=card, images=IMG_N,
+          source=[IMG_H, IMG_W, 4], tiff_launches=tl, png_launches=pl,
+          tiff_equal_to_decode_tiff=True, png_equal_to_sources=True,
+          tiff_p2_o6_equal_to_turned_sources=True,
+          png16_deep_exact=True, palette_trns_equal_to_pillow=True,
+          tiff_bytes=sum(len(b) for b in tiffs),
+          png_bytes=sum(len(b) for b in pngs), fallbacks=tpipe.fallbacks)
+
+    pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix="pillow")
+
+    class Marks:
+        """The pipelines' `mark` hook: the host clock and a CUDA event
+        after each stage of one bucket's decode."""
+
+        def __init__(self):
+            self.at = [("start", time.perf_counter(), self._event())]
+
+        @staticmethod
+        def _event():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+        def __call__(self, stage):
+            self.at.append((stage, time.perf_counter(), self._event()))
+
+        def ms(self):
+            torch.cuda.synchronize()
+            pairs = list(zip(self.at, self.at[1:]))
+            return ({b[0]: (b[1] - a[1]) * 1e3 for a, b in pairs},
+                    {b[0]: a[2].elapsed_time(b[2]) for a, b in pairs})
+
+    def stages(pipe, files, decode, kernels):
+        t = time.perf_counter()
+        parts = pipe.host_stage(files)
+        host_stage = (time.perf_counter() - t) * 1e3
+        marks = Marks()
+        decode(parts, marks)
+        host, device = marks.ms()
+        return ({"host_stage": host_stage, "pack": host["pack"],
+                 "upload_enqueue": host["upload"],
+                 "status_readback": host["status"]},
+                {"upload": device["upload"],
+                 **{name: device[k] for k, name in kernels.items()},
+                 "status_readback": device["status"]})
+
+    mpix = IMG_N * IMG_W * IMG_H / 1e6
+    upload_bytes = {"tiff": len(tiff_batch.pack(items)[0]),
+                    "png": len(png_batch.pack(parts)[0])}
+    for label, pipe, files, decode, ks, pil_decode, nbytes in (
+            ("timing_tiff_decode", tpipe, tiffs,
+             lambda p, m: tiff_batch.decode_items(p, dev, m),
+             {"lzw": "K15_lzw", "transform": "K16_transform"},
+             image_host.decode_tiff, upload_bytes["tiff"]),
+            ("timing_png_decode", ppipe, pngs,
+             lambda p, m: png_batch.decode_parts(p, None, False, dev, m),
+             {"unfilter": "K13_unfilter", "transform": "K14_transform"},
+             image_host.decode_png, upload_bytes["png"])):
+        runs = [stages(pipe, files, decode, ks) for _ in range(4)][1:]
+        host_ms = {k: sorted(r[0][k] for r in runs)[1] for k in runs[0][0]}
+        device_ms = {k: sorted(r[1][k] for r in runs)[1] for k in runs[0][1]}
+        e2e = wall(lambda: pipe(files), 3)
+        pil_ms = wall(lambda: list(pool.map(
+            lambda b: pil_decode(b).to_array(), files)), 3)
+        phase(label, card=card, images=IMG_N, mpix_per_call=mpix,
+              upload_bytes=nbytes, host_ms=host_ms, device_ms=device_ms,
+              device_sum_ms=sum(device_ms.values()), e2e_ms=e2e,
+              e2e_images_s=IMG_N / e2e * 1e3, e2e_mpix_s=mpix / e2e * 1e3,
+              idle_share=1.0 - sum(device_ms.values()) / e2e,
+              pillow_pool8_ms=pil_ms,
+              pillow_images_s=IMG_N / pil_ms * 1e3,
+              note="stages timed inside the pipeline's own decode "
+                   "function (its mark hook): host clock for the host "
+                   "rows (status_readback there waits for the kernels), "
+                   "CUDA events for the device rows; medians of 3 runs; "
+                   "e2e and Pillow (8 pool threads, the same files): "
+                   "medians of 3 calls")
+    pool.shutdown()
+    return {**tl, **pl}
 
 
 def _idat(png: bytes) -> bytes:

@@ -9,31 +9,70 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
+
 from ..errors import InvalidOptionsError, UnsupportedFormatError
 from ..image import Image
-from . import image_host, jpeg_host
+from . import image_host, jpeg_host, jpeg_markers
 
 
 class Codec(NamedTuple):
     mimetype: str
-    decode_sync: Callable   # (buf, opts) -> Image
+    decode_sync: Callable   # (buf, opts, device=) -> Image
     encode_sync: Callable   # (Image, opts) -> bytes
 
 
-def _decode_jpeg(buf, opts=None) -> Image:
-    arr = jpeg_host.decode_rgb(buf)
+def _decode_jpeg(buf, opts=None, device=None) -> Image:
+    """The reference's host JPEG decode (`picha_tpu/codecs/jpeg.py`):
+    `autoOrient` turns the pixels by the EXIF orientation, `scaleDenom`
+    (1, 2, 4, 8) is libjpeg's scaled decode, `pixel` ("rgb" / "grey")
+    libjpeg's own colour conversion. All of it runs on the host:
+    `device` is ignored."""
+    opts = opts or {}
+    if opts.get("autoOrient", opts.get("auto_orient", False)):
+        orient = jpeg_markers.exif_orientation(bytes(buf)) or 1
+        if orient != 1:
+            img = _decode_jpeg(buf, {
+                k: v for k, v in opts.items()
+                if k not in ("autoOrient", "auto_orient")})
+            arr = np.ascontiguousarray(image_host._orient(img.to_array(),
+                                                          orient))
+            return Image.from_array(arr, img.pixel)
+    try:
+        denom = int(opts.get("scaleDenom", opts.get("scale_denom", 1)))
+    except (TypeError, ValueError) as e:
+        raise InvalidOptionsError("scaleDenom must be 1, 2, 4 or 8") from e
+    if denom not in (1, 2, 4, 8):
+        raise InvalidOptionsError("scaleDenom must be 1, 2, 4 or 8")
+    req = opts.get("pixel")
+    if req is not None and req not in ("rgb", "grey"):
+        raise InvalidOptionsError("jpeg decode supports pixel rgb/grey")
+    channels = None if req is None else (1 if req == "grey" else 3)
+    arr = jpeg_host.decode_rgb(buf, channels, denom)
     return Image.from_array(arr, "grey" if arr.shape[-1] == 1 else "rgb")
 
 
 def _encode_jpeg(img: Image, opts=None) -> bytes:
+    """The reference's host JPEG encode options: `quality` (0-100,
+    clamped), `restartInterval` (MCUs, >= 0), `progressive`, `optimize`,
+    `subsample` (4:2:0 when true, the default; else 4:4:4)."""
+    opts = opts or {}
     if img.pixel not in ("rgb", "grey"):
         raise InvalidOptionsError(
             f"jpeg encode supports rgb/grey, got {img.pixel}")
     try:
-        quality = int((opts or {}).get("quality", 85))
+        quality = int(opts.get("quality", 85))
+        restart = int(opts.get("restartInterval",
+                               opts.get("restart_interval", 0)))
     except (TypeError, ValueError) as e:
         raise InvalidOptionsError("invalid jpeg encode options") from e
-    return jpeg_host.encode(img.to_array(), max(0, min(100, quality)))
+    if restart < 0:
+        raise InvalidOptionsError("restartInterval must be >= 0")
+    return jpeg_host.encode(img.to_array(), max(0, min(100, quality)),
+                            restart=restart,
+                            progressive=bool(opts.get("progressive", False)),
+                            optimize=bool(opts.get("optimize", False)),
+                            subsample=bool(opts.get("subsample", True)))
 
 
 CODECS = {c.mimetype: c for c in (
@@ -59,8 +98,10 @@ def sniff(buf) -> str:
     raise UnsupportedFormatError("unsupported image file")
 
 
-def decode_sync(buf, opts=None, mimetype=None) -> Image:
+def decode_sync(buf, opts=None, mimetype=None, device="cuda") -> Image:
     """Decode a file of any supported format (sniffed unless `mimetype`
-    names its codec)."""
+    names its codec). A codec whose decode has device stages (the PNG
+    and TIFF decodes through the port's own kernels) runs them on
+    `device`; the others ignore it."""
     codec = CODECS[mimetype or sniff(buf)]
-    return codec.decode_sync(buf, opts or {})
+    return codec.decode_sync(buf, opts or {}, device=device)

@@ -1,10 +1,11 @@
 """PNG encode, host side: chunk assembly, the filter probe, deflate.
 
 Counterpart of the encode side of `picha_tpu/codecs/png.py` (copies of
-`PNG_SIGNATURE`, `_chunk`, the IHDR packing and `_probe_filter`'s
-selection rule). The reference deflates and computes CRCs through
-`picha_tpu/native` (libdeflate); the port uses the standard library's
-zlib, so its IDAT bytes differ from the reference's at the same level
+`PNG_SIGNATURE`, `_chunk`, the IHDR packing, `_probe_filter`'s
+selection rule and `deflate_parallel`, the `deflateThreads` route). The
+reference deflates and computes CRCs through `picha_tpu/native`
+(libdeflate); the port uses the standard library's zlib, so its IDAT
+bytes differ from the reference's at the same level
 while the inflated filtered stream is the same for every fixed filter
 strategy, and the pixels decode exactly.
 
@@ -22,8 +23,10 @@ from __future__ import annotations
 
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PAR_CHUNK = 1 << 18           # deflate_parallel's piece size
 PROBE_ORDER = (2, 1, -1)       # up, sub, MSD-adaptive
 COLOR_TYPE_OF = {1: 0, 2: 4, 3: 2, 4: 6}   # channels -> PNG colour type
 
@@ -65,3 +68,34 @@ def probe_pick(candidates, h: int) -> int:
             best = (est, i)
     return best[1]
 
+
+def deflate_parallel(data, level: int, threads: int) -> bytes:
+    """pigz-style parallel deflate producing ONE standard zlib stream:
+    the input in `_PAR_CHUNK` pieces, each a raw deflate primed with the
+    previous 32 KiB as a preset dictionary and ended with Z_SYNC_FLUSH
+    (Z_FINISH for the last), inside the zlib header and the whole
+    input's adler32. Inputs of one piece, or `threads` <= 1, take one
+    `zlib.compress`. The pieces run on a pool of `threads` threads made
+    for the call (zlib releases the GIL)."""
+    data = memoryview(data)
+    n = len(data)
+    if threads <= 1 or n <= _PAR_CHUNK:
+        return zlib.compress(bytes(data), level)
+    starts = list(range(0, n, _PAR_CHUNK))
+
+    def one(k: int) -> bytes:
+        s = starts[k]
+        e = min(n, s + _PAR_CHUNK)
+        zd = bytes(data[max(0, s - 32768):s])
+        co = zlib.compressobj(level, zlib.DEFLATED, -15, 9,
+                              zlib.Z_DEFAULT_STRATEGY, zd)
+        out = co.compress(data[s:e])
+        out += co.flush(zlib.Z_FINISH if e == n else zlib.Z_SYNC_FLUSH)
+        return out
+
+    with ThreadPoolExecutor(max_workers=threads,
+                            thread_name_prefix="picha-deflate") as pool:
+        pieces = list(pool.map(one, range(len(starts))))
+    adler = zlib.adler32(data) & 0xFFFFFFFF
+    # 0x78 0x9C: CM=8/CINFO=7, FLEVEL=2, FDICT=0, check bits valid
+    return b"\x78\x9c" + b"".join(pieces) + struct.pack(">I", adler)

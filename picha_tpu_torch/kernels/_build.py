@@ -51,6 +51,10 @@ SIGNATURES = {
     "picha_augment": [P, I, I, I, P, P, P, P, P, P, I, F, I, F, F, F, P, P],
     "picha_pixel_map": [P, I, L, I, I, I, I, I, I, I, I, I, F, F, F, P, P],
     "picha_png_filter": [P, I, I, I, I, I, P, P],
+    "picha_png_unfilter": [P, L, I, I, I, I, P, P, P],
+    "picha_png_transform": [P, I, I, I, I, I, P, P, I, I, I, P, P],
+    "picha_lzw_decode": [P, P, P, P, P, I, P, P, P, P, P],
+    "picha_tiff_transform": [P, I, I, I, L, I, I, I, I, I, I, I, P, P, P],
 }
 
 _lock = threading.Lock()
@@ -193,6 +197,21 @@ KERNELS = {
         Kernel("png_filter", "picha_png_filter",
                "picha_tpu_torch/csrc/png_filter.cu",
                "picha_tpu/ops/png_filter_tpu.py:33 (_build)"),
+        Kernel("png_unfilter", "picha_png_unfilter",
+               "picha_tpu_torch/csrc/png_unfilter.cu",
+               "picha_tpu/native/src/pngfilter.cc:209 (picha_png_unfilter, "
+               "a native host stage; called at picha_tpu/codecs/png.py:169)"),
+        Kernel("png_transform", "picha_png_transform",
+               "picha_tpu_torch/csrc/png_transform.cu",
+               "picha_tpu/pipeline/png_batch.py:38 (_jit_transform)"),
+        Kernel("lzw_decode", "picha_lzw_decode",
+               "picha_tpu_torch/csrc/lzw_decode.cu",
+               "picha_tpu/native/src/lzw.cc:85 (picha_lzw_decode, and "
+               "lzw_decode_multi :176; native host stages called at "
+               "picha_tpu/codecs/tiff.py:158 and :312)"),
+        Kernel("tiff_transform", "picha_tiff_transform",
+               "picha_tpu_torch/csrc/tiff_transform.cu",
+               "picha_tpu/pipeline/tiff_batch.py:139 (_jit_transform)"),
     )
 }
 

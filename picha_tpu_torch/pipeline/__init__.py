@@ -6,11 +6,16 @@
   augment) on one device; the training ingest.
   ImageBatchPipeline — host decode (Pillow) -> crop -> resize -> convert
   on one device (K11, K8) -> host encode; BASELINE config 4.
-  encode_filtered — batched PNG encode with the filter pass on the
-  device (K12), deflate on the host.
+  encode_filtered — batched PNG encode (8- and 16-bit) with the filter
+  pass on the device (K12), deflate on the host.
+  PngBatchPipeline — host inflate -> unfilter (K13) -> spec transforms
+  (K14) on one device.
+  TiffBatchPipeline — host IFD parse and strips -> LZW (K15) -> sample
+  transforms and orientation (K16) on one device.
 """
 
 from .image_batch import ImageBatchPipeline  # noqa: F401
 from .jpeg_batch import JpegBatchPipeline, device_constants  # noqa: F401
-from .png_batch import encode_filtered  # noqa: F401
+from .png_batch import PngBatchPipeline, encode_filtered  # noqa: F401
+from .tiff_batch import TiffBatchPipeline  # noqa: F401
 from .training import TrainingInput  # noqa: F401

@@ -94,7 +94,8 @@ class ImageBatchPipeline:
                        mimetype: Optional[str] = None) -> list:
         """Host decode on pool threads -> list of Images (`mimetype`
         names the codec, else each file is sniffed)."""
-        return self._map(lambda b: decode_sync(b, opts, mimetype), bufs)
+        return self._map(lambda b: decode_sync(b, opts, mimetype,
+                                               device=self.device), bufs)
 
     def decode_batch(self, bufs: Sequence[bytes], opts: Optional[dict] = None,
                      mimetype: Optional[str] = None) -> np.ndarray:
@@ -156,9 +157,10 @@ class ImageBatchPipeline:
         mimetype, opts = self.encode
         codec = CODECS[mimetype]
         if mimetype == "image/png":
-            level, strategy = png_options(opts)
+            level, strategy, threads = png_options(opts)
             return encode_filtered(batch, level, strategy,
-                                   device=self.device, pool=self._pool)
+                                   device=self.device, pool=self._pool,
+                                   threads=threads)
         if isinstance(batch, torch.Tensor):
             batch = batch.cpu().numpy()
         pixel = _infer_pixel(batch.dtype, batch.shape[-1])

@@ -22,7 +22,8 @@ the separable resize (kernel K8, width pass then height pass). Host
 again: read back the byte counts and the used prefix of the scan buffer,
 prepend the header.
 
-Ported options: `fused` True and False; `normalize` (float32 images on
+Ported options: `fused` False (the default, as the reference's) and
+True; `normalize` (float32 images on
 the 0-1 scale, as the reference's training output; with `encode_quality`
 set too, the normalized images are returned, as the reference's batch
 graph returns them before its encode); `upload="scan"`;
@@ -173,7 +174,7 @@ def fused_weights(comp_sig, width, height, out_w, out_h, filter_name,
 
 
 def device_constants(sig, out_w, out_h, filter, fscale, quality, device,
-                     fused: bool = True):
+                     fused: bool = False):
     """The path's numpy constants -> cached device tensors for one
     signature and configuration."""
     width, height, cs, comp_sig = sig
@@ -259,7 +260,7 @@ def output_stages(px, consts: DeviceConstants, encode: bool,
 
 def device_graph(sig, wire, consts: DeviceConstants, scan_ks,
                  encode: bool = True, byte_cap: Optional[int] = None,
-                 fused: bool = True, normalize: bool = False):
+                 fused: bool = False, normalize: bool = False):
     """One scan batch through the device stages: the uploaded wire ->
     (result, ok), result as `output_stages` gives it."""
     dec_args, qtabs = wire_unpack(wire, scan_ks, len(sig[3]))
@@ -286,7 +287,7 @@ class JpegBatchPipeline:
                  encode_quality: Optional[int] = None,
                  encode_backend: str = "device",
                  upload: str = "scan",
-                 fused: bool = True,
+                 fused: bool = False,
                  scan_byte_cap: Optional[int] = None,
                  device="cuda"):
         if encode_backend == "raw420":

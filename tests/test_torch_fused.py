@@ -41,7 +41,8 @@ def _run_both(co, out_w, out_h, filt="cubic"):
              for c in co.comps]
     want = np.asarray(ref_fused(comp_sig, cs, width, height, out_w, out_h,
                                 name, fscale, coefs, qtabs))
-    consts = device_constants(sig, out_w, out_h, name, fscale, None, "cpu")
+    consts = device_constants(sig, out_w, out_h, name, fscale, None, "cpu",
+                              fused=True)
     got = fused_decode_resize(comp_sig, cs,
                               [torch.as_tensor(c) for c in coefs],
                               [torch.as_tensor(q) for q in qtabs],

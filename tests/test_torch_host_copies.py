@@ -1,15 +1,21 @@
 """The port's own copies of the reference's host code (header parse,
 scan wire, decode tables, resize weights, fused folds, quantisation
 tables, scan layout, pixel formats, luma weights, the Image model, the
-TIFF orientation map, PNG chunks) against their originals in picha_tpu
-on the same inputs, and the rule that the port imports nothing of
-picha_tpu or jax."""
+TIFF orientation map, PNG chunks, the PNG decode's host stage and pixel
+rules, the TIFF IFD parse and host stage, the EXIF orientation, the
+parallel deflate) against their originals in picha_tpu on the same
+inputs, and the rule that the port imports nothing of picha_tpu or jax.
+Where an original calls picha_tpu/native (CRC-32, inflate, unfilter),
+the test hands it the standard library's zlib and the port's plain
+unfilter instead, so no test here builds the native library."""
 import os
 import pathlib
 import re
 import struct
 import subprocess
 import sys
+import types
+import zlib
 
 import numpy as np
 import pytest
@@ -23,13 +29,19 @@ from picha_tpu.ops import jpeg_scan as ref_scan
 from picha_tpu.ops import jpeg_tpu as ref_jpeg
 from picha_tpu import image as ref_image
 from picha_tpu import pixels as ref_pixels
+from picha_tpu.codecs import jpeg_markers as ref_markers
+from picha_tpu.codecs import png as ref_png
 from picha_tpu.codecs import tiff as ref_tiff
+from picha_tpu.pipeline import tiff_batch as ref_tiff_batch
 from picha_tpu.ops import colorconvert as ref_cc
 from picha_tpu.ops import resize as ref_resize
 from picha_tpu_torch import image as port_image
 from picha_tpu_torch import pixels as port_pixels
 from picha_tpu_torch.codecs import image_host as port_image_host
+from picha_tpu_torch.codecs import jpeg_markers as port_markers
+from picha_tpu_torch.codecs import png_decode as port_png_decode
 from picha_tpu_torch.codecs import png_host as port_png
+from picha_tpu_torch.codecs import tiff_host as port_tiff
 from picha_tpu_torch.ops import colorconvert as port_cc
 from picha_tpu_torch.ops import jpeg as port_jpeg
 from picha_tpu_torch.ops import jpeg_fused as port_fused
@@ -345,6 +357,172 @@ def test_png_chunks_rebuild_fixture_bytes(name):
         pos += 12 + n
 
 
+PNG_FIXTURES = ["test.png", "test2.png", "greytest.png", "test16.png"]
+
+
+@pytest.fixture
+def ref_png_zlib(monkeypatch):
+    """picha_tpu/codecs/png.py with its native calls on zlib and the
+    port's plain unfilter (no native build)."""
+    import torch
+
+    from picha_tpu_torch.ops.png_unfilter import png_unfilter_plain
+
+    def unfilter(raw, height, rowbytes, bpp):
+        rows = torch.from_numpy(np.ascontiguousarray(raw, np.uint8).reshape(
+            1, height, rowbytes + 1))
+        out, status = png_unfilter_plain(rows, bpp)
+        if int(status.sum()):
+            raise ref_png.CodecError("invalid PNG filter type")
+        return out.numpy().reshape(-1)
+
+    monkeypatch.setattr(ref_png, "native", types.SimpleNamespace(
+        crc32=lambda data, crc=0: zlib.crc32(data, crc) & 0xFFFFFFFF,
+        zlib_inflate=lambda data, expected, as_array=False: np.frombuffer(
+            zlib.decompress(data), np.uint8),
+        png_unfilter=unfilter))
+    return ref_png
+
+
+def _adam7_png():
+    """An interlaced 16-bit rgba file (each pass filtered with Paeth)."""
+    import test_torch_png_decode as T
+
+    s = np.random.default_rng(4).integers(0, 65536, (11, 13, 4)).astype(
+        np.uint16)
+    return T._png_of(s, 16, 6, interlace=1, strategy=4)
+
+
+def test_png_decode_tables_match():
+    for name in ("CT_GREY", "CT_RGB", "CT_PALETTE", "CT_GREYA", "CT_RGBA",
+                 "_CHANNELS", "_GREY_R", "_GREY_G", "_GREY_B", "_ADAM7"):
+        assert getattr(port_png_decode, name) == getattr(ref_png, name)
+    assert port_png_decode.PNG_SIGNATURE == ref_png.PNG_SIGNATURE
+
+
+@pytest.mark.parametrize("name", PNG_FIXTURES + ["adam7"])
+def test_png_decode_host_stage_matches(ref_png_zlib, name):
+    """_parse_header, stat, the pixel rules over every request, and
+    _decode_samples (Adam7 included) on the same files."""
+    buf = _adam7_png() if name == "adam7" else \
+        (ROOT / "tests" / "fixtures" / name).read_bytes()
+    got, want = port_png_decode._parse_header(buf), ref_png._parse_header(buf)
+    fields = ("width", "height", "bit_depth", "color_type", "interlace")
+    assert [getattr(got, f) for f in fields] == \
+        [getattr(want, f) for f in fields]
+    assert port_png_decode.stat(buf) == ref_png.stat(buf)
+    for deep in (False, True):
+        assert port_png_decode._default_pixel(got, deep) == \
+            ref_png._default_pixel(want, deep)
+        for req in [None, *port_pixels.PIXEL_FORMATS]:
+            assert port_png_decode._resolve_pixel(got, req, deep) == \
+                ref_png._resolve_pixel(want, req, deep)
+    gs, gp, gt = port_png_decode._decode_samples(buf, got)
+    ws, wp, wt = ref_png._decode_samples(buf, want)
+    assert gs.dtype == ws.dtype
+    np.testing.assert_array_equal(gs, ws)
+    assert (gt, None if gp is None else gp.tolist()) == \
+        (wt, None if wp is None else wp.tolist())
+    for target in port_pixels.PIXEL_FORMATS:
+        try:
+            w = ref_png._to_target(ws, want, wp, wt, target)
+        except Exception as e:  # noqa: BLE001 - the same refusal, by name
+            with pytest.raises(Exception) as err:
+                port_png_decode._to_target(gs, got, gp, gt, target)
+            assert (type(err.value).__name__, str(err.value)) == \
+                (type(e).__name__, str(e))
+            continue
+        np.testing.assert_array_equal(
+            port_png_decode._to_target(gs, got, gp, gt, target), w)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4, 8, 16])
+def test_png_expand_and_scale_match(depth):
+    plane = np.random.default_rng(depth).integers(0, 256, (3, 12), np.uint8)
+    ch = 1 if depth < 8 else 2
+    width = 12 * 8 // (depth * ch)
+    np.testing.assert_array_equal(
+        port_png_decode._expand_bits(plane, width - 1, ch, depth),
+        ref_png._expand_bits(plane, width - 1, ch, depth))
+    if depth < 8:
+        s = ref_png._expand_bits(plane, width, 1, depth)
+        np.testing.assert_array_equal(
+            port_png_decode._scale_sub_byte(s, depth),
+            ref_png._scale_sub_byte(s, depth))
+    assert port_png_decode._rowbytes(7, 3, depth) == \
+        ref_png._rowbytes(7, 3, depth)
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("size", [1000, 700_000])
+def test_deflate_parallel_matches(threads, size):
+    data = (np.arange(size) * 7 % 251).astype(np.uint8).tobytes()
+    assert port_png.deflate_parallel(data, 5, threads) == \
+        ref_png.deflate_parallel(data, 5, threads)
+
+
+def test_tiff_tables_match():
+    for name in ("T_WIDTH", "T_BITS", "T_COMPRESSION", "T_PHOTOMETRIC",
+                 "T_FILLORDER", "T_STRIP_OFFSETS", "T_ORIENTATION", "T_SPP",
+                 "T_ROWS_PER_STRIP", "T_STRIP_COUNTS", "T_PLANAR",
+                 "T_PREDICTOR", "T_COLORMAP", "T_TILE_OFFSETS",
+                 "T_EXTRASAMPLES", "T_YCBCR_SUBSAMPLING", "C_NONE", "C_LZW",
+                 "C_ADEFLATE", "C_DEFLATE", "C_PACKBITS", "_TYPE_SIZES",
+                 "_TYPE_FMT"):
+        assert getattr(port_tiff, name) == getattr(ref_tiff, name), name
+    np.testing.assert_array_equal(port_tiff._BITREV, ref_tiff._BITREV)
+
+
+def _tiff_cases():
+    import test_torch_tiff_decode as T
+
+    cases = dict(T.REF_CASES)
+    cases["smallliz"] = [(ROOT / "tests" / "fixtures" /
+                          "smallliz.tif").read_bytes()]
+    return cases
+
+
+@pytest.mark.parametrize("case", ["grey_o3", "predictor_rgb", "cmyk",
+                                  "be16_predictor_extras", "palette4",
+                                  "smallliz"])
+def test_tiff_parse_and_host_stage_match(case):
+    """_parse_ifds, and the batched host stage's signature, rows and
+    colormap on uncompressed files (the reference's `_decompress` needs
+    no native for those); a layout outside the device graph falls back
+    in both."""
+    buf = _tiff_cases()[case][0]
+    ge, gifds = port_tiff._parse_ifds(buf)
+    we, wifds = ref_tiff._parse_ifds(buf)
+    assert ge == we and [i.tags for i in gifds] == [i.tags for i in wifds]
+    got = port_tiff.host_stage(buf)
+    if case == "smallliz":      # old-style JPEG strips: the fallback
+        assert got[0] == "fallback"
+        return
+    want = ref_tiff_batch.host_stage(buf)
+    assert got.sig == want[0] and got.strips == []
+    np.testing.assert_array_equal(got.rows, want[1])
+    if want[2] is None:
+        assert got.cmap is None
+    else:
+        np.testing.assert_array_equal(got.cmap, want[2])
+
+
+@pytest.mark.parametrize("orientation", [None, 1, 6, 8])
+def test_exif_orientation_matches(orientation):
+    import test_torch_options as O
+
+    kw = {} if orientation is None else {"exif": O._exif(orientation)}
+    buf = pil_jpeg(noisy(3, 16, 16), quality=80, **kw)
+    assert port_markers.exif_orientation(buf) == \
+        ref_markers.exif_orientation(buf)
+    segs = list(port_markers.iter_segments(buf))
+    assert segs == list(ref_markers.iter_segments(buf))
+    for m, start, total in segs:
+        seg = buf[start:start + total]
+        assert port_markers._exif_payload(seg) == \
+            ref_markers._exif_payload(seg)
+
+
 def _port_modules():
     pkg = ROOT / "picha_tpu_torch"
     return sorted(
@@ -375,7 +553,14 @@ def test_port_imports_nothing_of_the_reference():
     assert {"picha_tpu_torch.pipeline.jpeg_batch",
             "picha_tpu_torch.pipeline.image_batch",
             "picha_tpu_torch.pipeline.png_batch",
+            "picha_tpu_torch.pipeline.tiff_batch",
             "picha_tpu_torch.ops.colorconvert", "picha_tpu_torch.ops.png_filter",
+            "picha_tpu_torch.ops.png_unfilter",
+            "picha_tpu_torch.ops.png_transform", "picha_tpu_torch.ops.lzw",
+            "picha_tpu_torch.ops.tiff_transform",
+            "picha_tpu_torch.codecs.png_decode",
+            "picha_tpu_torch.codecs.tiff_host",
+            "picha_tpu_torch.codecs.jpeg_markers",
             "picha_tpu_torch.codecs.image_host",
             "picha_tpu_torch.codecs.png_host", "picha_tpu_torch.pixels",
             "picha_tpu_torch.image",

@@ -64,7 +64,7 @@ def test_decode_only_matches_reference():
     from picha_tpu.pipeline import JpegBatchPipeline as Ref
 
     bufs = _corpus(2)
-    got = JpegBatchPipeline(width=W, height=H, device="cpu")(bufs)
+    got = JpegBatchPipeline(width=W, height=H, fused=True, device="cpu")(bufs)
     want = np.asarray(Ref(width=W, height=H, fused=True,
                           upload="scan")(bufs))
     assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
@@ -186,7 +186,8 @@ def test_encode_overflow_retries_then_host_encode(second_fits):
     else:
         assert _counters(p) == (0, 1, 1)
         # the host encoder got the very pixels the device path decoded
-        pixels = JpegBatchPipeline(width=W, height=H, device="cpu")(bufs)
+        pixels = JpegBatchPipeline(width=W, height=H, fused=True,
+                                   device="cpu")(bufs)
         assert [bytes(g) for g in got] == [
             jpeg_host.encode(a, 85) for a in pixels.numpy()]
 
@@ -331,7 +332,8 @@ def test_staged_overflow_host_encodes_staged_pixels():
     assert _counters(p) == (0, 1, 1)
     staged = JpegBatchPipeline(width=W, height=H, fused=False,
                                device="cpu")(bufs)
-    fused = JpegBatchPipeline(width=W, height=H, device="cpu")(bufs)
+    fused = JpegBatchPipeline(width=W, height=H, fused=True,
+                              device="cpu")(bufs)
     assert not torch.equal(staged, fused)
     assert [bytes(g) for g in got] == [
         jpeg_host.encode(a, 85) for a in staged.numpy()]

@@ -1,6 +1,7 @@
 """The port's PNG encode filter (K12's plain version on CPU tensors) and
 batched encode against picha_tpu's on the same numpy inputs:
-byte-identical filtered rows for every strategy and bpp 1-4 (first row,
+byte-identical filtered rows for every strategy and bpp 1-4, 6 and 8
+(16-bit samples; first row,
 rows no wider than bpp, ties); the reference's validation errors; files
 that Pillow decodes to the input exactly, whose inflated IDAT is the
 reference's filtered stream for each fixed strategy; and the probe's
@@ -34,7 +35,7 @@ def _rows(h, rb, seed):
 
 
 @pytest.mark.parametrize("strategy", [-1, 0, 1, 2, 3, 4])
-@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4, 6, 8])
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_filter_matches_reference(strategy, bpp, shape):
     h, w = SHAPES[shape]
@@ -161,7 +162,10 @@ def test_encode_filtered_validates():
     with pytest.raises(ValueError):
         encode_filtered(np.zeros((2, 3, 4), np.uint8), device="cpu")
     with pytest.raises(ValueError):
-        encode_filtered(np.zeros((1, 3, 4, 3), np.uint16), device="cpu")
+        encode_filtered(np.zeros((1, 3, 4, 3), np.int32), device="cpu")
+    # 16-bit samples encode (as big-endian bytes, bpp 6 here)
+    assert encode_filtered(np.zeros((1, 3, 4, 3), np.uint16),
+                           device="cpu")[0][24] == 16
     with pytest.raises(ValueError):
         encode_filtered(np.zeros((1, 3, 4, 3), np.uint8), strategy=5,
                         device="cpu")
