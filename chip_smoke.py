@@ -2,13 +2,14 @@
 """Chip smoke test of picha_tpu_torch, the PyTorch/CUDA port: drives the
 all-device JPEG transcode paths (fused and staged pixel stages), the
 training ingest, the pixel-array path (BASELINE config 4, the
-single-image resize and convert, the batched PNG encode) and the batched
-PNG and TIFF decode on one CUDA card and checks them.
+single-image resize and convert, the batched PNG encode), the batched
+PNG and TIFF decode, and the ViT-S/16 forward (dense and switch-MoE) fed
+by the ingest, on one CUDA card, and checks them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (each prints one line; any failure raises and exits non-zero):
-  1. the card (nvidia-smi name, power limit); build kernels K1-K16 from
+  1. the card (nvidia-smi name, power limit); build kernels K1-K20 from
      picha_tpu_torch/csrc/ (one nvcc per source, in parallel) into the
      gitignored csrc/build/;
   2. each kernel against its plain torch version on the card, at the
@@ -97,12 +98,33 @@ Phases (each prints one line; any failure raises and exits non-zero):
      each call's time goes (host stage, pack, upload, each kernel, the
      status readback, timed through the decode functions' `mark` hook)
      with the bytes uploaded and its end-to-end time beside Pillow's
-     decode of the same 256 files on 8 pool threads.
+     decode of the same 256 files on 8 pool threads;
+ 13. one TrainingInput step (phase 6's arguments, 256 images) fed to
+     ViT(ViTConfig()) (ViT-S/16: 224^2, patch 16, dim 384, 12 blocks of 6
+     heads, MLP 1536, 1000 classes; random weights from seed 0) and to
+     ViT(ViTConfig(moe_experts=4)) (every second block a switch MoE of 4
+     experts, capacity 1.5; seed 1). K17 (LayerNorm) and K18 (attention)
+     within 1 bf16 ulp of their plain versions (K18: plus 1 ulp of the
+     row's largest |o|), K19 (route + dispatch) and K20 (combine) bit for
+     bit, each on the arguments of its first call in a forward, K19 also
+     on a skewed router (every token on expert 0) that drops tokens and on
+     its last call in the forward; both forwards' logits (256,
+     1000) float32, finite, within 0.03 plus one bf16 ulp of the logit
+     (its own rounding) of the same forward through the plain versions on
+     the card (the MoE's also records where the two paths route a token
+     differently), with launches K17 = 25, K18 = 12 (and
+     K19 = K20 = 6 for the MoE) and no other kernel; the dense forward
+     again with TF32 and bf16 reduced-precision sums switched on globally,
+     giving the same logits;
+ 14. both forwards timed on the kernel and the plain path (images/s),
+     where their time goes (the forward's `mark` hook: products against
+     K17-K20), peak device memory, and one ingest step + forward end to
+     end with the card's idle share.
 Every kernel also gets its bound (the larger of its bytes over 3.35 TB/s
-and its FLOPs over 67 TFLOP/s, counted from this run's shapes) and, where
-one PyTorch call computes the same function, that call's time. Then one
-JSON line of per-kernel results, the card line, and the final JSON
-status line.
+and its FP32 FLOPs over 67 TFLOP/s plus its bf16 product FLOPs over 989
+TFLOP/s, counted from this run's shapes) and, where one PyTorch call
+computes the same function, that call's time. Then one JSON line of
+per-kernel results, the card line, and the final JSON status line.
 """
 import io
 import json
@@ -129,17 +151,21 @@ IMG_CROP, IMG_OUT = (16, 16, 352, 224), (176, 112)
 RC_N = 16                  # resize_convert: 16 x 1920x1088
 WEBP_LSB = 8.0             # the reference's lossy oracle, mean per image
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12   # H100 SXM peaks, 700 W
+BF16_FLOP_S = 989e12                         # dense bf16 tensor peak
+VIT_LOGIT_TOL = 0.03       # ViT logits vs the plain path, + 1 bf16 ulp
 
 
-def bound(nbytes, flops=0):
+def bound(nbytes, flops=0, bf16_flops=0):
     """The least time for the work at the card's peaks: bytes moved
     (each input read once, each output written once) over HBM, or FP32
-    FLOPs over the FFMA peak, whichever is larger."""
+    FLOPs over the FFMA peak plus bf16 product FLOPs over the tensor
+    peak, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP32_FLOP_S * 1e3
+    t_ops = (flops / FP32_FLOP_S + bf16_flops / BF16_FLOP_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes=int(nbytes), bound_flops=int(flops))
+                bound_bytes=int(nbytes), bound_flops=int(flops),
+                bound_bf16_flops=int(bf16_flops))
 
 
 def phase(name, **kv):
@@ -807,13 +833,18 @@ def main():
               device_sum_ms=sum(device_ms.values()))
 
     # 6. the training ingest ------------------------------------------------
-    ingest_launches = training_phases(dev, card, results, phase, timed, wall)
+    ingest_launches, ingest_device_ms = training_phases(
+        dev, card, results, phase, timed, wall)
 
     # 8-10. the pixel-array path ---------------------------------------------
     pixel_launches = pixel_phases(dev, card, results, phase, timed, wall)
 
     # 11-12. the batched PNG and TIFF decode -----------------------------------
     decode_launches = decode_phases(dev, card, results, phase, timed, wall)
+
+    # 13-14. the ViT that consumes the ingest's batches -----------------------
+    vit_launches = vit_phases(dev, card, results, phase, timed, wall,
+                              ingest_device_ms)
 
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "picha_tpu" or m.startswith("picha_tpu."))
@@ -823,13 +854,14 @@ def main():
     # (K1-K3: the restart slice; K4, K5: the no-restart slice; K6-K8:
     # the staged restart slice; K9, K10: an ingest step; K11: the
     # config-4 call; K12: the batched PNG encode; K13-K16: the full-size
-    # PNG and TIFF decode calls)
+    # PNG and TIFF decode calls; K17, K18: the dense ViT forward; K19,
+    # K20: the MoE one)
     path_launches = {**main_launches,
                      **{k: nr_launches[k] for k in chunked_path[:2]},
                      **{k: s_launches[k] for k in staged_path[:3]},
                      **{k: ingest_launches[k]
                         for k in ("crop_flip_resize_w", "augment")},
-                     **pixel_launches, **decode_launches}
+                     **pixel_launches, **decode_launches, **vit_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # "buckets": a kernel also timed on another bucket of its path
@@ -849,7 +881,7 @@ def main():
 def training_phases(dev, card, results, phase, timed, wall):
     """Phases 6 and 7: the training ingest at 256 x 1080p -> 224 (see the
     module doc). Fills results for K9 and K10; returns the launch counts
-    of the main ingest step."""
+    of the main ingest step and the device stages' ms of one step."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1129,7 +1161,7 @@ def training_phases(dev, card, results, phase, timed, wall):
           device_sum_ms=sum(device_ms.values()),
           idle_share=1.0 - sum(device_ms.values()) / step,
           peak_device_bytes=peak, peak_device_gb=peak / 1e9)
-    return main_launches
+    return main_launches, sum(device_ms.values())
 
 
 def only(counts, want, label):
@@ -1774,6 +1806,331 @@ def decode_phases(dev, card, results, phase, timed, wall):
                    "medians of 3 calls")
     pool.shutdown()
     return {**tl, **pl}
+
+
+def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
+    """Phases 13-14: the ViT that consumes the training ingest (see the
+    module doc). Fills results for K17-K20; returns their launch counts
+    on the dense (K17, K18) and MoE (K19, K20) forwards."""
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.models import vit as vit_mod
+    from picha_tpu_torch.models.vit import ViT, ViTConfig
+    from picha_tpu_torch.ops.attention import attention, attention_plain
+    from picha_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
+    from picha_tpu_torch.ops.moe import (capacity, combine, combine_plain,
+                                         route_dispatch, route_dispatch_plain)
+    from picha_tpu_torch.pipeline import TrainingInput
+
+    bf16 = torch.bfloat16
+    wrappers = ("layer_norm", "attention", "route_dispatch", "combine")
+    plains = dict(layer_norm=layer_norm_plain, attention=attention_plain,
+                  route_dispatch=route_dispatch_plain, combine=combine_plain)
+
+    def plain_forward(model, x):
+        """The same forward through K17-K20's plain versions."""
+        with mock.patch.multiple(vit_mod, **plains):
+            return model(x)
+
+    def call_args(model, x):
+        """The arguments of each wrapper's first and last call in one
+        forward: {name: [first, last]}."""
+        got = {}
+
+        def rec(name, fn):
+            def call(*a):
+                got.setdefault(name, [a, a])[1] = a
+                return fn(*a)
+            return call
+
+        with mock.patch.multiple(vit_mod, **{
+                k: rec(k, getattr(vit_mod, k)) for k in wrappers}):
+            model(x)
+        return got
+
+    def ulp(v):
+        m = v.abs().double().clamp_min(2.0 ** -126)
+        return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == bf16 else t
+
+    def check_logits(logits, want, label):
+        """Logits (N, 1000) f32, finite, within 0.03 plus one bf16 ulp of
+        the plain path's: the logits are bf16 values, so two paths 0.03
+        apart before the head's rounding may land an ulp further apart
+        (0.03125 from |4| on)."""
+        if tuple(logits.shape) != (TRAIN_N, 1000) or \
+                logits.dtype != torch.float32 or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{label}: {tuple(logits.shape)} "
+                                 f"{logits.dtype}, or not finite")
+        diff = (logits - want).abs()
+        err = float(diff.max())
+        lim = VIT_LOGIT_TOL + ulp(torch.maximum(logits.abs(), want.abs()))
+        if bool((diff > lim).any()):
+            raise AssertionError(f"{label}: {err} from the plain path")
+        return dict(max_abs_vs_plain=err,
+                    max_ulps_vs_plain=float((diff / ulp(want)).max()),
+                    limit="0.03 + 1 bf16 ulp of the logit",
+                    argmax_agree=float((logits.argmax(-1) == want.argmax(-1))
+                                       .float().mean()),
+                    max_abs_logit=float(want.abs().max()))
+
+    # 13. the ingest's batch into the ViT-S/16 forward, dense and MoE
+    srcs_nr = [(FIXTURES / f"src_nr_{i}.jpg").read_bytes() for i in range(3)]
+    ti = TrainingInput([srcs_nr[i % 3] for i in range(TRAIN_N)],
+                       batch=TRAIN_N, crop=CROP, size=SIZE, seed=0,
+                       augment=AUGMENT, device=dev)
+    images = ti.__next__()
+    dense = ViT(ViTConfig(), seed=0, device=dev)
+    moe = ViT(ViTConfig(moe_experts=4), seed=1, device=dev)
+    cfg, mcfg = dense.cfg, moe.cfg
+    torch.cuda.synchronize()
+
+    # K17-K20 against their plain versions on the path's own inputs (the
+    # first call of each in a forward; K19 also the last)
+    ad = call_args(dense, images)
+    a17, a18 = ad["layer_norm"][0], ad["attention"][0]
+    am = call_args(moe, images)
+    (a19, a19_last), a20 = am["route_dispatch"], am["combine"][0]
+    x17, sc17, b17 = a17
+    got, want = layer_norm(*a17), layer_norm_plain(*a17)
+    d17 = (got.double() - want.double()).abs()
+    ulps17 = float((d17 / ulp(torch.maximum(got.abs(), want.abs()))).max())
+    if ulps17 > 1.0:
+        raise AssertionError(f"K17: {ulps17} bf16 ulp from its plain version")
+    results["vit_layernorm"] = dict(
+        max_abs_err=float(d17.max()), max_ulps=ulps17,
+        ms=timed(lambda: layer_norm(*a17), 20),
+        plain_ms=timed(lambda: layer_norm_plain(*a17), 5),
+        library_ms=timed(lambda: F.layer_norm(
+            x17, (cfg.dim,), sc17.to(bf16), b17.to(bf16), 1e-6), 20),
+        **bound(x17.numel() * 4 + cfg.dim * 8, x17.numel() * 10))
+    qkv18, s18 = a18
+    got, want = attention(*a18), attention_plain(*a18)
+    n, s, _, h, d = qkv18.shape
+    d18 = (got.double() - want.double()).abs()
+    row = want.view(n, s, h, d).abs().amax(-1, keepdim=True).expand(
+        n, s, h, d).reshape(n, s, h * d)
+    ulps18 = float((d18 / ulp(torch.maximum(got.abs(), want.abs()))).max())
+    over = float((d18 - ulp(torch.maximum(got.abs(), want.abs()))
+                  - ulp(row)).max())
+    if over > 0:
+        raise AssertionError(f"K18: {over} past 1 ulp + 1 ulp of the row")
+    q, k, v = (qkv18[:, :, i].transpose(1, 2) for i in range(3))
+    results["vit_attention"] = dict(
+        max_abs_err=float(d18.max()), max_ulps=ulps18,
+        max_ulps_of_row=float((d18 / ulp(row)).max()),
+        share_differing=float((d18 > 0).double().mean()),
+        ms=timed(lambda: attention(*a18), 10),
+        plain_ms=timed(lambda: attention_plain(*a18), 3),
+        library_ms=timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=s18), 10),
+        **bound(qkv18.numel() * 2 + got.numel() * 2,
+                bf16_flops=4 * n * h * s * s * d))
+    del got, want, d17, d18, row, q, k, v
+
+    def k19_case(args):
+        got, want = route_dispatch(*args), route_dispatch_plain(*args)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
+            raise AssertionError("K19 differs from its plain version")
+        logits, yt, cap = args
+        t, e = logits.shape
+        xe, eidx = got[0], got[1]
+        return dict(
+            tokens=t, experts=e, cap=cap, kept=int((eidx < e).sum()),
+            per_expert=torch.bincount(eidx.long(), minlength=e + 1).tolist(),
+            max_abs_err=0, ms=timed(lambda: route_dispatch(*args), 10),
+            plain_ms=timed(lambda: route_dispatch_plain(*args), 3),
+            library_ms=None,
+            **bound(logits.numel() * 4 + yt.numel() * 2 + xe.numel() * 2
+                    + t * 12, t * e * 8))
+
+    results["moe_route_dispatch"] = k19_case(a19)
+    skewed = a19[0].clone()                # every token on expert 0
+    skewed[:, 0] = skewed.amax(-1) + 1.0
+    sk = k19_case((skewed, a19[1], a19[2]))
+    if sk["kept"] >= sk["tokens"]:
+        raise AssertionError(f"the skewed router dropped nothing: {sk}")
+    results["moe_route_dispatch"]["buckets"] = [
+        dict(bucket="every token routed to expert 0 (drops past capacity)",
+             **sk),
+        dict(bucket="the last MoE block's call", **k19_case(a19_last))]
+    ye20, e20, s20, g20 = a20
+    got = combine(*a20)
+    if not torch.equal(bits(got), bits(combine_plain(*a20))):
+        raise AssertionError("K20 differs from its plain version")
+    kept20 = int((e20 < mcfg.moe_experts).sum())
+    results["moe_combine"] = dict(
+        max_abs_err=0, ms=timed(lambda: combine(*a20), 20),
+        plain_ms=timed(lambda: combine_plain(*a20), 5), library_ms=None,
+        **bound(kept20 * mcfg.dim * 2 + got.numel() * 2
+                + e20.numel() * 12, got.numel()))
+    del got, skewed, ad, am, a19, a19_last, a20
+    phase("K17_K20", card=card, tokens=TRAIN_N * cfg.seq_len, dim=cfg.dim,
+          note="each kernel on the arguments of its first call in the "
+               "forward (K19's buckets: a skewed router, and its last "
+               "call); K17 and K18 within 1 bf16 ulp (K18: plus 1 ulp of "
+               "the row's largest |o|), K19 (expert, slot, keep, gate and "
+               "buffer) and K20 bit for bit; library_ms: F.layer_norm, "
+               "F.scaled_dot_product_attention",
+          K17=results["vit_layernorm"], K18=results["vit_attention"],
+          K19=results["moe_route_dispatch"], K20=results["moe_combine"])
+
+    reset_launch_counts()
+    logits = dense(images)
+    torch.cuda.synchronize()
+    dl = only(launch_counts(), {"vit_layernorm": 2 * cfg.depth + 1,
+                                "vit_attention": cfg.depth},
+              "dense ViT forward")
+    dense_chk = check_logits(logits, plain_forward(dense, images), "dense")
+
+    def routed(route, got):
+        """`route` recording each call's experts (eidx) into `got`."""
+        def call(*a):
+            out = route(*a)
+            got.append(out[1])
+            return out
+        return call
+
+    k_routes, p_routes = [], []
+    reset_launch_counts()
+    with mock.patch.object(vit_mod, "route_dispatch",
+                           routed(vit_mod.route_dispatch, k_routes)):
+        mlogits = moe(images)
+    torch.cuda.synchronize()
+    n_moe = sum(mcfg.is_moe_block(i) for i in range(mcfg.depth))
+    ml = only(launch_counts(), {"vit_layernorm": 2 * mcfg.depth + 1,
+                                "vit_attention": mcfg.depth,
+                                "moe_route_dispatch": n_moe,
+                                "moe_combine": n_moe}, "MoE ViT forward")
+    with mock.patch.multiple(vit_mod, **{
+            **plains, "route_dispatch": routed(route_dispatch_plain,
+                                               p_routes)}):
+        mlogits_p = moe(images)
+    # a router near-tie that K17's one-ulp moves flip also moves, past
+    # capacity, which later tokens of the two experts are dropped
+    moe_chk = check_logits(mlogits, mlogits_p, "MoE")
+    moe_chk["routes_differing"] = [int((a != b).sum()) for a, b in
+                                   zip(k_routes, p_routes)]
+    moe_chk["kept_per_block"] = [int((a < mcfg.moe_experts).sum())
+                                 for a in k_routes]
+    # TF32 and bf16 reduced-precision sums switched on globally: the
+    # forward pins both, so the logits must not move
+    mm = torch.backends.cuda.matmul
+    prev = (torch.get_float32_matmul_precision(),
+            mm.allow_bf16_reduced_precision_reduction)
+    torch.set_float32_matmul_precision("high")
+    mm.allow_bf16_reduced_precision_reduction = True
+    try:
+        logits_rp = dense(images)
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        mm.allow_bf16_reduced_precision_reduction = prev[1]
+    if not torch.equal(logits_rp, logits):
+        raise AssertionError("TF32 / bf16 reduced precision on globally "
+                             "moved the logits")
+    phase("vit_forward", card=card, images=TRAIN_N,
+          input=list(images.shape), logits=list(logits.shape),
+          dense=dict(launches=dl, **dense_chk),
+          moe=dict(launches=ml, experts=mcfg.moe_experts,
+                   moe_blocks=n_moe, capacity_factor=mcfg.capacity_factor,
+                   **moe_chk),
+          reduced_precision_global_identical=True)
+    del logits, mlogits, mlogits_p, logits_rp, k_routes, p_routes
+
+    # 14. timing: the forward on both paths, where its time goes, memory,
+    # one ingest + forward step
+    class Marks:
+        """The forward's `mark` hook: a CUDA event after each stage."""
+
+        def __init__(self):
+            self.at = [("start", self._event())]
+
+        @staticmethod
+        def _event():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+        def __call__(self, stage):
+            self.at.append((stage, self._event()))
+
+        def ms(self):
+            torch.cuda.synchronize()
+            out = {}
+            for (_, a), (name, b) in zip(self.at, self.at[1:]):
+                out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+            return out
+
+    def stages(model):
+        runs = []
+        for _ in range(4):
+            m = Marks()
+            model(images, m)
+            runs.append(m.ms())
+        runs = runs[1:]
+        return {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
+
+    def fwd_flops(c, moe_cap=None):
+        """bf16 product FLOPs of one forward (the MoE's expert products
+        over their whole buffers, as the batched products run them)."""
+        t, dm, f = TRAIN_N * c.seq_len, c.dim, c.mlp_ratio * c.dim
+        fl = (2 * t * (c.patch * c.patch * 3) * dm
+              + 2 * TRAIN_N * dm * c.classes)
+        for i in range(c.depth):
+            fl += 2 * t * dm * 4 * dm + 4 * TRAIN_N * c.heads * \
+                c.seq_len ** 2 * c.head_dim
+            fl += (4 * c.moe_experts * moe_cap * dm * f if c.is_moe_block(i)
+                   else 4 * t * dm * f)
+        return fl
+
+    products = ("embed", "qkv", "proj", "mlp_in", "mlp_out", "router",
+                "experts", "head")
+    kernels = ("K17", "K18", "K19", "K20")
+    timing = {}
+    for label, model in (("dense", dense), ("moe", moe)):
+        fwd = timed(lambda: model(images), 10)
+        plain = timed(lambda: plain_forward(model, images), 3)
+        st = stages(model)
+        total = sum(st.values())
+        cap = capacity(TRAIN_N * model.cfg.seq_len, model.cfg.moe_experts,
+                       model.cfg.capacity_factor) if label == "moe" else None
+        fl = fwd_flops(model.cfg, cap)
+        timing[label] = dict(
+            ms=fwd, plain_ms=plain, images_per_s=TRAIN_N / fwd * 1e3,
+            plain_images_per_s=TRAIN_N / plain * 1e3,
+            bf16_tflop=fl / 1e12, bound_ms=fl / BF16_FLOP_S * 1e3,
+            stage_ms=st, stage_sum_ms=total,
+            products_share=sum(st.get(k, 0.0) for k in products) / total,
+            kernels_share=sum(st.get(k, 0.0) for k in kernels) / total,
+            other_share=sum(st.get(k, 0.0) for k in ("gelu", "residual"))
+            / total)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    dense(images)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    step = wall(lambda: dense(ti.__next__()), 3)
+    phase("timing_vit", card=card, images=TRAIN_N, **timing,
+          peak_device_bytes=peak, peak_above_resident_bytes=peak - base,
+          ingest_plus_forward_ms=step,
+          ingest_plus_forward_images_per_s=TRAIN_N / step * 1e3,
+          ingest_device_ms=ingest_device_ms,
+          idle_share=1.0 - (ingest_device_ms + timing["dense"]["ms"]) / step,
+          note="ms, plain_ms: CUDA events over 10 / 3 forwards; stage_ms: "
+               "medians of 3 forwards through the mark hook (products "
+               "include their weights' bf16 cast, proj and mlp_out the "
+               "residual add); bound_ms: bf16 product FLOPs / 989 TFLOP/s; "
+               "idle_share: 1 - (phase 7's ingest device sum + the dense "
+               "forward) / the wall time of one ingest step + forward")
+    return {**{k: dl[k] for k in ("vit_layernorm", "vit_attention")},
+            **{k: ml[k] for k in ("moe_route_dispatch", "moe_combine")}}
 
 
 def _idat(png: bytes) -> bytes:

@@ -22,7 +22,14 @@ first use):
   behind `resize_sync` / `color_convert_sync` and
   `pipeline.ImageBatchPipeline` (BASELINE config 4), and the PNG encode
   filters with the adaptive pick (K12) behind
-  `pipeline.encode_filtered`.
+  `pipeline.encode_filtered`;
+- the batched PNG and TIFF decode, `pipeline.PngBatchPipeline` and
+  `pipeline.TiffBatchPipeline`: the PNG unfilter (K13) and spec
+  transforms (K14), the TIFF LZW strips (K15) and transforms (K16);
+- the ViT that consumes the ingest's batches, `models.vit.ViT` (the
+  forward pass, dense and switch-MoE; bf16 products through
+  `torch.matmul`): LayerNorm (K17), attention (K18), the MoE's route +
+  dispatch (K19) and combine (K20).
 
 The public single-image functions below run on the card unless
 `device="cpu"` is asked for; the async forms run on a pool thread and

@@ -55,6 +55,10 @@ SIGNATURES = {
     "picha_png_transform": [P, I, I, I, I, I, P, P, I, I, I, P, P],
     "picha_lzw_decode": [P, P, P, P, P, I, P, P, P, P, P],
     "picha_tiff_transform": [P, I, I, I, L, I, I, I, I, I, I, I, P, P, P],
+    "picha_vit_layernorm": [P, P, P, L, I, P, P],
+    "picha_vit_attention": [P, I, I, I, I, F, P, P],
+    "picha_moe_route_dispatch": [P, P, L, I, I, I, P, P, P, P, P, P],
+    "picha_moe_combine": [P, P, P, P, L, I, I, I, P, P],
 }
 
 _lock = threading.Lock()
@@ -212,6 +216,20 @@ KERNELS = {
         Kernel("tiff_transform", "picha_tiff_transform",
                "picha_tpu_torch/csrc/tiff_transform.cu",
                "picha_tpu/pipeline/tiff_batch.py:139 (_jit_transform)"),
+        Kernel("vit_layernorm", "picha_vit_layernorm",
+               "picha_tpu_torch/csrc/vit_layernorm.cu",
+               "picha_tpu/models/vit.py:145 (_ln)"),
+        Kernel("vit_attention", "picha_vit_attention",
+               "picha_tpu_torch/csrc/vit_attention.cu",
+               "picha_tpu/models/vit.py:171-180 (forward's attention)"),
+        Kernel("moe_route_dispatch", "picha_moe_route_dispatch",
+               "picha_tpu_torch/csrc/vit_moe.cu",
+               "picha_tpu/models/vit.py:211-224 (_switch_moe's softmax, "
+               "top-1, slots and dispatch scatter)"),
+        Kernel("moe_combine", "picha_moe_combine",
+               "picha_tpu_torch/csrc/vit_moe.cu",
+               "picha_tpu/models/vit.py:228-230 (_switch_moe's combine "
+               "gather)"),
     )
 }
 
@@ -232,6 +250,13 @@ def require_cuda(t, kernel: str):
     if t.device.type != "cuda":
         raise ValueError(f"{kernel} takes CPU tensors (plain version) or "
                          f"CUDA tensors (kernel), got {t.device}")
+
+
+def aligned(t, nbytes: int = 16):
+    """`t` made contiguous, copied once more if its data pointer is not a
+    multiple of `nbytes` (a kernel that reads 4- or 16-byte words)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def ptr(t) -> int:

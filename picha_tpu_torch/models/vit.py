@@ -1,0 +1,256 @@
+"""The ViT that consumes the training ingest: the forward pass, dense and
+switch-MoE (BASELINE.json config 5's "... normalize feeding a ViT step").
+
+Counterpart of `picha_tpu/models/vit.py`: `ViTConfig`, `TINY`,
+`TINY_MOE`, `init_params` (:65-109), `forward` (:155-191) and
+`_switch_moe` (:194-230). ViT-S/16 widths by default (224², patch 16,
+dim 384, 12 blocks of 6 heads, MLP 1536, 1000 classes), with the
+reference's variant: no class token, no biases, mean pooling. Products
+are bf16 with f32 sums (`torch.matmul` / `torch.bmm`: cuBLAS on the
+card, under `ops.jpeg.full_precision`); LayerNorm is K17
+(`ops/layernorm.py`), attention K18 (`ops/attention.py`), the MoE's
+route + dispatch K19 and its combine K20 (`ops/moe.py`), each the plain
+torch version on CPU tensors.
+
+Parameters keep the reference's tree (dicts, a list of blocks) and its
+(in, out) weight layout, in float32; `params_from_jax` takes the
+reference's tree as numpy arrays. Training (`loss_fn`,
+`make_train_step`, the backward kernels, the optimizer, the checkpoint)
+is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention
+from ..ops.jpeg import full_fp32, full_precision
+from ..ops.layernorm import layer_norm
+from ..ops.moe import capacity, combine, route_dispatch
+from ..runtime.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    image_size: int = 224
+    patch: int = 16
+    dim: int = 384
+    depth: int = 12
+    heads: int = 6
+    mlp_ratio: int = 4
+    classes: int = 1000
+    # switch-MoE: every `moe_every`-th block swaps its MLP for
+    # `moe_experts` expert FFNs with top-1 routing (0 = dense model)
+    moe_experts: int = 0
+    moe_every: int = 2
+    capacity_factor: float = 1.5
+
+    def is_moe_block(self, i: int) -> bool:
+        # every moe_every-th block, counting from the moe_every-th
+        return (self.moe_experts > 0
+                and i % self.moe_every == self.moe_every - 1)
+
+    @property
+    def seq_len(self) -> int:
+        return (self.image_size // self.patch) ** 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.heads
+
+
+TINY = ViTConfig(image_size=32, patch=8, dim=128, depth=2, heads=4,
+                 mlp_ratio=4, classes=16)
+TINY_MOE = ViTConfig(image_size=32, patch=8, dim=128, depth=2, heads=4,
+                     mlp_ratio=4, classes=16, moe_experts=4)
+
+
+def init_params(cfg: ViTConfig, generator: torch.Generator,
+                device="cuda") -> Dict:
+    """A random parameter tree with the reference's shapes and scales:
+    weights normal / sqrt(fan_in), pos_embed 0.02 * normal, LayerNorm
+    scale 1 and bias 0, drawn on the CPU from `generator` (so a seed
+    gives the same weights on every device) and moved to `device`."""
+    dev = resolve_device(device)
+    dim, f = cfg.dim, cfg.mlp_ratio * cfg.dim
+
+    def normal(shape):
+        return torch.randn(shape, generator=generator, dtype=torch.float32)
+
+    def dense(fan_in, shape):
+        return normal(shape) / math.sqrt(fan_in)
+
+    def ln():
+        return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+    pp = cfg.patch * cfg.patch * 3
+    params = {"patch_embed": dense(pp, (pp, dim)),
+              "pos_embed": 0.02 * normal((cfg.seq_len, dim)),
+              "head": dense(dim, (dim, cfg.classes)),
+              "final_ln": ln(), "blocks": []}
+    for i in range(cfg.depth):
+        blk = {"ln1": ln(), "qkv": dense(dim, (dim, 3 * dim)),
+               "proj": dense(dim, (dim, dim)), "ln2": ln()}
+        if cfg.is_moe_block(i):
+            E = cfg.moe_experts
+            blk["router"] = dense(dim, (dim, E))
+            blk["w_in"] = dense(dim, (E, dim, f))
+            blk["w_out"] = dense(f, (E, f, dim))
+        else:
+            blk["mlp_in"] = dense(dim, (dim, f))
+            blk["mlp_out"] = dense(f, (f, dim))
+        params["blocks"].append(blk)
+    return _map(lambda t: t.to(dev), params)
+
+
+def params_from_jax(tree, device="cuda") -> Dict:
+    """The reference's parameter tree, its leaves as numpy arrays
+    (`jax.tree.map(np.asarray, params)`), -> the port's tree of float32
+    tensors on `device`; dense and MoE blocks alike."""
+    dev = resolve_device(device)
+    return _map(lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32)).to(dev), tree)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _no_mark(stage: str) -> None:
+    pass
+
+
+def forward(params, images, cfg: ViTConfig,
+            mark: Optional[Callable[[str], None]] = None):
+    """images: (N, H, W, 3) float32 in [0, 1] (the ingest's output).
+    Returns (N, classes) float32 logits. `mark(stage)`, when given, is
+    called after each stage ("embed", "K17", "qkv", "K18", "proj",
+    "mlp_in", "gelu", "mlp_out", "router", "K19", "experts", "K20",
+    "residual", "head"); a stage names the work enqueued since the
+    previous call (products include their weights' bf16 cast and, for
+    proj and mlp_out, the residual add)."""
+    mark = mark or _no_mark
+    bf16 = torch.bfloat16
+    n, h, w, _ = images.shape
+    p, s = cfg.patch, cfg.seq_len
+    with full_precision():
+        x = images.reshape(n, h // p, p, w // p, p, 3)
+        x = x.permute(0, 1, 3, 2, 4, 5).reshape(n, s, p * p * 3)
+        x = x.to(bf16) @ params["patch_embed"].to(bf16)
+        x = x + params["pos_embed"].to(bf16)
+        mark("embed")
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+        for blk in params["blocks"]:
+            y = layer_norm(x, blk["ln1"]["scale"], blk["ln1"]["bias"])
+            mark("K17")
+            qkv = y @ blk["qkv"].to(bf16)
+            mark("qkv")
+            o = attention(qkv.view(n, s, 3, cfg.heads, cfg.head_dim), scale)
+            mark("K18")
+            x = x + o @ blk["proj"].to(bf16)
+            mark("proj")
+            y = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
+            mark("K17")
+            if "router" in blk:
+                y = _switch_moe(y, blk, cfg, mark)
+                x = x + y
+                mark("residual")
+            else:
+                y = y @ blk["mlp_in"].to(bf16)
+                mark("mlp_in")
+                y = F.gelu(y, approximate="tanh")
+                mark("gelu")
+                x = x + y @ blk["mlp_out"].to(bf16)
+                mark("mlp_out")
+        x = layer_norm(x, params["final_ln"]["scale"],
+                       params["final_ln"]["bias"])
+        mark("K17")
+        pooled = x.to(torch.float32).mean(1).to(bf16)
+        logits = (pooled @ params["head"].to(bf16)).to(torch.float32)
+        mark("head")
+    return logits
+
+
+def _switch_moe(y, blk, cfg: ViTConfig, mark=None):
+    """Top-1 switch routing with static capacity (the reference's
+    :194-230): the router product in IEEE f32, K19, the expert FFNs as
+    bf16 batched products with tanh-GELU between them, K20. Dropped
+    tokens give 0 (they pass through the caller's residual)."""
+    mark = mark or _no_mark
+    bf16 = torch.bfloat16
+    n, s, d = y.shape
+    t = n * s
+    cap = capacity(t, cfg.moe_experts, cfg.capacity_factor)
+    yt = y.reshape(t, d)
+    with full_fp32():
+        logits = yt.to(torch.float32) @ blk["router"]
+    mark("router")
+    xe, eidx, sidx, gk = route_dispatch(logits, yt, cap)
+    mark("K19")
+    he = F.gelu(torch.bmm(xe, blk["w_in"].to(bf16)), approximate="tanh")
+    ye = torch.bmm(he, blk["w_out"].to(bf16))
+    mark("experts")
+    out = combine(ye, eidx, sidx, gk)
+    mark("K20")
+    return out.reshape(n, s, d)
+
+
+class _Tree(nn.Module):
+    """A parameter tree (dicts of tensors, dicts and lists of dicts) held
+    as frozen nn.Parameters; `tree()` gives it back as dicts."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            elif isinstance(v, list):
+                self.add_module(k, nn.ModuleList(_Tree(b) for b in v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def tree(self) -> Dict:
+        out = {}
+        for k in self._keys:
+            v = getattr(self, k)
+            if isinstance(v, _Tree):
+                v = v.tree()
+            elif isinstance(v, nn.ModuleList):
+                v = [b.tree() for b in v]
+            out[k] = v
+        return out
+
+
+class ViT(nn.Module):
+    """`forward` as a module: `ViT(cfg, seed=0)(images)` -> logits. The
+    parameters are `init_params(cfg, torch.Generator().manual_seed(seed))`
+    unless a tree is given (`params_from_jax` for the reference's). Runs
+    on the card unless device="cpu" is asked for."""
+
+    def __init__(self, cfg: ViTConfig = ViTConfig(), seed: int = 0,
+                 params: Optional[Dict] = None, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        if params is None:
+            params = init_params(cfg, torch.Generator().manual_seed(seed),
+                                 dev)
+        self.cfg = cfg
+        self.weights = _Tree(_map(lambda t: t.to(dev), params))
+
+    def params(self) -> Dict:
+        return self.weights.tree()
+
+    def forward(self, images, mark: Optional[Callable[[str], None]] = None):
+        return forward(self.weights.tree(), images, self.cfg, mark)

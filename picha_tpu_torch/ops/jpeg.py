@@ -141,6 +141,27 @@ def full_fp32():
             b.fp32_precision = p
 
 
+@contextlib.contextmanager
+def full_precision():
+    """`full_fp32`, and bf16 products summed in float32 inside the block.
+    torch lets cuBLAS reduce a bf16 product's partial sums in bf16 by
+    default (`allow_bf16_reduced_precision_reduction` is True); the
+    reference (XLA) sums them in f32, so this pins the flag to False and
+    restores the caller's setting (with its split-K part, where the
+    installed torch has one) afterwards."""
+    m = torch.backends.cuda.matmul
+    prev = m.allow_bf16_reduced_precision_reduction
+    split_k = getattr(m, "allow_bf16_reduced_precision_reduction_split_k",
+                      None)
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        with full_fp32():
+            yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = (
+            prev if split_k is None else (prev, split_k))
+
+
 def pack_u8(f255):
     """The pipeline's pack rule floor(clip(v + 0.5, 0, 255)) -> uint8."""
     return torch.floor((f255 + 0.5).clamp(0.0, 255.0)).to(torch.uint8)

@@ -564,7 +564,10 @@ def test_port_imports_nothing_of_the_reference():
             "picha_tpu_torch.codecs.image_host",
             "picha_tpu_torch.codecs.png_host", "picha_tpu_torch.pixels",
             "picha_tpu_torch.image",
-            "picha_tpu_torch.runtime.executor"} <= set(mods)
+            "picha_tpu_torch.runtime.executor",
+            "picha_tpu_torch.models.vit", "picha_tpu_torch.ops.layernorm",
+            "picha_tpu_torch.ops.attention",
+            "picha_tpu_torch.ops.moe"} <= set(mods)
 
 
 _REF_IMPORT = re.compile(
