@@ -3,13 +3,13 @@
 all-device JPEG transcode paths (fused and staged pixel stages), the
 training ingest, the pixel-array path (BASELINE config 4, the
 single-image resize and convert, the batched PNG encode), the batched
-PNG and TIFF decode, and the ViT-S/16 forward (dense and switch-MoE) fed
-by the ingest, on one CUDA card, and checks them.
+PNG and TIFF decode, and the ViT-S/16 forward and train step (dense and
+switch-MoE) fed by the ingest, on one CUDA card, and checks them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (each prints one line; any failure raises and exits non-zero):
-  1. the card (nvidia-smi name, power limit); build kernels K1-K20 from
+  1. the card (nvidia-smi name, power limit); build kernels K1-K24 from
      picha_tpu_torch/csrc/ (one nvcc per source, in parallel) into the
      gitignored csrc/build/;
   2. each kernel against its plain torch version on the card, at the
@@ -119,7 +119,34 @@ Phases (each prints one line; any failure raises and exits non-zero):
  14. both forwards timed on the kernel and the plain path (images/s),
      where their time goes (the forward's `mark` hook: products against
      K17-K20), peak device memory, and one ingest step + forward end to
-     end with the card's idle share.
+     end with the card's idle share;
+ 15. one TrainingInput step (phase 6's arguments, 256 images) with labels
+     from a seeded torch.Generator, for ViTConfig() (seed 0) and
+     ViTConfig(moe_experts=4) (seed 1): K21 (LayerNorm backward; dx
+     within 1 bf16 ulp, dscale / dbias within 1e-5 of the sum of their
+     terms' magnitudes), K22 (attention backward; within 1 ulp + 1 ulp of
+     the row's largest |value|), K23 (the MoE dispatch's backward) and K24
+     (its combine's backward; gathers and scatters bit for bit, dlogits /
+     dgk within 1e-6 relative) against their plain versions on the
+     arguments of their first call in a backward, K23 also on a router
+     that sends every token to expert 0; one step's gradients through the
+     kernels against the same step through the plain versions on the card
+     (each leaf within 2e-2 relative L2; the MoE's routes compared); three
+     steps at learning_rate=1e-3 (finite losses, the third below the
+     first) with launches K17 = K21 = 25, K18 = K22 = 12 (and K19 = K20 =
+     K23 = K24 = 6 for the MoE) per step and no other kernel; a checkpoint
+     (models/checkpoint.py, with the ingest's state()) after step 2,
+     loaded, and step 3 from it bit for bit the uninterrupted step 3; the
+     dense gradients again with TF32 and bf16 reduced-precision sums on
+     globally, identical;
+ 16. the train step timed on the kernel and the plain path (images/s),
+     where it goes (forward stages, backward, optimizer through
+     train_step's mark hook; the backward split into K21-K24 and the
+     backward products replayed alone), peak device memory, the bound
+     (3 x the forward's bf16 product FLOPs), each backward kernel's
+     yardstick (F.layer_norm's backward; SDPA forward + backward and its
+     backward alone), and one ingest step + train step end to end with
+     the card's idle share.
 Every kernel also gets its bound (the larger of its bytes over 3.35 TB/s
 and its FP32 FLOPs over 67 TFLOP/s plus its bf16 product FLOPs over 989
 TFLOP/s, counted from this run's shapes) and, where one PyTorch call
@@ -153,6 +180,8 @@ WEBP_LSB = 8.0             # the reference's lossy oracle, mean per image
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12   # H100 SXM peaks, 700 W
 BF16_FLOP_S = 989e12                         # dense bf16 tensor peak
 VIT_LOGIT_TOL = 0.03       # ViT logits vs the plain path, + 1 bf16 ulp
+TRAIN_LR = 1e-3            # phase 15's three train steps
+GRAD_RL2 = 2e-2            # a gradient leaf vs the plain path, relative L2
 
 
 def bound(nbytes, flops=0, bf16_flops=0):
@@ -846,6 +875,10 @@ def main():
     vit_launches = vit_phases(dev, card, results, phase, timed, wall,
                               ingest_device_ms)
 
+    # 15-16. the ViT train step: loss, backward, AdamW, checkpoint ---------
+    train_launches = train_phases(dev, card, results, phase, timed, wall,
+                                  ingest_device_ms)
+
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "picha_tpu" or m.startswith("picha_tpu."))
     if bad:
@@ -855,13 +888,15 @@ def main():
     # the staged restart slice; K9, K10: an ingest step; K11: the
     # config-4 call; K12: the batched PNG encode; K13-K16: the full-size
     # PNG and TIFF decode calls; K17, K18: the dense ViT forward; K19,
-    # K20: the MoE one)
+    # K20: the MoE one; K21, K22: the dense train step; K23, K24: the MoE
+    # one)
     path_launches = {**main_launches,
                      **{k: nr_launches[k] for k in chunked_path[:2]},
                      **{k: s_launches[k] for k in staged_path[:3]},
                      **{k: ingest_launches[k]
                         for k in ("crop_flip_resize_w", "augment")},
-                     **pixel_launches, **decode_launches, **vit_launches}
+                     **pixel_launches, **decode_launches, **vit_launches,
+                     **train_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # "buckets": a kernel also timed on another bucket of its path
@@ -1162,6 +1197,49 @@ def training_phases(dev, card, results, phase, timed, wall):
           idle_share=1.0 - sum(device_ms.values()) / step,
           peak_device_bytes=peak, peak_device_gb=peak / 1e9)
     return main_launches, sum(device_ms.values())
+
+
+class Marks:
+    """The ViT's `mark` hook (forward and train step): a CUDA event after
+    each stage; `ms()` sums the time between events by stage name."""
+
+    def __init__(self):
+        self.at = [("start", self._event())]
+
+    @staticmethod
+    def _event():
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def __call__(self, stage):
+        self.at.append((stage, self._event()))
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for (_, a), (name, b) in zip(self.at, self.at[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def fwd_flops(c, moe_cap=None):
+    """bf16 product FLOPs of one ViT forward at TRAIN_N images (the MoE's
+    expert products over their whole buffers, as the batched products run
+    them)."""
+    t, dm, f = TRAIN_N * c.seq_len, c.dim, c.mlp_ratio * c.dim
+    fl = (2 * t * (c.patch * c.patch * 3) * dm
+          + 2 * TRAIN_N * dm * c.classes)
+    for i in range(c.depth):
+        fl += 2 * t * dm * 4 * dm + 4 * TRAIN_N * c.heads * \
+            c.seq_len ** 2 * c.head_dim
+        fl += (4 * c.moe_experts * moe_cap * dm * f if c.is_moe_block(i)
+               else 4 * t * dm * f)
+    return fl
 
 
 def only(counts, want, label):
@@ -2046,28 +2124,6 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
 
     # 14. timing: the forward on both paths, where its time goes, memory,
     # one ingest + forward step
-    class Marks:
-        """The forward's `mark` hook: a CUDA event after each stage."""
-
-        def __init__(self):
-            self.at = [("start", self._event())]
-
-        @staticmethod
-        def _event():
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-
-        def __call__(self, stage):
-            self.at.append((stage, self._event()))
-
-        def ms(self):
-            torch.cuda.synchronize()
-            out = {}
-            for (_, a), (name, b) in zip(self.at, self.at[1:]):
-                out[name] = out.get(name, 0.0) + a.elapsed_time(b)
-            return out
-
     def stages(model):
         runs = []
         for _ in range(4):
@@ -2076,19 +2132,6 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
             runs.append(m.ms())
         runs = runs[1:]
         return {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
-
-    def fwd_flops(c, moe_cap=None):
-        """bf16 product FLOPs of one forward (the MoE's expert products
-        over their whole buffers, as the batched products run them)."""
-        t, dm, f = TRAIN_N * c.seq_len, c.dim, c.mlp_ratio * c.dim
-        fl = (2 * t * (c.patch * c.patch * 3) * dm
-              + 2 * TRAIN_N * dm * c.classes)
-        for i in range(c.depth):
-            fl += 2 * t * dm * 4 * dm + 4 * TRAIN_N * c.heads * \
-                c.seq_len ** 2 * c.head_dim
-            fl += (4 * c.moe_experts * moe_cap * dm * f if c.is_moe_block(i)
-                   else 4 * t * dm * f)
-        return fl
 
     products = ("embed", "qkv", "proj", "mlp_in", "mlp_out", "router",
                 "experts", "head")
@@ -2131,6 +2174,534 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
                "forward) / the wall time of one ingest step + forward")
     return {**{k: dl[k] for k in ("vit_layernorm", "vit_attention")},
             **{k: ml[k] for k in ("moe_route_dispatch", "moe_combine")}}
+
+
+def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
+    """Phases 15-16: the ViT-S/16 train step fed by the ingest (see the
+    module doc). Fills results for K21-K24; returns their launch counts
+    in one train step (K21, K22: dense; K23, K24: MoE)."""
+    import contextlib
+    import math
+    import os
+    import tempfile
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.models import checkpoint as ckpt
+    from picha_tpu_torch.models import vit as vit_mod
+    from picha_tpu_torch.models.vit import (ViTConfig, init_params, loss_fn,
+                                            make_train_step)
+    from picha_tpu_torch.ops import attention as att_mod
+    from picha_tpu_torch.ops import layernorm as ln_mod
+    from picha_tpu_torch.ops import moe as moe_mod
+    from picha_tpu_torch.ops.jpeg import full_precision
+    from picha_tpu_torch.optim import tree_leaves, tree_unflatten
+    from picha_tpu_torch.pipeline import TrainingInput
+
+    bf16 = torch.bfloat16
+    k21, k22 = ln_mod.layer_norm_backward, att_mod.attention_backward
+    k23, k24 = moe_mod.dispatch_backward, moe_mod.combine_backward
+    backwards = {"layer_norm_backward": ln_mod, "attention_backward": att_mod,
+                 "dispatch_backward": moe_mod, "combine_backward": moe_mod}
+    plain_ops = [
+        (ln_mod, "layer_norm_k17", ln_mod.layer_norm_plain),
+        (ln_mod, "layer_norm_backward", ln_mod.layer_norm_backward_plain),
+        (att_mod, "attention_k18", att_mod.attention_plain),
+        (att_mod, "attention_backward", att_mod.attention_backward_plain),
+        (moe_mod, "route_dispatch_k19", moe_mod.route_dispatch_plain),
+        (moe_mod, "combine_k20", moe_mod.combine_plain),
+        (moe_mod, "dispatch_backward", moe_mod.dispatch_backward_plain),
+        (moe_mod, "combine_backward", moe_mod.combine_backward_plain)]
+
+    @contextlib.contextmanager
+    def plain_path():
+        """The same step through the plain versions of K17-K24: the
+        autograd Functions stay, their kernel calls are patched."""
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in plain_ops:
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            yield
+
+    def ulp(v):
+        m = v.abs().double().clamp_min(2.0 ** -126)
+        return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == bf16 else t
+
+    # 15. one ingest step of 256; labels from a seeded generator
+    srcs_nr = [(FIXTURES / f"src_nr_{i}.jpg").read_bytes() for i in range(3)]
+    ti = TrainingInput([srcs_nr[i % 3] for i in range(TRAIN_N)],
+                       batch=TRAIN_N, crop=CROP, size=SIZE, seed=0,
+                       augment=AUGMENT, device=dev)
+    images = next(ti)
+    labels = torch.randint(0, 1000, (TRAIN_N,), generator=torch.Generator()
+                           .manual_seed(0)).to(dev)
+
+    def grads(params, cfg, record=None):
+        """(loss, gradients) of the step's loss at `params`, taken as
+        train_step takes them; `record` collects each MoE block's (eidx,
+        sidx)."""
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        real = vit_mod.route_dispatch
+
+        def routed(*a):
+            out = real(*a)
+            if record is not None:
+                record.append((out[1], out[2]))
+            return out
+
+        with mock.patch.object(vit_mod, "route_dispatch", routed), \
+                full_precision():
+            loss = loss_fn(tree_unflatten(params, leaves), images, labels,
+                           cfg)
+            g = torch.autograd.grad(loss, leaves)
+        return loss.detach(), g
+
+    def backward_args(params, cfg):
+        """The arguments of each backward wrapper's first call in a step."""
+        got = {}
+
+        def rec(name, fn):
+            def call(*a):
+                got.setdefault(name, tuple(
+                    x.detach() if isinstance(x, torch.Tensor) else x
+                    for x in a))
+                return fn(*a)
+            return call
+
+        with contextlib.ExitStack() as stack:
+            for name, mod in backwards.items():
+                stack.enter_context(mock.patch.object(
+                    mod, name, rec(name, getattr(mod, name))))
+            grads(params, cfg)
+        return got
+
+    def pinned(routes):
+        """K19's plain version with each call's (eidx, sidx) replaced by
+        the kernel path's (`routes`, in call order): the buffer scattered
+        and the gate taken at those slots. A router near-tie that K17's
+        one-ulp moves flip moves, past capacity, which tokens drop, and a
+        dropped token's share of a router gradient is all or nothing."""
+        calls = iter(routes)
+
+        def call(logits, y, cap):
+            eidx, sidx = next(calls)
+            experts = logits.shape[1]
+            _best, gate = moe_mod.route_plain(logits)
+            xe = torch.zeros((experts + 1, cap, y.shape[1]), dtype=y.dtype,
+                             device=y.device)
+            xe.index_put_((eidx.long(), sidx.long()), y, accumulate=True)
+            return xe[:experts], eidx, sidx, gate * (eidx < experts)
+        return call
+
+    def rel_l2(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def k21_case(a):
+        x, _sc, dy = a
+        got, want = k21(*a), ln_mod.layer_norm_backward_plain(*a)
+        dx, wdx = got[0].double(), want[0].double()
+        diff = (dx - wdx).abs()
+        lim = ulp(torch.maximum(dx.abs(), wdx.abs())) + \
+            2.0 ** -16 * wdx.abs().amax(-1, keepdim=True)
+        if bool((diff > lim).any()):
+            raise AssertionError(f"K21: dx {float((diff - lim).max())} past "
+                                 f"1 bf16 ulp")
+        d = x.shape[-1]
+        x32 = x.double().reshape(-1, d)
+        xhat = (x32 - x32.mean(-1, keepdim=True)) / x32.std(
+            -1, unbiased=False, keepdim=True)
+        rel = {}
+        for key, g_, w_, terms in (
+                ("dscale", got[1], want[1], xhat * dy.double().reshape(-1, d)),
+                ("dbias", got[2], want[2], dy.double().reshape(-1, d))):
+            err = (g_.double() - w_.double()).abs()
+            rel[key] = float((err / terms.abs().sum(0).clamp_min(1e-30)).max())
+            rel[key + "_vs_value"] = float(
+                (err / w_.double().abs().clamp_min(1e-30)).max())
+        if max(rel["dscale"], rel["dbias"]) > 1e-5:
+            raise AssertionError(f"K21: {rel} past 1e-5")
+        return dict(max_abs_err=float(diff.max()),
+                    max_ulps=float((diff / ulp(torch.maximum(
+                        dx.abs(), wdx.abs()))).max()), **rel)
+
+    def k22_case(a):
+        got, want = k22(*a), att_mod.attention_backward_plain(*a)
+        diff = (got.double() - want.double()).abs()
+        row = want.abs().amax(-1, keepdim=True)
+        lim = ulp(torch.maximum(got.abs(), want.abs())) + ulp(row)
+        if bool((diff > lim).any()):
+            raise AssertionError(f"K22: {float((diff - lim).max())} past 1 "
+                                 f"ulp + 1 ulp of the row")
+        return dict(max_abs_err=float(diff.max()),
+                    max_ulps_of_row=float((diff / ulp(row)).max()),
+                    share_differing=float((diff > 0).double().mean()))
+
+    def k23_case(a):
+        dxe, eidx, _s, _l, _g = a
+        got, want = k23(*a), moe_mod.dispatch_backward_plain(*a)
+        if not torch.equal(bits(got[0]), bits(want[0])):
+            raise AssertionError("K23: dy_t differs from its plain version")
+        err = float((got[1] - want[1]).abs().max())
+        if err > 1e-6 * float(want[1].abs().max()):
+            raise AssertionError(f"K23: dlogits {err} past 1e-6 relative")
+        e = dxe.shape[0]
+        return dict(max_abs_err=err, dlogits_equal=torch.equal(got[1],
+                                                               want[1]),
+                    tokens=eidx.numel(), kept=int((eidx < e).sum()))
+
+    def k24_case(a):
+        got, want = k24(*a), moe_mod.combine_backward_plain(*a)
+        if not torch.equal(bits(got[0]), bits(want[0])):
+            raise AssertionError("K24: dye differs from its plain version")
+        err = float((got[1] - want[1]).abs().max())
+        if err > 1e-6 * float(want[1].abs().max()):
+            raise AssertionError(f"K24: dgk {err} past 1e-6 relative")
+        return dict(max_abs_err=err, dgk_equal=torch.equal(got[1], want[1]))
+
+    models = (("dense", ViTConfig(), 0), ("moe", ViTConfig(moe_experts=4), 1))
+    train = {}
+    step_launches = {}
+    kernel_args = {}
+    for label, cfg, seed in models:
+        params = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+        torch.cuda.synchronize()
+        # K21-K24 against their plain versions on their first call's
+        # arguments in a backward (K23 also on a router that drops)
+        a = backward_args(params, cfg)
+        kernel_args[label] = a
+        chk = {"K21": k21_case(a["layer_norm_backward"]),
+               "K22": k22_case(a["attention_backward"])}
+        if cfg.moe_experts:
+            dxe, _e, _s, lg, dgk = a["dispatch_backward"]
+            chk["K23"] = k23_case(a["dispatch_backward"])
+            skewed = lg.clone()            # every token on expert 0
+            skewed[:, 0] = skewed.amax(-1) + 1.0
+            _x, se, ss, _g = moe_mod.route_dispatch_k19(
+                skewed, torch.zeros((lg.shape[0], 8), dtype=bf16,
+                                    device=dev), dxe.shape[1])
+            sk = k23_case((dxe, se, ss, skewed, dgk))
+            if sk["kept"] >= sk["tokens"]:
+                raise AssertionError(f"the skewed router dropped nothing: "
+                                     f"{sk}")
+            chk["K23_skewed"] = sk
+            chk["K24"] = k24_case(a["combine_backward"])
+        # one step's gradients through the kernels and through the plain
+        # versions on the card (the MoE's plain path on the kernel path's
+        # routes; also reported on its own)
+        k_routes, p_routes = [], []
+        loss_k, g_k = grads(params, cfg, k_routes)
+        reset_launch_counts()
+        with plain_path(), contextlib.ExitStack() as stack:
+            if cfg.moe_experts:
+                stack.enter_context(mock.patch.object(
+                    moe_mod, "route_dispatch_k19", pinned(k_routes)))
+            loss_p, g_p = grads(params, cfg)
+        torch.cuda.synchronize()
+        only(launch_counts(), {}, f"{label} plain step")
+        rl2 = [rel_l2(x, y) for x, y in zip(g_k, g_p)]
+        names = [n for n, _ in _leaf_names(params)]
+        worst = rl2.index(max(rl2))
+        if max(rl2) > GRAD_RL2:
+            raise AssertionError(f"{label}: gradient leaf {names[worst]} "
+                                 f"{max(rl2)} from the plain path")
+        grad_chk = dict(
+            loss=float(loss_k), loss_plain=float(loss_p),
+            max_rel_l2=max(rl2), max_rel_l2_leaf=names[worst],
+            median_rel_l2=sorted(rl2)[len(rl2) // 2], leaves=len(rl2),
+            limit=GRAD_RL2)
+        if cfg.moe_experts:
+            with plain_path():
+                loss_u, g_u = grads(params, cfg, p_routes)
+            ru = [rel_l2(x, y) for x, y in zip(g_k, g_u)]
+            grad_chk["plain_own_routes"] = dict(
+                loss=float(loss_u), max_rel_l2=max(ru),
+                max_rel_l2_leaf=names[ru.index(max(ru))],
+                max_rel_l2_not_router=max(
+                    r for r, n in zip(ru, names) if "router" not in n),
+                routes_differing=[int((x[0] != y[0]).sum()) for x, y in
+                                  zip(k_routes, p_routes)])
+            grad_chk["kept_per_block"] = [int((x[0] < cfg.moe_experts).sum())
+                                          for x in k_routes]
+            del g_u
+        # three steps at TRAIN_LR on the batch, a checkpoint after the
+        # second, the third again from the loaded checkpoint
+        init_opt, step = make_train_step(cfg, TRAIN_LR, dev)
+        p, s = params, init_opt(params)
+        reset_launch_counts()
+        p, s, l1 = step(p, s, images, labels)
+        torch.cuda.synchronize()
+        want = {"vit_layernorm": 2 * cfg.depth + 1,
+                "vit_attention": cfg.depth,
+                "vit_layernorm_bwd": 2 * cfg.depth + 1,
+                "vit_attention_bwd": cfg.depth}
+        if cfg.moe_experts:
+            n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.depth))
+            want.update(moe_route_dispatch=n_moe, moe_combine=n_moe,
+                        moe_dispatch_bwd=n_moe, moe_combine_bwd=n_moe)
+        step_launches[label] = only(launch_counts(), want,
+                                    f"{label} train step")
+        p, s, l2 = step(p, s, images, labels)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "step2.npz")
+            ckpt.save_checkpoint(path, p, s, input_state=ti.state(), step=2)
+            p3, s3, l3 = step(p, s, images, labels)
+            lp, ls, inp, at = ckpt.load_checkpoint(path, params,
+                                                   init_opt(params))
+        rp3, rs3, rl3 = step(lp, ls, images, labels)
+        losses = [float(v) for v in (l1, l2, l3)]
+        if not all(math.isfinite(v) for v in losses) or \
+                losses[2] >= losses[0]:
+            raise AssertionError(f"{label}: losses {losses}")
+        same = torch.equal(rl3, l3) and all(
+            torch.equal(x, y) for x, y in zip(
+                tree_leaves((rp3, rs3)), tree_leaves((p3, s3))))
+        if not same or at != 2 or inp != ti.state():
+            raise AssertionError(f"{label}: the resumed step 3 is not the "
+                                 f"uninterrupted one ({at}, {inp})")
+        train[label] = dict(launches=step_launches[label], **grad_chk,
+                            losses=losses, learning_rate=TRAIN_LR,
+                            resumed_step_identical=True, kernels=chk)
+        if not cfg.moe_experts:
+            # TF32 and bf16 reduced-precision sums switched on globally:
+            # the step pins both, so the gradients must not move
+            mm = torch.backends.cuda.matmul
+            prev = (torch.get_float32_matmul_precision(),
+                    mm.allow_bf16_reduced_precision_reduction)
+            torch.set_float32_matmul_precision("high")
+            mm.allow_bf16_reduced_precision_reduction = True
+            try:
+                _l, g_rp = grads(params, cfg)
+            finally:
+                torch.set_float32_matmul_precision(prev[0])
+                mm.allow_bf16_reduced_precision_reduction = prev[1]
+            if not all(torch.equal(x, y) for x, y in zip(g_rp, g_k)):
+                raise AssertionError("TF32 / bf16 reduced precision on "
+                                     "globally moved the gradients")
+            train[label]["reduced_precision_global_identical"] = True
+        del params, p, s, p3, s3, lp, ls, rp3, rs3, g_k, g_p
+        phase("train", card=card, model=label, images=TRAIN_N,
+              input=list(images.shape),
+              note="K21 dx within 1 bf16 ulp (+2^-16 of the row's "
+                   "largest), dscale / dbias within 1e-5 of the sum of "
+                   "their terms' magnitudes; K22 within 1 ulp + 1 ulp of "
+                   "the row's largest |value|; K23 / K24 gathers and "
+                   "scatters bit for bit, dlogits / dgk within 1e-6 "
+                   "relative; gradients vs the plain path (the MoE's on "
+                   "the kernel path's routes) within 2e-2 relative L2 per "
+                   "leaf; the resumed third step bit for bit the "
+                   "uninterrupted one", **train[label])
+
+    # the kernels' own times, bounds and yardsticks on the dense step's
+    # arguments (K23, K24: the MoE step's)
+    a21 = kernel_args["dense"]["layer_norm_backward"]
+    a22 = kernel_args["dense"]["attention_backward"]
+    a23 = kernel_args["moe"]["dispatch_backward"]
+    a24 = kernel_args["moe"]["combine_backward"]
+    x21, sc21, dy21 = a21
+    d = x21.shape[-1]
+    t21 = x21.numel() // d
+    xl = x21.detach().clone().requires_grad_()
+    wl = sc21.to(bf16).requires_grad_()
+    bl = torch.zeros_like(wl).requires_grad_()
+    out21 = F.layer_norm(xl, (d,), wl, bl, 1e-6)
+    results["vit_layernorm_bwd"] = dict(
+        max_abs_err=train["dense"]["kernels"]["K21"]["max_abs_err"],
+        ms=timed(lambda: k21(*a21), 20),
+        plain_ms=timed(lambda: ln_mod.layer_norm_backward_plain(*a21), 5),
+        library_ms=timed(lambda: torch.autograd.grad(
+            out21, (xl, wl, bl), dy21, retain_graph=True), 20),
+        **bound(3 * t21 * d * 2 + 3 * d * 4, 20 * t21 * d))
+    del out21, xl, wl, bl
+    qkv22, do22, sc22 = a22
+    n, s, _, h, hd = qkv22.shape
+    q, k, v = (qkv22[:, :, i].transpose(1, 2).contiguous().requires_grad_()
+               for i in range(3))
+    g22 = do22.reshape(n, s, h, hd).transpose(1, 2).contiguous()
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(q, k, v, scale=sc22)
+        torch.autograd.grad(o, (q, k, v), g22)
+
+    o22 = F.scaled_dot_product_attention(q, k, v, scale=sc22)
+    sdpa_bwd = timed(lambda: torch.autograd.grad(
+        o22, (q, k, v), g22, retain_graph=True), 10)
+    results["vit_attention_bwd"] = dict(
+        max_abs_err=train["dense"]["kernels"]["K22"]["max_abs_err"],
+        ms=timed(lambda: k22(*a22), 5),
+        plain_ms=timed(lambda: att_mod.attention_backward_plain(*a22), 3),
+        library_ms=timed(sdpa_fwd_bwd, 10), library_backward_only_ms=sdpa_bwd,
+        **bound(7 * qkv22.numel() // 3 * 2, bf16_flops=10 * n * h * s * s * hd))
+    del q, k, v, g22, o22
+    dxe23, e23, _s23, lg23, _g23 = a23
+    ne, cap, dm = dxe23.shape
+    t23 = e23.numel()
+    kept = int((e23 < ne).sum())
+    results["moe_dispatch_bwd"] = dict(
+        max_abs_err=train["moe"]["kernels"]["K23"]["max_abs_err"],
+        ms=timed(lambda: k23(*a23), 20),
+        plain_ms=timed(lambda: moe_mod.dispatch_backward_plain(*a23), 3),
+        library_ms=None,
+        buckets=[dict(bucket="every token routed to expert 0 (drops past "
+                             "capacity)", **train["moe"]["kernels"]
+                      ["K23_skewed"])],
+        **bound(kept * dm * 2 + t23 * dm * 2 + 2 * lg23.numel() * 4
+                + t23 * 12, 15 * lg23.numel()))
+    dout24, ye24, e24, _s24, _gk24 = a24
+    results["moe_combine_bwd"] = dict(
+        max_abs_err=train["moe"]["kernels"]["K24"]["max_abs_err"],
+        ms=timed(lambda: k24(*a24), 20),
+        plain_ms=timed(lambda: moe_mod.combine_backward_plain(*a24), 3),
+        library_ms=None,
+        **bound(dout24.numel() * 2 + int((e24 < ne).sum()) * dm * 2
+                + ye24.numel() * 2 + e24.numel() * 16, 3 * dout24.numel()))
+    phase("K21_K24", card=card, tokens=t21, dim=d,
+          note="each kernel on the arguments of its first call in the "
+               "step's backward (dense step: K21, K22; MoE step: K23, "
+               "K24); library_ms: F.layer_norm's backward (autograd.grad "
+               "on a kept graph), F.scaled_dot_product_attention forward + "
+               "backward (library_backward_only_ms: its backward alone)",
+          K21=results["vit_layernorm_bwd"], K22=results["vit_attention_bwd"],
+          K23=results["moe_dispatch_bwd"], K24=results["moe_combine_bwd"])
+
+    # 16. timing: the step on both paths, where it goes, memory, one
+    # ingest + train step
+    def stepper(cfg, params):
+        init_opt, step = make_train_step(cfg, TRAIN_LR, dev)
+        box = [params, init_opt(params)]
+
+        def one(mark=None, x=None):
+            box[0], box[1], _ = step(box[0], box[1],
+                                     images if x is None else x, labels,
+                                     mark=mark)
+        return one
+
+    gemm_ms = {}
+
+    def gemm_backward_ms(shape, batch=0, f32=False, dx=True):
+        """CUDA-event ms of one product's backward (dW = X^T dY, dX = dY
+        W^T) at the step's shape, replayed alone on random operands."""
+        key = (shape, batch, f32, dx)
+        if key not in gemm_ms:
+            m, kk, nn = shape
+            lead = (batch,) if batch else ()
+            dt = torch.float32 if f32 else bf16
+            gen = torch.Generator(device=dev).manual_seed(5)
+            xx = torch.randn(lead + (m, kk), generator=gen, device=dev).to(dt)
+            ww = torch.randn(lead + (kk, nn), generator=gen, device=dev).to(dt)
+            gg = torch.randn(lead + (m, nn), generator=gen, device=dev).to(dt)
+
+            def run():
+                with full_precision():
+                    xx.transpose(-1, -2) @ gg
+                    if dx:
+                        gg @ ww.transpose(-1, -2)
+            gemm_ms[key] = timed(run, 10)
+        return gemm_ms[key]
+
+    def products_backward_ms(cfg):
+        t, dm, f = TRAIN_N * cfg.seq_len, cfg.dim, cfg.mlp_ratio * cfg.dim
+        pp = cfg.patch * cfg.patch * 3
+        ms = gemm_backward_ms((t, pp, dm), dx=False)      # images: no grad
+        ms += gemm_backward_ms((TRAIN_N, dm, cfg.classes))
+        cap_ = moe_mod.capacity(t, cfg.moe_experts, cfg.capacity_factor) \
+            if cfg.moe_experts else 0
+        for i in range(cfg.depth):
+            ms += gemm_backward_ms((t, dm, 3 * dm))
+            ms += gemm_backward_ms((t, dm, dm))
+            if cfg.is_moe_block(i):
+                ms += gemm_backward_ms((t, dm, cfg.moe_experts), f32=True)
+                ms += gemm_backward_ms((cap_, dm, f), cfg.moe_experts)
+                ms += gemm_backward_ms((cap_, f, dm), cfg.moe_experts)
+            else:
+                ms += gemm_backward_ms((t, dm, f))
+                ms += gemm_backward_ms((t, f, dm))
+        return ms
+
+    fwd_stages = ("embed", "K17", "qkv", "K18", "proj", "mlp_in", "gelu",
+                  "mlp_out", "router", "K19", "experts", "K20", "residual",
+                  "head", "loss")
+    timing = {}
+    for label, cfg, seed in models:
+        params = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+        one = stepper(cfg, params)
+        ms = timed(one, 5)
+        with plain_path():
+            plain = timed(stepper(cfg, params), 3)
+        runs = []
+        for _ in range(4):
+            m = Marks()
+            one(mark=m)
+            runs.append(m.ms())
+        runs = runs[1:]
+        st = {k_: sorted(r[k_] for r in runs)[1] for k_ in runs[0]}
+        fwd = sum(st.get(k_, 0.0) for k_ in fwd_stages)
+        bwd = st["backward"]
+        kern = {"K21": 25 * results["vit_layernorm_bwd"]["ms"],
+                "K22": cfg.depth * results["vit_attention_bwd"]["ms"]}
+        if cfg.moe_experts:
+            n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.depth))
+            kern["K23_K24"] = n_moe * (results["moe_dispatch_bwd"]["ms"]
+                                       + results["moe_combine_bwd"]["ms"])
+        prod = products_backward_ms(cfg)
+        cap_ = moe_mod.capacity(TRAIN_N * cfg.seq_len, cfg.moe_experts,
+                                cfg.capacity_factor) \
+            if cfg.moe_experts else None
+        fl = 3 * fwd_flops(cfg, cap_)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        one()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        timing[label] = dict(
+            ms=ms, plain_ms=plain, images_per_s=TRAIN_N / ms * 1e3,
+            plain_images_per_s=TRAIN_N / plain * 1e3,
+            bf16_tflop=fl / 1e12, bound_ms=fl / BF16_FLOP_S * 1e3,
+            stage_ms=st, forward_ms=fwd, backward_ms=bwd,
+            optimizer_ms=st["optimizer"],
+            backward_split_ms=dict(
+                products_replayed=prod, **kern,
+                gelu_and_the_rest=bwd - prod - sum(kern.values())),
+            peak_device_bytes=peak, peak_above_resident_bytes=peak - base)
+        if label == "dense":
+            step_e2e = wall(lambda: one(x=next(ti)), 3)
+            timing["ingest_plus_train_step_ms"] = step_e2e
+            timing["ingest_plus_train_step_images_per_s"] = \
+                TRAIN_N / step_e2e * 1e3
+            timing["idle_share"] = 1.0 - (ingest_device_ms + ms) / step_e2e
+        del params, one
+    phase("timing_train", card=card, images=TRAIN_N,
+          ingest_device_ms=ingest_device_ms, **timing,
+          note="ms, plain_ms: CUDA events over 5 / 3 train steps (forward, "
+               "backward, AdamW); stage_ms: medians of 3 steps through "
+               "train_step's mark hook; backward_split_ms: each kernel's "
+               "own ms x its launches per step, products_replayed = the "
+               "step's backward products (dW = X^T dY, dX = dY W^T) timed "
+               "alone at their shapes, gelu_and_the_rest = backward minus "
+               "those; bound_ms: 3 x the forward's bf16 product FLOPs / "
+               "989 TFLOP/s; idle_share: 1 - (phase 7's ingest device sum "
+               "+ the dense step) / the wall time of one ingest step + "
+               "train step")
+    return {"vit_layernorm_bwd": step_launches["dense"]["vit_layernorm_bwd"],
+            "vit_attention_bwd": step_launches["dense"]["vit_attention_bwd"],
+            "moe_dispatch_bwd": step_launches["moe"]["moe_dispatch_bwd"],
+            "moe_combine_bwd": step_launches["moe"]["moe_combine_bwd"]}
+
+
+def _leaf_names(tree, prefix=""):
+    """(path, leaf) pairs in tree_leaves order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _leaf_names(v, f"{prefix}{i}/")]
+    return [(prefix.rstrip("/"), tree)]
 
 
 def _idat(png: bytes) -> bytes:

@@ -29,7 +29,11 @@ first use):
 - the ViT that consumes the ingest's batches, `models.vit.ViT` (the
   forward pass, dense and switch-MoE; bf16 products through
   `torch.matmul`): LayerNorm (K17), attention (K18), the MoE's route +
-  dispatch (K19) and combine (K20).
+  dispatch (K19) and combine (K20); and its train step,
+  `models.vit.make_train_step`, whose backward runs K21-K24 (the
+  backwards of K17-K20) with cuBLAS for the products, `optim.adamw`
+  (optax's AdamW in plain torch) and `models.checkpoint` (the
+  reference's npz format).
 
 The public single-image functions below run on the card unless
 `device="cpu"` is asked for; the async forms run on a pool thread and

@@ -59,6 +59,10 @@ SIGNATURES = {
     "picha_vit_attention": [P, I, I, I, I, F, P, P],
     "picha_moe_route_dispatch": [P, P, L, I, I, I, P, P, P, P, P, P],
     "picha_moe_combine": [P, P, P, P, L, I, I, I, P, P],
+    "picha_vit_layernorm_bwd": [P, P, P, L, I, P, P, P, P],
+    "picha_vit_attention_bwd": [P, P, I, I, I, I, F, P, P],
+    "picha_moe_dispatch_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
+    "picha_moe_combine_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
 }
 
 _lock = threading.Lock()
@@ -230,6 +234,22 @@ KERNELS = {
                "picha_tpu_torch/csrc/vit_moe.cu",
                "picha_tpu/models/vit.py:228-230 (_switch_moe's combine "
                "gather)"),
+        Kernel("vit_layernorm_bwd", "picha_vit_layernorm_bwd",
+               "picha_tpu_torch/csrc/vit_layernorm_bwd.cu",
+               "picha_tpu/models/vit.py:145-152 (the VJP of _ln in "
+               "jax.value_and_grad(loss_fn), :255)"),
+        Kernel("vit_attention_bwd", "picha_vit_attention_bwd",
+               "picha_tpu_torch/csrc/vit_attention_bwd.cu",
+               "picha_tpu/models/vit.py:171-180 (the VJP of forward's "
+               "attention in jax.value_and_grad(loss_fn), :255)"),
+        Kernel("moe_dispatch_bwd", "picha_moe_dispatch_bwd",
+               "picha_tpu_torch/csrc/vit_moe_bwd.cu",
+               "picha_tpu/models/vit.py:213-224 (the VJP of _switch_moe's "
+               "router softmax / max and dispatch scatter, :255)"),
+        Kernel("moe_combine_bwd", "picha_moe_combine_bwd",
+               "picha_tpu_torch/csrc/vit_moe_bwd.cu",
+               "picha_tpu/models/vit.py:228-230 (the VJP of _switch_moe's "
+               "combine gather, :255)"),
     )
 }
 

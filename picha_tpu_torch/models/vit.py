@@ -1,22 +1,29 @@
-"""The ViT that consumes the training ingest: the forward pass, dense and
-switch-MoE (BASELINE.json config 5's "... normalize feeding a ViT step").
+"""The ViT that consumes the training ingest: the forward pass and the
+train step, dense and switch-MoE (BASELINE.json config 5's "...
+normalize feeding a ViT step").
 
 Counterpart of `picha_tpu/models/vit.py`: `ViTConfig`, `TINY`,
-`TINY_MOE`, `init_params` (:65-109), `forward` (:155-191) and
-`_switch_moe` (:194-230). ViT-S/16 widths by default (224², patch 16,
-dim 384, 12 blocks of 6 heads, MLP 1536, 1000 classes), with the
-reference's variant: no class token, no biases, mean pooling. Products
-are bf16 with f32 sums (`torch.matmul` / `torch.bmm`: cuBLAS on the
-card, under `ops.jpeg.full_precision`); LayerNorm is K17
-(`ops/layernorm.py`), attention K18 (`ops/attention.py`), the MoE's
-route + dispatch K19 and its combine K20 (`ops/moe.py`), each the plain
-torch version on CPU tensors.
+`TINY_MOE`, `init_params` (:65-109), `forward` (:155-191),
+`_switch_moe` (:194-230), `loss_fn` (:233-240) and `make_train_step`
+(:243-260). ViT-S/16 widths by default (224², patch 16, dim 384, 12
+blocks of 6 heads, MLP 1536, 1000 classes), with the reference's
+variant: no class token, no biases, mean pooling. Products are bf16
+with f32 sums (`torch.matmul` / `torch.bmm`: cuBLAS on the card, under
+`ops.jpeg.full_precision`, forward and backward); LayerNorm is K17 with
+its backward K21 (`ops/layernorm.py`), attention K18 / K22
+(`ops/attention.py`), the MoE's route + dispatch K19 / K23 and its
+combine K20 / K24 (`ops/moe.py`), each the plain torch version on CPU
+tensors. GELU, the log-softmax, the mean pool and the residual adds go
+through torch's autograd.
 
 Parameters keep the reference's tree (dicts, a list of blocks) and its
 (in, out) weight layout, in float32; `params_from_jax` takes the
-reference's tree as numpy arrays. Training (`loss_fn`,
-`make_train_step`, the backward kernels, the optimizer, the checkpoint)
-is not ported yet.
+reference's tree as numpy arrays. The train step is functional on that
+tree, as the reference's: gradients are taken for the f32 leaves
+through their bf16 casts, the optimizer is `optim.adamw` (optax's
+arithmetic and defaults), and `models/checkpoint.py` writes the
+reference's npz. The `ViT` module is the serving form: its parameters
+take no gradient.
 """
 from __future__ import annotations
 
@@ -33,7 +40,8 @@ from ..ops.attention import attention
 from ..ops.jpeg import full_fp32, full_precision
 from ..ops.layernorm import layer_norm
 from ..ops.moe import capacity, combine, route_dispatch
-from ..runtime.device import resolve_device
+from ..optim import adamw, apply_updates, tree_leaves, tree_unflatten
+from ..runtime.device import resolve_device, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,6 +211,53 @@ def _switch_moe(y, blk, cfg: ViTConfig, mark=None):
     out = combine(ye, eidx, sidx, gk)
     mark("K20")
     return out.reshape(n, s, d)
+
+
+def loss_fn(params, images, labels, cfg: ViTConfig,
+            mark: Optional[Callable[[str], None]] = None):
+    """The mean negative log-likelihood of `labels` ((N,) integers) under
+    log_softmax(forward(...)), a float32 scalar (the reference's
+    :233-240)."""
+    logp = torch.log_softmax(forward(params, images, cfg, mark), -1)
+    return -logp.gather(-1, labels.long()[:, None]).mean()
+
+
+def make_train_step(cfg: ViTConfig, learning_rate: float = 3e-4,
+                    device="cuda"):
+    """Returns (init_opt, train_step), as the reference's :243-260:
+    `init_opt(params) -> opt_state` and `train_step(params, opt_state,
+    images, labels) -> (params, opt_state, loss)`, functional on the
+    parameter tree (new leaves; the inputs are not changed) with
+    `optim.adamw(learning_rate)`. Images and labels are moved to
+    `device`, which is the card unless the CPU is asked for; the forward
+    and the backward both run under `full_precision` (bf16 products
+    summed in f32, f32 products in IEEE f32, whatever the global flags
+    say). `train_step(..., mark=fn)` calls `fn(stage)` after each forward
+    stage (see `forward`), then "loss", "backward" and "optimizer"."""
+    dev = resolve_device(device)
+    tx = adamw(learning_rate)
+
+    def init_opt(params):
+        return tx.init(params)
+
+    def train_step(params, opt_state, images, labels,
+                   mark: Optional[Callable[[str], None]] = None):
+        mark = mark or _no_mark
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        with full_precision():
+            loss = loss_fn(tree_unflatten(params, leaves),
+                           to_device(images, dev), to_device(labels, dev),
+                           cfg, mark)
+            mark("loss")
+            grads = torch.autograd.grad(loss, leaves)
+            mark("backward")
+        updates, opt_state = tx.update(tree_unflatten(params, list(grads)),
+                                       opt_state, params)
+        params = apply_updates(params, updates)
+        mark("optimizer")
+        return params, opt_state, loss.detach()
+
+    return init_opt, train_step
 
 
 class _Tree(nn.Module):

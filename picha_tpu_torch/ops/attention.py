@@ -1,4 +1,5 @@
-"""Multi-head self-attention of the ViT blocks: kernel K18.
+"""Multi-head self-attention of the ViT blocks: kernels K18 (forward) and
+K22 (backward).
 
 Counterpart of `picha_tpu/models/vit.py::forward`'s attention
 (:171-180): q, k, v read out of the qkv product's (N, S, 3, H, D) bf16
@@ -7,9 +8,19 @@ softmax (max-subtract, exp, true division), the probabilities rounded
 to bf16, the f32 sum of bf16 p . bf16 v, and o rounded to bf16 as
 (N, S, H * D) for the proj product.
 
-  `attention_plain`  the torch version (f32 einsums in IEEE f32)
-  `attention`        K18 (`csrc/vit_attention.cu`) for CUDA tensors, the
-                     plain version for CPU tensors
+The backward is the VJP JAX derives from those lines, with its rounding
+points: dP = do . v summed in f32 and rounded to bf16 (p was bf16); the
+softmax's VJP on the unnormalised exponentials e and their sum l (not
+on the rounded p): dS = ((dP / l) + -(sum_k dP * l^-2 * e)) * e * scale,
+kept in f32; dq = dS . k, dk = dS^T . q, dv = p^T . do, each summed in
+f32 and rounded to bf16 once. The scores are recomputed from qkv: no
+(N, H, S, S) tensor is kept between the passes.
+
+  `attention_plain`, `attention_backward_plain`  the torch versions
+  `attention`  differentiable (`torch.autograd.Function`): K18 forward
+               (`csrc/vit_attention.cu`) and K22 backward
+               (`csrc/vit_attention_bwd.cu`) for CUDA tensors, the plain
+               versions for CPU tensors
 """
 from __future__ import annotations
 
@@ -18,8 +29,9 @@ import torch
 from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 from .jpeg import full_fp32
 
-MAX_SEQ = 256                    # K18 holds 8 key columns a lane
+MAX_SEQ = 256                    # K18 / K22 hold 8 key columns a lane
 HEAD_DIMS = (32, 64, 128)        # K18's instantiations
+BWD_HEAD_DIMS = (32, 64)         # K22's: q, k, v, do of a head in shared memory
 
 
 def attention_plain(qkv, scale: float):
@@ -28,28 +40,94 @@ def attention_plain(qkv, scale: float):
     q, k, v = (qkv[:, :, i].to(torch.float32) for i in range(3))
     with full_fp32():
         att = torch.einsum("nqhd,nkhd->nhqk", q, k) * scale
-        e = torch.exp(att - att.amax(-1, keepdim=True))
+        # detached: the reference's softmax takes no gradient through its max
+        e = torch.exp(att - att.amax(-1, keepdim=True).detach())
         p = (e / e.sum(-1, keepdim=True)).to(torch.bfloat16)
         o = torch.einsum("nhqk,nkhd->nqhd", p.to(torch.float32), v)
     return o.to(torch.bfloat16).reshape(n, s, h * d)
 
 
-def attention(qkv, scale: float):
-    """qkv (N, S, 3, H, D) bf16 -> o (N, S, H * D) bf16 on the same
-    device. Launches K18 for CUDA tensors; the plain version runs only
-    for CPU tensors."""
-    if qkv.device.type == "cpu":
-        return attention_plain(qkv, scale)
-    require_cuda(qkv, "K18")
-    if qkv.dtype != torch.bfloat16 or qkv.dim() != 5 or qkv.shape[2] != 3:
-        raise TypeError(f"K18 takes (N, S, 3, H, D) bfloat16, got "
-                        f"{tuple(qkv.shape)} {qkv.dtype}")
+def attention_backward_plain(qkv, do, scale: float):
+    """The VJP of `attention` at qkv: qkv (N, S, 3, H, D) bf16, do (N, S,
+    H * D) bf16 -> dqkv (N, S, 3, H, D) bf16 (see the module doc)."""
     n, s, _, h, d = qkv.shape
-    if d not in HEAD_DIMS or not 1 <= s <= MAX_SEQ:
-        raise ValueError(f"K18 takes head widths {HEAD_DIMS} and 1-{MAX_SEQ} "
+    q, k, v = (qkv[:, :, i].to(torch.float32) for i in range(3))
+    g = do.reshape(n, s, h, d).to(torch.float32)
+    with full_fp32():
+        att = torch.einsum("nqhd,nkhd->nhqk", q, k) * scale
+        e = torch.exp(att - att.amax(-1, keepdim=True))
+        l = e.sum(-1, keepdim=True)
+        p = (e / l).to(torch.bfloat16).to(torch.float32)
+        dp = torch.einsum("nqhd,nkhd->nhqk", g, v).to(torch.bfloat16).to(
+            torch.float32)
+        c = ((dp * (l * l).reciprocal()) * e).sum(-1, keepdim=True)
+        ds = ((dp / l) + -c) * e * scale
+        dq = torch.einsum("nhqk,nkhd->nqhd", ds, k)
+        dk = torch.einsum("nhqk,nqhd->nkhd", ds, q)
+        dv = torch.einsum("nhqk,nqhd->nkhd", p, g)
+    return torch.stack([dq, dk, dv], 2).to(torch.bfloat16)
+
+
+def _check(qkv, kernel, dims):
+    require_cuda(qkv, kernel)
+    if qkv.dtype != torch.bfloat16 or qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise TypeError(f"{kernel} takes (N, S, 3, H, D) bfloat16, got "
+                        f"{tuple(qkv.shape)} {qkv.dtype}")
+    _n, s, _, _h, d = qkv.shape
+    if d not in dims or not 1 <= s <= MAX_SEQ:
+        raise ValueError(f"{kernel} takes head widths {dims} and 1-{MAX_SEQ} "
                          f"tokens, got {d} and {s}")
+
+
+def attention_k18(qkv, scale: float):
+    """K18: qkv (N, S, 3, H, D) bf16 -> o (N, S, H * D) bf16 on the card."""
+    _check(qkv, "K18", HEAD_DIMS)
+    n, s, _, h, d = qkv.shape
     qkv = aligned(qkv, 4)
     out = torch.empty((n, s, h * d), dtype=torch.bfloat16, device=qkv.device)
     KERNELS["vit_attention"](ptr(qkv), n, s, h, d, float(scale), ptr(out),
                              stream_of(qkv))
     return out
+
+
+def attention_backward(qkv, do, scale: float):
+    """`attention_backward_plain`'s result: K22 for CUDA tensors, the
+    plain version only for CPU tensors. K22 sums dk and dv over the query
+    rows in order inside one block per (image, head), so two runs give
+    the same bits."""
+    if qkv.device.type == "cpu":
+        return attention_backward_plain(qkv, do, scale)
+    _check(qkv, "K22", BWD_HEAD_DIMS)
+    n, s, _, h, d = qkv.shape
+    if do.dtype != torch.bfloat16 or do.device != qkv.device or \
+            do.numel() != n * s * h * d:
+        raise TypeError(f"K22 takes a bfloat16 cotangent of shape "
+                        f"{(n, s, h * d)}")
+    qkv, do = aligned(qkv, 4), aligned(do, 4)
+    dqkv = torch.empty_like(qkv)
+    KERNELS["vit_attention_bwd"](ptr(qkv), ptr(do), n, s, h, d, float(scale),
+                                 ptr(dqkv), stream_of(qkv))
+    return dqkv
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        ctx.save_for_backward(qkv)
+        ctx.scale = scale
+        if qkv.device.type == "cpu":
+            return attention_plain(qkv, scale)
+        return attention_k18(qkv, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv,) = ctx.saved_tensors
+        return attention_backward(qkv, do, ctx.scale), None
+
+
+def attention(qkv, scale: float):
+    """qkv (N, S, 3, H, D) bf16 -> o (N, S, H * D) bf16 on the same
+    device, differentiable in qkv. Launches K18 (and K22 in the
+    backward) for CUDA tensors; the plain versions run only for CPU
+    tensors."""
+    return _Attention.apply(qkv, scale)

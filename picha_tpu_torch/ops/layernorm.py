@@ -1,13 +1,18 @@
-"""LayerNorm of the ViT, bf16 in and out, float32 inside: kernel K17.
+"""LayerNorm of the ViT, bf16 in and out, float32 inside: kernels K17
+(forward) and K21 (backward).
 
 Counterpart of `picha_tpu/models/vit.py::_ln` (:145-152): x -> f32, the
 mean, then the mean of the squared deviations (two passes), (x - mu) /
 sqrt(var + 1e-6) as a true division, `* scale + bias` with the f32
-parameters, and one rounding to x's dtype at the end.
+parameters, and one rounding to x's dtype at the end. The backward is the
+VJP JAX derives from those lines (`jax.vjp(_ln, ...)`), with its
+rounding points: everything in f32 from the bf16 cotangent, dx rounded
+once to x's dtype, dscale / dbias the f32 sums over the rows.
 
-  `layer_norm_plain`  the torch version
-  `layer_norm`        K17 (`csrc/vit_layernorm.cu`) for CUDA tensors, the
-                      plain version for CPU tensors
+  `layer_norm_plain`, `layer_norm_backward_plain`  the torch versions
+  `layer_norm`  differentiable (`torch.autograd.Function`): K17 forward
+                and K21 (`csrc/vit_layernorm_bwd.cu`) backward for CUDA
+                tensors, the plain versions for CPU tensors
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 
 EPS = 1e-6
-MAX_DIM = 1024        # K17 keeps a row in registers: 16 bf16 pairs a lane
+MAX_DIM = 1024        # K17 / K21 keep a row in registers: 16 bf16 pairs a lane
+BWD_ROWS = 256        # K21's rows per block (its dscale / dbias partials)
 
 
 def true_div(a, n):
@@ -37,22 +43,49 @@ def layer_norm_plain(x, scale, bias):
     return (out * scale + bias).to(x.dtype)
 
 
-def layer_norm(x, scale, bias):
-    """(..., d) bf16 -> (..., d) bf16 on the same device. Launches K17
-    for CUDA tensors; the plain version runs only for CPU tensors."""
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, scale, bias)
-    require_cuda(x, "K17")
+def layer_norm_backward_plain(x, scale, dy):
+    """The VJP of `layer_norm` at x: x, dy (..., d) bf16, scale (d,)
+    float32 -> (dx in x's dtype, dscale (d,) float32, dbias (d,)
+    float32), in the order of operations of JAX's derivative of `_ln`."""
+    d = x.shape[-1]
+    x32 = x.to(torch.float32)
+    p = x32 - true_div(x32.sum(-1, keepdim=True), d)
+    r = torch.sqrt(true_div((p * p).sum(-1, keepdim=True), d) + EPS)
+    z = dy.to(torch.float32)
+    dscale = (p / r * z).reshape(-1, d).sum(0)
+    dbias = z.reshape(-1, d).sum(0)
+    g = z * scale
+    # the path through the variance: d/dr of (x - mu) / r, then sqrt
+    dvar = -((g * (r * r).reciprocal()) * p).sum(-1, keepdim=True) * \
+        (torch.tensor(0.5, device=x.device) / r)
+    dvar_d = true_div(dvar, d)
+    gr = g / r
+    bv = dvar_d * (2.0 * p)
+    # the two paths through the mean
+    dmu = (-gr).sum(-1, keepdim=True) + (-bv).sum(-1, keepdim=True)
+    dx = (gr + bv) + true_div(dmu, d)
+    return dx.to(x.dtype), dscale, dbias
+
+
+def _check(x, scale, kernel):
+    require_cuda(x, kernel)
     d = x.shape[-1]
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"K17 takes bfloat16 rows, got {x.dtype}")
+        raise TypeError(f"{kernel} takes bfloat16 rows, got {x.dtype}")
     if d % 2 or d > MAX_DIM:
-        raise ValueError(f"K17 takes an even width up to {MAX_DIM}, got {d}")
-    for t in (scale, bias):
-        if t.dtype != torch.float32 or t.device != x.device or \
-                tuple(t.shape) != (d,):
-            raise TypeError(f"K17's scale and bias are ({d},) float32 on "
-                            f"{x.device}")
+        raise ValueError(f"{kernel} takes an even width up to {MAX_DIM}, "
+                         f"got {d}")
+    if scale.dtype != torch.float32 or scale.device != x.device or \
+            tuple(scale.shape) != (d,):
+        raise TypeError(f"{kernel}'s scale and bias are ({d},) float32 on "
+                        f"{x.device}")
+
+
+def layer_norm_k17(x, scale, bias):
+    """K17: (..., d) bf16 -> (..., d) bf16 on the card."""
+    _check(x, scale, "K17")
+    _check(x, bias, "K17")
+    d = x.shape[-1]
     x = aligned(x, 4)
     scale, bias = scale.contiguous(), bias.contiguous()
     out = torch.empty_like(x)
@@ -60,3 +93,49 @@ def layer_norm(x, scale, bias):
     KERNELS["vit_layernorm"](ptr(x), ptr(scale), ptr(bias), rows, d,
                              ptr(out), stream_of(x))
     return out
+
+
+def layer_norm_backward(x, scale, dy):
+    """`layer_norm_backward_plain`'s result: K21 for CUDA tensors, the
+    plain version only for CPU tensors. K21 sums dscale / dbias in a
+    fixed order (per-block partials over 256 rows, then the blocks in
+    order), so two runs give the same bits."""
+    if x.device.type == "cpu":
+        return layer_norm_backward_plain(x, scale, dy)
+    _check(x, scale, "K21")
+    if dy.dtype != torch.bfloat16 or dy.shape != x.shape or \
+            dy.device != x.device:
+        raise TypeError(f"K21 takes a bfloat16 cotangent of x's shape "
+                        f"{tuple(x.shape)}")
+    d = x.shape[-1]
+    x, dy, scale = aligned(x, 4), aligned(dy, 4), aligned(scale, 8)
+    rows = x.numel() // d if d else 0
+    dx = torch.empty_like(x)
+    nblk = max(1, -(-rows // BWD_ROWS))
+    partial = torch.empty((nblk, 2, d), dtype=torch.float32, device=x.device)
+    dsb = torch.empty((2, d), dtype=torch.float32, device=x.device)
+    KERNELS["vit_layernorm_bwd"](ptr(x), ptr(scale), ptr(dy), rows, d,
+                                 ptr(dx), ptr(partial), ptr(dsb),
+                                 stream_of(x))
+    return dx, dsb[0], dsb[1]
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        ctx.save_for_backward(x, scale)
+        if x.device.type == "cpu":
+            return layer_norm_plain(x, scale, bias)
+        return layer_norm_k17(x, scale, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return layer_norm_backward(x, scale, dy.contiguous())
+
+
+def layer_norm(x, scale, bias):
+    """(..., d) bf16 -> (..., d) bf16 on the same device, differentiable
+    in x, scale and bias. Launches K17 (and K21 in the backward) for
+    CUDA tensors; the plain versions run only for CPU tensors."""
+    return _LayerNorm.apply(x, scale, bias)

@@ -567,7 +567,8 @@ def test_port_imports_nothing_of_the_reference():
             "picha_tpu_torch.runtime.executor",
             "picha_tpu_torch.models.vit", "picha_tpu_torch.ops.layernorm",
             "picha_tpu_torch.ops.attention",
-            "picha_tpu_torch.ops.moe"} <= set(mods)
+            "picha_tpu_torch.ops.moe", "picha_tpu_torch.models.checkpoint",
+            "picha_tpu_torch.optim"} <= set(mods)
 
 
 _REF_IMPORT = re.compile(
