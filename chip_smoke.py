@@ -3,13 +3,14 @@
 all-device JPEG transcode paths (fused and staged pixel stages), the
 training ingest, the pixel-array path (BASELINE config 4, the
 single-image resize and convert, the batched PNG encode), the batched
-PNG and TIFF decode, and the ViT-S/16 forward and train step (dense and
-switch-MoE) fed by the ingest, on one CUDA card, and checks them.
+PNG and TIFF decode, the ViT-S/16 forward and train step (dense and
+switch-MoE) and the ResNet forward and train step, both fed by the
+ingest, on one CUDA card, and checks them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (each prints one line; any failure raises and exits non-zero):
-  1. the card (nvidia-smi name, power limit); build kernels K1-K24 from
+  1. the card (nvidia-smi name, power limit); build kernels K1-K26 from
      picha_tpu_torch/csrc/ (one nvcc per source, in parallel) into the
      gitignored csrc/build/;
   2. each kernel against its plain torch version on the card, at the
@@ -146,6 +147,35 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (3 x the forward's bf16 product FLOPs), each backward kernel's
      yardstick (F.layer_norm's backward; SDPA forward + backward and its
      backward alone), and one ingest step + train step end to end with
+     the card's idle share;
+ 17. one TrainingInput step (phase 6's arguments, 256 images) with labels
+     from a seeded torch.Generator into ResNet(ResNetConfig()) (224^2, a
+     3x3 stem of 64, stages (64, 128, 256) of 2 blocks, 1000 classes,
+     3.0 M parameters; random weights from seed 0): K25 (instance norm +
+     scale + ReLU) and K26 (its backward) against their plain versions on
+     the arguments of their first and last calls (the stem's output
+     (256, 224, 224, 64) and the last block's (256, 28, 28, 256)): mu and
+     sigma within 1e-6, y bit for bit the plain elementwise pass on K25's
+     statistics and within 1 bf16 ulp of the plain y plus what the
+     statistics' differences move it, dx within 1 bf16 ulp (+2^-16 of
+     its plane's largest), dscale within 1e-5 of the sum of its terms'
+     magnitudes; the forward's logits (256, 1000) float32, finite, within
+     0.03 of the same forward through the plain versions and, like each
+     gradient leaf of one step, by the float64 criterion (||kernel -
+     float64|| <= 2 ||plain - float64|| + 1e-2 ||float64||, the float64
+     forward and backward taken 32 images at a time); launches K25 = 12 a
+     forward, K25 = K26 = 12 a step and no other kernel; the forward again
+     with TF32 and bf16 reduced-precision sums on globally, identical;
+     three steps at learning_rate=1e-3 (finite, the third loss below the
+     first), a checkpoint after step 2 with the ingest's state(), loaded,
+     and step 3 from it bit for bit;
+ 18. the ResNet timed: forward and train step on the kernel and the plain
+     path (medians of 5, images/s), where the step goes (stem, each
+     stage's convolutions, K25, residuals, head, loss, backward, AdamW
+     through train_step's mark hook; the backward split into K26's 12
+     calls and the convolution backwards replayed alone), each kernel's
+     bound and yardstick (F.instance_norm + relu, and their autograd),
+     peak device memory, and one ingest step + train step end to end with
      the card's idle share.
 Every kernel also gets its bound (the larger of its bytes over 3.35 TB/s
 and its FP32 FLOPs over 67 TFLOP/s plus its bf16 product FLOPs over 989
@@ -182,6 +212,8 @@ BF16_FLOP_S = 989e12                         # dense bf16 tensor peak
 VIT_LOGIT_TOL = 0.03       # ViT logits vs the plain path, + 1 bf16 ulp
 TRAIN_LR = 1e-3            # phase 15's three train steps
 GRAD_RL2 = 2e-2            # a gradient leaf vs the plain path, relative L2
+RESNET_LOGIT_TOL = 0.03    # ResNet logits vs the plain path, max abs
+F64_CHUNK = 32             # images per float64 ResNet forward + backward
 
 
 def bound(nbytes, flops=0, bf16_flops=0):
@@ -879,6 +911,10 @@ def main():
     train_launches = train_phases(dev, card, results, phase, timed, wall,
                                   ingest_device_ms)
 
+    # 17-18. the ResNet forward and train step fed by the ingest ----------
+    resnet_launches = resnet_phases(dev, card, results, phase, timed, wall,
+                                    ingest_device_ms)
+
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "picha_tpu" or m.startswith("picha_tpu."))
     if bad:
@@ -889,14 +925,14 @@ def main():
     # config-4 call; K12: the batched PNG encode; K13-K16: the full-size
     # PNG and TIFF decode calls; K17, K18: the dense ViT forward; K19,
     # K20: the MoE one; K21, K22: the dense train step; K23, K24: the MoE
-    # one)
+    # one; K25, K26: the ResNet train step)
     path_launches = {**main_launches,
                      **{k: nr_launches[k] for k in chunked_path[:2]},
                      **{k: s_launches[k] for k in staged_path[:3]},
                      **{k: ingest_launches[k]
                         for k in ("crop_flip_resize_w", "augment")},
                      **pixel_launches, **decode_launches, **vit_launches,
-                     **train_launches}
+                     **train_launches, **resnet_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # "buckets": a kernel also timed on another bucket of its path
@@ -2693,8 +2729,524 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
             "moe_combine_bwd": step_launches["moe"]["moe_combine_bwd"]}
 
 
+def median_ms(fn, reps=5):
+    """The median of `reps` CUDA-event timings of one call of fn, after
+    one call to warm up."""
+    from picha_tpu_torch.runtime import CudaTimer
+
+    fn()
+    ts = []
+    for _ in range(reps):
+        with CudaTimer() as t:
+            fn()
+        ts.append(t.ms)
+    return sorted(ts)[reps // 2]
+
+
+def resnet_flops(cfg, n):
+    """(bf16 convolution FLOPs, f32 head FLOPs) of one ResNet forward at
+    n images, 2 a multiply-add."""
+    fl, s, cin = 2 * n * cfg.image_size ** 2 * 9 * 3 * cfg.stem_channels, \
+        cfg.image_size, cfg.stem_channels
+    for cout in cfg.stage_channels:
+        for b in range(cfg.blocks_per_stage):
+            so = -(-s // 2) if b == 0 else s
+            fl += 2 * n * so * so * 9 * (cin + cout) * cout
+            if cin != cout:
+                fl += 2 * n * so * so * cin * cout
+            s, cin = so, cout
+    return fl, 2 * n * cin * cfg.classes
+
+
+def resnet_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
+    """Phases 17-18: the ResNet (ResNetConfig()) forward and train step
+    fed by the ingest (see the module doc). Fills results for K25 and
+    K26; returns their launch counts in one train step."""
+    import contextlib
+    import math
+    import os
+    import tempfile
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.models import checkpoint as ckpt
+    from picha_tpu_torch.models import resnet as rn
+    from picha_tpu_torch.ops import instance_norm as inm
+    from picha_tpu_torch.optim import tree_leaves, tree_unflatten
+    from picha_tpu_torch.pipeline import TrainingInput
+
+    k25, k26 = inm.norm_relu_k25, inm.norm_relu_backward
+
+    @contextlib.contextmanager
+    def plain_path():
+        """The same forward or step through K25's and K26's plain
+        versions: the autograd Function stays, its kernel calls are
+        patched."""
+        with mock.patch.object(inm, "norm_relu_k25", inm.norm_relu_plain), \
+                mock.patch.object(inm, "norm_relu_backward",
+                                  inm.norm_relu_backward_plain):
+            yield
+
+    def ulp(v):
+        m = v.abs().double().clamp_min(2.0 ** -126)
+        return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+    def planes(n):
+        return [slice(i, i + F64_CHUNK) for i in range(0, n, F64_CHUNK)]
+
+    # 17. one ingest step of 256 into ResNet(ResNetConfig()); labels from
+    # a seeded generator
+    srcs_nr = [(FIXTURES / f"src_nr_{i}.jpg").read_bytes() for i in range(3)]
+    ti = TrainingInput([srcs_nr[i % 3] for i in range(TRAIN_N)],
+                       batch=TRAIN_N, crop=CROP, size=SIZE, seed=0,
+                       augment=AUGMENT, device=dev)
+    images = next(ti)
+    labels = torch.randint(0, 1000, (TRAIN_N,), generator=torch.Generator()
+                           .manual_seed(0)).to(dev)
+    model = rn.ResNet(rn.ResNetConfig(), seed=0, device=dev)
+    cfg, params = model.cfg, model.params()
+    n_norms = 2 * len(cfg.stage_channels) * cfg.blocks_per_stage
+    torch.cuda.synchronize()
+
+    def grads(params):
+        """(loss, gradients) of the step's loss, taken as train_step
+        takes them."""
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        with rn.conv_pin():
+            loss = rn.loss_fn(tree_unflatten(params, leaves), images, labels,
+                              cfg)
+            g = torch.autograd.grad(loss, leaves)
+        return loss.detach(), g
+
+    def recorded():
+        """The arguments of every K25 call in a forward and of every K26
+        call in its backward, in call order."""
+        got = {"k25": [], "k26": []}
+
+        def rec(key, fn):
+            def call(*a):
+                got[key].append(tuple(t.detach() for t in a))
+                return fn(*a)
+            return call
+
+        with mock.patch.object(inm, "norm_relu_k25", rec("k25", k25)), \
+                mock.patch.object(inm, "norm_relu_backward",
+                                  rec("k26", k26)):
+            grads(params)
+        return got["k25"], got["k26"]
+
+    def forward64(p, x):
+        """`rn.forward` with every bf16 cast replaced by float64 (the
+        convolutions through the port's `_conv`, which casts the weights
+        to x's dtype and pads as XLA's SAME)."""
+        def norm(h, s):
+            m = h.mean((1, 2), keepdim=True)
+            v = ((h - m) ** 2).mean((1, 2), keepdim=True)
+            return torch.relu((h - m) / torch.sqrt(v + 1e-5) * s)
+
+        x = rn._conv(x, p["stem"])
+        for stage in p["stages"]:
+            for bi, blk in enumerate(stage):
+                stride = 2 if bi == 0 else 1
+                h = rn._conv(norm(x, blk["scale1"]), blk["conv1"], stride)
+                h = rn._conv(norm(h, blk["scale2"]), blk["conv2"])
+                if blk["proj"] is not None:
+                    x = rn._conv(x, blk["proj"], stride) + h
+                else:
+                    x = x[:, ::stride, ::stride, :] + h
+        return x.mean((1, 2)) @ p["head"]
+
+    def grads64(params):
+        """(loss, gradients, logits) in float64, F64_CHUNK images at a
+        time (an image's forward is its own: the norms are per image)."""
+        leaves = [p.detach().double().requires_grad_()
+                  for p in tree_leaves(params)]
+        p64 = tree_unflatten(params, leaves)
+        acc = [torch.zeros_like(t) for t in leaves]
+        loss, logits = 0.0, []
+        with rn.conv_pin():
+            for sl in planes(TRAIN_N):
+                lg = forward64(p64, images[sl].double())
+                part = -torch.log_softmax(lg, -1).gather(
+                    -1, labels[sl].long()[:, None]).sum() / TRAIN_N
+                acc = [a + g for a, g in
+                       zip(acc, torch.autograd.grad(part, leaves))]
+                loss += float(part.detach())
+                logits.append(lg.detach())
+        return loss, acc, torch.cat(logits)
+
+    def k25_case(x, scale):
+        """K25 against its plain version: mu within 1e-6 of the plane's
+        mean |x|, sigma within 1e-6 relative, y equal to the plain
+        elementwise pass on K25's own mu and sigma, and within 1 bf16 ulp
+        of the plain y plus what the mu and sigma differences move it."""
+        y, mu, sg = k25(x, scale)
+        wy, wmu, wsg = inm.norm_relu_plain(x, scale)
+        if not torch.equal(y, inm.normalize_relu(x, scale, mu, sg)):
+            raise AssertionError("K25: y is not the elementwise pass on its "
+                                 "own mu and sigma")
+        out = dict(max_abs_err=0.0, max_ulps=0.0, mu_err=0.0, sigma_err=0.0,
+                   shape=list(x.shape))
+        over = -1.0
+        for sl in planes(x.shape[0]):
+            xd = x[sl].double()
+            dmu = (mu[sl] - wmu[sl]).double().abs()
+            dsg = (sg[sl] - wsg[sl]).double().abs() / wsg[sl].double()
+            out["mu_err"] = max(out["mu_err"], float(
+                (dmu / xd.abs().mean((1, 2)).clamp_min(1e-30)).max()))
+            out["sigma_err"] = max(out["sigma_err"], float(dsg.max()))
+            d = (xd - wmu[sl].double()[:, None, None, :]).abs()
+            moved = scale.double().abs() * (dmu[:, None, None, :] + d * dsg[
+                :, None, None, :]) / wsg[sl].double()[:, None, None, :]
+            diff = (y[sl].double() - wy[sl].double()).abs()
+            u = ulp(torch.maximum(y[sl].abs(), wy[sl].abs()))
+            over = max(over, float((diff - u - moved).max()))
+            out["max_abs_err"] = max(out["max_abs_err"], float(diff.max()))
+            out["max_ulps"] = max(out["max_ulps"], float((diff / u).max()))
+            del xd, d, moved, diff, u
+        if over > 0 or out["mu_err"] > 1e-6 or out["sigma_err"] > 1e-6:
+            raise AssertionError(f"K25 vs its plain version: {out}, {over}")
+        return out
+
+    def k26_case(a):
+        """K26 against its plain version on the same inputs: dx within 1
+        bf16 ulp plus 2^-16 of its plane's largest |dx|, dscale within
+        1e-5 of the sum of its terms' magnitudes."""
+        x, y, dy, scale, mu, sg = a
+        dx, ds = k26(*a)
+        wdx, wds = inm.norm_relu_backward_plain(*a)
+        out = dict(max_abs_err=0.0, max_ulps=0.0, shape=list(x.shape))
+        over, terms = -1.0, torch.zeros_like(ds, dtype=torch.float64)
+        for sl in planes(x.shape[0]):
+            g, w = dx[sl].double(), wdx[sl].double()
+            diff = (g - w).abs()
+            u = ulp(torch.maximum(g.abs(), w.abs()))
+            over = max(over, float((diff - u - 2.0 ** -16 * w.abs().amax(
+                (1, 2), keepdim=True)).max()))
+            out["max_abs_err"] = max(out["max_abs_err"], float(diff.max()))
+            out["max_ulps"] = max(out["max_ulps"], float((diff / u).max()))
+            xhat = (x[sl].double() - mu[sl].double()[:, None, None, :]) / \
+                sg[sl].double()[:, None, None, :]
+            terms += (xhat * dy[sl].double() * (y[sl] > 0)).abs().sum(
+                (0, 1, 2))
+            del g, w, diff, u, xhat
+        out["dscale_err"] = float(((ds.double() - wds.double()).abs()
+                                   / terms.clamp_min(1e-30)).max())
+        if over > 0 or out["dscale_err"] > 1e-5:
+            raise AssertionError(f"K26 vs its plain version: {out}, {over}")
+        return out
+
+    def criterion(got, ref, g64):
+        """||got - g64|| <= 2 ||ref - g64|| + 1e-2 ||g64||, and where ref
+        is within 5e-3 of g64 also ||got - ref|| <= 2e-2 ||ref||; returns
+        (passed, the first side over the second)."""
+        got, ref, g64 = got.double(), ref.double(), g64.double()
+        n64, ref_err = float(g64.norm()), float((ref - g64).norm())
+        ratio = float((got - g64).norm()) / max(2 * ref_err + 1e-2 * n64,
+                                                1e-300)
+        ok = ratio <= 1.0
+        if ref_err <= 5e-3 * n64:
+            ok = ok and float((got - ref).norm()) <= 2e-2 * float(ref.norm())
+        return ok, ratio
+
+    # K25 and K26 against their plain versions on the path's own inputs:
+    # the first and last call of each (K25: the stem's output first; K26:
+    # the last block's first)
+    a25, a26 = recorded()
+    if len(a25) != n_norms or len(a26) != n_norms:
+        raise AssertionError(f"{len(a25)} K25 / {len(a26)} K26 calls")
+    chk25 = [k25_case(*a25[0]), k25_case(*a25[-1])]
+    chk26 = [k26_case(a26[-1]), k26_case(a26[0])]
+    torch.cuda.synchronize()
+
+    # the forward: launches, logits against the plain path and float64
+    reset_launch_counts()
+    logits = model(images)
+    torch.cuda.synchronize()
+    fwd_launches = only(launch_counts(), {"resnet_norm": n_norms},
+                        "ResNet forward")
+    with plain_path():
+        logits_p = model(images)
+    loss_k, g_k = grads(params)
+    reset_launch_counts()
+    with plain_path():
+        loss_p, g_p = grads(params)
+    torch.cuda.synchronize()
+    only(launch_counts(), {}, "ResNet plain step")
+    loss64, g64, logits64 = grads64(params)
+    if tuple(logits.shape) != (TRAIN_N, cfg.classes) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"ResNet logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, or not finite")
+    lmax = float((logits - logits_p).abs().max())
+    lok, lratio = criterion(logits, logits_p, logits64)
+    if lmax > RESNET_LOGIT_TOL or not lok:
+        raise AssertionError(f"ResNet logits {lmax} from the plain path, "
+                             f"float64 ratio {lratio}")
+    names = [n for n, _ in _leaf_names(params)]
+    ratios = [criterion(a, b, c) for a, b, c in zip(g_k, g_p, g64)]
+    bad = [n for n, (ok, _r) in zip(names, ratios) if not ok]
+    if bad:
+        raise AssertionError(f"ResNet gradient leaves past the float64 "
+                             f"criterion: {bad}")
+    rel64 = [float((b.double() - c).norm() / c.norm()) for b, c in
+             zip(g_p, g64)]
+    worst = max(range(len(ratios)), key=lambda i: ratios[i][1])
+    grad_chk = dict(
+        loss=float(loss_k), loss_plain=float(loss_p), loss_float64=loss64,
+        logits_max_abs_vs_plain=lmax, logits_float64_ratio=lratio,
+        logits_limit=RESNET_LOGIT_TOL,
+        argmax_agree=float((logits.argmax(-1) == logits_p.argmax(-1))
+                           .float().mean()),
+        max_ratio=ratios[worst][1], max_ratio_leaf=names[worst],
+        leaves=len(ratios),
+        plain_vs_float64_rel_l2=dict(min=min(rel64), max=max(rel64),
+                                     median=sorted(rel64)[len(rel64) // 2]))
+    del g_k, g_p, g64, logits_p, logits64
+    # TF32 and bf16 reduced-precision sums switched on globally: the
+    # forward pins its convolutions and head, so the logits must not move
+    mm = torch.backends.cuda.matmul
+    prev = (torch.get_float32_matmul_precision(),
+            mm.allow_bf16_reduced_precision_reduction)
+    torch.set_float32_matmul_precision("high")
+    mm.allow_bf16_reduced_precision_reduction = True
+    try:
+        logits_rp = model(images)
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        mm.allow_bf16_reduced_precision_reduction = prev[1]
+    if not torch.equal(logits_rp, logits):
+        raise AssertionError("TF32 / bf16 reduced precision on globally "
+                             "moved the ResNet logits")
+    del logits_rp
+    # three steps at TRAIN_LR, a checkpoint after the second, the third
+    # again from the loaded checkpoint
+    init_opt, step = rn.make_train_step(cfg, TRAIN_LR, dev)
+    want = {"resnet_norm": n_norms, "resnet_norm_bwd": n_norms}
+    p, s = params, init_opt(params)
+    losses = []
+    for i in range(3):
+        if i == 2:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "step2.npz")
+                ckpt.save_checkpoint(path, p, s, input_state=ti.state(),
+                                     step=2)
+                lp, ls, inp, at = ckpt.load_checkpoint(path, params,
+                                                       init_opt(params))
+        reset_launch_counts()
+        p, s, loss = step(p, s, images, labels)
+        torch.cuda.synchronize()
+        step_launches = only(launch_counts(), want, f"ResNet step {i + 1}")
+        losses.append(float(loss))
+    rp3, rs3, rl3 = step(lp, ls, images, labels)
+    if not all(math.isfinite(v) for v in losses) or losses[2] >= losses[0]:
+        raise AssertionError(f"ResNet losses {losses}")
+    same = torch.equal(rl3, loss) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves((rp3, rs3)),
+                                          tree_leaves((p, s))))
+    if not same or at != 2 or inp != ti.state():
+        raise AssertionError(f"the resumed ResNet step 3 is not the "
+                             f"uninterrupted one ({at}, {inp})")
+    del p, s, lp, ls, rp3, rs3
+    phase("resnet", card=card, images=TRAIN_N, input=list(images.shape),
+          logits=list(logits.shape), config=dict(
+              image_size=cfg.image_size, stem_channels=cfg.stem_channels,
+              stage_channels=list(cfg.stage_channels),
+              blocks_per_stage=cfg.blocks_per_stage, classes=cfg.classes,
+              parameters=sum(t.numel() for t in tree_leaves(params))),
+          forward_launches=fwd_launches, step_launches=step_launches,
+          K25=chk25, K26=chk26, **grad_chk, losses=losses,
+          learning_rate=TRAIN_LR, resumed_step_identical=True,
+          reduced_precision_global_identical=True,
+          note="K25: mu within 1e-6 of the plane's mean |x|, sigma within "
+               "1e-6 relative, y the plain elementwise pass on K25's own "
+               "statistics and within 1 bf16 ulp of the plain y plus what "
+               "those differences move it; K26 dx within 1 bf16 ulp "
+               "(+2^-16 of its plane's largest), dscale within 1e-5 of "
+               "the sum of its terms' magnitudes (first and last call "
+               "each); logits within 0.03 of the plain path's and "
+               "gradients per leaf by the float64 criterion (||k - f64|| "
+               "<= 2 ||plain - f64|| + 1e-2 ||f64||; where plain is "
+               "within 5e-3 of f64 also ||k - plain|| <= 2e-2 ||plain||; "
+               "max_ratio is the left side over the right)")
+
+    # the kernels' own times, bounds and yardsticks: the first and last
+    # call, and the sum over a forward's / a step's 12 calls
+    def k25_row(x, scale):
+        n, h, w, c = x.shape
+        xl = x.permute(0, 3, 1, 2)
+        return dict(
+            ms=timed(lambda: k25(x, scale), 10),
+            plain_ms=timed(lambda: inm.norm_relu_plain(x, scale), 3),
+            library_ms=timed(lambda: torch.relu(F.instance_norm(
+                xl, weight=scale, eps=inm.EPS)), 10),
+            **bound(x.numel() * 4 + n * c * 8 + c * 4, 8 * x.numel()))
+
+    def k26_row(a):
+        x, y, dy, scale, _m, _s = a
+        n, h, w, c = x.shape
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        wl = scale.detach().clone().requires_grad_()
+        out = torch.relu(F.instance_norm(xl, weight=wl, eps=inm.EPS))
+        gl = dy.permute(0, 3, 1, 2)
+        row = dict(
+            ms=timed(lambda: k26(*a), 10),
+            plain_ms=timed(lambda: inm.norm_relu_backward_plain(*a), 3),
+            library_ms=timed(lambda: torch.autograd.grad(
+                out, (xl, wl), gl, retain_graph=True), 10),
+            **bound(x.numel() * 8 + n * c * 8 + c * 8, 20 * x.numel()))
+        del out
+        return row
+
+    def summed(rows):
+        return dict(calls=len(rows),
+                    ms=sum(r["ms"] for r in rows),
+                    bound_ms=sum(r["bound_ms"] for r in rows),
+                    bound_bytes=sum(r["bound_bytes"] for r in rows))
+
+    r25 = [k25_row(*a) for a in a25]
+    r26 = [k26_row(a) for a in a26]
+    results["resnet_norm"] = dict(
+        max_abs_err=chk25[0]["max_abs_err"], **r25[0],
+        buckets=[dict(bucket="the forward's last call", shape=chk25[1][
+            "shape"], max_abs_err=chk25[1]["max_abs_err"], **r25[-1]),
+            dict(bucket="the 12 calls of a forward", **summed(r25))])
+    results["resnet_norm_bwd"] = dict(
+        max_abs_err=chk26[0]["max_abs_err"], **r26[-1],
+        buckets=[dict(bucket="the backward's first call (the last block)",
+                      shape=chk26[1]["shape"],
+                      max_abs_err=chk26[1]["max_abs_err"], **r26[0]),
+                 dict(bucket="the 12 calls of a step", **summed(r26))])
+    phase("K25_K26", card=card, shape=chk25[0]["shape"],
+          note="each kernel on the arguments of its call on the stem's "
+               "output (256, 224, 224, 64) in a forward / a backward; "
+               "buckets: the other end of the net, and the sum over the 12 "
+               "calls; library_ms: F.instance_norm + relu on the "
+               "channels-last NCHW view (K26: their autograd)",
+          K25=results["resnet_norm"], K26=results["resnet_norm_bwd"])
+    del a25, a26
+
+    # 18. timing: forward and step on both paths, where the step goes,
+    # memory, one ingest + train step
+    def stepper():
+        box = [params, init_opt(params)]
+
+        def one(mark=None, x=None):
+            box[0], box[1], _ = step(box[0], box[1],
+                                     images if x is None else x, labels,
+                                     mark=mark)
+        return one
+
+    def stages(one):
+        runs = []
+        for _ in range(4):
+            m = Marks()
+            one(mark=m)
+            runs.append(m.ms())
+        runs = runs[1:]
+        return {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
+
+    conv_ms = {}
+
+    def conv_backward_ms(h, cin, cout, k, stride, dx):
+        """CUDA-event ms of one convolution's backward (data and weight
+        gradients, or the weights' alone for the stem) at the step's
+        shape, replayed alone on random operands under conv_pin."""
+        key = (h, cin, cout, k, stride, dx)
+        if key not in conv_ms:
+            gen = torch.Generator(device=dev).manual_seed(5)
+            x = torch.randn((TRAIN_N, h, h, cin), generator=gen, device=dev) \
+                .to(torch.bfloat16).requires_grad_(dx)
+            w = torch.randn((k, k, cin, cout), generator=gen, device=dev) \
+                .requires_grad_()
+            with rn.conv_pin():
+                out = rn._conv(x, w, stride)
+            g = torch.randn(out.shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+            ins = (x, w) if dx else (w,)
+
+            def run():
+                with rn.conv_pin():
+                    torch.autograd.grad(out, ins, g, retain_graph=True)
+            conv_ms[key] = timed(run, 5)
+            del out, x, w, g
+        return conv_ms[key]
+
+    def convs_backward_ms():
+        s, cin = cfg.image_size, cfg.stem_channels
+        ms = conv_backward_ms(s, 3, cin, 3, 1, False)
+        for cout in cfg.stage_channels:
+            for b in range(cfg.blocks_per_stage):
+                stride = 2 if b == 0 else 1
+                ms += conv_backward_ms(s, cin, cout, 3, stride, True)
+                so = -(-s // stride)
+                ms += conv_backward_ms(so, cout, cout, 3, 1, True)
+                if cin != cout:
+                    ms += conv_backward_ms(s, cin, cout, 1, stride, True)
+                s, cin = so, cout
+        return ms
+
+    conv_fl, head_fl = resnet_flops(cfg, TRAIN_N)
+    one = stepper()
+    timing = dict(
+        forward_ms=median_ms(lambda: model(images)),
+        step_ms=median_ms(one))
+    with plain_path():
+        timing["plain_forward_ms"] = median_ms(lambda: model(images))
+        timing["plain_step_ms"] = median_ms(stepper())
+        plain_st = stages(stepper())
+    st = stages(one)
+    for k in ("forward", "step"):
+        timing[f"{k}_images_per_s"] = TRAIN_N / timing[f"{k}_ms"] * 1e3
+        timing[f"plain_{k}_images_per_s"] = \
+            TRAIN_N / timing[f"plain_{k}_ms"] * 1e3
+    fwd = sum(v for k, v in st.items()
+              if k not in ("loss", "backward", "optimizer"))
+    convs = sum(v for k, v in st.items() if k.endswith("_conv"))
+    k26_step = results["resnet_norm_bwd"]["buckets"][1]["ms"]
+    replay = convs_backward_ms()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    one()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    e2e = wall(lambda: one(x=next(ti)), 3)
+    phase("timing_resnet", card=card, images=TRAIN_N, **timing,
+          conv_tflop_forward=conv_fl / 1e12,
+          forward_bound_ms=bound(0, head_fl, conv_fl)["bound_ms"],
+          step_bound_ms=bound(0, 3 * head_fl, 3 * conv_fl)["bound_ms"],
+          stage_ms=st, plain_stage_ms=plain_st, forward_stage_sum_ms=fwd,
+          forward_convs_ms=convs, forward_K25_ms=st["K25"],
+          backward_ms=st["backward"], optimizer_ms=st["optimizer"],
+          backward_split_ms=dict(
+              K26=k26_step, convs_replayed=replay,
+              the_rest=st["backward"] - k26_step - replay),
+          peak_device_bytes=peak, peak_above_resident_bytes=peak - base,
+          ingest_device_ms=ingest_device_ms, ingest_plus_train_step_ms=e2e,
+          ingest_plus_train_step_images_per_s=TRAIN_N / e2e * 1e3,
+          idle_share=1.0 - (ingest_device_ms + timing["step_ms"]) / e2e,
+          note="forward_ms, step_ms (and plain_*): medians of 5 CUDA-event "
+               "timings; stage_ms: medians of 3 steps through train_step's "
+               "mark hook (a conv stage includes its weights' bf16 cast "
+               "and its padding); backward_split_ms: K26 = the 12 calls' "
+               "own ms, convs_replayed = the step's convolution backwards "
+               "timed alone at their shapes, the_rest = backward minus "
+               "those; bounds: bf16 conv FLOPs / 989 TFLOP/s (+ the f32 "
+               "head / 67), the step 3x; idle_share: 1 - (phase 7's ingest "
+               "device sum + the step) / the wall time of one ingest step "
+               "+ train step")
+    return {k: step_launches[k] for k in ("resnet_norm", "resnet_norm_bwd")}
+
+
 def _leaf_names(tree, prefix=""):
-    """(path, leaf) pairs in tree_leaves order (dict keys sorted)."""
+    """(path, leaf) pairs in tree_leaves order (dict keys sorted, None
+    holding no leaf)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree)
                 for x in _leaf_names(tree[k], f"{prefix}{k}/")]

@@ -33,7 +33,13 @@ first use):
   `models.vit.make_train_step`, whose backward runs K21-K24 (the
   backwards of K17-K20) with cuBLAS for the products, `optim.adamw`
   (optax's AdamW in plain torch) and `models.checkpoint` (the
-  reference's npz format).
+  reference's npz format);
+- the ResNet that consumes them too, `models.resnet.ResNet` (the
+  forward pass; bf16 convolutions through cuDNN with the reference's
+  SAME padding): instance norm + scale + ReLU (K25); and its train step,
+  `models.resnet.make_train_step`, whose backward runs K26 (K25's
+  backward) with cuDNN for the convolutions, and the same AdamW and
+  checkpoint.
 
 The public single-image functions below run on the card unless
 `device="cpu"` is asked for; the async forms run on a pool thread and

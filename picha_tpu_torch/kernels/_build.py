@@ -63,6 +63,8 @@ SIGNATURES = {
     "picha_vit_attention_bwd": [P, P, I, I, I, I, F, P, P],
     "picha_moe_dispatch_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
     "picha_moe_combine_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
+    "picha_resnet_norm": [P, P, I, L, I, P, P, P, P],
+    "picha_resnet_norm_bwd": [P, P, P, P, P, P, I, L, I, P, P, P, P, P],
 }
 
 _lock = threading.Lock()
@@ -250,6 +252,14 @@ KERNELS = {
                "picha_tpu_torch/csrc/vit_moe_bwd.cu",
                "picha_tpu/models/vit.py:228-230 (the VJP of _switch_moe's "
                "combine gather, :255)"),
+        Kernel("resnet_norm", "picha_resnet_norm",
+               "picha_tpu_torch/csrc/resnet_norm.cu",
+               "picha_tpu/models/resnet.py:100 (_norm, and the jax.nn.relu "
+               "after it at :129, :131)"),
+        Kernel("resnet_norm_bwd", "picha_resnet_norm_bwd",
+               "picha_tpu_torch/csrc/resnet_norm_bwd.cu",
+               "picha_tpu/models/resnet.py:100-106 (the VJP of _norm and "
+               "the relu after it in jax.value_and_grad(loss_fn), :161)"),
     )
 }
 

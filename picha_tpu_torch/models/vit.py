@@ -31,7 +31,6 @@ import dataclasses
 import math
 from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -42,6 +41,7 @@ from ..ops.layernorm import layer_norm
 from ..ops.moe import capacity, combine, route_dispatch
 from ..optim import adamw, apply_updates, tree_leaves, tree_unflatten
 from ..runtime.device import resolve_device, to_device
+from ._tree import _map, _no_mark, _Tree, params_from_jax  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,27 +115,6 @@ def init_params(cfg: ViTConfig, generator: torch.Generator,
             blk["mlp_out"] = dense(f, (f, dim))
         params["blocks"].append(blk)
     return _map(lambda t: t.to(dev), params)
-
-
-def params_from_jax(tree, device="cuda") -> Dict:
-    """The reference's parameter tree, its leaves as numpy arrays
-    (`jax.tree.map(np.asarray, params)`), -> the port's tree of float32
-    tensors on `device`; dense and MoE blocks alike."""
-    dev = resolve_device(device)
-    return _map(lambda a: torch.from_numpy(
-        np.array(a, dtype=np.float32)).to(dev), tree)
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _no_mark(stage: str) -> None:
-    pass
 
 
 def forward(params, images, cfg: ViTConfig,
@@ -258,34 +237,6 @@ def make_train_step(cfg: ViTConfig, learning_rate: float = 3e-4,
         return params, opt_state, loss.detach()
 
     return init_opt, train_step
-
-
-class _Tree(nn.Module):
-    """A parameter tree (dicts of tensors, dicts and lists of dicts) held
-    as frozen nn.Parameters; `tree()` gives it back as dicts."""
-
-    def __init__(self, tree: Dict):
-        super().__init__()
-        self._keys = list(tree)
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                self.add_module(k, _Tree(v))
-            elif isinstance(v, list):
-                self.add_module(k, nn.ModuleList(_Tree(b) for b in v))
-            else:
-                self.register_parameter(k, nn.Parameter(v,
-                                                        requires_grad=False))
-
-    def tree(self) -> Dict:
-        out = {}
-        for k in self._keys:
-            v = getattr(self, k)
-            if isinstance(v, _Tree):
-                v = v.tree()
-            elif isinstance(v, nn.ModuleList):
-                v = [b.tree() for b in v]
-            out[k] = v
-        return out
 
 
 class ViT(nn.Module):

@@ -568,7 +568,9 @@ def test_port_imports_nothing_of_the_reference():
             "picha_tpu_torch.models.vit", "picha_tpu_torch.ops.layernorm",
             "picha_tpu_torch.ops.attention",
             "picha_tpu_torch.ops.moe", "picha_tpu_torch.models.checkpoint",
-            "picha_tpu_torch.optim"} <= set(mods)
+            "picha_tpu_torch.optim", "picha_tpu_torch.models.resnet",
+            "picha_tpu_torch.models._tree",
+            "picha_tpu_torch.ops.instance_norm"} <= set(mods)
 
 
 _REF_IMPORT = re.compile(

@@ -1,0 +1,676 @@
+"""The port's ResNet (picha_tpu_torch.models.resnet and
+ops/instance_norm.py) on CPU tensors, where K25 and K26 run as their
+plain versions, against picha_tpu/models/resnet.py and
+picha_tpu/models/checkpoint.py on JAX-CPU with optax, with the same
+numpy-seeded inputs and the same weights (the port's `init_params` as
+numpy arrays, handed to both). Tolerances, each with its reason:
+
+- K25's plain version (`norm_relu_plain`) against `relu(_norm)`: y within
+  1 bf16 ulp (the same f32 formula; only the sums' order differs) plus
+  what one f32 ulp of mu moves it, |scale| ulp(mu) / sigma: XLA compiles
+  the mean's division by H * W (a `div` in the jaxpr, and a true
+  division in the port) into a multiply by the reciprocal, one f32 ulp
+  away, which a near-constant plane (sigma near sqrt(1e-5)) turns into
+  1.5e-4 * scale of output (on a constant plane, where the port gives
+  the exact 0); mu and
+  sigma within 1e-6 of float64's (mu: of the plane's mean |x|; sigma:
+  relative), also on a 1x1 plane and on channels whose output is all
+  zero (constant planes, negative scales);
+- K26's (`norm_relu_backward_plain`) against `jax.vjp` of the same lines
+  and against torch's autograd of the plain forward: dx within 1 bf16 ulp
+  plus 2^-16 of its (image, channel) plane's largest |dx| (a plane's dx
+  is the sum of terms that cancel to its mean; f32 sums in another order
+  move a near-zero result by more than its own ulp), dscale within 1e-5
+  of the sum of its terms' magnitudes; a constant plane, where XLA's
+  reciprocal mean opens the ReLU (above), is held to the exact dx = 0;
+- `_conv` against `lax.conv_general_dilated(..., "SAME")` at kernel sizes
+  1 and 3, strides 1 and 2, odd and even sizes, the padding taken from
+  JAX's own rule (`lax.padtype_to_pads`): within 1 bf16 ulp (f32 sums in
+  another order);
+- the forward at TINY (seeds 0, 1) and at full widths with
+  image_size=64 (blocks_per_stage 1 and 2) against `resnet.forward`:
+  logits within 0.03 (measured 0.0021 / 0.0025 / 0.0051 / 0.0099),
+  argmax equal past a 0.06 margin;
+- the loss within 5e-3 of the reference's loss lines (:152-155);
+- the gradients, held to a float64 transcription of the forward (every
+  bf16 cast replaced by float64; `torch_helpers.resnet_forward64`): per leaf
+  ||g_port - g64|| <= 2 ||g_jax - g64|| + 1e-2 ||g64||, and on the leaves
+  where the reference itself is within 5e-3 of g64, also ||g_port -
+  g_jax|| <= 2e-2 ||g_jax||. The reference's bf16 gradient is itself
+  noisy: its leaves sit 0.2-19 % from float64, the conv and scale leaves
+  behind the normalisations the furthest (the bf16 rounding of the
+  normalised activations). Measured before
+  the bound was fixed: the largest ratio of the left side to the right
+  is 0.62 / 0.62 (TINY seeds 0, 1), 0.68 and 0.60 (64², 1 and 2 blocks
+  a stage); on the quiet leaves port and reference agree within 0.25 %;
+- one `optim.adamw` update over a tree with `None` leaves against optax's
+  (jitted), twice: mu, nu and the parameters within 1e-6 of each leaf's
+  largest |value|;
+- three `make_train_step` steps against the reference's jitted step:
+  losses within 5e-3; checkpoints cross both ways with
+  `picha_tpu.models.checkpoint` (`None` leaves skipped by both and
+  restored from the template), and a resumed step is bit for bit the
+  uninterrupted one.
+
+`PYTHONPATH=. python tests/test_torch_resnet.py` prints the measured
+numbers quoted here (`_report`).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from torch_helpers import float64_criterion, resnet_forward64, xla_same_pads
+
+from picha_tpu.models import checkpoint as ref_ckpt
+from picha_tpu.models import resnet as ref
+from picha_tpu_torch import optim
+from picha_tpu_torch.models import ResNet, ResNetConfig
+from picha_tpu_torch.models import checkpoint as port_ckpt
+from picha_tpu_torch.models import resnet as port
+from picha_tpu_torch.models import vit as port_vit
+from picha_tpu_torch.ops.instance_norm import (norm_relu, norm_relu_backward,
+                                               norm_relu_backward_plain,
+                                               norm_relu_k25, norm_relu_plain,
+                                               normalize_relu)
+
+LOGIT_TOL = 0.03
+LOSS_TOL = 5e-3
+ADAMW_TOL = 1e-6
+FIELDS = ("image_size", "stem_channels", "stage_channels",
+          "blocks_per_stage", "classes")
+CONFIGS = {"TINY": ref.TINY,
+           "full_64_1": ref.ResNetConfig(image_size=64, blocks_per_stage=1),
+           "full_64_2": ref.ResNetConfig(image_size=64)}
+
+
+def _bf16_np(a):
+    """float32 numpy -> its bf16 values as float32 numpy (JAX's rounding)."""
+    return np.asarray(jnp.asarray(a, jnp.float32).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+def _tb(a):
+    return torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16)
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _ulp(v):
+    """One bf16 ulp at |v| (8 significant bits), elementwise."""
+    m = np.maximum(np.abs(np.asarray(v, np.float64)), 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(m)) - 7)
+
+
+def _within_ulp(got, want, extra=0.0):
+    return (np.abs(got - want)
+            <= _ulp(np.maximum(np.abs(got), np.abs(want))) + extra).all()
+
+
+def _port_cfg(cfg):
+    return port.ResNetConfig(**{f: getattr(cfg, f) for f in FIELDS})
+
+
+def _setup(cfg, seed, n=4):
+    """Weights from the port's `init_params` as numpy for both packages
+    (`proj` None where the reference has None), numpy-seeded images and
+    labels."""
+    npp = port._map(lambda t: t.numpy(), port.init_params(
+        _port_cfg(cfg), torch.Generator().manual_seed(seed), "cpu"))
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, cfg.image_size, cfg.image_size, 3), dtype=np.float32)
+    labels = rng.integers(0, cfg.classes, n).astype(np.int32)
+    return jax.tree.map(jnp.asarray, npp), npp, x, labels
+
+
+def _ref_loss(cfg):
+    """The reference's loss lines (make_train_step's loss_fn, :152-155)."""
+    def loss(params, images, labels):
+        logp = jax.nn.log_softmax(ref.forward(params, images, cfg))
+        return -jnp.take_along_axis(logp, labels[:, None], axis=-1).mean()
+    return loss
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_jits(cfg):
+    return (jax.jit(lambda p, x: ref.forward(p, x, cfg)),
+            jax.jit(jax.value_and_grad(_ref_loss(cfg))))
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_train_step(cfg, lr):
+    init_opt, step = ref.make_train_step(cfg, learning_rate=lr)
+    return init_opt, jax.jit(step)
+
+
+def _ref_norm_relu(x, scale):
+    return jax.nn.relu(ref._norm(x, scale))
+
+
+# --- K25 / K26: instance norm + scale + ReLU ---------------------------------
+
+def _norm_case(shape, seed, offset, spread, kind):
+    rng = np.random.default_rng(seed)
+    n, h, w, c = shape
+    x = offset + spread * rng.standard_normal(shape).astype(np.float32)
+    scale = (1.0 + 0.3 * rng.standard_normal(c)).astype(np.float32)
+    if kind == "degenerate":
+        x[:, :, :, 1] = 2.5          # constant planes: the output is 0
+        x[0, :, :, 4] = -7.0
+        scale[::3] = -scale[::3]     # negative scales
+    return _bf16_np(x), scale
+
+
+NORM_CASES = {
+    "random": ((2, 7, 5, 64), 1.0, 2.0, "random"),
+    "1x1": ((3, 1, 1, 32), 0.5, 1.0, "random"),
+    "narrow": ((2, 16, 16, 128), -3.0, 0.05, "random"),
+    "degenerate": ((2, 9, 13, 6), 0.0, 1.0, "degenerate"),
+    "wide_offset": ((1, 12, 12, 256), 40.0, 3.0, "random"),
+}
+
+
+@pytest.mark.parametrize("name", list(NORM_CASES))
+def test_norm_relu_plain_matches_jax(name):
+    shape, offset, spread, kind = NORM_CASES[name]
+    x, scale = _norm_case(shape, sum(shape), offset, spread, kind)
+    want = np.asarray(jax.jit(_ref_norm_relu)(jnp.asarray(x, jnp.bfloat16),
+                                              scale).astype(jnp.float32))
+    y, mu, sigma = norm_relu_plain(_tb(x), torch.from_numpy(scale))
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == shape
+    assert mu.dtype == sigma.dtype == torch.float32
+    assert tuple(mu.shape) == tuple(sigma.shape) == (shape[0], shape[3])
+    x64 = x.astype(np.float64)
+    mu64 = x64.mean((1, 2))
+    sig64 = np.sqrt(((x64 - mu64[:, None, None]) ** 2).mean((1, 2)) + 1e-5)
+    mu_ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(mu64), 2.0 ** -126)))
+                     - 23)
+    assert _within_ulp(_np(y), want,
+                       (np.abs(scale) * mu_ulp / sig64)[:, None, None, :])
+    assert (_np(y) >= 0).all()
+    assert (np.abs(mu.numpy() - mu64) <= 1e-6 * np.abs(x64).mean((1, 2))
+            + 1e-30).all()
+    assert (np.abs(sigma.numpy() - sig64) <= 1e-6 * sig64).all()
+    if name == "1x1":
+        assert not y.any()           # every plane is constant
+    if kind == "degenerate":
+        assert not y[:, :, :, 1].any() and not y[0, :, :, 4].any()
+
+
+def _dx_ok(got, want):
+    """Within 1 bf16 ulp plus 2^-16 of the plane's largest |dx|."""
+    plane = np.abs(want).max(axis=(1, 2), keepdims=True)
+    return _within_ulp(got, want, 2.0 ** -16 * plane)
+
+
+@pytest.mark.parametrize("name", list(NORM_CASES))
+def test_norm_relu_backward_plain_matches_jax_and_autograd(name):
+    shape, offset, spread, kind = NORM_CASES[name]
+    x, scale = _norm_case(shape, sum(shape) + 1, offset, spread, kind)
+    rng = np.random.default_rng(len(name))
+    dy = _bf16_np(rng.standard_normal(shape).astype(np.float32))
+    jdx, jds = jax.jit(lambda a, s, ct: jax.vjp(_ref_norm_relu, a, s)[1](ct))(
+        jnp.asarray(x, jnp.bfloat16), scale, jnp.asarray(dy, jnp.bfloat16))
+    jdx = np.asarray(jdx.astype(jnp.float32))
+    tx, ts, tdy = _tb(x), torch.from_numpy(scale), _tb(dy)
+    y, mu, sigma = norm_relu_plain(tx, ts)
+    dx, ds = norm_relu_backward_plain(tx, y, tdy, ts, mu, sigma)
+    assert dx.dtype == torch.bfloat16 and tuple(dx.shape) == shape
+    assert ds.dtype == torch.float32 and tuple(ds.shape) == (shape[3],)
+    x64 = x.astype(np.float64)
+    m64 = x64.mean((1, 2), keepdims=True)
+    xhat = (x64 - m64) / np.sqrt(((x64 - m64) ** 2).mean((1, 2),
+                                                        keepdims=True) + 1e-5)
+    terms = np.abs(xhat * dy * (_np(y) > 0)).sum((0, 1, 2))
+    # a constant plane normalises to exactly 0 in the port, so its ReLU
+    # passes no gradient; XLA's reciprocal mean leaves it 1.5e-4 * scale
+    # (see the module doc), which passes dy / sqrt(1e-5): those planes
+    # hold the port to the exact answer, the others to the reference
+    jy = np.asarray(jax.jit(_ref_norm_relu)(jnp.asarray(x, jnp.bfloat16),
+                                            scale).astype(jnp.float32))
+    same = ((jy > 0) == (_np(y) > 0)).all((1, 2))
+    assert (same | (x.max((1, 2)) == x.min((1, 2)))).all()
+    assert not _np(dx)[np.broadcast_to(~same[:, None, None, :], shape)].any()
+    keep = same[:, None, None, :]
+    assert _dx_ok(_np(dx) * keep, jdx * keep)
+    ok = same.all(0)
+    assert (np.abs(ds.numpy() - np.asarray(jds)) <= 1e-5 * terms
+            + 1e-30)[ok].all()
+    xs, ss = tx.clone().requires_grad_(), ts.clone().requires_grad_()
+    norm_relu_plain(xs, ss)[0].backward(tdy)
+    assert _dx_ok(_np(dx), _np(xs.grad))
+    assert (np.abs(ds.numpy() - ss.grad.numpy()) <= 1e-5 * terms
+            + 1e-30).all()
+
+
+def test_norm_relu_function_is_the_plain_versions():
+    x, scale = _norm_case((2, 6, 10, 64), 3, 1.0, 2.0, "random")
+    dy = _tb(np.random.default_rng(3).standard_normal(x.shape))
+    tx, ts = _tb(x), torch.from_numpy(scale)
+    xs, ss = tx.clone().requires_grad_(), ts.clone().requires_grad_()
+    out = norm_relu(xs, ss)
+    y, mu, sigma = norm_relu_plain(tx, ts)
+    assert torch.equal(out, y)
+    assert torch.equal(normalize_relu(tx, ts, mu, sigma), y)
+    out.backward(dy)
+    want = norm_relu_backward_plain(tx, y, dy, ts, mu, sigma)
+    assert torch.equal(xs.grad, want[0]) and torch.equal(ss.grad, want[1])
+    # on CPU tensors the backward wrapper is the plain version
+    got = norm_relu_backward(tx, y, dy, ts, mu, sigma)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_k25_refuses_cpu_tensors():
+    x = torch.zeros((1, 2, 2, 4), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K25"):
+        norm_relu_k25(x, torch.ones(4))
+
+
+# --- the convolutions: the reference's SAME padding --------------------------
+
+@pytest.mark.parametrize("size", [1, 7, 8, 31, 32, 224])
+@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
+def test_same_pads_are_jax_rule(size, k, stride):
+    want = jax.lax.padtype_to_pads((size,), (k,), (stride,), "SAME")[0]
+    assert port.same_pads(size, k, stride) == tuple(want)
+    assert xla_same_pads(size, k, stride) == tuple(want)
+
+
+@pytest.mark.parametrize("k,stride,h,w", [
+    (3, 1, 8, 8), (3, 2, 8, 8), (3, 2, 7, 9), (3, 2, 9, 6), (3, 1, 7, 6),
+    (1, 2, 8, 8), (1, 2, 7, 7), (1, 1, 5, 4), (3, 2, 1, 1)])
+def test_conv_matches_lax_same(k, stride, h, w):
+    rng = np.random.default_rng(k * 100 + stride * 10 + h + w)
+    cin, cout = 16, 24
+    x = _bf16_np(rng.standard_normal((2, h, w, cin)).astype(np.float32))
+    wt = (rng.standard_normal((k, k, cin, cout)) / np.sqrt(k * k * cin)) \
+        .astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, b: ref._conv(a, b, stride))(
+        jnp.asarray(x, jnp.bfloat16), wt).astype(jnp.float32))
+    got = port._conv(_tb(x), torch.from_numpy(wt), stride)
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == want.shape == (2, -(-h // stride),
+                                              -(-w // stride), cout)
+    assert _within_ulp(_np(got), want)
+
+
+# --- the forward, the loss and the gradients ---------------------------------
+
+def _nll(logits, labels):
+    return -torch.log_softmax(logits, -1).gather(
+        -1, torch.from_numpy(labels).long()[:, None]).mean()
+
+
+CASES = [("TINY", 0), ("TINY", 1), ("full_64_1", 0), ("full_64_2", 0)]
+
+
+@pytest.mark.parametrize("name,seed", CASES)
+def test_forward_matches_reference(name, seed):
+    cfg = CONFIGS[name]
+    params, npp, x, _l = _setup(cfg, seed)
+    want = np.asarray(_ref_jits(cfg)[0](params, x))
+    got = port.forward(port.params_from_jax(npp, "cpu"), torch.from_numpy(x),
+                       _port_cfg(cfg))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    got = got.numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= LOGIT_TOL
+    top2 = np.sort(want, -1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 0.06
+    assert (got.argmax(-1)[clear] == want.argmax(-1)[clear]).all()
+
+
+@pytest.mark.parametrize("name,seed", CASES)
+def test_loss_and_gradients_float64_criterion(name, seed):
+    cfg = CONFIGS[name]
+    params, npp, x, labels = _setup(cfg, seed)
+    want_loss, jg = _ref_jits(cfg)[1](params, x, labels)
+    tp = port.params_from_jax(npp, "cpu")
+    leaves = [p.requires_grad_() for p in optim.tree_leaves(tp)]
+    loss = port.loss_fn(tp, torch.from_numpy(x), torch.from_numpy(labels),
+                        _port_cfg(cfg))
+    grads = torch.autograd.grad(loss, leaves)
+    assert loss.dtype == torch.float32 and loss.dim() == 0
+    assert abs(float(loss.detach()) - float(want_loss)) <= LOSS_TOL
+    p64 = port._map(lambda a: torch.from_numpy(np.array(a, np.float64)), npp)
+    l64 = [p.requires_grad_() for p in optim.tree_leaves(p64)]
+    g64 = torch.autograd.grad(
+        _nll(resnet_forward64(p64, torch.from_numpy(x).double()), labels),
+        l64)
+    ref_leaves = jax.tree.leaves(jg)
+    assert len(ref_leaves) == len(grads) == len(g64)
+    for g, j, e in zip(grads, ref_leaves, g64):
+        assert g.shape == j.shape and g.dtype == torch.float32
+        assert float64_criterion(g, j, e.numpy())[0]
+
+
+# --- parameters, module, optimizer, train step, checkpoint -------------------
+
+def test_init_params_match_reference_tree():
+    cfg = ref.ResNetConfig()
+    want = ref.init_params(jax.random.PRNGKey(0), cfg)
+    got = port.init_params(port.ResNetConfig(),
+                           torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.structure(want) == jax.tree.structure(
+        port._map(lambda t: t.numpy(), got))
+    for g, w in zip(optim.tree_leaves(got), jax.tree.leaves(want)):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+    n = sum(t.numel() for t in optim.tree_leaves(got))
+    assert 2.9e6 < n < 3.1e6
+    stem = got["stem"]
+    assert abs(float(stem.std()) * np.sqrt(27) - 1.0) < 0.15
+    assert all((blk["proj"] is None) == (blk["conv1"].shape[2]
+                                         == blk["conv1"].shape[3])
+               for stage in got["stages"] for blk in stage)
+
+
+def test_params_from_jax_keeps_every_proj_none():
+    for cfg in (ref.TINY, ref.ResNetConfig()):
+        tree = jax.tree.map(np.asarray,
+                            ref.init_params(jax.random.PRNGKey(1), cfg))
+        got = port.params_from_jax(tree, "cpu")
+        nones = [(si, bi) for si, st in enumerate(tree["stages"])
+                 for bi, blk in enumerate(st) if blk["proj"] is None]
+        assert nones and nones == [
+            (si, bi) for si, st in enumerate(got["stages"])
+            for bi, blk in enumerate(st) if blk["proj"] is None]
+        for g, w in zip(optim.tree_leaves(got), jax.tree.leaves(tree)):
+            np.testing.assert_array_equal(g.numpy(), w)
+        # the module and the ViT's helper keep them too
+        kept = ResNet(_port_cfg(cfg), params=got, device="cpu").params()
+        assert [blk["proj"] is None for st in kept["stages"] for blk in st] \
+            == [blk["proj"] is None for st in tree["stages"] for blk in st]
+        assert port_vit.params_from_jax(tree, "cpu")["stages"][0][0][
+            "proj"] is None
+
+
+def test_module_is_the_forward():
+    cfg = port.TINY
+    model = ResNet(cfg, seed=3, device="cpu")
+    params = port.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(4))
+    assert torch.equal(model(x), port.forward(params, x, cfg))
+    assert not any(p.requires_grad for p in model.parameters())
+    assert ResNetConfig() == port.ResNetConfig()
+
+
+def test_resnet_on_cuda_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ResNet(port.TINY)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port.make_train_step(port.TINY)
+
+
+def test_conv_pin_restores_the_callers_flags():
+    cd = torch.backends.cudnn
+    prev = cd.deterministic, cd.benchmark
+    try:
+        for flags in ((False, True), (True, True), (False, False)):
+            cd.deterministic, cd.benchmark = flags
+            with port.conv_pin():
+                assert cd.deterministic and not cd.benchmark
+            assert (cd.deterministic, cd.benchmark) == flags
+        with pytest.raises(KeyError):
+            with port.conv_pin():
+                raise KeyError
+        assert (cd.deterministic, cd.benchmark) == (False, False)
+    finally:
+        cd.deterministic, cd.benchmark = prev
+
+
+@pytest.mark.parametrize("lr", [3e-4, 1e-2])
+def test_adamw_with_none_leaves_matches_optax(lr):
+    params, npp, _x, _l = _setup(ref.TINY, 1)
+    rng = np.random.default_rng(7)
+    grads = jax.tree.map(
+        lambda a: (1e-2 * rng.standard_normal(a.shape)).astype(np.float32),
+        npp)
+    tx = optax.adamw(lr)
+    state = tx.init(params)
+    update, apply = jax.jit(tx.update), jax.jit(optax.apply_updates)
+    ptx = optim.adamw(lr)
+    tp = port.params_from_jax(npp, "cpu")
+    pstate = ptx.init(tp)
+    tg = port.params_from_jax(grads, "cpu")
+    for _ in range(2):
+        updates, state = update(grads, state, params)
+        params = apply(params, updates)
+        pu, pstate = ptx.update(tg, pstate, tp)
+        tp = optim.apply_updates(tp, pu)
+        assert tp["stages"][0][0]["proj"] is None
+        assert pstate.mu["stages"][0][0]["proj"] is None
+        for got, want in zip(optim.tree_leaves((tp, pstate)),
+                             jax.tree.leaves((params, state))):
+            want = np.asarray(want)
+            assert np.abs(got.numpy() - want).max() <= \
+                ADAMW_TOL * np.abs(want).max()
+    assert int(pstate.count) == 2
+
+
+def test_train_steps_match_reference():
+    cfg = ref.TINY
+    params, npp, x, labels = _setup(cfg, 0)
+    init_opt, step = _ref_train_step(cfg, 1e-3)
+    state = init_opt(params)
+    p_init, p_step = port.make_train_step(_port_cfg(cfg), 1e-3, "cpu")
+    tp = port.params_from_jax(npp, "cpu")
+    before = [t.clone() for t in optim.tree_leaves(tp)]
+    pstate = p_init(tp)
+    for _ in range(3):
+        params, state, loss = step(params, state, x, labels)
+        tp, pstate, ploss = p_step(tp, pstate, torch.from_numpy(x),
+                                   torch.from_numpy(labels))
+        assert abs(float(ploss) - float(loss)) <= LOSS_TOL
+    assert int(pstate.count) == 3 and tp["stages"][0][0]["proj"] is None
+    # functional: the first tree is unchanged
+    assert all(torch.equal(a, b) for a, b in zip(
+        before, optim.tree_leaves(port.params_from_jax(npp, "cpu"))))
+
+
+def test_train_step_reduces_loss():
+    """As tests/test_models.py::test_resnet_forward_and_train, on the
+    port."""
+    cfg = port.TINY
+    init_opt, step = port.make_train_step(cfg, learning_rate=1e-3,
+                                          device="cpu")
+    params = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = init_opt(params)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.random((4, 32, 32, 3), np.float32))
+    labels = torch.from_numpy((np.arange(4) % cfg.classes).astype(np.int32))
+    losses = []
+    for _ in range(10):
+        params, state, loss = step(params, state, images, labels)
+        losses.append(float(loss))
+    assert np.isfinite(losses).all() and min(losses[1:]) < losses[0]
+
+
+def test_train_step_marks_its_stages():
+    cfg = port.TINY
+    init_opt, step = port.make_train_step(cfg, device="cpu")
+    params = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    stages = []
+    step(params, init_opt(params), torch.rand((2, 32, 32, 3)),
+         torch.tensor([1, 2]), mark=stages.append)
+    assert stages[0] == "stem" and stages[-4:] == ["head", "loss",
+                                                    "backward", "optimizer"]
+    assert stages.count("K25") == 4
+    assert set(stages) == {"stem", "K25", "stage0_conv", "stage1_conv",
+                           "residual", "head", "loss", "backward",
+                           "optimizer"}
+
+
+def test_resumed_step_is_bit_for_bit(tmp_path):
+    cfg = port.TINY
+    init_opt, step = port.make_train_step(cfg, 1e-3, "cpu")
+    params = port.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand((3, 32, 32, 3), generator=g)
+    labels = torch.randint(0, cfg.classes, (3,), generator=g)
+    p, s, _ = step(params, init_opt(params), x, labels)
+    p, s, _ = step(p, s, x, labels)
+    path = str(tmp_path / "step2.npz")
+    port_ckpt.save_checkpoint(path, p, s, input_state={"pos": 6}, step=2)
+    p3, s3, l3 = step(p, s, x, labels)
+    lp, ls, inp, at = port_ckpt.load_checkpoint(path, params,
+                                                init_opt(params))
+    assert at == 2 and inp == {"pos": 6}
+    assert lp["stages"][0][0]["proj"] is None
+    rp, rs, rl = step(lp, ls, x, labels)
+    assert torch.equal(rl, l3)
+    assert all(torch.equal(a, b) for a, b in zip(
+        optim.tree_leaves((rp, rs)), optim.tree_leaves((p3, s3))))
+
+
+def _keys(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_reference_checkpoint_resumes_in_port(tmp_path):
+    cfg = ref.TINY
+    params, npp, x, labels = _setup(cfg, 1)
+    init_opt, step = _ref_train_step(cfg, 1e-3)
+    params, state, _ = step(params, init_opt(params), x, labels)
+    path = str(tmp_path / "ref.npz")
+    ref_ckpt.save_checkpoint(path, params, state,
+                             input_state={"seed": 1, "pos": 4}, step=1)
+    p_init, p_step = port.make_train_step(_port_cfg(cfg), 1e-3, "cpu")
+    tmpl = port.params_from_jax(npp, "cpu")
+    tp, pstate, inp, at = port_ckpt.load_checkpoint(path, tmpl, p_init(tmpl))
+    assert at == 1 and inp == {"seed": 1, "pos": 4}
+    assert tp["stages"][0][0]["proj"] is None
+    for got, want in zip(optim.tree_leaves((tp, pstate)),
+                         jax.tree.leaves((params, state))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _p, _s, loss = step(params, state, x, labels)
+    _tp, pstate, ploss = p_step(tp, pstate, torch.from_numpy(x),
+                                torch.from_numpy(labels))
+    assert abs(float(ploss) - float(loss)) <= LOSS_TOL
+    assert int(pstate.count) == 2
+
+
+def test_port_checkpoint_loads_in_reference(tmp_path):
+    cfg = ref.TINY
+    params, npp, x, labels = _setup(cfg, 2)
+    p_init, p_step = port.make_train_step(_port_cfg(cfg), 1e-3, "cpu")
+    tp = port.params_from_jax(npp, "cpu")
+    tp, pstate, _ = p_step(tp, p_init(tp), torch.from_numpy(x),
+                           torch.from_numpy(labels))
+    path = str(tmp_path / "port.npz")
+    port_ckpt.save_checkpoint(path, tp, pstate, input_state={"epoch": 1},
+                              step=1)
+    init_opt, step = _ref_train_step(cfg, 1e-3)
+    rp, rstate, inp, at = ref_ckpt.load_checkpoint(path, params,
+                                                   init_opt(params))
+    assert at == 1 and inp == {"epoch": 1}
+    assert rp["stages"][0][0]["proj"] is None
+    for got, want in zip(jax.tree.leaves((rp, rstate)),
+                         optim.tree_leaves((tp, pstate))):
+        np.testing.assert_array_equal(np.asarray(got), want.numpy())
+    _rp, _rs, loss = step(rp, rstate, x, labels)
+    _tp, _ps, ploss = p_step(tp, pstate, torch.from_numpy(x),
+                             torch.from_numpy(labels))
+    assert abs(float(ploss) - float(loss)) <= LOSS_TOL
+    # both packages write the same keys and values for the same state
+    again = str(tmp_path / "again.npz")
+    ref_ckpt.save_checkpoint(again, rp, rstate, input_state=inp, step=at)
+    a, b = _keys(path), _keys(again)
+    assert sorted(a) == sorted(b)
+    assert not any("proj" in k for k in a
+                   if k.startswith("params/stages/0/0/"))
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def _report():
+    """The numbers this file's tolerances were set from, printed:
+    `PYTHONPATH=. python tests/test_torch_resnet.py`."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    for name, seed in CASES:
+        cfg = CONFIGS[name]
+        params, npp, x, labels = _setup(cfg, seed)
+        want = np.asarray(_ref_jits(cfg)[0](params, x))
+        tp = port.params_from_jax(npp, "cpu")
+        got = port.forward(tp, torch.from_numpy(x), _port_cfg(cfg)).numpy()
+        _l, jg = _ref_jits(cfg)[1](params, x, labels)
+        leaves = [p.requires_grad_() for p in optim.tree_leaves(tp)]
+        grads = torch.autograd.grad(port.loss_fn(
+            tp, torch.from_numpy(x), torch.from_numpy(labels),
+            _port_cfg(cfg)), leaves)
+        p64 = port._map(lambda a: torch.from_numpy(np.array(a, np.float64)),
+                        npp)
+        l64 = [p.requires_grad_() for p in optim.tree_leaves(p64)]
+        g64 = torch.autograd.grad(_nll(resnet_forward64(
+            p64, torch.from_numpy(x).double()), labels), l64)
+        ratios = [float64_criterion(g, j, e.numpy())[1]
+                  for g, j, e in zip(grads, jax.tree.leaves(jg), g64)]
+        jax64 = [np.linalg.norm(np.asarray(j, np.float64) - e.numpy())
+                 / np.linalg.norm(e.numpy())
+                 for j, e in zip(jax.tree.leaves(jg), g64)]
+        print(f"{name} seed {seed}: logits {np.abs(got - want).max():.4f} "
+              f"from the reference's; largest float64 ratio "
+              f"{max(ratios):.2f}; the reference {min(jax64):.4f}-"
+              f"{max(jax64):.4f} from float64 by leaf")
+    # torch's symmetric padding=1 in place of XLA's SAME at TINY
+    params, npp, x, _l = _setup(ref.TINY, 0)
+    want = np.asarray(_ref_jits(ref.TINY)[0](params, x))
+
+    def symmetric(a, w, stride=1):
+        k = w.shape[0]
+        out = F.conv2d(a.permute(0, 3, 1, 2), w.to(a.dtype).permute(
+            3, 2, 0, 1), stride=stride, padding=k // 2)
+        return out.permute(0, 2, 3, 1)
+
+    with mock.patch.object(port, "_conv", symmetric):
+        got = port.forward(port.params_from_jax(npp, "cpu"),
+                           torch.from_numpy(x), port.TINY).numpy()
+    print(f"TINY with padding=1: logits {np.abs(got - want).max():.3f} "
+          f"from the reference's (largest |logit| {np.abs(want).max():.2f})")
+    # a constant plane: the reference's output and the port's
+    x = np.full((1, 9, 13, 2), -7.0, np.float32)
+    x[..., 1] = 2.5
+    scale = np.ones(2, np.float32)
+    jy = np.asarray(jax.jit(_ref_norm_relu)(jnp.asarray(x, jnp.bfloat16),
+                                            scale).astype(jnp.float32))
+    py = _np(norm_relu_plain(_tb(x), torch.from_numpy(scale))[0])
+    print(f"constant planes (-7.0, 2.5 over 9x13): the reference's output "
+          f"{jy.max((0, 1, 2))}, the port's {py.max((0, 1, 2))}")
+    # autograd of a forward that converts x to f32 twice
+    xb, sc = _norm_case((2, 7, 5, 64), 68, 1.0, 2.0, "random")
+    dy = _tb(np.random.default_rng(6).standard_normal(xb.shape))
+    xs = _tb(xb).requires_grad_()
+    mu, sigma = norm_relu_plain(xs.detach(), torch.from_numpy(sc))[1:]
+    twice = normalize_relu(xs, torch.from_numpy(sc),
+                           *(t for t in _stats_twice(xs)))
+    twice.backward(dy)
+    y = norm_relu_plain(_tb(xb), torch.from_numpy(sc))[0]
+    once = norm_relu_backward_plain(_tb(xb), y, dy, torch.from_numpy(sc),
+                                    mu, sigma)[0]
+    ulps = np.abs(_np(xs.grad) - _np(once)) / _ulp(np.maximum(
+        np.abs(_np(xs.grad)), np.abs(_np(once))))
+    print(f"x converted to f32 twice: autograd's dx up to {ulps.max():.0f} "
+          f"bf16 ulps from the VJP's")
+
+
+def _stats_twice(x):
+    """mu and sigma of x from its own f32 conversion (a second one)."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean((1, 2))
+    d = x32 - mu[:, None, None, :]
+    return mu, torch.sqrt((d * d).mean((1, 2)) + 1e-5)
+
+
+if __name__ == "__main__":
+    _report()

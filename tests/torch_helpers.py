@@ -233,3 +233,64 @@ def synthetic_decode_case(name: str):
     comp_sig, coefs, qtabs = synthetic_coefs(width, height, samp,
                                              seed=len(name))
     return width, height, cs, comp_sig, coefs, qtabs, force
+
+
+def xla_same_pads(size: int, k: int, stride: int):
+    """XLA's "SAME" padding of one spatial axis, (before, after): the
+    output has ceil(size / stride) samples, the odd pixel goes after."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv64(x, w, stride=1):
+    import torch.nn.functional as F
+
+    (t, b), (l, r) = (xla_same_pads(x.shape[1], w.shape[0], stride),
+                      xla_same_pads(x.shape[2], w.shape[1], stride))
+    y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (l, r, t, b)),
+                 w.permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def _norm_relu64(x, scale):
+    import torch
+
+    mu = x.mean((1, 2), keepdim=True)
+    var = ((x - mu) ** 2).mean((1, 2), keepdim=True)
+    return torch.relu((x - mu) / torch.sqrt(var + 1e-5) * scale)
+
+
+def resnet_forward64(params, images):
+    """picha_tpu/models/resnet.py::forward (:119-142) with every bf16 cast
+    replaced by float64: params a tree of float64 tensors (`proj` None
+    where a block keeps its width), images (N, H, W, 3) float64 NHWC ->
+    (N, classes) float64 logits. The float64 yardstick of the ResNet's
+    gradient criterion (tests/test_torch_resnet.py)."""
+    x = _conv64(images, params["stem"])
+    for stage in params["stages"]:
+        for bi, blk in enumerate(stage):
+            stride = 2 if bi == 0 else 1
+            h = _conv64(_norm_relu64(x, blk["scale1"]), blk["conv1"], stride)
+            h = _conv64(_norm_relu64(h, blk["scale2"]), blk["conv2"])
+            shortcut = x
+            if blk["proj"] is not None:
+                shortcut = _conv64(x, blk["proj"], stride)
+            elif stride != 1:
+                shortcut = x[:, ::stride, ::stride, :]
+            x = h + shortcut
+    return x.mean((1, 2)) @ params["head"]
+
+
+def float64_criterion(got, ref, g64):
+    """The ResNet's gradient criterion for one leaf (numpy or tensors):
+    ||got - g64|| <= 2 ||ref - g64|| + 1e-2 ||g64||, and where ref itself
+    is within 5e-3 of g64, also ||got - ref|| <= 2e-2 ||ref||. Returns
+    (passed, ||got - g64|| / (2 ||ref - g64|| + 1e-2 ||g64||))."""
+    got, ref, g64 = (np.asarray(a, np.float64) for a in (got, ref, g64))
+    n64 = np.linalg.norm(g64)
+    ref_err = np.linalg.norm(ref - g64)
+    ratio = np.linalg.norm(got - g64) / max(2 * ref_err + 1e-2 * n64, 1e-300)
+    ok = ratio <= 1.0
+    if ref_err <= 5e-3 * n64:
+        ok = ok and np.linalg.norm(got - ref) <= 2e-2 * np.linalg.norm(ref)
+    return bool(ok), float(ratio)
