@@ -112,11 +112,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      its last call in the forward; both forwards' logits (256,
      1000) float32, finite, within 0.03 plus one bf16 ulp of the logit
      (its own rounding) of the same forward through the plain versions on
-     the card (the MoE's also records where the two paths route a token
-     differently), with launches K17 = 25, K18 = 12 (and
-     K19 = K20 = 6 for the MoE) and no other kernel; the dense forward
-     again with TF32 and bf16 reduced-precision sums switched on globally,
-     giving the same logits;
+     the card (the MoE's also on the kernel path's routes, as phase 15's
+     gradients, and where the two route a token differently), with
+     launches K17 = 25, K18 = 12 (and K19 = K20 = 6 for the MoE) and no
+     other kernel; the dense forward again with TF32 and bf16 reduced-precision sums
+     switched on globally, giving the same logits; K18's build as the
+     card reports it (registers, spills, shared memory, resident blocks)
+     and the tensor-core products (HMMA) cuobjdump finds in K18 and K22;
  14. both forwards timed on the kernel and the plain path (images/s),
      where their time goes (the forward's `mark` hook: products against
      K17-K20), peak device memory, and one ingest step + forward end to
@@ -129,8 +131,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the row's largest |value|), K23 (the MoE dispatch's backward) and K24
      (its combine's backward; gathers and scatters bit for bit, dlogits /
      dgk within 1e-6 relative) against their plain versions on the
-     arguments of their first call in a backward, K23 also on a router
-     that sends every token to expert 0; one step's gradients through the
+     arguments of their first call in a backward (K22 on every call of
+     the step: of the dense step at seeds 0 and 2 within its bound, at
+     seeds 3-6 and of the MoE step past its first call held no further
+     from a float64 VJP than the plain version is plus the bound, its
+     excesses recorded; the plain version's f32 dP = do . v^T checked
+     bit for bit against the same sums taken in order, the order K22
+     re-sums its ambiguous dP values in), K23 also on a router that
+     sends every token to expert 0; one step's gradients through the
      kernels against the same step through the plain versions on the card
      (each leaf within 2e-2 relative L2; the MoE's routes compared); three
      steps at learning_rate=1e-3 (finite losses, the third below the
@@ -146,8 +154,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      backward products replayed alone), peak device memory, the bound
      (3 x the forward's bf16 product FLOPs), each backward kernel's
      yardstick (F.layer_norm's backward; SDPA forward + backward and its
-     backward alone), and one ingest step + train step end to end with
-     the card's idle share;
+     backward alone; K18 and K22 also their share of the bound, their
+     ratio to SDPA's forward / backward alone and K22's registers and
+     spills), and one ingest step + train step end to end with the
+     card's idle share;
  17. one TrainingInput step (phase 6's arguments, 256 images) with labels
      from a seeded torch.Generator into ResNet(ResNetConfig()) (224^2, a
      3x3 stem of 64, stages (64, 128, 256) of 2 blocks, 1000 classes,
@@ -227,6 +237,74 @@ def bound(nbytes, flops=0, bf16_flops=0):
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=int(nbytes), bound_flops=int(flops),
                 bound_bf16_flops=int(bf16_flops))
+
+
+def sass_counts(lib, fragment):
+    """Per kernel of the built library whose name holds `fragment`, the
+    count of its tensor-core (HMMA / HGMMA) and FP32-pipe FMA (FFMA)
+    instructions, from `cuobjdump -sass`."""
+    import re
+    import shutil
+    import subprocess
+
+    from picha_tpu_torch.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        tool = shutil.which("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                         capture_output=True, text=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if fragment in m.group(1) else None
+            if cur:
+                counts[cur] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
+        elif cur:
+            for op in (" HGMMA.", " HMMA.", " FFMA "):
+                if op in line:
+                    counts[cur][op.strip(" .")] += 1
+                    break
+    return counts
+
+
+def attention_sass(backward):
+    """K18's (K22's) instantiations in the built library with their HMMA /
+    HGMMA and FFMA counts; raises unless every one of them issues
+    tensor-core products."""
+    from picha_tpu_torch.kernels import _build
+
+    got = {k: v for k, v in sass_counts(_build.library_path(),
+                                        "vit_attention").items()
+           if ("vit_attention_bwd" in k) == backward}
+    if not got or not all(v["HMMA"] + v["HGMMA"] for v in got.values()):
+        raise AssertionError(f"no tensor-core product in {got}")
+    return got
+
+
+def pinned_route_dispatch(routes):
+    """K19's plain version with each call's (eidx, sidx) replaced by the
+    kernel path's (`routes`, in call order): the buffer scattered and the
+    gate taken at those slots. A router near-tie that a one-ulp move of
+    K17 or K18 flips moves, past capacity, which tokens drop, and a
+    dropped token's output, and its share of a router gradient, is all or
+    nothing."""
+    import torch
+
+    from picha_tpu_torch.ops import moe as moe_mod
+
+    calls = iter(routes)
+
+    def call(logits, y, cap):
+        eidx, sidx = next(calls)
+        experts = logits.shape[1]
+        _best, gate = moe_mod.route_plain(logits)
+        xe = torch.zeros((experts + 1, cap, y.shape[1]), dtype=y.dtype,
+                         device=y.device)
+        xe.index_put_((eidx.long(), sidx.long()), y, accumulate=True)
+        return xe[:experts], eidx, sidx, gate * (eidx < experts)
+    return call
 
 
 def phase(name, **kv):
@@ -1934,6 +2012,7 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
     from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
     from picha_tpu_torch.models import vit as vit_mod
     from picha_tpu_torch.models.vit import ViT, ViTConfig
+    from picha_tpu_torch.ops import attention as att_mod
     from picha_tpu_torch.ops.attention import attention, attention_plain
     from picha_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
     from picha_tpu_torch.ops.moe import (capacity, combine, combine_plain,
@@ -2047,6 +2126,11 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
             q, k, v, scale=s18), 10),
         **bound(qkv18.numel() * 2 + got.numel() * 2,
                 bf16_flops=4 * n * h * s * s * d))
+    r18 = results["vit_attention"]
+    r18.update(bound_share=r18["bound_ms"] / r18["ms"],
+               ratio_to_library=r18["ms"] / r18["library_ms"],
+               build=att_mod.kernel_info(s, d),
+               sass=attention_sass(backward=False))
     del got, want, d17, d18, row, q, k, v
 
     def k19_case(args):
@@ -2105,10 +2189,10 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
     dense_chk = check_logits(logits, plain_forward(dense, images), "dense")
 
     def routed(route, got):
-        """`route` recording each call's experts (eidx) into `got`."""
+        """`route` recording each call's (eidx, sidx) into `got`."""
         def call(*a):
             out = route(*a)
-            got.append(out[1])
+            got.append((out[1], out[2]))
             return out
         return call
 
@@ -2127,12 +2211,19 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
             **plains, "route_dispatch": routed(route_dispatch_plain,
                                                p_routes)}):
         mlogits_p = moe(images)
-    # a router near-tie that K17's one-ulp moves flip also moves, past
-    # capacity, which later tokens of the two experts are dropped
+    # a router near-tie that K17's or K18's one-ulp moves flip also moves,
+    # past capacity, which later tokens of the two experts are dropped
     moe_chk = check_logits(mlogits, mlogits_p, "MoE")
-    moe_chk["routes_differing"] = [int((a != b).sum()) for a, b in
+    moe_chk["routes_differing"] = [int((a[0] != b[0]).sum()) for a, b in
                                    zip(k_routes, p_routes)]
-    moe_chk["kept_per_block"] = [int((a < mcfg.moe_experts).sum())
+    # and the plain path on the kernel path's routes (as phase 15 compares
+    # the MoE's gradients), under the same bound
+    with mock.patch.multiple(vit_mod, **{
+            **plains, "route_dispatch": pinned_route_dispatch(k_routes)}):
+        mlogits_pin = moe(images)
+    moe_chk["kernel_routes"] = check_logits(mlogits, mlogits_pin,
+                                            "MoE on the kernel path's routes")
+    moe_chk["kept_per_block"] = [int((a[0] < mcfg.moe_experts).sum())
                                  for a in k_routes]
     # TF32 and bf16 reduced-precision sums switched on globally: the
     # forward pins both, so the logits must not move
@@ -2156,7 +2247,8 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
                    moe_blocks=n_moe, capacity_factor=mcfg.capacity_factor,
                    **moe_chk),
           reduced_precision_global_identical=True)
-    del logits, mlogits, mlogits_p, logits_rp, k_routes, p_routes
+    del logits, mlogits, mlogits_p, mlogits_pin, logits_rp, k_routes, \
+        p_routes
 
     # 14. timing: the forward on both paths, where its time goes, memory,
     # one ingest + forward step
@@ -2233,7 +2325,7 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
     from picha_tpu_torch.ops import attention as att_mod
     from picha_tpu_torch.ops import layernorm as ln_mod
     from picha_tpu_torch.ops import moe as moe_mod
-    from picha_tpu_torch.ops.jpeg import full_precision
+    from picha_tpu_torch.ops.jpeg import full_fp32, full_precision
     from picha_tpu_torch.optim import tree_leaves, tree_unflatten
     from picha_tpu_torch.pipeline import TrainingInput
 
@@ -2298,14 +2390,18 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
         return loss.detach(), g
 
     def backward_args(params, cfg):
-        """The arguments of each backward wrapper's first call in a step."""
+        """The arguments of each backward wrapper's first call in a step;
+        K22's (attention_backward) of every call, in call order."""
         got = {}
 
         def rec(name, fn):
             def call(*a):
-                got.setdefault(name, tuple(
-                    x.detach() if isinstance(x, torch.Tensor) else x
-                    for x in a))
+                a_ = tuple(x.detach() if isinstance(x, torch.Tensor) else x
+                           for x in a)
+                if name == "attention_backward":
+                    got.setdefault(name, []).append(a_)
+                else:
+                    got.setdefault(name, a_)
                 return fn(*a)
             return call
 
@@ -2316,23 +2412,6 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
             grads(params, cfg)
         return got
 
-    def pinned(routes):
-        """K19's plain version with each call's (eidx, sidx) replaced by
-        the kernel path's (`routes`, in call order): the buffer scattered
-        and the gate taken at those slots. A router near-tie that K17's
-        one-ulp moves flip moves, past capacity, which tokens drop, and a
-        dropped token's share of a router gradient is all or nothing."""
-        calls = iter(routes)
-
-        def call(logits, y, cap):
-            eidx, sidx = next(calls)
-            experts = logits.shape[1]
-            _best, gate = moe_mod.route_plain(logits)
-            xe = torch.zeros((experts + 1, cap, y.shape[1]), dtype=y.dtype,
-                             device=y.device)
-            xe.index_put_((eidx.long(), sidx.long()), y, accumulate=True)
-            return xe[:experts], eidx, sidx, gate * (eidx < experts)
-        return call
 
     def rel_l2(a, b):
         a, b = a.double(), b.double()
@@ -2366,17 +2445,91 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
                     max_ulps=float((diff / ulp(torch.maximum(
                         dx.abs(), wdx.abs()))).max()), **rel)
 
+    def vjp64(qkv, do, scale):
+        """attention_backward_plain's VJP in float64 from the same bf16
+        inputs: dP rounded to bf16 as the plain version rounds it (its
+        f32 product) and p to bf16, nothing else rounded."""
+        n, s_, _, h, d = qkv.shape
+        q, k, v = (qkv[:, :, i].double() for i in range(3))
+        g = do.reshape(n, s_, h, d)
+        with full_fp32():
+            dp = torch.einsum("nqhd,nkhd->nhqk", g.float(),
+                              qkv[:, :, 2].float()).to(bf16).double()
+        att = torch.einsum("nqhd,nkhd->nhqk", q, k) * scale
+        e = torch.exp(att - att.amax(-1, keepdim=True))
+        del att
+        l = e.sum(-1, keepdim=True)
+        p = (e / l).float().to(bf16).double()
+        ds = (dp / l - (dp * e).sum(-1, keepdim=True) / (l * l)) * e * scale
+        del e, dp
+        return torch.stack([torch.einsum("nhqk,nkhd->nqhd", ds, k),
+                            torch.einsum("nhqk,nqhd->nkhd", ds, q),
+                            torch.einsum("nhqk,nqhd->nkhd", p,
+                                         g.double())], 2)
+
     def k22_case(a):
+        """K22 against its plain version on one call's arguments: each
+        value within 1 ulp + 1 ulp of its row's largest |value| (ratio:
+        the largest |difference| over that bound; over: values past it);
+        and both against the float64 VJP (vjp64): f64_over counts the
+        values where K22 is further from it than the plain version is by
+        more than the same bound."""
         got, want = k22(*a), att_mod.attention_backward_plain(*a)
         diff = (got.double() - want.double()).abs()
         row = want.abs().amax(-1, keepdim=True)
         lim = ulp(torch.maximum(got.abs(), want.abs())) + ulp(row)
-        if bool((diff > lim).any()):
-            raise AssertionError(f"K22: {float((diff - lim).max())} past 1 "
-                                 f"ulp + 1 ulp of the row")
+        ratio = diff / lim
+        ref = vjp64(*a)
+        err_k, err_p = (got.double() - ref).abs(), (want.double() - ref).abs()
+        del ref
         return dict(max_abs_err=float(diff.max()),
+                    max_ratio=float(ratio.max()),
+                    over=int((diff > lim).sum()),
+                    max_ratio_dq_dk_dv=[float(ratio[:, :, i].max())
+                                        for i in range(3)],
                     max_ulps_of_row=float((diff / ulp(row)).max()),
-                    share_differing=float((diff > 0).double().mean()))
+                    share_differing=float((diff > 0).double().mean()),
+                    f64_over=int((err_k > err_p + lim).sum()),
+                    f64_ulps_of_row=float((err_k / ulp(row)).max()),
+                    f64_ulps_of_row_plain=float((err_p / ulp(row)).max()))
+
+    def k22_calls(calls):
+        """k22_case on every call of a step's backward: the first call's
+        numbers, the largest ratio over the calls and each call's."""
+        cases = [k22_case(a) for a in calls]
+        worst = max(range(len(cases)), key=lambda i: cases[i]["max_ratio"])
+        return dict(cases[0], calls=len(cases),
+                    max_ratio_over_calls=cases[worst]["max_ratio"],
+                    worst_call=worst,
+                    over_per_call=[c["over"] for c in cases],
+                    max_ratio_per_call=[c["max_ratio"] for c in cases],
+                    f64_over_per_call=[c["f64_over"] for c in cases],
+                    f64_ulps_of_row=max(c["f64_ulps_of_row"] for c in cases),
+                    f64_ulps_of_row_plain=max(c["f64_ulps_of_row_plain"]
+                                              for c in cases))
+
+    def dp_order(calls):
+        """The plain version's f32 dP = do . v^T (cuBLAS, TF32 off), on
+        each call's arguments, against the same sums taken d = 0, 1, ...
+        in order with one rounding each (a bf16 x bf16 product is exact
+        in f32): the order in which K22 sums again the dP values whose
+        bf16 rounding its tensor-core sum leaves ambiguous. Counts the
+        values that differ."""
+        differing, values = [], 0
+        for qkv, do, _sc in calls:
+            n, s_, _, h, d = qkv.shape
+            g = do.reshape(n, s_, h, d).float()
+            v = qkv[:, :, 2].float()
+            with full_fp32():
+                ref = torch.einsum("nqhd,nkhd->nhqk", g, v)
+            gt, vt = g.permute(0, 2, 1, 3), v.permute(0, 2, 3, 1)
+            acc = torch.zeros_like(ref)
+            for i in range(d):
+                acc = acc + gt[..., i:i + 1] * vt[:, :, i:i + 1, :]
+            differing.append(int((acc != ref).sum()))
+            values += ref.numel()
+            del ref, acc
+        return dict(values=values, differing_per_call=differing)
 
     def k23_case(a):
         dxe, eidx, _s, _l, _g = a
@@ -2412,7 +2565,33 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
         a = backward_args(params, cfg)
         kernel_args[label] = a
         chk = {"K21": k21_case(a["layer_norm_backward"]),
-               "K22": k22_case(a["attention_backward"])}
+               "K22": k22_calls(a["attention_backward"])}
+        # K22 within its bound of the plain version on every call of the
+        # dense step at seeds 0 and 2, and on the MoE step's first call;
+        # on the MoE step's other calls and the dense step at seeds 3-6,
+        # its excesses are recorded, and K22 is held no further than that
+        # bound beyond the plain version's own distance from the float64
+        # VJP (the bound is at the noise of the reference's f32 rounding
+        # points where dq cancels, see PERF.md)
+        k22_bad = {}
+        over = chk["K22"]["over_per_call"]
+        if max(over if not cfg.moe_experts else over[:1]):
+            k22_bad["K22"] = over
+        if not cfg.moe_experts:
+            for sd in (2, 3, 4, 5, 6):
+                a2 = backward_args(init_params(
+                    cfg, torch.Generator().manual_seed(sd), dev), cfg)
+                chk[f"K22_seed{sd}"] = k22_calls(a2["attention_backward"])
+                del a2
+                if sd == 2 and max(chk["K22_seed2"]["over_per_call"]):
+                    k22_bad["K22_seed2"] = chk["K22_seed2"]["over_per_call"]
+            # the order of the plain version's f32 dP
+            chk["K22_dp_order"] = dp_order(a["attention_backward"])
+            if max(chk["K22_dp_order"]["differing_per_call"]):
+                k22_bad["dP order"] = chk["K22_dp_order"]
+        for k, v in chk.items():
+            if k.startswith("K22") and max(v.get("f64_over_per_call", [0])):
+                k22_bad[k + " float64"] = v["f64_over_per_call"]
         if cfg.moe_experts:
             dxe, _e, _s, lg, dgk = a["dispatch_backward"]
             chk["K23"] = k23_case(a["dispatch_backward"])
@@ -2436,7 +2615,8 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
         with plain_path(), contextlib.ExitStack() as stack:
             if cfg.moe_experts:
                 stack.enter_context(mock.patch.object(
-                    moe_mod, "route_dispatch_k19", pinned(k_routes)))
+                    moe_mod, "route_dispatch_k19",
+                    pinned_route_dispatch(k_routes)))
             loss_p, g_p = grads(params, cfg)
         torch.cuda.synchronize()
         only(launch_counts(), {}, f"{label} plain step")
@@ -2526,17 +2706,24 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
               note="K21 dx within 1 bf16 ulp (+2^-16 of the row's "
                    "largest), dscale / dbias within 1e-5 of the sum of "
                    "their terms' magnitudes; K22 within 1 ulp + 1 ulp of "
-                   "the row's largest |value|; K23 / K24 gathers and "
-                   "scatters bit for bit, dlogits / dgk within 1e-6 "
+                   "the row's largest |value| on every call at seeds 0 and "
+                   "2 and on the MoE step's first, elsewhere no further "
+                   "from the float64 VJP than the plain version is plus "
+                   "that bound; K23 / K24 gathers and scatters bit for "
+                   "bit, dlogits / dgk within 1e-6 "
                    "relative; gradients vs the plain path (the MoE's on "
                    "the kernel path's routes) within 2e-2 relative L2 per "
                    "leaf; the resumed third step bit for bit the "
                    "uninterrupted one", **train[label])
+        if k22_bad:       # after the phase's line, which shows each call
+            raise AssertionError(f"{label}: K22 past 1 ulp + 1 ulp of the "
+                                 f"row, the float64 criterion or the plain "
+                                 f"dP's order, {k22_bad}")
 
     # the kernels' own times, bounds and yardsticks on the dense step's
     # arguments (K23, K24: the MoE step's)
     a21 = kernel_args["dense"]["layer_norm_backward"]
-    a22 = kernel_args["dense"]["attention_backward"]
+    a22 = kernel_args["dense"]["attention_backward"][0]
     a23 = kernel_args["moe"]["dispatch_backward"]
     a24 = kernel_args["moe"]["combine_backward"]
     x21, sc21, dy21 = a21
@@ -2573,6 +2760,11 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
         plain_ms=timed(lambda: att_mod.attention_backward_plain(*a22), 3),
         library_ms=timed(sdpa_fwd_bwd, 10), library_backward_only_ms=sdpa_bwd,
         **bound(7 * qkv22.numel() // 3 * 2, bf16_flops=10 * n * h * s * s * hd))
+    r22 = results["vit_attention_bwd"]
+    r22.update(bound_share=r22["bound_ms"] / r22["ms"],
+               ratio_to_library_backward_only=r22["ms"] / sdpa_bwd,
+               build=att_mod.kernel_info(s, hd, backward=True),
+               sass=attention_sass(backward=True))
     del q, k, v, g22, o22
     dxe23, e23, _s23, lg23, _g23 = a23
     ne, cap, dm = dxe23.shape

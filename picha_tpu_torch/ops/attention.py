@@ -29,7 +29,7 @@ import torch
 from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 from .jpeg import full_fp32
 
-MAX_SEQ = 256                    # K18 / K22 hold 8 key columns a lane
+MAX_SEQ = 256                    # K18 / K22: a head's rows in one block
 HEAD_DIMS = (32, 64, 128)        # K18's instantiations
 BWD_HEAD_DIMS = (32, 64)         # K22's: q, k, v, do of a head in shared memory
 
@@ -83,7 +83,7 @@ def attention_k18(qkv, scale: float):
     """K18: qkv (N, S, 3, H, D) bf16 -> o (N, S, H * D) bf16 on the card."""
     _check(qkv, "K18", HEAD_DIMS)
     n, s, _, h, d = qkv.shape
-    qkv = aligned(qkv, 4)
+    qkv = aligned(qkv)
     out = torch.empty((n, s, h * d), dtype=torch.bfloat16, device=qkv.device)
     KERNELS["vit_attention"](ptr(qkv), n, s, h, d, float(scale), ptr(out),
                              stream_of(qkv))
@@ -103,11 +103,30 @@ def attention_backward(qkv, do, scale: float):
             do.numel() != n * s * h * d:
         raise TypeError(f"K22 takes a bfloat16 cotangent of shape "
                         f"{(n, s, h * d)}")
-    qkv, do = aligned(qkv, 4), aligned(do, 4)
+    qkv, do = aligned(qkv), aligned(do)
     dqkv = torch.empty_like(qkv)
     KERNELS["vit_attention_bwd"](ptr(qkv), ptr(do), n, s, h, d, float(scale),
                                  ptr(dqkv), stream_of(qkv))
     return dqkv
+
+
+def kernel_info(s: int, d: int, backward: bool = False) -> dict:
+    """K18's (K22's) build at `s` tokens of head width `d`, as the card
+    reports it: registers and local (spill) bytes a thread, dynamic
+    shared bytes, threads and resident blocks a multiprocessor. Launches
+    nothing and counts no launch."""
+    import ctypes
+
+    from ..kernels._build import library
+
+    vals = (ctypes.c_int * 5)()
+    fn = "picha_vit_attention_bwd_info" if backward else \
+        "picha_vit_attention_info"
+    rc = getattr(library(), fn)(s, d, vals)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
+                     "blocks_per_sm"), vals))
 
 
 class _Attention(torch.autograd.Function):

@@ -294,3 +294,151 @@ def float64_criterion(got, ref, g64):
     if ref_err <= 5e-3 * n64:
         ok = ok and np.linalg.norm(got - ref) <= 2e-2 * np.linalg.norm(ref)
     return bool(ok), float(ratio)
+
+
+# --- K18 / K22's tensor-core arithmetic, emulated on the CPU -------------
+# (tests/test_torch_attention_numerics.py). An mma.sync.m16n8k16 adds 16
+# exact bf16 x bf16 products to an f32 accumulator and truncates: each
+# step here is the exact sum (float64) of the accumulator and the 16
+# products, rounded toward zero to f32. The kernels take the scores and dP
+# one step at a time from a zero accumulator, adding the steps with
+# round-to-nearest (`_tc_rn`), and chain every other product in the
+# accumulator (`_tc`); K22 sums l and c in float64 and rounds once
+# (`_sum_rn`), K18 sums l in f32. Where the hardware truncates the products as it
+# aligns them inside a step, this model does not.
+
+def _rz(x):
+    """float64 -> float32, rounded toward zero."""
+    import torch
+
+    f = x.to(torch.float32)
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tc(parts, b):
+    """sum over the a in `parts` of a (.., M, K) @ b (.., K, N), 16 deep
+    at a time, each part's step into one accumulator (K22 takes dS as two
+    parts)."""
+    import torch
+
+    acc = None
+    b = b.double()
+    for k0 in range(0, b.shape[-2], 16):
+        bb = b[..., k0:k0 + 16, :]
+        for a in parts:
+            step = a[..., k0:k0 + 16].double() @ bb
+            acc = _rz(step if acc is None else acc.double() + step)
+    return acc.to(torch.float32)
+
+
+def _tc_rn(a, b):
+    """a @ b as the kernels take the scores and dP: each 16-deep step from
+    a zero accumulator, the steps added with round-to-nearest."""
+    acc = None
+    for k0 in range(0, a.shape[-1], 16):
+        step = _rz(a[..., k0:k0 + 16].double() @ b[..., k0:k0 + 16, :].double())
+        acc = step if acc is None else acc + step
+    return acc
+
+
+def _in_order(a, b):
+    """a @ b summed d = 0, 1, ... in f32, one rounding a term."""
+    import torch
+
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for i in range(a.shape[-1]):
+        acc = acc + a[..., i:i + 1] * b[..., i:i + 1, :]
+    return acc
+
+
+def _ambiguous(f, a):
+    """attn::ambiguous: whether f lies within 64 f32 ulps, or within
+    2^-20 a, of a bf16 rounding midpoint."""
+    import torch
+
+    u = f.view(torch.int32)
+    low = (u & 0xffff) - 0x8000
+    mid = ((u & -65536) | 0x8000).view(torch.float32)
+    return (low.abs() < 64) | ((f - mid).abs() <= a * 2.0 ** -20)
+
+
+def _sum_rn(t):
+    """K22's l and c: a row's f32 terms summed in float64, rounded once
+    to f32."""
+    import torch
+
+    return t.double().sum(-1, keepdim=True).to(torch.float32)
+
+
+def _bf16(t):
+    import torch
+
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def attention_scores_mma(qkv, scale, fold_scale=False):
+    """s (N, H, S, S), the row max, e and l as K18 and K22 compute them:
+    the f32 dot of bf16 q . k, then `* scale` in f32; with `fold_scale`,
+    q * scale rounded to bf16 first and no scale after the dot (the
+    counterfactual the kernels do not take)."""
+    import torch
+
+    q, k = (qkv[:, :, i].to(torch.float32).permute(0, 2, 1, 3)
+            for i in range(2))
+    if fold_scale:
+        s = _tc_rn(_bf16(q * scale), k.transpose(-1, -2))
+    else:
+        s = _tc_rn(q, k.transpose(-1, -2)) * scale
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    return s, m, e, e.sum(-1, keepdim=True)
+
+
+def attention_mma(qkv, scale, fold_scale=False):
+    """K18's arithmetic: p = bf16(e / l), o = the sum of bf16 p . bf16 v
+    in the accumulator, 16 keys at a time, rounded to bf16; (N, S, H * D)
+    like `attention_plain`."""
+    import torch
+
+    n, s_, _, h, d = qkv.shape
+    _s, _m, e, l = attention_scores_mma(qkv, scale, fold_scale)
+    p = _bf16(e / l)
+    v = qkv[:, :, 2].to(torch.float32).permute(0, 2, 1, 3)
+    o = _tc([p], v)
+    return o.permute(0, 2, 1, 3).reshape(n, s_, h * d).to(torch.bfloat16)
+
+
+def attention_backward_mma(qkv, do, scale, terms=2):
+    """K22's arithmetic: dP = do . v as the scores are summed, the values
+    whose bf16 rounding that leaves ambiguous (against |do| . |v|) summed
+    again in order, rounded to bf16; c and dS in f32 at the reference's
+    rounding points, dq = dS . k and dk = dS^T . q with dS given to the
+    tensor cores as `terms` bf16 values, one product each into one
+    accumulator (K22 takes 2: hi = bf16(dS) and lo = bf16(dS - hi); 1, a
+    single bf16 dS, is the counterfactual), dv = p^T . do; each rounded to
+    bf16. (N, S, 3, H, D) like `attention_backward_plain`."""
+    import torch
+
+    n, s_, _, h, d = qkv.shape
+    q, k, v = (qkv[:, :, i].to(torch.float32).permute(0, 2, 1, 3)
+               for i in range(3))
+    g = do.reshape(n, s_, h, d).to(torch.float32).permute(0, 2, 1, 3)
+    _s, _m, e, _l = attention_scores_mma(qkv, scale)
+    l = _sum_rn(e)
+    p = _bf16(e / l)
+    vt = v.transpose(-1, -2)
+    dp = _tc_rn(g, vt)
+    amb = _ambiguous(dp, _tc([g.abs()], vt.abs()))
+    dp = _bf16(torch.where(amb, _in_order(g, vt), dp))
+    c = _sum_rn((dp * (l * l).reciprocal()) * e)
+    ds = ((dp / l) + -c) * e * scale
+    parts, rest = [], ds
+    for _ in range(terms):
+        parts.append(_bf16(rest))
+        rest = rest - parts[-1]
+    dq = _tc(parts, k)
+    dk = _tc([a.transpose(-1, -2) for a in parts], q)
+    dv = _tc([p.transpose(-1, -2)], g)
+    return torch.stack([dq, dk, dv], 1).permute(0, 3, 1, 2, 4).to(
+        torch.bfloat16)
