@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Chip smoke test of picha_tpu_torch, the PyTorch/CUDA port: drives the
-all-device JPEG transcode paths (fused and staged pixel stages), the
-training ingest, the pixel-array path (BASELINE config 4, the
+all-device JPEG transcode paths (fused and staged pixel stages, the scan
+upload and the five host-coefficient uploads), the training ingest, the pixel-array path (BASELINE config 4, the
 single-image resize and convert, the batched PNG encode), the batched
 PNG and TIFF decode, the ViT-S/16 forward and train step (dense and
 switch-MoE) and the ResNet forward and train step, both fed by the
-ingest, on one CUDA card, and checks them.
+ingest, and model configurations past the tuned kernels' shapes, on one
+CUDA card, and checks them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (each prints one line; any failure raises and exits non-zero):
-  1. the card (nvidia-smi name, power limit); build kernels K1-K26 from
+  1. the card (nvidia-smi name, power limit); build kernels K1-K30 (and
+     the host C++ decoder and packers) from
      picha_tpu_torch/csrc/ (one nvcc per source, in parallel) into the
      gitignored csrc/build/;
   2. each kernel against its plain torch version on the card, at the
@@ -186,7 +188,36 @@ Phases (each prints one line; any failure raises and exits non-zero):
      calls and the convolution backwards replayed alone), each kernel's
      bound and yardstick (F.instance_norm + relu, and their autograd),
      peak device memory, and one ingest step + train step end to end with
-     the card's idle share.
+     the card's idle share;
+ 19. the host-coefficient uploads' host stage on the slice's 16 sources:
+     the host C++ entropy decoder (csrc/jpeg_entropy_host.cu, 8 pool
+     threads) bit for bit K1's coefficients (restart corpus) and K4 +
+     K5's (no restart), and the numpy decoder's on 2 sources; its batch,
+     one-image segment-parallel and one-thread times;
+ 20. K27-K30 (csrc/coef_restore.cu: sparse densify, int8, gap8, gap4
+     restores) bit for bit their plain versions and the coefficients, on
+     the restart corpus's wires and on 4 of its sources re-encoded at
+     q = 100 (a non-empty correction list; gap4 escapes on the corpus),
+     the C++ packers' wires byte for byte the numpy packers'; timed, with
+     their bounds (K27's yardstick one index_add_ per component);
+ 21. JpegBatchPipeline(width=960, height=544, encode_quality=85,
+     encode_backend="device", fused=True|False, upload=u) for u in dense,
+     sparse, int8, gap8, gap4 on both corpora: every output byte for byte
+     upload="scan"'s in this run, no fallback, the restore and pixel
+     kernels launched and neither device decoder; where a batch's time
+     goes per upload beside scan's (host decode, pack, wire bytes,
+     upload, restore on the card, end-to-end Mpix/s);
+ 22. F5: forward and one train step on the card (depth 2, 4 images) of
+     ViTConfig(image_size=384) (576 tokens), image_size=272 (289),
+     dim=768 heads=6 (head 128), dim=1280 heads=16 patch=14 (head 80,
+     width 1280), dim=387 heads=9 (odd width, head 43), moe_experts=128
+     moe_every=1, and ResNetConfig(stem_channels=33, stage_channels=(33,
+     65), blocks_per_stage=1): logits within 0.03 + 1 bf16 ulp of the
+     plain path (the MoE's on the kernel path's routes), every ViT
+     gradient leaf within 2e-2 relative L2, the ResNet's by the float64
+     criterion; each kernel timed at these shapes (its `buckets`);
+ 23. the tiled K18 and K22 at S = 576, D = 128 (N = 16, H = 6) within
+     their bounds of the plain versions, timed beside SDPA.
 Every kernel also gets its bound (the larger of its bytes over 3.35 TB/s
 and its FP32 FLOPs over 67 TFLOP/s plus its bf16 product FLOPs over 989
 TFLOP/s, counted from this run's shapes) and, where one PyTorch call
@@ -993,6 +1024,17 @@ def main():
     resnet_launches = resnet_phases(dev, card, results, phase, timed, wall,
                                     ingest_device_ms)
 
+    # 19-21. the host-coefficient uploads (row 8a) on the slice's batch
+    upload_launches = upload_phases(
+        dev, card, results, phase, timed, wall,
+        {"restart": corpus, "no_restart": corpus_nr},
+        split_planes(coefs_k, sig[3], consts.split_idx),
+        split_planes(coefs4, sig[3], consts.split_idx),
+        {True: jpegs, False: jpegs_s})
+
+    # 22-23. the model configurations past the tuned kernels' envelopes (F5)
+    f5_phases(dev, card, results, phase, timed)
+
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "picha_tpu" or m.startswith("picha_tpu."))
     if bad:
@@ -1003,14 +1045,15 @@ def main():
     # config-4 call; K12: the batched PNG encode; K13-K16: the full-size
     # PNG and TIFF decode calls; K17, K18: the dense ViT forward; K19,
     # K20: the MoE one; K21, K22: the dense train step; K23, K24: the MoE
-    # one; K25, K26: the ResNet train step)
+    # one; K25, K26: the ResNet train step; K27-K30: the fused restart
+    # slice of their upload)
     path_launches = {**main_launches,
                      **{k: nr_launches[k] for k in chunked_path[:2]},
                      **{k: s_launches[k] for k in staged_path[:3]},
                      **{k: ingest_launches[k]
                         for k in ("crop_flip_resize_w", "augment")},
                      **pixel_launches, **decode_launches, **vit_launches,
-                     **train_launches, **resnet_launches}
+                     **train_launches, **resnet_launches, **upload_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # "buckets": a kernel also timed on another bucket of its path
@@ -2950,6 +2993,45 @@ def resnet_flops(cfg, n):
     return fl, 2 * n * cin * cfg.classes
 
 
+def resnet_forward64(p, x):
+    """The ResNet's `forward` with every bf16 cast replaced by float64 (the
+    convolutions through the port's `_conv`, which casts the weights to
+    x's dtype and pads as XLA's SAME)."""
+    import torch
+
+    from picha_tpu_torch.models import resnet as rn
+
+    def norm(h, s):
+        m = h.mean((1, 2), keepdim=True)
+        v = ((h - m) ** 2).mean((1, 2), keepdim=True)
+        return torch.relu((h - m) / torch.sqrt(v + 1e-5) * s)
+
+    x = rn._conv(x, p["stem"])
+    for stage in p["stages"]:
+        for bi, blk in enumerate(stage):
+            stride = 2 if bi == 0 else 1
+            h = rn._conv(norm(x, blk["scale1"]), blk["conv1"], stride)
+            h = rn._conv(norm(h, blk["scale2"]), blk["conv2"])
+            if blk["proj"] is not None:
+                x = rn._conv(x, blk["proj"], stride) + h
+            else:
+                x = x[:, ::stride, ::stride, :] + h
+    return x.mean((1, 2)) @ p["head"]
+
+
+def float64_ratio(got, ref, g64):
+    """The float64 criterion: ||got - g64|| <= 2 ||ref - g64|| + 1e-2
+    ||g64||, and where ref is within 5e-3 of g64 also ||got - ref|| <= 2e-2
+    ||ref||; returns (passed, the first side over the second)."""
+    got, ref, g64 = got.double(), ref.double(), g64.double()
+    n64, ref_err = float(g64.norm()), float((ref - g64).norm())
+    ratio = float((got - g64).norm()) / max(2 * ref_err + 1e-2 * n64, 1e-300)
+    ok = ratio <= 1.0
+    if ref_err <= 5e-3 * n64:
+        ok = ok and float((got - ref).norm()) <= 2e-2 * float(ref.norm())
+    return ok, ratio
+
+
 def resnet_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
     """Phases 17-18: the ResNet (ResNetConfig()) forward and train step
     fed by the ingest (see the module doc). Fills results for K25 and
@@ -3030,27 +3112,6 @@ def resnet_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
             grads(params)
         return got["k25"], got["k26"]
 
-    def forward64(p, x):
-        """`rn.forward` with every bf16 cast replaced by float64 (the
-        convolutions through the port's `_conv`, which casts the weights
-        to x's dtype and pads as XLA's SAME)."""
-        def norm(h, s):
-            m = h.mean((1, 2), keepdim=True)
-            v = ((h - m) ** 2).mean((1, 2), keepdim=True)
-            return torch.relu((h - m) / torch.sqrt(v + 1e-5) * s)
-
-        x = rn._conv(x, p["stem"])
-        for stage in p["stages"]:
-            for bi, blk in enumerate(stage):
-                stride = 2 if bi == 0 else 1
-                h = rn._conv(norm(x, blk["scale1"]), blk["conv1"], stride)
-                h = rn._conv(norm(h, blk["scale2"]), blk["conv2"])
-                if blk["proj"] is not None:
-                    x = rn._conv(x, blk["proj"], stride) + h
-                else:
-                    x = x[:, ::stride, ::stride, :] + h
-        return x.mean((1, 2)) @ p["head"]
-
     def grads64(params):
         """(loss, gradients, logits) in float64, F64_CHUNK images at a
         time (an image's forward is its own: the norms are per image)."""
@@ -3061,7 +3122,7 @@ def resnet_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
         loss, logits = 0.0, []
         with rn.conv_pin():
             for sl in planes(TRAIN_N):
-                lg = forward64(p64, images[sl].double())
+                lg = resnet_forward64(p64, images[sl].double())
                 part = -torch.log_softmax(lg, -1).gather(
                     -1, labels[sl].long()[:, None]).sum() / TRAIN_N
                 acc = [a + g for a, g in
@@ -3131,19 +3192,6 @@ def resnet_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
             raise AssertionError(f"K26 vs its plain version: {out}, {over}")
         return out
 
-    def criterion(got, ref, g64):
-        """||got - g64|| <= 2 ||ref - g64|| + 1e-2 ||g64||, and where ref
-        is within 5e-3 of g64 also ||got - ref|| <= 2e-2 ||ref||; returns
-        (passed, the first side over the second)."""
-        got, ref, g64 = got.double(), ref.double(), g64.double()
-        n64, ref_err = float(g64.norm()), float((ref - g64).norm())
-        ratio = float((got - g64).norm()) / max(2 * ref_err + 1e-2 * n64,
-                                                1e-300)
-        ok = ratio <= 1.0
-        if ref_err <= 5e-3 * n64:
-            ok = ok and float((got - ref).norm()) <= 2e-2 * float(ref.norm())
-        return ok, ratio
-
     # K25 and K26 against their plain versions on the path's own inputs:
     # the first and last call of each (K25: the stem's output first; K26:
     # the last block's first)
@@ -3175,12 +3223,12 @@ def resnet_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
         raise AssertionError(f"ResNet logits {tuple(logits.shape)} "
                              f"{logits.dtype}, or not finite")
     lmax = float((logits - logits_p).abs().max())
-    lok, lratio = criterion(logits, logits_p, logits64)
+    lok, lratio = float64_ratio(logits, logits_p, logits64)
     if lmax > RESNET_LOGIT_TOL or not lok:
         raise AssertionError(f"ResNet logits {lmax} from the plain path, "
                              f"float64 ratio {lratio}")
     names = [n for n, _ in _leaf_names(params)]
-    ratios = [criterion(a, b, c) for a, b, c in zip(g_k, g_p, g64)]
+    ratios = [float64_ratio(a, b, c) for a, b, c in zip(g_k, g_p, g64)]
     bad = [n for n, (ok, _r) in zip(names, ratios) if not ok]
     if bad:
         raise AssertionError(f"ResNet gradient leaves past the float64 "
@@ -3432,6 +3480,649 @@ def resnet_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
                "device sum + the step) / the wall time of one ingest step "
                "+ train step")
     return {k: step_launches[k] for k in ("resnet_norm", "resnet_norm_bwd")}
+
+
+UPLOADS = ("dense", "sparse", "int8", "gap8", "gap4")
+RESTORES = {"sparse": "coef_densify", "int8": "coef_int8_restore",
+            "gap8": "coef_gap8_restore", "gap4": "coef_gap4_restore"}
+
+
+def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
+                  planes_k45, scan_jpegs):
+    """Phases 19-21: the host-coefficient uploads (row 8a; see the module
+    doc). `corpora`: {"restart": bufs, "no_restart": bufs}; `planes_k1`,
+    `planes_k45`: K1's and K4 + K5's coefficient planes of those batches;
+    `scan_jpegs`: {fused: upload="scan"'s outputs on the restart corpus}.
+    Fills results for K27-K30; returns their launch counts in the fused
+    restart slice of their upload."""
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.ops import coef_host, coef_restore
+    from picha_tpu_torch.ops.jpeg_huffman_decode import (decode_scan,
+                                                         scan_wire,
+                                                         split_planes,
+                                                         wire_unpack)
+    from picha_tpu_torch.ops.jpeg_scan import parse_baseline
+    from picha_tpu_torch.pipeline import JpegBatchPipeline
+    from picha_tpu_torch.pipeline.jpeg_batch import (restore_planes,
+                                                     stack_coefficients,
+                                                     upload_args)
+
+    mpix = N_IMG * SRC_W * SRC_H / 1e6
+    plains = dict(densify=coef_restore.densify_plain,
+                  int8_restore=coef_restore.int8_restore_plain,
+                  gap8_restore=coef_restore.gap8_restore_plain,
+                  gap4_restore=coef_restore.gap4_restore_plain)
+
+    def stacked(cos):
+        """Per component the (N, bh, bw, 64) planes of coefficient sets."""
+        return [np.stack([co.comps[i]["coefs"] for co in cos])
+                for i in range(len(cos[0].comps))]
+
+    # 19. the host decoder: K1's (restart) and K4 + K5's (no restart)
+    # coefficients bit for bit, and the numpy decoder's on 2 sources
+    pool = ThreadPoolExecutor(max_workers=8)
+    infos = {k: [parse_baseline(bytes(b)) for b in v]
+             for k, v in corpora.items()}
+    cos = {k: coef_host.entropy_decode(v, True, pool, 8)
+           for k, v in infos.items()}
+    for name, want in (("restart", planes_k1), ("no_restart", planes_k45)):
+        for got, w in zip(stacked(cos[name]), want):
+            if not np.array_equal(got.astype(np.int32), w.cpu().numpy()):
+                raise AssertionError(f"host decoder differs from the device "
+                                     f"decoder on the {name} corpus")
+    t = time.perf_counter()
+    plain = [coef_host.decode_plain(infos["restart"][i]) for i in range(2)]
+    plain_s = (time.perf_counter() - t) / 2
+    for p, g in zip(plain, cos["restart"]):
+        if not all(np.array_equal(a["coefs"], b["coefs"])
+                   for a, b in zip(p.comps, g.comps)):
+            raise AssertionError("host decoder differs from decode_reference")
+    one = [infos["restart"][0]]
+    dec = dict(
+        batch_ms=wall(lambda: coef_host.entropy_decode(
+            infos["restart"], True, pool, 8), 5),
+        batch_no_restart_ms=wall(lambda: coef_host.entropy_decode(
+            infos["no_restart"], True, pool, 8), 5),
+        one_image_segment_parallel_ms=wall(
+            lambda: coef_host.entropy_decode(one, True, pool, 8), 5),
+        one_image_one_thread_ms=wall(
+            lambda: coef_host.decode_native(one[0], 1), 5),
+        plain_ms_per_image=plain_s * 1e3)
+    phase("host_decoder", card=card, images=N_IMG, threads=8,
+          equal_to_K1=True, equal_to_K4_K5=True, equal_to_plain_images=2,
+          **dec)
+
+    # 20. K27-K30 against their plain versions on the wires of the restart
+    # corpus, and on a q = 100 batch (corrections past int8)
+    def q100(buf):
+        b = io.BytesIO()
+        Image.open(io.BytesIO(bytes(buf))).convert("RGB").save(
+            b, "JPEG", quality=100)
+        return b.getvalue()
+
+    hi_bufs = [q100(b) for b in corpora["restart"][:4]]
+    hi_cos = coef_host.entropy_decode([parse_baseline(b) for b in hi_bufs],
+                                      True, pool, 8)
+    checks = {}
+    for upload, name in RESTORES.items():
+        kwk = None
+        entry = {}
+        for label, batch in (("restart", cos["restart"]), ("q100", hi_cos)):
+            sig, ks, args = stack_coefficients(batch, upload, native=True)
+            _sig, ks_p, args_p = stack_coefficients(batch, upload)
+            if ks != ks_p or not all(np.array_equal(a, b) for a, b in
+                                     zip(args, args_p)):
+                raise AssertionError(f"{upload}: the C++ packers' wire is not "
+                                     f"the numpy packers'")
+            dargs = upload_args(args, dev)
+            kw = {upload + "_ks": ks}
+            got, _q = restore_planes(sig, dargs, **kw)
+            with mock.patch.multiple(coef_restore, **plains):
+                want, _wq = restore_planes(sig, dargs, **kw)
+            torch.cuda.synchronize()
+            for g, w, c in zip(got, want, stacked(batch)):
+                if not torch.equal(g, w) or not np.array_equal(
+                        g.cpu().numpy(), c.astype(np.int32)):
+                    raise AssertionError(f"{name} differs from its plain "
+                                         f"version or the coefficients")
+            wire = sum(a.nbytes for a in args if a.dtype != np.uint16)
+            ncorr = 0
+            if upload == "int8":
+                ncorr = sum(int((args[3 * i + 2] != 0).sum())
+                            for i in range(len(sig[3])))
+            elif upload in ("gap8", "gap4"):
+                parts = (coef_restore.unpack_gap8 if upload == "gap8" else
+                         coef_restore.unpack_gap4)(dargs[0], ks, len(sig[3]))[0]
+                ncorr = sum(int((p[-1] != 0).sum()) for p in parts)
+                if upload == "gap4":
+                    entry[label + "_escapes"] = sum(
+                        int(((p[0] & 15) == 15).sum()) for p in parts)
+            entry[label + "_corrections"] = ncorr
+            entry[label + "_wire_bytes"] = int(wire)
+            if label == "restart":
+                kwk = (sig, dargs, kw, got)
+        if upload != "sparse" and entry["q100_corrections"] == 0:
+            raise AssertionError(f"{upload}: no correction on the q100 batch")
+        if upload == "gap4" and not entry["restart_escapes"]:
+            raise AssertionError("gap4: no escape on the corpus")
+        sig, dargs, kw, got = kwk
+        out_bytes = sum(g.numel() * 4 for g in got)
+
+        def run():
+            return restore_planes(sig, dargs, **kw)
+
+        def run_plain():
+            with mock.patch.multiple(coef_restore, **plains):
+                return restore_planes(sig, dargs, **kw)
+
+        library_ms = None
+        if upload == "sparse":
+            # one index_add_ per component on a zeroed tensor (the flat
+            # indices made ahead)
+            n_img = dargs[0].shape[0]
+            flat = []
+            for i, (bh, bw, _h, _v) in enumerate(sig[3]):
+                m = bh * bw * 64
+                idx, val = dargs[2 * i], dargs[2 * i + 1]
+                base = torch.arange(n_img, device=dev)[:, None] * m
+                flat.append(((idx.long() + base).reshape(-1),
+                             val.to(torch.int32).reshape(-1),
+                             torch.zeros(n_img * m, dtype=torch.int32,
+                                         device=dev)))
+
+            def lib():
+                for fi, fv, z in flat:
+                    z.zero_().index_add_(0, fi, fv)
+            library_ms = timed(lib, 10)
+        results[name] = dict(
+            max_abs_err=0, ms=timed(run, 10), plain_ms=timed(run_plain, 3),
+            library_ms=library_ms, launches_per_batch=len(sig[3]),
+            **bound(entry["restart_wire_bytes"] + out_bytes), **entry)
+        checks[name] = results[name]
+        del dargs, got
+    phase("K27_K30", card=card, images=N_IMG, q100_images=len(hi_bufs),
+          note="each restore bit for bit its plain version and the host "
+               "coefficients on the restart corpus's wire and on a q = 100 "
+               "batch (corrections past int8); the C++ packers' wire equal "
+               "to the numpy packers'; ms: the batch's 3 launches (one per "
+               "component); library_ms: K27's one index_add_ per component "
+               "on a zeroed tensor; K28-K30 have no one-call PyTorch "
+               "counterpart", **checks)
+
+    # 21. the slice through every upload: upload="scan"'s bytes
+    kwp = dict(width=OUT_W, height=OUT_H, encode_quality=QUALITY,
+               encode_backend="device", device=dev)
+    slice_launches, runs = {}, {}
+    pixel_kernels = {True: ("jpeg_encode_front", "huffman_encode_scan"),
+                     False: ("idct_plane", "upsample_color", "resize_axis",
+                             "jpeg_encode_front", "huffman_encode_scan")}
+    for fused in (True, False):
+        for upload in UPLOADS:
+            p = JpegBatchPipeline(fused=fused, upload=upload, num_threads=8,
+                                  **kwp)
+            for name, bufs in corpora.items():
+                reset_launch_counts()
+                out = p(bufs)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                want_k = pixel_kernels[fused] + (
+                    (RESTORES[upload],) if upload in RESTORES else ())
+                if any(counts[k] == 0 for k in want_k) or any(
+                        counts[k] for k in ("huffman_decode_restart",
+                                            "huffman_decode_chunked")):
+                    raise AssertionError(f"{upload} fused={fused} {name}: "
+                                         f"launches {counts}")
+                same = sum(bytes(a) == bytes(b)
+                           for a, b in zip(out, scan_jpegs[fused]))
+                if same != N_IMG or p.scan_fallbacks:
+                    raise AssertionError(f"{upload} fused={fused} {name}: "
+                                         f"{N_IMG - same} outputs differ from "
+                                         f"upload='scan''s, fallbacks "
+                                         f"{p.scan_fallbacks}")
+                if fused and name == "restart" and upload in RESTORES:
+                    slice_launches[RESTORES[upload]] = counts[
+                        RESTORES[upload]]
+                runs[f"{upload}_fused_{fused}_{name}"] = {
+                    k: v for k, v in counts.items() if v}
+            p.close()
+    phase("uploads_slice", card=card, images=N_IMG,
+          identical_to_scan_upload=True, launches=runs)
+
+    # where a batch's time goes, per upload, beside scan's (medians of 3)
+    def stages(upload):
+        p = JpegBatchPipeline(fused=True, upload=upload, num_threads=8,
+                              **kwp)
+        bufs = corpora["restart"]
+        rows = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            cos_ = p.entropy_decode(bufs)
+            t1 = time.perf_counter()
+            if upload == "scan":
+                ks, wire = scan_wire(cos_)
+                args = [wire]
+            else:
+                packed = p.stack_bucket(cos_)
+                args = packed[-1]
+            t2 = time.perf_counter()
+            dargs = (upload_args(args, dev) if upload != "scan" else
+                     [torch.from_numpy(wire).pin_memory().to(dev)])
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            if upload == "scan":
+                sig = (cos_[0].width, cos_[0].height, cos_[0].color_space,
+                       cos_[0].comp_sig)
+                consts = p.constants(sig)
+                dec, qt = wire_unpack(dargs[0], ks, len(sig[3]))
+                coefs, _ok = decode_scan(dec, ks, consts.comp_of)
+                split_planes(coefs, sig[3], consts.split_idx)
+            elif upload != "dense":
+                restore_planes(packed[0], dargs,
+                               **{upload + "_ks": packed[1]})
+            ev[1].record()
+            torch.cuda.synchronize()
+            rows.append(dict(
+                host_decode_ms=(t1 - t0) * 1e3, pack_ms=(t2 - t1) * 1e3,
+                upload_ms=(t3 - t2) * 1e3,
+                restore_ms=ev[0].elapsed_time(ev[1]),
+                wire_bytes=int(sum(a.nbytes for a in args))))
+        rows = rows[1:]
+        med = {k: sorted(r[k] for r in rows)[len(rows) // 2]
+               for k in rows[0]}
+        e2e = wall(lambda: p(bufs), 3)
+        p.close()
+        return dict(**med, e2e_ms_per_batch=e2e,
+                    e2e_mpix_s=mpix / e2e * 1e3)
+
+    timing = {u: stages(u) for u in ("scan",) + UPLOADS}
+    phase("timing_uploads", card=card, images=N_IMG, mpix_per_batch=mpix,
+          fused=True, note="scan: host_decode_ms is the header parse, "
+          "pack_ms the scan wire, restore_ms K1 + split on the card; the "
+          "others: the host C++ decode on 8 threads, the wire pack, the "
+          "restore kernel's launches (none for dense)", **timing)
+    pool.shutdown()
+    return slice_launches
+
+
+F5_N = 4                   # images per configuration of phase 22
+F5_VIT = (("tokens_576", dict(image_size=384)),
+          ("tokens_289", dict(image_size=272)),
+          ("head_128", dict(dim=768, heads=6)),
+          ("vit_h14_widths", dict(dim=1280, heads=16, patch=14)),
+          ("odd_width_head_43", dict(dim=387, heads=9)),
+          ("experts_128", dict(moe_experts=128, moe_every=1)))
+F5_RESNET = dict(stem_channels=33, stage_channels=(33, 65),
+                 blocks_per_stage=1)
+F5_ATTENTION = (16, 576, 6, 128)   # phase 23's (N, S, H, D)
+
+
+def f5_phases(dev, card, results, phase, timed):
+    """Phases 22-23: the model configurations past the tuned kernels'
+    envelopes (F5; see the module doc). Adds each kernel's times at these
+    shapes to its `buckets` in results."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.models import resnet as rn
+    from picha_tpu_torch.models import vit as vit_mod
+    from picha_tpu_torch.models.vit import ViT, ViTConfig, make_train_step
+    from picha_tpu_torch.ops import attention as att_mod
+    from picha_tpu_torch.ops import instance_norm as inm
+    from picha_tpu_torch.ops import layernorm as ln_mod
+    from picha_tpu_torch.ops import moe as moe_mod
+    from picha_tpu_torch.ops.jpeg import full_precision
+    from picha_tpu_torch.optim import tree_leaves, tree_unflatten
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(11)
+    fwd_wrappers = {"layer_norm": ("vit_layernorm", ln_mod.layer_norm_plain),
+                    "attention": ("vit_attention", att_mod.attention_plain),
+                    "route_dispatch": ("moe_route_dispatch",
+                                       moe_mod.route_dispatch_plain),
+                    "combine": ("moe_combine", moe_mod.combine_plain)}
+    bwd_wrappers = {
+        "layer_norm_backward": (ln_mod, "vit_layernorm_bwd",
+                                ln_mod.layer_norm_backward_plain),
+        "attention_backward": (att_mod, "vit_attention_bwd",
+                               att_mod.attention_backward_plain),
+        "dispatch_backward": (moe_mod, "moe_dispatch_bwd",
+                              moe_mod.dispatch_backward_plain),
+        "combine_backward": (moe_mod, "moe_combine_bwd",
+                             moe_mod.combine_backward_plain)}
+    plain_ops = [
+        (ln_mod, "layer_norm_k17", ln_mod.layer_norm_plain),
+        (ln_mod, "layer_norm_backward", ln_mod.layer_norm_backward_plain),
+        (att_mod, "attention_k18", att_mod.attention_plain),
+        (att_mod, "attention_backward", att_mod.attention_backward_plain),
+        (moe_mod, "combine_k20", moe_mod.combine_plain),
+        (moe_mod, "dispatch_backward", moe_mod.dispatch_backward_plain),
+        (moe_mod, "combine_backward", moe_mod.combine_backward_plain)]
+
+    def ulp(v):
+        m = v.abs().double().clamp_min(2.0 ** -126)
+        return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+    def rel_l2(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def first_args(fn, mods_names):
+        """Run fn with each (module, name) wrapper recording the detached
+        arguments of its first call: {name: args}."""
+        got = {}
+
+        def rec(name, real):
+            def call(*a):
+                got.setdefault(name, tuple(
+                    x.detach() if isinstance(x, torch.Tensor) else x
+                    for x in a))
+                return real(*a)
+            return call
+
+        with contextlib.ExitStack() as stack:
+            for mod, name in mods_names:
+                stack.enter_context(mock.patch.object(
+                    mod, name, rec(name, getattr(mod, name))))
+            fn()
+        return got
+
+    def bucket(kernel, label, args, kfn, pfn, nbytes):
+        """Time a kernel and its plain version on one call's arguments;
+        append the row to the kernel's buckets (the attention's bound
+        also counts its bf16 products: 2 of 2 n h s^2 d FLOPs forward,
+        5 backward)."""
+        got, want = kfn(*args), pfn(*args)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in pairs if a.numel())
+        flops = 0
+        if kernel in ("vit_attention", "vit_attention_bwd"):
+            n, s, _, h, d = args[0].shape
+            flops = (4 if kernel == "vit_attention" else 10) * n * h * s * s * d
+        row = dict(bucket=f"F5 {label}", max_abs_err=err,
+                   ms=timed(lambda: kfn(*args), 5),
+                   plain_ms=timed(lambda: pfn(*args), 2, warm=0),
+                   library_ms=None, **bound(nbytes, bf16_flops=flops))
+        results[kernel].setdefault("buckets", []).append(row)
+        return row
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if isinstance(t, torch.Tensor))
+
+    # 22. each ViT configuration: forward and one train step, depth 2
+    out = {}
+    for label, kw in F5_VIT:
+        cfg = ViTConfig(depth=2, **kw)
+        model = ViT(cfg, seed=0, device=dev)
+        params = model.params()
+        images = torch.rand((F5_N, cfg.image_size, cfg.image_size, 3),
+                            generator=gen).to(dev)
+        labels = torch.randint(0, 1000, (F5_N,), generator=gen).to(dev)
+        routes = []
+        real_rd = vit_mod.route_dispatch
+
+        def recorded_rd(*a):
+            o = real_rd(*a)
+            routes.append((o[1], o[2]))
+            return o
+
+        reset_launch_counts()
+        with mock.patch.object(vit_mod, "route_dispatch", recorded_rd):
+            logits = model(images)
+        torch.cuda.synchronize()
+        fwd_launches = {k: v for k, v in launch_counts().items() if v}
+        want = {"vit_layernorm": 2 * cfg.depth + 1,
+                "vit_attention": cfg.depth}
+        if cfg.moe_experts:
+            n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.depth))
+            want.update(moe_route_dispatch=n_moe, moe_combine=n_moe)
+        if fwd_launches != want:
+            raise AssertionError(f"F5 {label}: forward launches "
+                                 f"{fwd_launches}, want {want}")
+        plains = {k: p for k, (_n, p) in fwd_wrappers.items()}
+        if cfg.moe_experts:
+            plains["route_dispatch"] = pinned_route_dispatch(list(routes))
+        with mock.patch.multiple(vit_mod, **plains):
+            logits_p = model(images)
+        diff = (logits - logits_p).abs()
+        lim = VIT_LOGIT_TOL + ulp(torch.maximum(logits.abs(),
+                                                logits_p.abs()))
+        if not bool(torch.isfinite(logits).all()) or \
+                bool((diff > lim).any()):
+            raise AssertionError(f"F5 {label}: logits {float(diff.max())} "
+                                 f"from the plain path")
+
+        def grads(record=None, pinned=None):
+            leaves = [p.detach().requires_grad_()
+                      for p in tree_leaves(params)]
+            with contextlib.ExitStack() as stack, full_precision():
+                if pinned is not None:
+                    stack.enter_context(mock.patch.object(
+                        moe_mod, "route_dispatch_k19", pinned))
+                loss = vit_mod.loss_fn(tree_unflatten(params, leaves),
+                                       images, labels, cfg)
+                g = torch.autograd.grad(loss, leaves)
+            return loss.detach(), g
+
+        reset_launch_counts()
+        routes.clear()
+        with mock.patch.object(vit_mod, "route_dispatch", recorded_rd):
+            loss_k, g_k = grads()
+        torch.cuda.synchronize()
+        step_launches = {k: v for k, v in launch_counts().items() if v}
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in plain_ops:
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            loss_p, g_p = grads(pinned=pinned_route_dispatch(list(routes))
+                                if cfg.moe_experts else
+                                moe_mod.route_dispatch_plain)
+        rl2 = [rel_l2(a, b) for a, b in zip(g_k, g_p)]
+        names = [n for n, _ in _leaf_names(params)]
+        if max(rl2) > GRAD_RL2:
+            worst = names[rl2.index(max(rl2))]
+            raise AssertionError(f"F5 {label}: gradient leaf {worst} "
+                                 f"{max(rl2)} from the plain path")
+        init_opt, step = make_train_step(cfg, TRAIN_LR, dev)
+        _p, state, loss1 = step(params, init_opt(params), images, labels)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(loss1)) or int(state.count) != 1:
+            raise AssertionError(f"F5 {label}: train step loss {loss1}")
+        # each kernel's time at this configuration's shapes (the arguments
+        # of its first call)
+        fa = first_args(lambda: model(images),
+                        [(vit_mod, k) for k in fwd_wrappers])
+        ba = first_args(grads, [(mod, k) for k, (mod, _n, _p)
+                                in bwd_wrappers.items()])
+        rows = {}
+        for k, (kernel, pfn) in fwd_wrappers.items():
+            if k in fa:
+                a = fa[k]
+                kfn = {"layer_norm": ln_mod.layer_norm_k17,
+                       "attention": att_mod.attention_k18,
+                       "route_dispatch": moe_mod.route_dispatch_k19,
+                       "combine": moe_mod.combine_k20}[k]
+                o = kfn(*a)
+                rows[kernel] = bucket(kernel, label, a, kfn, pfn,
+                                      nbytes(*a) + nbytes(
+                                          *(o if isinstance(o, tuple)
+                                            else (o,))))
+        for k, (mod, kernel, pfn) in bwd_wrappers.items():
+            if k in ba:
+                a = ba[k]
+                kfn = getattr(mod, k)
+                o = kfn(*a)
+                rows[kernel] = bucket(kernel, label, a, kfn, pfn,
+                                      nbytes(*a) + nbytes(
+                                          *(o if isinstance(o, tuple)
+                                            else (o,))))
+        s, d = cfg.seq_len, cfg.head_dim
+        out[label] = dict(
+            config=dict(kw, depth=cfg.depth), tokens=s, head_dim=d,
+            images=F5_N, forward_launches=fwd_launches,
+            step_launches=step_launches,
+            logits_max_abs_vs_plain=float(diff.max()),
+            loss=float(loss_k), loss_plain=float(loss_p),
+            max_rel_l2=max(rl2), max_rel_l2_leaf=names[rl2.index(max(rl2))],
+            attention_tiled=dict(forward=att_mod.tiled(s, d),
+                                 backward=att_mod.tiled(s, d, True)),
+            layernorm_tuned=ln_mod.tuned(cfg.dim),
+            moe_tuned=(moe_mod.tuned(cfg.moe_experts, cfg.dim)
+                       if cfg.moe_experts else None),
+            forward_ms=timed(lambda: model(images), 3),
+            kernel_ms={k: r["ms"] for k, r in rows.items()})
+        del model, params, g_k, g_p, logits, logits_p
+
+    # the ResNet with odd channel counts
+    cfg = rn.ResNetConfig(**F5_RESNET)
+    model = rn.ResNet(cfg, seed=0, device=dev)
+    params = model.params()
+    images = torch.rand((F5_N, cfg.image_size, cfg.image_size, 3),
+                        generator=gen).to(dev)
+    labels = torch.randint(0, 1000, (F5_N,), generator=gen).to(dev)
+    n_norms = 2 * len(cfg.stage_channels) * cfg.blocks_per_stage
+
+    @contextlib.contextmanager
+    def rn_plain():
+        with mock.patch.object(inm, "norm_relu_k25", inm.norm_relu_plain), \
+                mock.patch.object(inm, "norm_relu_backward",
+                                  inm.norm_relu_backward_plain):
+            yield
+
+    def rn_grads(p64=False):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        if p64:
+            leaves = [p.detach().double().requires_grad_()
+                      for p in tree_leaves(params)]
+        tree = tree_unflatten(params, leaves)
+        with rn.conv_pin():
+            if p64:
+                lg = resnet_forward64(tree, images.double())
+                loss = -torch.log_softmax(lg, -1).gather(
+                    -1, labels.long()[:, None]).mean()
+            else:
+                lg = None
+                loss = rn.loss_fn(tree, images, labels, cfg)
+            g = torch.autograd.grad(loss, leaves)
+        return loss.detach(), g, lg
+
+    reset_launch_counts()
+    logits = model(images)
+    loss_k, g_k, _ = rn_grads()
+    torch.cuda.synchronize()
+    rn_launches = {k: v for k, v in launch_counts().items() if v}
+    if rn_launches != {"resnet_norm": 2 * n_norms,
+                       "resnet_norm_bwd": n_norms}:
+        raise AssertionError(f"F5 ResNet launches {rn_launches}")
+    with rn_plain():
+        logits_p = model(images)
+        loss_p, g_p, _ = rn_grads()
+    _l64, g64, logits64 = rn_grads(p64=True)
+    lmax = float((logits - logits_p).abs().max())
+    ratios = [float64_ratio(a, b, c) for a, b, c in zip(g_k, g_p, g64)]
+    lok, lratio = float64_ratio(logits, logits_p, logits64.detach())
+    names = [n for n, _ in _leaf_names(params)]
+    bad = [n for n, (ok, _r) in zip(names, ratios) if not ok]
+    if lmax > RESNET_LOGIT_TOL or not lok or bad:
+        raise AssertionError(f"F5 ResNet: logits {lmax} ({lratio}), leaves "
+                             f"past the float64 criterion {bad}")
+    init_opt, step = rn.make_train_step(cfg, TRAIN_LR, dev)
+    _p, state, loss1 = step(params, init_opt(params), images, labels)
+    if not bool(torch.isfinite(loss1)):
+        raise AssertionError(f"F5 ResNet step loss {loss1}")
+    ka = first_args(lambda: rn_grads(), [(inm, "norm_relu_k25"),
+                                        (inm, "norm_relu_backward")])
+    x25, s25 = ka["norm_relu_k25"]
+    r25 = bucket("resnet_norm", "ResNet odd channels", (x25, s25),
+                 inm.norm_relu_k25, inm.norm_relu_plain, nbytes(x25) * 2)
+    a26 = ka["norm_relu_backward"]
+    r26 = bucket("resnet_norm_bwd", "ResNet odd channels", a26,
+                 inm.norm_relu_backward, inm.norm_relu_backward_plain,
+                 nbytes(*a26[:3]) * 4 // 3)
+    out["resnet_odd_channels"] = dict(
+        config=F5_RESNET, images=F5_N, launches=rn_launches,
+        logits_max_abs_vs_plain=lmax, logits_float64_ratio=lratio,
+        max_float64_ratio=max(r for _ok, r in ratios),
+        loss=float(loss_k), loss_plain=float(loss_p),
+        k25_shape=list(x25.shape), k25_ms=r25["ms"], k26_ms=r26["ms"])
+    phase("f5_models", card=card, **out,
+          note="forward and one train step of each configuration on the "
+               "card (depth 2, 4 random images): logits within 0.03 + 1 "
+               "bf16 ulp of the plain path (the MoE's on the kernel path's "
+               "routes), each ViT gradient leaf within 2e-2 relative L2 of "
+               "the plain path's, the ResNet's by the float64 criterion")
+
+    # 23. K18 and K22 at S = 576, D = 128 beside SDPA
+    n, s, h, d = F5_ATTENTION
+    g2 = torch.Generator().manual_seed(12)
+    qkv = (2.0 * torch.randn((n, s, 3, h, d), generator=g2)).to(bf16).to(dev)
+    do = torch.randn((n, s, h * d), generator=g2).to(bf16).to(dev)
+    scale = d ** -0.5
+    o = att_mod.attention_k18(qkv, scale)
+    want = att_mod.attention_plain(qkv, scale)
+    row = want.view(n, s, h, d).abs().amax(-1, keepdim=True).expand(
+        n, s, h, d).reshape(n, s, h * d)
+    dd = (o.double() - want.double()).abs()
+    over18 = float((dd - ulp(torch.maximum(o.abs(), want.abs()))
+                    - ulp(row)).max())
+    dq = att_mod.attention_backward(qkv, do, scale)
+    wq = att_mod.attention_backward_plain(qkv, do, scale)
+    blk = wq.abs().amax(dim=(1, 4), keepdim=True)
+    over22 = float(((dq.double() - wq.double()).abs()
+                    - ulp(torch.maximum(dq.abs(), wq.abs())) - ulp(blk))
+                   .max())
+    del want, wq, row, dd, blk
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    og = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    gout = do.view(n, s, h, d).transpose(1, 2)
+
+    def sdpa_fb():
+        y = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        torch.autograd.grad(y, (qg, kg, vg), gout)
+
+    fl = 4 * n * h * s * s * d
+    k18 = dict(ms=timed(lambda: att_mod.attention_k18(qkv, scale), 10),
+               sdpa_ms=timed(lambda: F.scaled_dot_product_attention(
+                   q, k, v, scale=scale), 10),
+               over_bound=over18,
+               build=att_mod.kernel_info(s, d),
+               **bound(qkv.numel() * 2 + o.numel() * 2, bf16_flops=fl))
+    k22 = dict(ms=timed(lambda: att_mod.attention_backward(qkv, do, scale),
+                        5),
+               sdpa_forward_backward_ms=timed(sdpa_fb, 5),
+               sdpa_backward_ms=timed(lambda: torch.autograd.grad(
+                   og, (qg, kg, vg), gout, retain_graph=True), 5),
+               over_bound=over22,
+               build=att_mod.kernel_info(s, d, backward=True),
+               **bound(qkv.numel() * 4 + do.numel() * 2,
+                       bf16_flops=int(2.5 * fl)))
+    for key, r in (("vit_attention", k18), ("vit_attention_bwd", k22)):
+        results[key].setdefault("buckets", []).append(dict(
+            bucket=f"tiled, S = {s}, D = {d}, N = {n}, H = {h}",
+            max_abs_err=None, ms=r["ms"], plain_ms=None,
+            library_ms=r.get("sdpa_ms", r.get("sdpa_backward_ms")),
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"]))
+    if over18 > 0 or over22 > 0:
+        raise AssertionError(f"K18 / K22 at S = {s}, D = {d}: past their "
+                             f"bounds by {over18} / {over22}")
+    phase("f5_attention", card=card, shape=[n, s, h, d], K18=k18, K22=k22,
+          note="the tiled builds; K18 within 1 bf16 ulp + 1 ulp of the "
+               "row's largest |o| of its plain version, K22 within 1 ulp "
+               "+ 1 ulp of its head block's largest |value|")
 
 
 def _leaf_names(tree, prefix=""):

@@ -32,7 +32,9 @@
 //   - dscale: one thread per channel sums the per-(image, channel)
 //     partials over the images in order.
 // No atomics: two runs give the same bits. No FMA contraction (__fmul_rn,
-// __fadd_rn, __fdiv_rn).
+// __fadd_rn, __fdiv_rn). An odd channel count takes the same kernels
+// instantiated for one channel a lane (W = 1) in place of a bf16 pair
+// (W = 2), each channel's sums in the same order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,66 +43,86 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kRun = 256;
-constexpr int kPairsPerGroup = 32;
+constexpr int kLanes = 32;
 constexpr int kTerms = 4;   // a: variance path, b: -gs / r, d: p, q: dscale
 
 __device__ __forceinline__ float masked(__nv_bfloat16 y, __nv_bfloat16 dy) {
   return __bfloat162float(y) > 0.0f ? __bfloat162float(dy) : 0.0f;
 }
 
+// W channels at p -> raw bf16 values
+template <int W>
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* p, __nv_bfloat16 (&v)[W]) {
+  if constexpr (W == 2) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(p);
+    v[0] = h.x;
+    v[1] = h.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int W>
 __global__ void __launch_bounds__(kWarps * 32) bwd_partial(
-    const __nv_bfloat162* __restrict__ x, const __nv_bfloat162* __restrict__ y,
-    const __nv_bfloat162* __restrict__ dy, const float2* __restrict__ scale,
-    const float2* __restrict__ mu, const float2* __restrict__ sigma, int64_t hw, int pairs,
-    int runs, double* __restrict__ partial) {
-  __shared__ double2 acc[kWarps][kTerms][kPairsPerGroup];
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+    const __nv_bfloat16* __restrict__ dy, const float* __restrict__ scale,
+    const float* __restrict__ mu, const float* __restrict__ sigma, int64_t hw, int c, int runs,
+    double* __restrict__ partial) {
+  __shared__ double acc[kWarps][kTerms][kLanes * W];
   const int run = blockIdx.x, img = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = blockIdx.z * kPairsPerGroup + lane;
-  float2 sa = make_float2(0.0f, 0.0f), sb = sa, sd = sa, sq = sa;
-  if (p < pairs) {
-    const float2 m = mu[static_cast<int64_t>(img) * pairs + p];
-    const float2 r = sigma[static_cast<int64_t>(img) * pairs + p];
-    const float2 sc = scale[p];
-    const float2 u = make_float2(__fdiv_rn(1.0f, __fmul_rn(r.x, r.x)),
-                                 __fdiv_rn(1.0f, __fmul_rn(r.y, r.y)));
+  const int ch0 = (blockIdx.z * kLanes + lane) * W;
+  float sa[W], sb[W], sd[W], sq[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) sa[k] = sb[k] = sd[k] = sq[k] = 0.0f;
+  if (ch0 < c) {
+    float m[W], r[W], sc[W], u[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      m[k] = mu[static_cast<int64_t>(img) * c + ch0 + k];
+      r[k] = sigma[static_cast<int64_t>(img) * c + ch0 + k];
+      sc[k] = scale[ch0 + k];
+      u[k] = __fdiv_rn(1.0f, __fmul_rn(r[k], r[k]));
+    }
     const int64_t px0 = static_cast<int64_t>(run) * kRun;
     const int64_t px1 = px0 + kRun < hw ? px0 + kRun : hw;
-    const int64_t off = static_cast<int64_t>(img) * hw * pairs + p;
+    const int64_t off = static_cast<int64_t>(img) * hw * c + ch0;
 #pragma unroll 2
     for (int64_t px = px0 + warp; px < px1; px += kWarps) {
-      const int64_t i = off + px * pairs;
-      const float2 xv = __bfloat1622float2(x[i]);
-      const __nv_bfloat162 yv = y[i], gv = dy[i];
-      const float gx = masked(yv.x, gv.x), gy = masked(yv.y, gv.y);
-      const float px_ = __fsub_rn(xv.x, m.x), py_ = __fsub_rn(xv.y, m.y);
-      sq.x = __fadd_rn(sq.x, __fmul_rn(__fdiv_rn(px_, r.x), gx));
-      sq.y = __fadd_rn(sq.y, __fmul_rn(__fdiv_rn(py_, r.y), gy));
-      const float gsx = __fmul_rn(gx, sc.x), gsy = __fmul_rn(gy, sc.y);
-      sa.x = __fadd_rn(sa.x, __fmul_rn(__fmul_rn(gsx, u.x), px_));
-      sa.y = __fadd_rn(sa.y, __fmul_rn(__fmul_rn(gsy, u.y), py_));
-      sb.x = __fadd_rn(sb.x, -__fdiv_rn(gsx, r.x));
-      sb.y = __fadd_rn(sb.y, -__fdiv_rn(gsy, r.y));
-      sd.x = __fadd_rn(sd.x, px_);
-      sd.y = __fadd_rn(sd.y, py_);
+      const int64_t i = off + px * c;
+      __nv_bfloat16 xv[W], yv[W], gv[W];
+      load_raw<W>(x + i, xv);
+      load_raw<W>(y + i, yv);
+      load_raw<W>(dy + i, gv);
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const float g = masked(yv[k], gv[k]);
+        const float p = __fsub_rn(__bfloat162float(xv[k]), m[k]);
+        sq[k] = __fadd_rn(sq[k], __fmul_rn(__fdiv_rn(p, r[k]), g));
+        const float gs = __fmul_rn(g, sc[k]);
+        sa[k] = __fadd_rn(sa[k], __fmul_rn(__fmul_rn(gs, u[k]), p));
+        sb[k] = __fadd_rn(sb[k], -__fdiv_rn(gs, r[k]));
+        sd[k] = __fadd_rn(sd[k], p);
+      }
     }
   }
-  acc[warp][0][lane] = make_double2(sa.x, sa.y);
-  acc[warp][1][lane] = make_double2(sb.x, sb.y);
-  acc[warp][2][lane] = make_double2(sd.x, sd.y);
-  acc[warp][3][lane] = make_double2(sq.x, sq.y);
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    acc[warp][0][lane * W + k] = sa[k];
+    acc[warp][1][lane * W + k] = sb[k];
+    acc[warp][2][lane * W + k] = sd[k];
+    acc[warp][3][lane * W + k] = sq[k];
+  }
   __syncthreads();
   // warps 0-3 each combine one term over the 8 warps, in warp order
-  if (warp < kTerms && p < pairs) {
-    double2 t = acc[0][warp][lane];
-    for (int w = 1; w < kWarps; ++w) {
-      t.x = __dadd_rn(t.x, acc[w][warp][lane].x);
-      t.y = __dadd_rn(t.y, acc[w][warp][lane].y);
+  if (warp < kTerms && ch0 < c) {
+    double* out = partial + ((static_cast<int64_t>(img) * runs + run) * kTerms + warp) * c + ch0;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      double t = acc[0][warp][lane * W + k];
+      for (int w = 1; w < kWarps; ++w) t = __dadd_rn(t, acc[w][warp][lane * W + k]);
+      out[k] = t;
     }
-    double* out =
-        partial + ((static_cast<int64_t>(img) * runs + run) * kTerms + warp) * (2 * pairs) + 2 * p;
-    out[0] = t.x;
-    out[1] = t.y;
   }
 }
 
@@ -130,38 +152,49 @@ __global__ void __launch_bounds__(256) bwd_plane(const double* __restrict__ part
   out[2 * c] = t[3];
 }
 
+template <int W>
 __global__ void __launch_bounds__(kWarps * 32) bwd_dx(
-    const __nv_bfloat162* __restrict__ x, const __nv_bfloat162* __restrict__ y,
-    const __nv_bfloat162* __restrict__ dy, const float2* __restrict__ scale,
-    const float2* __restrict__ mu, const float2* __restrict__ sigma,
-    const double* __restrict__ plane, int64_t hw, int pairs, __nv_bfloat162* __restrict__ dx) {
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+    const __nv_bfloat16* __restrict__ dy, const float* __restrict__ scale,
+    const float* __restrict__ mu, const float* __restrict__ sigma,
+    const double* __restrict__ plane, int64_t hw, int c, __nv_bfloat16* __restrict__ dx) {
   const int run = blockIdx.x, img = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = blockIdx.z * kPairsPerGroup + lane;
-  if (p >= pairs) return;
-  const int c = 2 * pairs;
-  const float2 m = mu[static_cast<int64_t>(img) * pairs + p];
-  const float2 r = sigma[static_cast<int64_t>(img) * pairs + p];
-  const float2 sc = scale[p];
-  const double* pl = plane + static_cast<int64_t>(img) * 3 * c + 2 * p;
-  const float2 dv = make_float2(static_cast<float>(pl[0]), static_cast<float>(pl[1]));
-  const float2 dm = make_float2(static_cast<float>(pl[c]), static_cast<float>(pl[c + 1]));
+  const int ch0 = (blockIdx.z * kLanes + lane) * W;
+  if (ch0 >= c) return;
+  float m[W], r[W], sc[W], dv[W], dm[W];
+  const double* pl = plane + static_cast<int64_t>(img) * 3 * c + ch0;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    m[k] = mu[static_cast<int64_t>(img) * c + ch0 + k];
+    r[k] = sigma[static_cast<int64_t>(img) * c + ch0 + k];
+    sc[k] = scale[ch0 + k];
+    dv[k] = static_cast<float>(pl[k]);
+    dm[k] = static_cast<float>(pl[c + k]);
+  }
   const int64_t px0 = static_cast<int64_t>(run) * kRun;
   const int64_t px1 = px0 + kRun < hw ? px0 + kRun : hw;
-  const int64_t off = static_cast<int64_t>(img) * hw * pairs + p;
+  const int64_t off = static_cast<int64_t>(img) * hw * c + ch0;
 #pragma unroll 2
   for (int64_t px = px0 + warp; px < px1; px += kWarps) {
-    const int64_t i = off + px * pairs;
-    const float2 xv = __bfloat1622float2(x[i]);
-    const __nv_bfloat162 yv = y[i], gv = dy[i];
-    const float gx = masked(yv.x, gv.x), gy = masked(yv.y, gv.y);
-    const float px_ = __fsub_rn(xv.x, m.x), py_ = __fsub_rn(xv.y, m.y);
-    const float grx = __fdiv_rn(__fmul_rn(gx, sc.x), r.x);
-    const float gry = __fdiv_rn(__fmul_rn(gy, sc.y), r.y);
-    const float bvx = __fmul_rn(dv.x, __fmul_rn(2.0f, px_));
-    const float bvy = __fmul_rn(dv.y, __fmul_rn(2.0f, py_));
-    dx[i] = __floats2bfloat162_rn(__fadd_rn(__fadd_rn(grx, bvx), dm.x),
-                                  __fadd_rn(__fadd_rn(gry, bvy), dm.y));
+    const int64_t i = off + px * c;
+    __nv_bfloat16 xv[W], yv[W], gv[W];
+    load_raw<W>(x + i, xv);
+    load_raw<W>(y + i, yv);
+    load_raw<W>(dy + i, gv);
+    float o[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const float g = masked(yv[k], gv[k]);
+      const float p = __fsub_rn(__bfloat162float(xv[k]), m[k]);
+      const float gr = __fdiv_rn(__fmul_rn(g, sc[k]), r[k]);
+      const float bv = __fmul_rn(dv[k], __fmul_rn(2.0f, p));
+      o[k] = __fadd_rn(__fadd_rn(gr, bv), dm[k]);
+    }
+    if constexpr (W == 2)
+      *reinterpret_cast<__nv_bfloat162*>(dx + i) = __floats2bfloat162_rn(o[0], o[1]);
+    else
+      dx[i] = __float2bfloat16_rn(o[0]);
   }
 }
 
@@ -176,44 +209,54 @@ __global__ void __launch_bounds__(256) bwd_dscale(const double* __restrict__ pla
   dscale[ch] = __double2float_rn(t);
 }
 
+template <int W>
+void launch(const __nv_bfloat16* xs, const __nv_bfloat16* ys, const __nv_bfloat16* gs,
+            const float* sc, const float* m, const float* r, int n, int64_t hw, int c,
+            int64_t runs, int groups, __nv_bfloat16* dx, float* dscale, double* part, double* pl,
+            cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>(runs), n, groups);
+  const int64_t planes = static_cast<int64_t>(n) * c;
+  bwd_partial<W><<<grid, kWarps * 32, 0, st>>>(xs, ys, gs, sc, m, r, hw, c,
+                                               static_cast<int>(runs), part);
+  bwd_plane<<<static_cast<unsigned>((planes + 255) / 256), 256, 0, st>>>(
+      part, r, static_cast<int>(runs), n, c, static_cast<float>(hw), pl);
+  bwd_dx<W><<<grid, kWarps * 32, 0, st>>>(xs, ys, gs, sc, m, r, pl, hw, c, dx);
+  bwd_dscale<<<(c + 255) / 256, 256, 0, st>>>(pl, n, c, dscale);
+}
+
 }  // namespace
 
-// x, y, dy, dx: (n, hw, c) bf16 (dx may not alias them); scale: (c,)
-// float32; mu, sigma: (n, c) float32 (K25's); c even; dscale: (c,) float32
-// out; partial: (n, ceil(hw / 256), 4, c) and plane: (n, 3, c) float64
-// scratch. Returns cudaGetLastError().
+// x, y, dy, dx: (n, hw, c) bf16 (dx may not alias them; 4-byte aligned
+// where c is even); scale: (c,) float32; mu, sigma: (n, c) float32 (K25's);
+// c >= 1; dscale: (c,) float32 out; partial: (n, ceil(hw / 256), 4, c) and
+// plane: (n, 3, c) float64 scratch. Returns cudaGetLastError().
 extern "C" int picha_resnet_norm_bwd(const void* x, const void* y, const void* dy,
                                      const void* scale, const void* mu, const void* sigma, int n,
                                      int64_t hw, int c, void* dx, void* dscale, void* partial,
                                      void* plane, void* stream) {
-  if (n < 0 || n > 65535 || hw < 1 || c < 2 || (c & 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 0 || n > 65535 || hw < 1 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n == 0) {
     const cudaError_t rc = cudaMemsetAsync(dscale, 0, static_cast<size_t>(c) * sizeof(float), st);
     return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
   }
   const int64_t runs = (hw + kRun - 1) / kRun;
-  const int pairs = c / 2;
-  const int groups = (pairs + kPairsPerGroup - 1) / kPairsPerGroup;
+  const int w = (c & 1) ? 1 : 2;
+  const int groups = (c / w + kLanes - 1) / kLanes;
   if (runs > 0x7fffffffLL || groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(runs), n, groups);
-  const int64_t planes = static_cast<int64_t>(n) * c;
-  const auto* xs = static_cast<const __nv_bfloat162*>(x);
-  const auto* ys = static_cast<const __nv_bfloat162*>(y);
-  const auto* gs = static_cast<const __nv_bfloat162*>(dy);
-  const auto* sc = static_cast<const float2*>(scale);
-  const auto* m2 = static_cast<const float2*>(mu);
-  const auto* r2 = static_cast<const float2*>(sigma);
+  const auto* xs = static_cast<const __nv_bfloat16*>(x);
+  const auto* ys = static_cast<const __nv_bfloat16*>(y);
+  const auto* gs = static_cast<const __nv_bfloat16*>(dy);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* m = static_cast<const float*>(mu);
+  const auto* r = static_cast<const float*>(sigma);
+  auto* dxs = static_cast<__nv_bfloat16*>(dx);
+  auto* ds = static_cast<float*>(dscale);
   double* part = static_cast<double*>(partial);
   double* pl = static_cast<double*>(plane);
-  bwd_partial<<<grid, kWarps * 32, 0, st>>>(xs, ys, gs, sc, m2, r2, hw, pairs,
-                                            static_cast<int>(runs), part);
-  bwd_plane<<<static_cast<unsigned>((planes + 255) / 256), 256, 0, st>>>(
-      part, static_cast<const float*>(sigma), static_cast<int>(runs), n, c,
-      static_cast<float>(hw), pl);
-  bwd_dx<<<grid, kWarps * 32, 0, st>>>(xs, ys, gs, sc, m2, r2, pl, hw, pairs,
-                                       static_cast<__nv_bfloat162*>(dx));
-  bwd_dscale<<<(c + 255) / 256, 256, 0, st>>>(pl, n, c, static_cast<float*>(dscale));
+  if (w == 2)
+    launch<2>(xs, ys, gs, sc, m, r, n, hw, c, runs, groups, dxs, ds, part, pl, st);
+  else
+    launch<1>(xs, ys, gs, sc, m, r, n, hw, c, runs, groups, dxs, ds, part, pl, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,6 +52,7 @@
 #include <stdint.h>
 
 #include "vit_attention_mma.cuh"
+#include "vit_attention_tiled.cuh"
 
 namespace {
 
@@ -243,14 +244,23 @@ int info(int s, int* out) {
 
 }  // namespace
 
+// whether (s, d) takes the tuned kernel (else the tiled one,
+// vit_attention_tiled.cu)
+static bool tuned_shape(int s, int d) {
+  return s >= 1 && s <= attn::kMaxSeq && (d == 32 || d == 64 || d == 128);
+}
+
 // qkv: (n, s, 3, h, d) bf16, 16-byte aligned; out: (n, s, h * d) bf16;
-// d in {32, 64, 128}, 1 <= s <= 256. Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape the kernel does not take).
+// 1 <= d <= 128, s >= 1. The tuned kernel takes d in {32, 64, 128} and s
+// <= 256, the tiled one every other shape (and every shape when
+// `force_tiled` is 1). Returns cudaGetLastError() (cudaErrorInvalidValue for a shape
+// neither takes).
 extern "C" int picha_vit_attention(const void* qkv, int n, int s, int h, int d, float scale,
-                                   void* out, void* stream) {
+                                   int force_tiled, void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (force_tiled || !tuned_shape(s, d)) return attn_tiled_forward(qkv, n, s, h, d, scale, out, st);
   if (!attn::takes(n, s, h)) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch<32>(qkv, n, s, h, scale, out, st);
     case 64: return launch<64>(qkv, n, s, h, scale, out, st);
@@ -259,11 +269,13 @@ extern "C" int picha_vit_attention(const void* qkv, int n, int s, int h, int d, 
   }
 }
 
-// K18's build at s tokens of head width d: out[0..4] = registers a thread,
+// K18's build at s tokens of head width d (the tiled one when `force_tiled` is 1
+// or the shape is past the tuned one): out[0..4] = registers a thread,
 // local (spill) bytes a thread, dynamic shared bytes, threads and resident
 // blocks a multiprocessor. Launches nothing.
-extern "C" int picha_vit_attention_info(int s, int d, int* out) {
-  if (!attn::takes(1, s, 1)) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int picha_vit_attention_info(int s, int d, int force_tiled, int* out) {
+  if (s < 1 || d < 1 || d > tiled::kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (force_tiled || !tuned_shape(s, d)) return attn_tiled_forward_info(d, out);
   switch (d) {
     case 32: return info<32>(s, out);
     case 64: return info<64>(s, out);

@@ -76,6 +76,7 @@
 #include <stdint.h>
 
 #include "vit_attention_mma.cuh"
+#include "vit_attention_tiled.cuh"
 
 namespace {
 
@@ -576,14 +577,25 @@ int info(int s, int* out) {
 
 }  // namespace
 
+// whether (s, d) takes the tuned kernel (else the tiled one,
+// vit_attention_bwd_tiled.cu)
+static bool tuned_shape(int s, int d) {
+  return s >= 1 && s <= attn::kMaxSeq && (d == 32 || d == 64);
+}
+
 // qkv, dqkv: (n, s, 3, h, d) bf16; dout: (n, s, h * d) bf16; all 16-byte
-// aligned; d in {32, 64}, 1 <= s <= 256. Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape the kernel does not take).
+// aligned; 1 <= d <= 128, s >= 1. The tuned kernel takes d in {32, 64} and
+// s <= 256, the tiled one every other shape (and every shape when
+// `force_tiled` is 1), with stats: (n, h, s) float4 scratch. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape neither takes).
 extern "C" int picha_vit_attention_bwd(const void* qkv, const void* dout, int n, int s, int h,
-                                       int d, float scale, void* dqkv, void* stream) {
+                                       int d, float scale, int force_tiled, void* dqkv, void* stats,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (force_tiled || !tuned_shape(s, d))
+    return attn_tiled_backward(qkv, dout, n, s, h, d, scale, dqkv, stats, st);
   if (!attn::takes(n, s, h)) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch<32>(qkv, dout, n, s, h, scale, dqkv, st);
     case 64: return launch<64>(qkv, dout, n, s, h, scale, dqkv, st);
@@ -591,10 +603,12 @@ extern "C" int picha_vit_attention_bwd(const void* qkv, const void* dout, int n,
   }
 }
 
-// K22's build at s tokens of head width d: out[0..4] as
-// picha_vit_attention_info's. Launches nothing.
-extern "C" int picha_vit_attention_bwd_info(int s, int d, int* out) {
-  if (!attn::takes(1, s, 1)) return static_cast<int>(cudaErrorInvalidValue);
+// K22's build at s tokens of head width d (the tiled one's query-side
+// kernel when `force_tiled` is 1 or the shape is past the tuned one): out[0..4]
+// as picha_vit_attention_info's. Launches nothing.
+extern "C" int picha_vit_attention_bwd_info(int s, int d, int force_tiled, int* out) {
+  if (s < 1 || d < 1 || d > tiled::kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (force_tiled || !tuned_shape(s, d)) return attn_tiled_backward_info(d, out);
   switch (d) {
     case 32: return info<32>(s, out);
     case 64: return info<64>(s, out);

@@ -1,0 +1,197 @@
+// K18, tiled: the ViT's multi-head self-attention at the shapes past the
+// tuned kernel's envelope (vit_attention.cu: at most 256 tokens, head
+// width 32, 64 or 128). picha_vit_attention chooses it by shape.
+//
+// Replaces, like the tuned kernel: picha_tpu/models/vit.py::forward's
+// attention (:171-180) at any token count and any head width up to 128
+// (ViTConfig(image_size=384): 576 tokens; ViT-H/14's heads of 80).
+//
+// What bounds it on an H100: the same bytes as the tuned kernel (qkv read
+// once, o written once) and the same tensor-core products; this simpler
+// design re-reads the keys: a block of 8 warps owns 128 query rows of one
+// (image, head) (vit_attention_tiled.cuh) and walks the keys in chunks of
+// at most 256 staged into shared memory, three times:
+//   1. the scores of every key (q . k^T on the tensor cores, each 16-deep
+//      step added with round-to-nearest, then `* scale`): the exact row
+//      max over all S keys;
+//   2. the scores again: e = expf(s - max) and l, their f32 sum;
+//   3. the scores again: p = bf16(e / l) (the correctly rounded quotient,
+//      attn::div_rn) packed as the A operand of p . v against the chunk's
+//      v rows.
+// The reference's softmax order is kept: the max and the row sum go over
+// all keys before any p is formed, and p is rounded with the final l. No
+// online (flash) rescale, which rounds otherwise. A chunk is staged once
+// when S <= 256. q and k are zero-padded to the mma's 16-deep step; keys
+// past S are masked out of the max and the sum and get p = 0. The scores,
+// e, l and p are the tuned kernel's to the bit, and o is summed over the
+// key tiles in the same order, so the two agree exactly where both run.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "vit_attention_tiled.cuh"
+
+namespace {
+
+using attn::col_of;
+using namespace tiled;
+
+template <int DP>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+    attn_fwd_tiled(const __nv_bfloat16* __restrict__ qkv, int N, int S, int H, int D,
+                   float scale, __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int ST = stride_of(DP);
+  uint8_t* qp = smem;
+  uint8_t* kp = qp + kRows * ST;
+  uint8_t* vp = kp + kChunk * ST;
+  const uint32_t qs = attn::smem_addr(qp), ks = attn::smem_addr(kp), vs = attn::smem_addr(vp);
+  const int blocks = (S + kRows - 1) / kRows;
+  int64_t n;
+  int h, qb;
+  item_of(blockIdx.x, H, blocks, n, h, qb);
+  const int64_t tok = static_cast<int64_t>(3) * H * D;   // qkv elements per token
+  const __nv_bfloat16* base = qkv + n * S * tok + static_cast<int64_t>(h) * D;
+  const int q0 = qb * kRows, qrows = min(kRows, S - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool active = 16 * warp < qrows;
+  const int nchunks = (S + kChunk - 1) / kChunk;
+  stage<DP>(qp, base + q0 * tok, tok, qrows, kRows, D);
+  int k_in = -1, v_in = -1;   // the chunks staged
+  auto stage_chunk = [&](int c, bool with_v) {
+    const int k0 = c * kChunk, kn = min(kChunk, S - k0), rows = (kn + 15) / 16 * 16;
+    if (k_in == c && (!with_v || v_in == c)) return;
+    __syncthreads();
+    if (k_in != c) stage<DP>(kp, base + H * D + k0 * tok, tok, kn, rows, D);
+    if (with_v && v_in != c) stage<DP>(vp, base + 2 * H * D + k0 * tok, tok, kn, rows, D);
+    __syncthreads();
+    k_in = c;
+    if (with_v) v_in = c;
+  };
+  // the scaled scores of key tile kt of the staged chunk
+  auto scores = [&](int kt, float (&s)[2][4]) {
+    dots<DP>(qs, 16 * warp, ks, kt, lane, s);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+  };
+
+  // 1. the exact max over all S keys of rows g and g + 8
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int c = 0; c < nchunks; ++c) {
+    stage_chunk(c, false);
+    const int k0 = c * kChunk, nt = (min(kChunk, S - k0) + 15) / 16;
+    for (int kt = 0; active && kt < nt; ++kt) {
+      float s[2][4];
+      scores(kt, s);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          m[e >> 1] =
+              fmaxf(m[e >> 1], k0 + 16 * kt + col_of(lane, j, e) < S ? s[j][e] : -INFINITY);
+    }
+  }
+  m[0] = attn::quad_max(m[0]);
+  m[1] = attn::quad_max(m[1]);
+
+  // 2. l = the f32 sum of e = expf(s - max) (0 past S)
+  float ls[2] = {0.0f, 0.0f};
+  for (int c = 0; c < nchunks; ++c) {
+    stage_chunk(c, false);
+    const int k0 = c * kChunk, nt = (min(kChunk, S - k0) + 15) / 16;
+    for (int kt = 0; active && kt < nt; ++kt) {
+      float s[2][4];
+      scores(kt, s);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ev = expf(__fsub_rn(s[j][e], m[e >> 1]));
+          ls[e >> 1] = __fadd_rn(ls[e >> 1], k0 + 16 * kt + col_of(lane, j, e) < S ? ev : 0.0f);
+        }
+    }
+  }
+  const float l[2] = {attn::quad_sum(ls[0]), attn::quad_sum(ls[1])};
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+
+  // 3. o = p . v, p = bf16(e / l) packed tile by tile as the A operand
+  float o[DP / 8][4];
+  zero<DP>(o);
+  for (int c = 0; c < nchunks; ++c) {
+    stage_chunk(c, true);
+    const int k0 = c * kChunk, nt = (min(kChunk, S - k0) + 15) / 16;
+    for (int kt = 0; active && kt < nt; ++kt) {
+      float s[2][4];
+      scores(kt, s);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ev = expf(__fsub_rn(s[j][e], m[e >> 1]));
+          s[j][e] = attn::div_rn(k0 + 16 * kt + col_of(lane, j, e) < S ? ev : 0.0f, l[e >> 1],
+                                 rl[e >> 1]);
+        }
+      uint32_t pa[4];
+      attn::as_a(s, pa);
+      times<DP>(pa, vs, 16 * kt, lane, o);
+    }
+  }
+  if (active)
+    store_rows<DP>(o, out + (n * S + q0) * H * D + static_cast<int64_t>(h) * D,
+                   static_cast<int64_t>(H) * D, 16 * warp, qrows, D, lane);
+}
+
+template <int DP>
+int launch(const void* qkv, int n, int s, int h, int d, float scale, void* out,
+           cudaStream_t st) {
+  const size_t bytes = smem_bytes(DP);
+  const int rc = static_cast<int>(attn::prepare(attn_fwd_tiled<DP>, bytes));
+  if (rc != 0) return rc;
+  const int64_t grid = static_cast<int64_t>(n) * h * ((s + kRows - 1) / kRows);
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_fwd_tiled<DP><<<static_cast<unsigned>(grid), kWarps * 32, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(qkv), n, s, h, d, scale,
+      static_cast<__nv_bfloat16*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int info(int* out) {
+  return attn::info(attn_fwd_tiled<DP>, kWarps * 32, smem_bytes(DP), out);
+}
+
+}  // namespace
+
+// qkv: (n, s, 3, h, d) bf16 (2-byte aligned); out: (n, s, h * d) bf16;
+// 1 <= d <= 128, s >= 1
+int attn_tiled_forward(const void* qkv, int n, int s, int h, int d, float scale, void* out,
+                       cudaStream_t st) {
+  if (n < 0 || s < 1 || h < 1 || d < 1 || d > tiled::kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  switch (tiled::pad16(d)) {
+    case 16: return launch<16>(qkv, n, s, h, d, scale, out, st);
+    case 32: return launch<32>(qkv, n, s, h, d, scale, out, st);
+    case 48: return launch<48>(qkv, n, s, h, d, scale, out, st);
+    case 64: return launch<64>(qkv, n, s, h, d, scale, out, st);
+    case 80: return launch<80>(qkv, n, s, h, d, scale, out, st);
+    case 96: return launch<96>(qkv, n, s, h, d, scale, out, st);
+    case 112: return launch<112>(qkv, n, s, h, d, scale, out, st);
+    default: return launch<128>(qkv, n, s, h, d, scale, out, st);
+  }
+}
+
+int attn_tiled_forward_info(int d, int* out) {
+  switch (tiled::pad16(d)) {
+    case 16: return info<16>(out);
+    case 32: return info<32>(out);
+    case 48: return info<48>(out);
+    case 64: return info<64>(out);
+    case 80: return info<80>(out);
+    case 96: return info<96>(out);
+    case 112: return info<112>(out);
+    default: return info<128>(out);
+  }
+}

@@ -24,6 +24,14 @@
 //     registers; the 8 warps' sums meet in shared memory in warp order and
 //     the block writes one partial per column; kernel 2 sums the blocks'
 //     partials of a column in block order.
+// Widths outside the tuned envelope (odd, or past 1024) take a simpler
+// path chosen by shape, with the same arithmetic: ln_bwd_row_any, one
+// block of 256 threads a row, x and dy re-read from memory for each of
+// its five passes (mu, r, the variance path's sum with -g / r, -dvar 2p,
+// dx), the block's sums by warp shuffles and then the warps in order; it
+// keeps each row's mu and r for ln_bwd_cols_any, one thread a column
+// summing (p / r) dy and dy over a block's 256 rows in order into the same
+// per-block partials, which ln_bwd_columns then sums in block order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,17 +176,99 @@ int launch_rows(const void* x, const void* scale, const void* dy, int64_t rows, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// a sum across the block, the warps' sums in warp order; every thread
+// gets it (red: kWarps floats of shared memory)
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, red[w]);
+  __syncthreads();
+  return t;
+}
+
+// any width: one block a row -> dx, and the row's (mu, r) into stats
+__global__ void __launch_bounds__(kWarps * 32) ln_bwd_row_any(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+    const __nv_bfloat16* __restrict__ dy, int d, __nv_bfloat16* __restrict__ dx,
+    float2* __restrict__ stats) {
+  __shared__ float red[kWarps];
+  const int64_t row = blockIdx.x;
+  const __nv_bfloat16* xr = x + row * d;
+  const __nv_bfloat16* gr = dy + row * d;
+  const float df = static_cast<float>(d);
+  float s = 0.0f;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) s = __fadd_rn(s, __bfloat162float(xr[j]));
+  const float mu = __fdiv_rn(block_sum(s, red), df);
+  float q = 0.0f;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    const float v = __fsub_rn(__bfloat162float(xr[j]), mu);
+    q = __fadd_rn(q, __fmul_rn(v, v));
+  }
+  const float r = __fsqrt_rn(__fadd_rn(__fdiv_rn(block_sum(q, red), df), 1e-6f));
+  const float u = __fdiv_rn(1.0f, __fmul_rn(r, r));
+  float a = 0.0f, bq = 0.0f;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    const float p = __fsub_rn(__bfloat162float(xr[j]), mu);
+    const float g = __fmul_rn(__bfloat162float(gr[j]), scale[j]);
+    a = __fadd_rn(a, __fmul_rn(__fmul_rn(g, u), p));
+    bq = __fadd_rn(bq, -__fdiv_rn(g, r));
+  }
+  const float dvar = __fdiv_rn(__fmul_rn(-block_sum(a, red), __fdiv_rn(0.5f, r)), df);
+  const float bqs = block_sum(bq, red);
+  float by = 0.0f;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    const float p = __fsub_rn(__bfloat162float(xr[j]), mu);
+    by = __fadd_rn(by, -__fmul_rn(dvar, __fmul_rn(2.0f, p)));
+  }
+  const float dmu = __fdiv_rn(__fadd_rn(bqs, block_sum(by, red)), df);
+  __nv_bfloat16* orow = dx + row * d;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    const float p = __fsub_rn(__bfloat162float(xr[j]), mu);
+    const float g = __fmul_rn(__bfloat162float(gr[j]), scale[j]);
+    orow[j] = __float2bfloat16_rn(
+        __fadd_rn(__fadd_rn(__fdiv_rn(g, r), __fmul_rn(dvar, __fmul_rn(2.0f, p))), dmu));
+  }
+  if (threadIdx.x == 0) stats[row] = make_float2(mu, r);
+}
+
+// any width: partial[b][0][c] = the sum of (p / r) dy over block b's rows
+// in order, partial[b][1][c] = the sum of dy; one thread a column
+__global__ void __launch_bounds__(256) ln_bwd_cols_any(const __nv_bfloat16* __restrict__ x,
+                                                       const __nv_bfloat16* __restrict__ dy,
+                                                       const float2* __restrict__ stats,
+                                                       int64_t rows, int d,
+                                                       float* __restrict__ partial) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kRowsPerBlock;
+  const int64_t r1 = r0 + kRowsPerBlock < rows ? r0 + kRowsPerBlock : rows;
+  float ps = 0.0f, pb = 0.0f;
+  for (int64_t row = r0; row < r1; ++row) {
+    const float2 st = stats[row];
+    const float z = __bfloat162float(dy[row * d + c]);
+    const float p = __fsub_rn(__bfloat162float(x[row * d + c]), st.x);
+    ps = __fadd_rn(ps, __fmul_rn(__fdiv_rn(p, st.y), z));
+    pb = __fadd_rn(pb, z);
+  }
+  float* out = partial + static_cast<int64_t>(blockIdx.y) * 2 * d;
+  out[c] = ps;
+  out[d + c] = pb;
+}
+
 }  // namespace
 
 // x, dy, dx: (rows, d) bf16 (dx may not alias x or dy); scale: (d,) float32;
-// d even, 2 <= d <= 1024; partial: (ceil(rows / 256), 2, d) float32
-// scratch; dsb: (2, d) float32 out, dscale then dbias. Returns
-// cudaGetLastError().
+// d >= 1 (the tuned kernel for even d <= 1024, 4-byte aligned rows;
+// otherwise the block-a-row path, which needs stats: (rows, 2) float32
+// scratch); partial: (ceil(rows / 256), 2, d) float32 scratch; dsb: (2, d)
+// float32 out, dscale then dbias. Returns cudaGetLastError().
 extern "C" int picha_vit_layernorm_bwd(const void* x, const void* scale, const void* dy,
                                        int64_t rows, int d, void* dx, void* partial, void* dsb,
-                                       void* stream) {
-  if (rows < 0 || d < 2 || d > 2 * 32 * kMaxPairs || (d & 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+                                       void* stats, void* stream) {
+  if (rows < 0 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows == 0) {
     const cudaError_t rc = cudaMemsetAsync(dsb, 0, static_cast<size_t>(2) * d * sizeof(float), st);
@@ -189,7 +279,20 @@ extern "C" int picha_vit_layernorm_bwd(const void* x, const void* scale, const v
   const int np = (d / 2 + 31) / 32;
   const unsigned nb = static_cast<unsigned>(nblk);
   int rc;
-  if (np <= 2) rc = launch_rows<2>(x, scale, dy, rows, d, dx, partial, nb, st);
+  if ((d & 1) || d > 2 * 32 * kMaxPairs) {
+    if (stats == nullptr || nblk > 65535 || rows > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    ln_bwd_row_any<<<static_cast<unsigned>(rows), kWarps * 32, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+        static_cast<const __nv_bfloat16*>(dy), d, static_cast<__nv_bfloat16*>(dx),
+        static_cast<float2*>(stats));
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+    ln_bwd_cols_any<<<dim3((d + 255) / 256, nb), 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+        static_cast<const float2*>(stats), rows, d, static_cast<float*>(partial));
+    rc = static_cast<int>(cudaGetLastError());
+  } else if (np <= 2) rc = launch_rows<2>(x, scale, dy, rows, d, dx, partial, nb, st);
   else if (np <= 4) rc = launch_rows<4>(x, scale, dy, rows, d, dx, partial, nb, st);
   else if (np <= 6) rc = launch_rows<6>(x, scale, dy, rows, d, dx, partial, nb, st);
   else if (np <= 8) rc = launch_rows<8>(x, scale, dy, rows, d, dx, partial, nb, st);

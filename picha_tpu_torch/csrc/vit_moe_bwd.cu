@@ -34,6 +34,11 @@
 //   order that the plain version (picha_tpu_torch/ops/moe.py::
 //   warp_order_sum) repeats, so both give the same bits. No atomics: slots
 //   are unique per kept token.
+// Any expert count: moe_softmax_bwd loops the router row over the experts.
+// A width that is not a multiple of 8 takes scalar twins chosen by shape:
+// moe_gather_any (one bf16 value a thread) and moe_combine_bwd_any (one
+// warp a token as above, lanes taking the row's 8-value chunks in the same
+// order, the last chunk cut short, so that the sum is warp_order_sum's).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -153,6 +158,53 @@ __global__ void __launch_bounds__(256) moe_combine_bwd(
   }
 }
 
+__global__ void __launch_bounds__(256) moe_gather_any(const uint16_t* __restrict__ dxe,
+                                                      const int* __restrict__ eidx,
+                                                      const int* __restrict__ sidx, int64_t t,
+                                                      int E, int cap, int d,
+                                                      uint16_t* __restrict__ dy) {
+  const int64_t total = t * d;
+  for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; k < total;
+       k += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t i = k / d;
+    const int c = static_cast<int>(k - i * d);
+    const int e = eidx[i], s = sidx[i];
+    dy[k] = e >= 0 && e < E && s >= 0 && s < cap ? dxe[(static_cast<int64_t>(e) * cap + s) * d + c]
+                                                  : static_cast<uint16_t>(0);
+  }
+}
+
+__global__ void __launch_bounds__(256) moe_combine_bwd_any(
+    const __nv_bfloat16* __restrict__ dout, const __nv_bfloat16* __restrict__ ye,
+    const int* __restrict__ eidx, const int* __restrict__ sidx, const float* __restrict__ gk,
+    int64_t t, int E, int cap, int d, __nv_bfloat16* __restrict__ dye, float* __restrict__ dgk) {
+  const int lane = threadIdx.x & 31;
+  const int chunks = (d + 7) / 8;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       i < t; i += warps) {
+    const int e = eidx[i], s = sidx[i];
+    const bool kept = e >= 0 && e < E && s >= 0 && s < cap;
+    const float g = round_bf16(gk[i]);
+    const int64_t slot = kept ? (static_cast<int64_t>(e) * cap + s) * d : 0;
+    float acc = 0.0f;
+    for (int c = lane; c < chunks; c += 32) {
+      const int j1 = 8 * c + 8 < d ? 8 * c + 8 : d;
+      for (int j = 8 * c; j < j1; ++j) {
+        const float a = __bfloat162float(dout[i * d + j]);
+        const float b = kept ? __bfloat162float(ye[slot + j]) : 0.0f;
+        acc = __fadd_rn(acc, round_bf16(__fmul_rn(a, b)));
+        if (kept) {
+          const __nv_bfloat16 w = __float2bfloat16_rn(__fmul_rn(a, g));
+          dye[slot + j] = __bfloat16_as_ushort(w) == 0x8000u ? __ushort_as_bfloat16(0) : w;
+        }
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) dgk[i] = round_bf16(acc);
+  }
+}
+
 int grid_for(int64_t items, int per_block) {
   int sms = 132, dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess)
@@ -164,14 +216,13 @@ int grid_for(int64_t items, int per_block) {
 
 }  // namespace
 
-// dxe: (E, cap, d) bf16, d a multiple of 8; eidx, sidx: (t,) int32; logits:
-// (t, E) float32; dgk: (t,) float32; dy: (t, d) bf16 out; dlogits: (t, E)
-// float32 out. Returns cudaGetLastError().
+// dxe: (E, cap, d) bf16 (16-byte aligned where d is a multiple of 8); eidx,
+// sidx: (t,) int32; logits: (t, E) float32; dgk: (t,) float32; dy: (t, d)
+// bf16 out; dlogits: (t, E) float32 out. Returns cudaGetLastError().
 extern "C" int picha_moe_dispatch_bwd(const void* dxe, const void* eidx, const void* sidx,
                                       const void* logits, const void* dgk, int64_t t, int E,
                                       int cap, int d, void* dy, void* dlogits, void* stream) {
-  if (t < 0 || E < 1 || E > 64 || cap < 1 || d < 8 || (d & 7))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (t < 0 || E < 1 || cap < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (t == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   moe_softmax_bwd<<<grid_for(t, 256), 256, 0, st>>>(
@@ -179,6 +230,12 @@ extern "C" int picha_moe_dispatch_bwd(const void* dxe, const void* eidx, const v
       static_cast<const float*>(dgk), t, E, static_cast<float*>(dlogits));
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
+  if (d & 7) {
+    moe_gather_any<<<grid_for(t * d, 256), 256, 0, st>>>(
+        static_cast<const uint16_t*>(dxe), static_cast<const int*>(eidx),
+        static_cast<const int*>(sidx), t, E, cap, d, static_cast<uint16_t*>(dy));
+    return static_cast<int>(cudaGetLastError());
+  }
   const int chunks = d / 8;
   moe_gather<<<grid_for(t * chunks, 256), 256, 0, st>>>(
       static_cast<const uint4*>(dxe), static_cast<const int*>(eidx),
@@ -186,18 +243,26 @@ extern "C" int picha_moe_dispatch_bwd(const void* dxe, const void* eidx, const v
   return static_cast<int>(cudaGetLastError());
 }
 
-// dout: (t, d) bf16, d a multiple of 8; ye, dye: (E, cap, d) bf16 (dye out);
-// eidx, sidx: (t,) int32; gk: (t,) float32; dgk: (t,) float32 out. Returns
-// cudaGetLastError().
+// dout: (t, d) bf16; ye, dye: (E, cap, d) bf16 (dye out; 16-byte aligned
+// where d is a multiple of 8); eidx, sidx: (t,) int32; gk: (t,) float32;
+// dgk: (t,) float32 out. Returns cudaGetLastError().
 extern "C" int picha_moe_combine_bwd(const void* dout, const void* ye, const void* eidx,
                                      const void* sidx, const void* gk, int64_t t, int E, int cap,
                                      int d, void* dye, void* dgk, void* stream) {
-  if (t < 0 || E < 1 || cap < 1 || d < 8 || (d & 7)) return static_cast<int>(cudaErrorInvalidValue);
+  if (t < 0 || E < 1 || cap < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t mrc =
       cudaMemsetAsync(dye, 0, static_cast<size_t>(E) * cap * d * sizeof(__nv_bfloat16), st);
   if (mrc != cudaSuccess) return static_cast<int>(mrc);
   if (t == 0) return static_cast<int>(cudaGetLastError());
+  if (d & 7) {
+    moe_combine_bwd_any<<<grid_for(t, 8), 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(ye),
+        static_cast<const int*>(eidx), static_cast<const int*>(sidx),
+        static_cast<const float*>(gk), t, E, cap, d, static_cast<__nv_bfloat16*>(dye),
+        static_cast<float*>(dgk));
+    return static_cast<int>(cudaGetLastError());
+  }
   moe_combine_bwd<<<grid_for(t, 8), 256, 0, st>>>(
       static_cast<const uint4*>(dout), static_cast<const uint4*>(ye),
       static_cast<const int*>(eidx), static_cast<const int*>(sidx),

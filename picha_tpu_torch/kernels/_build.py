@@ -31,8 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+Z = ctypes.c_size_t
 
-# C entry point -> argument types (the stream is always last)
+# C entry point -> argument types (a kernel's stream is always last; the
+# picha_host_* functions are host code and take none)
 SIGNATURES = {
     "picha_huffman_decode_restart": [
         P, P, P, P, P, P, P, P, I, P, P, I, I, I, P, P, P],
@@ -56,17 +58,25 @@ SIGNATURES = {
     "picha_lzw_decode": [P, P, P, P, P, I, P, P, P, P, P],
     "picha_tiff_transform": [P, I, I, I, L, I, I, I, I, I, I, I, P, P, P],
     "picha_vit_layernorm": [P, P, P, L, I, P, P],
-    "picha_vit_attention": [P, I, I, I, I, F, P, P],
-    "picha_vit_attention_info": [I, I, P],
-    "picha_moe_route_dispatch": [P, P, L, I, I, I, P, P, P, P, P, P],
+    "picha_vit_attention": [P, I, I, I, I, F, I, P, P],
+    "picha_vit_attention_info": [I, I, I, P],
+    "picha_moe_route_dispatch": [P, P, L, I, I, I, P, P, P, P, P, P, P],
     "picha_moe_combine": [P, P, P, P, L, I, I, I, P, P],
-    "picha_vit_layernorm_bwd": [P, P, P, L, I, P, P, P, P],
-    "picha_vit_attention_bwd": [P, P, I, I, I, I, F, P, P],
-    "picha_vit_attention_bwd_info": [I, I, P],
+    "picha_vit_layernorm_bwd": [P, P, P, L, I, P, P, P, P, P],
+    "picha_vit_attention_bwd": [P, P, I, I, I, I, F, I, P, P, P],
+    "picha_vit_attention_bwd_info": [I, I, I, P],
     "picha_moe_dispatch_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
     "picha_moe_combine_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
     "picha_resnet_norm": [P, P, I, L, I, P, P, P, P],
     "picha_resnet_norm_bwd": [P, P, P, P, P, P, I, L, I, P, P, P, P, P],
+    "picha_coef_densify": [P, P, L, L, L, P, P],
+    "picha_coef_int8_restore": [P, L, P, P, L, P, P],
+    "picha_coef_gap8_restore": [P, P, L, L, L, P, P, L, P, P],
+    "picha_coef_gap4_restore": [P, P, P, L, L, L, L, P, P, L, P, P],
+    "picha_host_entropy_segments": [P, P, I, L, L, L, I, *[P] * 11, I, I, P],
+    "picha_host_gap8_pack": [P, Z, P, P, P, P, P, P],
+    "picha_host_gap4_batch_begin": [P, I, Z, P, P, P, P],
+    "picha_host_gap4_batch_finish": [P, P, Z, P, P, Z, P, P, Z],
 }
 
 _lock = threading.Lock()
@@ -262,6 +272,22 @@ KERNELS = {
                "picha_tpu_torch/csrc/resnet_norm_bwd.cu",
                "picha_tpu/models/resnet.py:100-106 (the VJP of _norm and "
                "the relu after it in jax.value_and_grad(loss_fn), :161)"),
+        Kernel("coef_densify", "picha_coef_densify",
+               "picha_tpu_torch/csrc/coef_restore.cu",
+               "picha_tpu/pipeline/jpeg_batch.py:244 (_jit_batch_graph."
+               "densify, upload='sparse')"),
+        Kernel("coef_int8_restore", "picha_coef_int8_restore",
+               "picha_tpu_torch/csrc/coef_restore.cu",
+               "picha_tpu/pipeline/jpeg_batch.py:274 (_jit_batch_graph."
+               "int8_restore, upload='int8')"),
+        Kernel("coef_gap8_restore", "picha_coef_gap8_restore",
+               "picha_tpu_torch/csrc/coef_restore.cu",
+               "picha_tpu/pipeline/jpeg_batch.py:258 (_jit_batch_graph."
+               "gap8_restore, upload='gap8')"),
+        Kernel("coef_gap4_restore", "picha_coef_gap4_restore",
+               "picha_tpu_torch/csrc/coef_restore.cu",
+               "picha_tpu/pipeline/jpeg_batch.py:119 (gap4_restore_flat, "
+               "via unpack_gap4_wire :145, upload='gap4')"),
     )
 }
 

@@ -21,6 +21,12 @@ f32 and rounded to bf16 once. The scores are recomputed from qkv: no
                (`csrc/vit_attention.cu`) and K22 backward
                (`csrc/vit_attention_bwd.cu`) for CUDA tensors, the plain
                versions for CPU tensors
+
+Each kernel has a tuned build (K18: up to 256 tokens, head width 32, 64
+or 128; K22: up to 256 tokens, head width 32 or 64) and a tiled one for
+every other head width up to 128 and any token count
+(`csrc/vit_attention_tiled.cu`, `csrc/vit_attention_bwd_tiled.cu`),
+chosen by shape in the C entry point. Past head width 128 both raise.
 """
 from __future__ import annotations
 
@@ -29,9 +35,16 @@ import torch
 from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 from .jpeg import full_fp32
 
-MAX_SEQ = 256                    # K18 / K22: a head's rows in one block
-HEAD_DIMS = (32, 64, 128)        # K18's instantiations
-BWD_HEAD_DIMS = (32, 64)         # K22's: q, k, v, do of a head in shared memory
+MAX_SEQ = 256                    # the tuned K18 / K22: a head's rows in one block
+HEAD_DIMS = (32, 64, 128)        # the tuned K18's instantiations
+BWD_HEAD_DIMS = (32, 64)         # the tuned K22's: q, k, v, do of a head in
+                                 # shared memory
+MAX_HEAD = 128                   # the tiled builds' widest head
+
+
+def tiled(s: int, d: int, backward: bool = False) -> bool:
+    """Whether (s tokens, head width d) takes K18's (K22's) tiled build."""
+    return s > MAX_SEQ or d not in (BWD_HEAD_DIMS if backward else HEAD_DIMS)
 
 
 def attention_plain(qkv, scale: float):
@@ -68,36 +81,38 @@ def attention_backward_plain(qkv, do, scale: float):
     return torch.stack([dq, dk, dv], 2).to(torch.bfloat16)
 
 
-def _check(qkv, kernel, dims):
+def _check(qkv, kernel):
     require_cuda(qkv, kernel)
     if qkv.dtype != torch.bfloat16 or qkv.dim() != 5 or qkv.shape[2] != 3:
         raise TypeError(f"{kernel} takes (N, S, 3, H, D) bfloat16, got "
                         f"{tuple(qkv.shape)} {qkv.dtype}")
     _n, s, _, _h, d = qkv.shape
-    if d not in dims or not 1 <= s <= MAX_SEQ:
-        raise ValueError(f"{kernel} takes head widths {dims} and 1-{MAX_SEQ} "
-                         f"tokens, got {d} and {s}")
+    if not 1 <= d <= MAX_HEAD or s < 1:
+        raise ValueError(f"{kernel} takes head widths 1-{MAX_HEAD} and at "
+                         f"least one token, got {d} and {s}")
 
 
-def attention_k18(qkv, scale: float):
-    """K18: qkv (N, S, 3, H, D) bf16 -> o (N, S, H * D) bf16 on the card."""
-    _check(qkv, "K18", HEAD_DIMS)
+def attention_k18(qkv, scale: float, force_tiled: bool = False):
+    """K18: qkv (N, S, 3, H, D) bf16 -> o (N, S, H * D) bf16 on the card
+    (the tiled build past the tuned one's shapes, or with
+    `force_tiled`)."""
+    _check(qkv, "K18")
     n, s, _, h, d = qkv.shape
     qkv = aligned(qkv)
     out = torch.empty((n, s, h * d), dtype=torch.bfloat16, device=qkv.device)
-    KERNELS["vit_attention"](ptr(qkv), n, s, h, d, float(scale), ptr(out),
-                             stream_of(qkv))
+    KERNELS["vit_attention"](ptr(qkv), n, s, h, d, float(scale),
+                             int(force_tiled), ptr(out), stream_of(qkv))
     return out
 
 
-def attention_backward(qkv, do, scale: float):
-    """`attention_backward_plain`'s result: K22 for CUDA tensors, the
+def attention_backward(qkv, do, scale: float, force_tiled: bool = False):
+    """`attention_backward_plain`'s result: K22 for CUDA tensors (the
+    tiled build past the tuned one's shapes, or with `force_tiled`), the
     plain version only for CPU tensors. K22 sums dk and dv over the query
-    rows in order inside one block per (image, head), so two runs give
-    the same bits."""
+    rows in order inside one warp, so two runs give the same bits."""
     if qkv.device.type == "cpu":
         return attention_backward_plain(qkv, do, scale)
-    _check(qkv, "K22", BWD_HEAD_DIMS)
+    _check(qkv, "K22")
     n, s, _, h, d = qkv.shape
     if do.dtype != torch.bfloat16 or do.device != qkv.device or \
             do.numel() != n * s * h * d:
@@ -105,16 +120,24 @@ def attention_backward(qkv, do, scale: float):
                         f"{(n, s, h * d)}")
     qkv, do = aligned(qkv), aligned(do)
     dqkv = torch.empty_like(qkv)
+    # the tiled build keeps each query row's max, l, 1 / l and c
+    stats = (torch.empty((max(n, 1), h, s, 4), dtype=torch.float32,
+                         device=qkv.device)
+             if force_tiled or tiled(s, d, backward=True) else None)
     KERNELS["vit_attention_bwd"](ptr(qkv), ptr(do), n, s, h, d, float(scale),
-                                 ptr(dqkv), stream_of(qkv))
+                                 int(force_tiled), ptr(dqkv),
+                                 None if stats is None else ptr(stats),
+                                 stream_of(qkv))
     return dqkv
 
 
-def kernel_info(s: int, d: int, backward: bool = False) -> dict:
-    """K18's (K22's) build at `s` tokens of head width `d`, as the card
-    reports it: registers and local (spill) bytes a thread, dynamic
-    shared bytes, threads and resident blocks a multiprocessor. Launches
-    nothing and counts no launch."""
+def kernel_info(s: int, d: int, backward: bool = False,
+                force_tiled: bool = False) -> dict:
+    """K18's (K22's) build at `s` tokens of head width `d` (the tiled one
+    past the tuned one's shapes, or with `force_tiled`; K22's query-side
+    kernel), as the card reports it: registers and local (spill) bytes a
+    thread, dynamic shared bytes, threads and resident blocks a
+    multiprocessor. Launches nothing and counts no launch."""
     import ctypes
 
     from ..kernels._build import library
@@ -122,7 +145,7 @@ def kernel_info(s: int, d: int, backward: bool = False) -> dict:
     vals = (ctypes.c_int * 5)()
     fn = "picha_vit_attention_bwd_info" if backward else \
         "picha_vit_attention_info"
-    rc = getattr(library(), fn)(s, d, vals)
+    rc = getattr(library(), fn)(s, d, int(force_tiled), vals)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
     return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",

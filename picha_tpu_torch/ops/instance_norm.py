@@ -93,8 +93,8 @@ def _check(x, scale, kernel):
         raise TypeError(f"{kernel} takes (N, H, W, C) bfloat16, got "
                         f"{tuple(x.shape)} {x.dtype}")
     c = x.shape[3]
-    if c % 2:
-        raise ValueError(f"{kernel} takes an even channel count, got {c}")
+    if c < 1:
+        raise ValueError(f"{kernel} takes at least one channel, got {c}")
     if scale.dtype != torch.float32 or scale.device != x.device or \
             tuple(scale.shape) != (c,):
         raise TypeError(f"{kernel}'s scale is ({c},) float32 on {x.device}")

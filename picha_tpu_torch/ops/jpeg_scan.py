@@ -2,8 +2,10 @@
 
 The port's copy of the parts of `picha_tpu/ops/jpeg_scan.py` that the
 device decode path calls (`ZIGZAG`, `ScanInfo`, `parse_baseline`,
-`derive_tables`, `mcu_slot_tables`, `scatter_layout`), with the same
-semantics; `tests/test_torch_host_copies.py` pins each to its original.
+`derive_tables`, `mcu_slot_tables`, `scatter_layout`), and of its numpy
+entropy decoder `decode_reference`, the plain version of the port's host
+C++ decoder (`csrc/jpeg_entropy_host.cu`), with the same semantics;
+`tests/test_torch_host_copies.py` pins each to its original.
 `parse_baseline` returns None for anything the device decoder does not
 take (progressive, arithmetic, 12-bit, multi-scan, CMYK, malformed
 tables): the caller decodes such files on the host.
@@ -308,3 +310,99 @@ def scatter_layout(comp_sig):
                             idx.append(bases[ci] + row * bw + col)
                         comp_of.append(ci)
     return (np.array(idx, np.int32), np.array(comp_of, np.int32), total)
+
+
+# -- the numpy entropy decoder ------------------------------------------------
+
+class _BitReader:
+    def __init__(self, data: bytes):
+        self.bits = np.unpackbits(np.frombuffer(data, np.uint8))
+        self.pos = 0
+
+    def read(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            b = self.bits[self.pos] if self.pos < self.bits.size else 1
+            v = (v << 1) | int(b)
+            self.pos += 1
+        return v
+
+    def peek16(self) -> int:
+        v = 0
+        for k in range(16):
+            p = self.pos + k
+            b = self.bits[p] if p < self.bits.size else 1
+            v = (v << 1) | int(b)
+        return v
+
+
+def _extend(v: int, size: int) -> int:
+    if size == 0:
+        return 0
+    return v if v >= (1 << (size - 1)) else v - (1 << size) + 1
+
+
+def decode_reference(info: ScanInfo):
+    """Sequential numpy decoder: segments -> per-component (bh, bw, 64)
+    int16 natural-order coefficient planes (absolute DC). Reads past a
+    segment's end give 1-bits; restart segments reset the DC
+    predictors."""
+    sig = info.comp_sig
+    tabs = {k: derive_tables(*v) for k, v in info.huffman.items()}
+    comp_of = mcu_slot_tables(sig)
+    B = comp_of.size
+    out_idx, _, total = scatter_layout(sig)
+    coefs = np.zeros((out_idx.size, 64), np.int16)  # scan order, zigzag
+    mcus = info.mcus
+    ri = info.restart_interval or mcus
+    blk = 0
+    for si, seg in enumerate(info.segments):
+        rd = _BitReader(seg)
+        pred = [0] * info.ncomp
+        n_mcu = min(ri, mcus - si * ri)
+        for _ in range(n_mcu):
+            for slot in range(B):
+                ci = int(comp_of[slot])
+                dc_t, ac_t = info.scan_tables[ci]
+                limit, mincode, valptr, hv = tabs[(0, dc_t)]
+                # DC
+                P = rd.peek16()
+                clen = 1 + int(np.sum(P >= limit[1:17]))
+                idx = (P >> (16 - clen)) - int(mincode[clen]) \
+                    + int(valptr[clen])
+                rd.pos += clen
+                size = int(hv[idx])
+                diff = _extend(rd.read(size), size)
+                pred[ci] += diff
+                coefs[blk, 0] = pred[ci]
+                # AC
+                limit, mincode, valptr, hv = tabs[(1, ac_t)]
+                z = 1
+                while z < 64:
+                    P = rd.peek16()
+                    clen = 1 + int(np.sum(P >= limit[1:17]))
+                    idx = (P >> (16 - clen)) - int(mincode[clen]) \
+                        + int(valptr[clen])
+                    rd.pos += clen
+                    sym = int(hv[idx])
+                    run, size = sym >> 4, sym & 15
+                    if size == 0:
+                        if run == 15:
+                            z += 16
+                            continue
+                        break  # EOB
+                    z += run
+                    v = _extend(rd.read(size), size)
+                    if z < 64:
+                        coefs[blk, z] = v
+                    z += 1
+                blk += 1
+    # zigzag -> natural, then scatter scan-order blocks into the
+    # per-component grids (dummies land in the trash slot)
+    nat = np.zeros_like(coefs)
+    nat[:, ZIGZAG] = coefs
+    flat = np.zeros((total + 1, 64), np.int16)
+    flat[out_idx[:blk]] = nat[:blk]
+    bases = np.cumsum([0] + [c[0] * c[1] for c in sig])[:-1]
+    return [flat[bases[ci] : bases[ci] + bh * bw].reshape(bh, bw, 64)
+            for ci, (bh, bw, _, _) in enumerate(sig)]

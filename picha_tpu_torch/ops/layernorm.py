@@ -21,8 +21,16 @@ import torch
 from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 
 EPS = 1e-6
-MAX_DIM = 1024        # K17 / K21 keep a row in registers: 16 bf16 pairs a lane
+MAX_DIM = 1024        # K17 / K21's tuned kernels keep a row in registers
+                      # (16 bf16 pairs a lane, even widths); any other
+                      # width takes their block-a-row kernels
 BWD_ROWS = 256        # K21's rows per block (its dscale / dbias partials)
+
+
+def tuned(d: int) -> bool:
+    """Whether width d takes K17's / K21's tuned warp-a-row kernels (an
+    even width up to MAX_DIM); the others take the block-a-row ones."""
+    return d % 2 == 0 and d <= MAX_DIM
 
 
 def true_div(a, n):
@@ -72,9 +80,8 @@ def _check(x, scale, kernel):
     d = x.shape[-1]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{kernel} takes bfloat16 rows, got {x.dtype}")
-    if d % 2 or d > MAX_DIM:
-        raise ValueError(f"{kernel} takes an even width up to {MAX_DIM}, "
-                         f"got {d}")
+    if d < 1:
+        raise ValueError(f"{kernel} takes a width of at least 1, got {d}")
     if scale.dtype != torch.float32 or scale.device != x.device or \
             tuple(scale.shape) != (d,):
         raise TypeError(f"{kernel}'s scale and bias are ({d},) float32 on "
@@ -86,7 +93,7 @@ def layer_norm_k17(x, scale, bias):
     _check(x, scale, "K17")
     _check(x, bias, "K17")
     d = x.shape[-1]
-    x = aligned(x, 4)
+    x = aligned(x, 4) if tuned(d) else x.contiguous()
     scale, bias = scale.contiguous(), bias.contiguous()
     out = torch.empty_like(x)
     rows = x.numel() // d if d else 0
@@ -114,8 +121,13 @@ def layer_norm_backward(x, scale, dy):
     nblk = max(1, -(-rows // BWD_ROWS))
     partial = torch.empty((nblk, 2, d), dtype=torch.float32, device=x.device)
     dsb = torch.empty((2, d), dtype=torch.float32, device=x.device)
+    # the block-a-row path keeps each row's (mu, r) for its column sums
+    stats = None if tuned(d) else torch.empty((max(rows, 1), 2),
+                                              dtype=torch.float32,
+                                              device=x.device)
     KERNELS["vit_layernorm_bwd"](ptr(x), ptr(scale), ptr(dy), rows, d,
                                  ptr(dx), ptr(partial), ptr(dsb),
+                                 None if stats is None else ptr(stats),
                                  stream_of(x))
     return dx, dsb[0], dsb[1]
 

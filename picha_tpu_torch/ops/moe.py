@@ -45,8 +45,15 @@ import torch
 
 from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 
-MAX_EXPERTS = 64
+MAX_EXPERTS = 64                 # the tuned K19's count table in shared memory
 TOKENS_PER_BLOCK = 256           # K19's block of tokens (its count table)
+
+
+def tuned(experts: int, d: int) -> bool:
+    """Whether K19-K24 take their tuned kernels (at most MAX_EXPERTS
+    experts, 16-byte rows); any other shape takes the kernels past that
+    envelope, chosen by the C entry points alone."""
+    return experts <= MAX_EXPERTS and d % 8 == 0
 
 
 def capacity(t: int, experts: int, capacity_factor: float) -> int:
@@ -122,12 +129,13 @@ def dispatch_backward_plain(dxe, eidx, sidx, logits, dgk):
 
 
 def warp_order_sum(prod):
-    """(t, d) f32, d a multiple of 8 -> (t,) f32: each row summed in K24's
-    order. Lane j of a warp adds the 8 values of the 16-byte chunks j,
-    j + 32, ... in turn; then the 32 lane sums meet in a butterfly (xor
-    16, 8, 4, 2, 1)."""
+    """(t, d) f32 -> (t,) f32: each row summed in K24's order. Lane j of a
+    warp adds the 8 values of the chunks j, j + 32, ... in turn (the last
+    chunk cut short where d is not a multiple of 8); then the 32 lane
+    sums meet in a butterfly (xor 16, 8, 4, 2, 1). The zeros this pads
+    with change no sum: an f32 sum that starts at +0 never reaches -0."""
     t, d = prod.shape
-    chunks = d // 8
+    chunks = -(-d // 8)
     k = -(-chunks // 32)
     v = torch.zeros((t, k * 32 * 8), dtype=torch.float32, device=prod.device)
     v[:, :d] = prod
@@ -164,10 +172,9 @@ def _check_route(logits, y, cap, kernel):
         raise TypeError(f"{kernel} takes (t, E) float32 logits and (t, d) "
                         f"bfloat16 rows on one device")
     experts, d = logits.shape[1], y.shape[1]
-    if not 1 <= experts <= MAX_EXPERTS or d % 8 or cap < 1:
-        raise ValueError(f"{kernel} takes 1-{MAX_EXPERTS} experts, a width "
-                         f"that is a multiple of 8 and cap >= 1; got "
-                         f"{experts}, {d}, {cap}")
+    if experts < 1 or d < 1 or cap < 1:
+        raise ValueError(f"{kernel} takes at least one expert, a width of at "
+                         f"least 1 and cap >= 1; got {experts}, {d}, {cap}")
 
 
 def route_dispatch_k19(logits, y, cap: int):
@@ -178,14 +185,19 @@ def route_dispatch_k19(logits, y, cap: int):
     logits, y = logits.contiguous(), aligned(y)
     dev = y.device
     nblk = -(-t // TOKENS_PER_BLOCK)
-    counts = torch.empty((nblk, experts), dtype=torch.int32, device=dev)
+    counts = torch.empty((nblk + 1, experts), dtype=torch.int32, device=dev)
+    # the kernels past the tuned envelope keep each token's rank in its block
+    rank = None if tuned(experts, d) else torch.empty(
+        max(t, 1), dtype=torch.int32, device=dev)
     eidx = torch.empty(t, dtype=torch.int32, device=dev)
     sidx = torch.empty(t, dtype=torch.int32, device=dev)
     gk = torch.empty(t, dtype=torch.float32, device=dev)
     xe = torch.empty((experts, cap, d), dtype=torch.bfloat16, device=dev)
     KERNELS["moe_route_dispatch"](ptr(logits), ptr(y), t, experts, d, cap,
-                                  ptr(counts), ptr(eidx), ptr(sidx), ptr(gk),
-                                  ptr(xe), stream_of(y))
+                                  ptr(counts),
+                                  None if rank is None else ptr(rank),
+                                  ptr(eidx), ptr(sidx), ptr(gk), ptr(xe),
+                                  stream_of(y))
     return xe, eidx, sidx, gk
 
 
@@ -197,9 +209,9 @@ def _check_slots(ye, eidx, sidx, gk, kernel):
         raise TypeError(f"{kernel} takes (E, cap, d) bfloat16 rows, int32 "
                         f"eidx / sidx and float32 gk on one device")
     t = eidx.shape[0]
-    if ye.shape[2] % 8 or sidx.shape != (t,) or gk.shape != (t,):
-        raise ValueError(f"{kernel} takes a width that is a multiple of 8 "
-                         f"and (t,) indices; got {ye.shape[2]}, "
+    if ye.shape[2] < 1 or sidx.shape != (t,) or gk.shape != (t,):
+        raise ValueError(f"{kernel} takes a width of at least 1 and (t,) "
+                         f"indices; got {ye.shape[2]}, "
                          f"{tuple(sidx.shape)}, {tuple(gk.shape)}")
 
 
@@ -227,9 +239,8 @@ def dispatch_backward(dxe, eidx, sidx, logits, dgk):
     experts, cap, d = dxe.shape
     t = eidx.shape[0]
     if logits.dtype != torch.float32 or logits.device != dxe.device or \
-            tuple(logits.shape) != (t, experts) or experts > MAX_EXPERTS:
-        raise ValueError(f"K23 takes ({t}, {experts}) float32 logits and at "
-                         f"most {MAX_EXPERTS} experts")
+            tuple(logits.shape) != (t, experts):
+        raise ValueError(f"K23 takes ({t}, {experts}) float32 logits")
     dxe, logits = aligned(dxe), logits.contiguous()
     eidx, sidx, dgk = eidx.contiguous(), sidx.contiguous(), dgk.contiguous()
     dy = torch.empty((t, d), dtype=torch.bfloat16, device=dxe.device)

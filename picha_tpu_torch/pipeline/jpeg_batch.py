@@ -22,19 +22,34 @@ the separable resize (kernel K8, width pass then height pass). Host
 again: read back the byte counts and the used prefix of the scan buffer,
 prepend the header.
 
+The host-coefficient uploads (`upload="dense" | "sparse" | "int8" |
+"gap8" | "gap4"`, the reference's :457-476): the host decodes the scans
+to quantised coefficients (`ops/coef_host.py`: the host C++ decoder of
+`csrc/jpeg_entropy_host.cu` on a thread pool of `num_threads` for a CUDA
+device, the numpy `decode_reference` for the CPU), `stack_bucket` packs
+them as the reference's wire (dense int16 planes; (index, value) pairs;
+int8 bodies + corrections; the gap8 and gap4 wires, the latter two one
+coalesced buffer each), and the device restores them
+(`ops/coef_restore.py`: kernels K27-K30; the dense planes need none)
+ahead of the same pixel and encode stages. Their coefficients are K1's /
+K4 + K5's, so their outputs are `upload="scan"`'s byte for byte. The
+reference's default upload is "dense"; the port's stays "scan", which
+ships the least and keeps the host to a header parse.
+
 Ported options: `fused` False (the default, as the reference's) and
 True; `normalize` (float32 images on
 the 0-1 scale, as the reference's training output; with `encode_quality`
 set too, the normalized images are returned, as the reference's batch
-graph returns them before its encode); `upload="scan"`;
-`encode_backend` "device" (and "host", the overflow target);
-`encode_quality=None` (uint8 images out). Everything else raises
-NotImplementedError naming its ROADMAP.md item; `upload="dense"` among
-them, since the port has no host source of coefficients.
+graph returns them before its encode); `upload` "scan", "dense",
+"sparse", "int8", "gap8", "gap4"; `num_threads`; `encode_backend`
+"device" (and "host", the overflow target); `encode_quality=None` (uint8
+images out). Everything else raises NotImplementedError naming its
+ROADMAP.md item.
 
 The reference's content fallbacks stay, each counted on the instance.
-`scan_fallbacks` counts the batches the device decoder does not take:
-files `parse_baseline` refuses (progressive, CMYK, ...), batches past
+`scan_fallbacks` counts the batches the device decoder (or, for the
+host-coefficient uploads, the host decoder) does not take: files
+`parse_baseline` refuses (progressive, CMYK, ...), batches past
 `ScanBatch`'s capacity gates, and a decoder `ok` that is false (a
 chunked decode that did not converge, a lane that ran out of its symbol
 budget). Such a batch is decoded to pixels on the host
@@ -47,12 +62,14 @@ the host from the same device pixels (`jpeg_host.encode`).
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..codecs import jpeg_host
+from ..ops import coef_host, coef_restore
 from ..ops.jpeg import _idct_kron, build_decode_stage, encode_blocks, pack_u8
 from ..ops.jpeg import quality_tables
 from ..ops.jpeg_fused import IDENTITY, component_weights, fused_decode_resize
@@ -60,7 +77,7 @@ from ..ops.jpeg_huffman import (ScanLayout, _mcu_layout, assemble,
                                 code_table, jpeg_header, scan_encode)
 from ..ops.jpeg_huffman_decode import (decode_scan, scan_wire, split_planes,
                                        wire_unpack)
-from ..ops.jpeg_scan import mcu_slot_tables, parse_baseline
+from ..ops.jpeg_scan import ScanInfo, mcu_slot_tables, parse_baseline
 from ..ops.resize import INV255, resize_windowed, window_tensors
 from ..ops.resize_weights import parse_resize_options
 from ..ops.scan_batch import prep_tables, split_indices
@@ -89,7 +106,8 @@ def host_decode(bufs):
 
 def signature(co):
     """Shape signature (width, height, colour space, comp_sig) of a
-    parsed scan; (width, height, HOST, channels) of host pixels."""
+    parsed scan or a coefficient set; (width, height, HOST, channels) of
+    host pixels."""
     if isinstance(co, HostPixels):
         h, w, c = co.pixels.shape
         return (w, h, HOST, c)
@@ -270,6 +288,167 @@ def device_graph(sig, wire, consts: DeviceConstants, scan_ks,
     return output_stages(px, consts, encode, byte_cap, normalize), ok
 
 
+UPLOADS = ("scan", "dense", "sparse", "int8", "gap8", "gap4")
+
+
+def restore_planes(sig, args, sparse_ks=None, int8_ks=None, gap8_ks=None,
+                   gap4_ks=None):
+    """The uploaded arguments of one host-coefficient batch ->
+    (per-component (N, bh, bw, 64) coefficients, qtabs (N, 1, 1, 64)
+    int32): the reference's `_jit_batch_graph` branches before its pixel
+    stages. `args` as `stack_bucket` gives them, on the device (qtables
+    as int32), one wire tensor for gap8 / gap4."""
+    comp_sig = sig[3]
+    n = len(comp_sig)
+    if gap4_ks is not None:
+        return coef_restore.unpack_gap4_wire(args[0], gap4_ks, comp_sig)
+    if gap8_ks is not None:
+        parts, qtabs = coef_restore.unpack_gap8(args[0], gap8_ks, n)
+        return tuple(coef_restore.gap8_restore(*p, comp_sig[i][0],
+                                               comp_sig[i][1])
+                     for i, p in enumerate(parts)), qtabs
+    if sparse_ks is not None:
+        return tuple(coef_restore.densify(args[2 * i], args[2 * i + 1],
+                                          comp_sig[i][0], comp_sig[i][1])
+                     for i in range(n)), tuple(args[2 * n:3 * n])
+    if int8_ks is not None:
+        return tuple(coef_restore.int8_restore(*args[3 * i:3 * i + 3])
+                     for i in range(n)), tuple(args[3 * n:4 * n])
+    return tuple(args[:n]), tuple(args[n:2 * n])
+
+
+def coef_graph(sig, args, consts: DeviceConstants, encode: bool = True,
+               byte_cap: Optional[int] = None, fused: bool = False,
+               normalize: bool = False, **upload_ks):
+    """One host-coefficient batch through the device stages: the restore
+    (`restore_planes`), then the pixel and output stages of the scan
+    path."""
+    coefs, qtabs = restore_planes(sig, args, **upload_ks)
+    px = pixel_stages(sig, coefs, qtabs, consts, fused, normalize)
+    return output_stages(px, consts, encode, byte_cap, normalize)
+
+
+def upload_args(args, device):
+    """`stack_bucket`'s host arrays -> device tensors, each through pinned
+    memory; the uint16 qtables as int32 (the pixel stages' type)."""
+    return [upload(a.astype(np.int32) if a.dtype == np.uint16 else a, device)
+            for a in args]
+
+
+def stack_gap4_wire(cos, native: bool = False):
+    """Same-signature coefficient sets -> (sig, gap4_ks, wire uint8): the
+    reference's `stack_gap4_wire` (:183-215) at its defaults (no size
+    floor, no headroom)."""
+    sig = signature(cos[0])
+    n = len(cos[0].comps)
+    nb = len(cos)
+    ks, sections = [], []
+    for i in range(n):
+        k1, k2, kc, prim, sgaps, svals, ci, cv = coef_host.gap4_pack_batch(
+            [co.comps[i]["coefs"] for co in cos], native=native)
+        sections += [prim.reshape(-1), sgaps.reshape(-1),
+                     svals.view(np.uint8).reshape(-1),
+                     ci.view(np.uint8).reshape(-1),
+                     cv.view(np.uint8).reshape(-1)]
+        ks.append((k1, k2, kc))
+    for i in range(n):
+        q = np.stack([co.comps[i]["qtable"] for co in cos])
+        sections.append(np.ascontiguousarray(
+            q.astype(np.uint16)).view(np.uint8).reshape(-1))
+    return sig, (nb, tuple(ks)), np.concatenate(sections)
+
+
+def stack_coefficients(cos, upload: str, native: bool = False):
+    """The reference's `stack_bucket` (:600-714) for coefficient sets:
+    (sig, args) for "dense", (sig, ks, args) for the others, the arrays
+    the reference uploads, with its padding rules (sparse and int8 pad at
+    index m - 1 with 0; gap8 corrections at nb * m - 1; gap4 with the
+    no-op codes). `native`: the C++ packers in place of the numpy ones
+    (the same bytes)."""
+    sig = signature(cos[0])
+    n = len(cos[0].comps)
+    args = []
+
+    def qtabs():
+        return [np.stack([co.comps[i]["qtable"] for co in cos])[
+            :, None, None, :] for i in range(n)]
+
+    if upload == "sparse":
+        ks = []
+        for i in range(n):
+            flats = [co.comps[i]["coefs"].reshape(-1) for co in cos]
+            nzs = [np.flatnonzero(f) for f in flats]
+            k = max(1, max(nz.size for nz in nzs))
+            k = -(-k // 16384) * 16384
+            m = flats[0].size
+            idx = np.full((len(cos), k), m - 1, np.int32)
+            val = np.zeros((len(cos), k), np.int16)
+            for j, (f, nz) in enumerate(zip(flats, nzs)):
+                idx[j, : nz.size] = nz
+                val[j, : nz.size] = f[nz]
+            args += [idx, val]
+            ks.append(k)
+        return sig, tuple(ks), args + qtabs()
+    if upload == "gap4":
+        sig, ks, wire = stack_gap4_wire(cos, native=native)
+        return sig, ks, [wire]
+    if upload == "gap8":
+        nb = len(cos)
+        ks, sections = [], []
+        for i in range(n):
+            m = cos[0].comps[i]["coefs"].size
+            packed = [coef_host.gap8_pack(co.comps[i]["coefs"], native)
+                      for co in cos]
+            k = max(g.size for g, _, _, _ in packed)
+            k = -(-k // 8192) * 8192
+            gaps = np.zeros((nb, k), np.uint8)
+            vals = np.zeros((nb, k), np.int8)
+            ci_parts, cv_parts = [], []
+            for j, (g, v, ci, cv) in enumerate(packed):
+                gaps[j, : g.size] = g
+                vals[j, : v.size] = v
+                if ci.size:
+                    ci_parts.append(ci.astype(np.int64) + j * m)
+                    cv_parts.append(cv)
+            nc = sum(p.size for p in ci_parts)
+            kc = -(-max(1, nc) // 1024) * 1024
+            corr_idx = np.full((kc,), nb * m - 1, np.int32)
+            corr_val = np.zeros((kc,), np.int16)
+            if nc:
+                corr_idx[:nc] = np.concatenate(ci_parts)
+                corr_val[:nc] = np.concatenate(cv_parts)
+            sections += [gaps.reshape(-1), vals.view(np.uint8).reshape(-1),
+                         corr_idx.view(np.uint8).reshape(-1),
+                         corr_val.view(np.uint8).reshape(-1)]
+            ks.append((k, kc))
+        for i in range(n):
+            q = np.stack([co.comps[i]["qtable"] for co in cos])
+            sections.append(np.ascontiguousarray(
+                q.astype(np.uint16)).view(np.uint8).reshape(-1))
+        return sig, (nb, tuple(ks)), [np.concatenate(sections)]
+    if upload == "int8":
+        ks = []
+        for i in range(n):
+            c16 = np.stack([co.comps[i]["coefs"] for co in cos])
+            c8 = np.clip(c16, -128, 127).astype(np.int8)
+            resid = c16.astype(np.int32) - c8
+            flat_idx = np.flatnonzero(resid)
+            vals = resid.reshape(-1)[flat_idx].astype(np.int16)
+            k = max(1, flat_idx.size)
+            k = -(-k // 4096) * 4096
+            m = resid.size
+            idx = np.full((k,), m - 1, np.int32)
+            val = np.zeros((k,), np.int16)
+            idx[: flat_idx.size] = flat_idx
+            val[: flat_idx.size] = vals
+            args += [c8, idx, val]
+            ks.append(k)
+        return sig, tuple(ks), args + qtabs()
+    for i in range(n):
+        args.append(np.stack([co.comps[i]["coefs"] for co in cos]))
+    return sig, args + qtabs()
+
+
 def _unported(what: str, where: str):
     return NotImplementedError(
         f"{what} is not ported to picha_tpu_torch yet: ROADMAP.md {where}")
@@ -288,17 +467,18 @@ class JpegBatchPipeline:
                  encode_backend: str = "device",
                  upload: str = "scan",
                  fused: bool = False,
+                 num_threads: Optional[int] = None,
                  scan_byte_cap: Optional[int] = None,
                  device="cuda"):
         if encode_backend == "raw420":
             raise _unported("encode_backend='raw420'",
-                            "queue 1 item 1 (Slice A)")
+                            "queue 1 item 1 (row 8b)")
         if encode_backend not in ("device", "host"):
             raise _unported(f"encode_backend={encode_backend!r}",
                             "queue 1 item 5")
-        if upload != "scan":
-            raise _unported(f"upload={upload!r} (host coefficients)",
-                            "queue 1 item 5")
+        if upload not in UPLOADS:
+            raise ValueError(f"upload must be one of {UPLOADS}, got "
+                             f"{upload!r}")
         opts = {}
         if filter is not None:
             opts["filter"] = filter
@@ -308,6 +488,9 @@ class JpegBatchPipeline:
         self._width, self._height = width, height
         self._normalize = normalize
         self._fused = fused
+        self._upload = upload
+        self._num_threads = num_threads or 8
+        self._pool = None
         self._encode_quality = encode_quality
         self._encode_backend = encode_backend
         self._scan_byte_cap = scan_byte_cap
@@ -319,15 +502,37 @@ class JpegBatchPipeline:
         self.overflow_retries = 0
         self.overflow_fallbacks = 0
 
+    def close(self):
+        """Release the host decoder's thread pool (idempotent); the
+        pipeline stays usable and starts a new pool when it needs one."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
     # -- host stage ----------------------------------------------------------
 
+    def _native(self) -> bool:
+        """The host C++ decoder and packers serve a CUDA device; the CPU
+        takes their numpy plain versions."""
+        return self.device.type == "cuda"
+
     def entropy_decode(self, bufs):
-        """Parsed headers (the device decodes the scans), or, when a file
-        is one the device decoder does not take (progressive,
-        arithmetic, CMYK, too many table rows, oversized batch), the
-        whole batch decoded to pixels on the host (counted)."""
+        """upload="scan": parsed headers (the device decodes the scans);
+        the other uploads: coefficient sets decoded on the host (the C++
+        decoder on `num_threads` pool threads, or its numpy plain version
+        on the CPU). When a file is one the decoder does not take
+        (progressive, arithmetic, CMYK; for "scan" also too many table
+        rows or an oversized batch), the whole batch is decoded to pixels
+        on the host (counted)."""
         infos = [parse_baseline(bytes(b)) for b in bufs]
-        if all(i is not None for i in infos):
+        if self._upload != "scan" and all(i is not None for i in infos):
+            if self._native() and self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self._num_threads,
+                    thread_name_prefix="picha-entropy")
+            return coef_host.entropy_decode(infos, self._native(),
+                                            self._pool, self._num_threads)
+        if self._upload == "scan" and all(i is not None for i in infos):
             uniq = set()
             for i in infos:
                 limit, delta, hv = prep_tables(i)
@@ -358,14 +563,27 @@ class JpegBatchPipeline:
         return (self._encode_quality is not None and not self._normalize
                 and self._encode_backend == "device")
 
-    def run_bucket(self, sig, wire, scan_ks):
-        """The uploaded wire of one scan batch -> (device output, ok)
-        (see device_graph)."""
+    def stack_bucket(self, cos):
+        """Same-signature coefficient sets -> the upload's host arrays, as
+        the reference's `stack_bucket`: (sig, args) for "dense", (sig, ks,
+        args) for the other uploads (see `stack_coefficients`)."""
+        return stack_coefficients(cos, self._upload, self._native())
+
+    def run_bucket(self, sig, args, scan_ks=None, **upload_ks):
+        """One uploaded batch -> its device output: a scan batch's wire
+        (`scan_ks`) -> (output, ok) (see device_graph); a
+        host-coefficient batch's arguments (`sparse_ks`, `int8_ks`,
+        `gap8_ks` or `gap4_ks`, none for "dense") -> the output (see
+        coef_graph)."""
         encode = self._encodes()
         cap = self._scan_cap_for(sig) if encode else None
-        return device_graph(sig, wire, self.constants(sig), scan_ks,
-                            encode=encode, byte_cap=cap, fused=self._fused,
-                            normalize=self._normalize)
+        if scan_ks is not None:
+            return device_graph(sig, args, self.constants(sig), scan_ks,
+                                encode=encode, byte_cap=cap,
+                                fused=self._fused, normalize=self._normalize)
+        return coef_graph(sig, args, self.constants(sig), encode=encode,
+                          byte_cap=cap, fused=self._fused,
+                          normalize=self._normalize, **upload_ks)
 
     def run_pixels(self, sig, rgb):
         """Uploaded host-decoded uint8 images of one batch -> the device
@@ -421,7 +639,8 @@ class JpegBatchPipeline:
                 width=self._width, height=self._height, filter=self._filter,
                 filter_scale=self._fscale,
                 encode_quality=self._encode_quality, encode_backend="host",
-                fused=self._fused, device=self.device)
+                fused=self._fused, upload=self._upload,
+                num_threads=self._num_threads, device=self.device)
         clone = self._overflow_clone
         return clone._finish(*clone._process(cos))
 
@@ -431,6 +650,16 @@ class JpegBatchPipeline:
             sig = signature(cos[0])
             rgb = upload(np.stack([c.pixels for c in cos]), self.device)
             return sig, self.run_pixels(sig, rgb)
+        if not isinstance(cos[0], ScanInfo):
+            # host coefficients: the upload's wire, then its restore
+            packed = self.stack_bucket(cos)
+            if self._upload == "dense":
+                (sig, args), upload_ks = packed, {}
+            else:
+                sig, ks, args = packed
+                upload_ks = {self._upload + "_ks": ks}
+            return sig, self.run_bucket(sig, upload_args(args, self.device),
+                                        **upload_ks)
         srcs = [i.src for i in cos]
         try:
             ks, wire = scan_wire(cos)

@@ -15,8 +15,11 @@ kernels to on the card:
 - the backward: each value of dq, dk, dv within 1 ulp of itself plus 1
   ulp of the largest |value| of its row (D values).
 
-At ViT-S's head shape (S = 196, D = 64) and the card tests' odd shapes
-(S = 1, 17, 255, 256 at D = 32), on random heads and on three rows that
+At ViT-S's head shape (S = 196, D = 64), the card tests' odd shapes
+(S = 1, 17, 255, 256 at D = 32) and a shape of the tiled builds (S = 300,
+past one tile of 256 keys, at D = 40, zero-padded to the 16-deep step:
+the tiled kernels take the scores, e, l and p of all keys before any
+product with v, so their arithmetic is this same emulation), on random heads and on three rows that
 strain the arithmetic: a uniform row (all scores equal), a saturated row
 (one score far above the rest) and keys that differ little (dq = sum dS k
 cancels, since a softmax row's dS sums to 0).
@@ -45,7 +48,7 @@ from picha_tpu_torch.ops.attention import (attention_backward_plain,
                                            attention_plain)
 
 SHAPES = [(2, 196, 3, 64), (2, 1, 2, 32), (2, 17, 2, 32), (1, 255, 2, 32),
-          (1, 256, 2, 32)]
+          (1, 256, 2, 32), (1, 300, 2, 40)]
 KINDS = ["random", "uniform", "saturated", "near_keys"]
 
 

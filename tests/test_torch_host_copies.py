@@ -3,8 +3,12 @@ scan wire, decode tables, resize weights, fused folds, quantisation
 tables, scan layout, pixel formats, luma weights, the Image model, the
 TIFF orientation map, PNG chunks, the PNG decode's host stage and pixel
 rules, the TIFF IFD parse and host stage, the EXIF orientation, the
-parallel deflate) against their originals in picha_tpu on the same
-inputs, and the rule that the port imports nothing of picha_tpu or jax.
+parallel deflate, the numpy entropy decoder, the coefficient set and the
+geometric bucketing of the host-coefficient uploads) against their
+originals in picha_tpu on the same inputs, and the rule that the port
+imports nothing of picha_tpu or jax. The uploads' wire packers, whose
+originals are native code, are pinned through the reference's own JAX
+restores in tests/test_torch_uploads.py.
 Where an original calls picha_tpu/native (CRC-32, inflate, unfilter),
 the test hands it the standard library's zlib and the port's plain
 unfilter instead, so no test here builds the native library."""
@@ -103,6 +107,63 @@ def test_scan_batch_wire_matches(kind):
     assert gks == wks
     assert got.single_pass == (kind == "restart")
     np.testing.assert_array_equal(gwire, wwire)
+
+
+@pytest.mark.parametrize("kind", SAMPLING)
+def test_decode_reference_matches(kind):
+    """The numpy entropy decoder (the plain version of the port's host C++
+    decoder) against the reference's, bit for bit."""
+    buf = _stream(kind)
+    got = port_scan.decode_reference(port_scan.parse_baseline(buf))
+    want = ref_scan.decode_reference(ref_scan.parse_baseline(buf))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int16
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("kind", SAMPLING)
+def test_coefficient_set_matches(kind):
+    """The port's coefficient set of a decoded scan has the reference's
+    fields (`JpegCoefficients.from_parts`, as `jpeg_entropy_decode` forms
+    them), and both packages' signature and bucketing read it alike."""
+    from picha_tpu.native.lib import JpegCoefficients as RefCoefficients
+    from picha_tpu.pipeline import jpeg_batch as ref_jb
+    from picha_tpu_torch.ops import coef_host
+    from picha_tpu_torch.pipeline import jpeg_batch as port_jb
+
+    info = port_scan.parse_baseline(_stream(kind))
+    got = coef_host.decode_plain(info)
+    planes = [c["coefs"] for c in got.comps]
+    hmax = max(h for h, _, _ in info.comps)
+    vmax = max(v for _, v, _ in info.comps)
+    want = RefCoefficients.from_parts(info.width, info.height,
+                                      info.color_space, [{
+        "h_samp": h, "v_samp": v, "blocks_w": bw, "blocks_h": bh,
+        "width": -(-info.width * h // hmax),
+        "height": -(-info.height * v // vmax), "qtable": q,
+        "coefs": planes[ci]} for ci, ((bh, bw, _, _), (h, v, q)) in
+        enumerate(zip(info.comp_sig, info.comps))])
+    for attr in ("width", "height", "ncomp", "color_space"):
+        assert getattr(got, attr) == getattr(want, attr)
+    for g, w in zip(got.comps, want.comps):
+        assert g.keys() == w.keys()
+        assert all(np.array_equal(g[k], w[k]) for k in g)
+    assert port_jb.signature(got) == ref_jb.signature(want) == \
+        ref_jb.signature(got)
+    other = coef_host.decode_plain(port_scan.parse_baseline(_stream("grey")))
+    assert [(s, i) for s, i, _ in port_jb.bucket_by_signature(
+        [got, other, got])] == [(s, i) for s, i, _ in
+                                ref_jb.bucket_by_signature([want, other, want])]
+
+
+@pytest.mark.parametrize("granule", [1024, 4096, 8192])
+def test_bucket_geometric_matches(granule):
+    from picha_tpu.bucketing import bucket_geometric
+    from picha_tpu_torch.ops.coef_host import bucket_geometric as port_bucket
+
+    for k in (0, 1, 1000, 8191, 8192, 8193, 20000, 123457, 10**6):
+        assert port_bucket(k, granule) == bucket_geometric(k, granule)
 
 
 @pytest.mark.parametrize("kind", SAMPLING)
@@ -570,7 +631,9 @@ def test_port_imports_nothing_of_the_reference():
             "picha_tpu_torch.ops.moe", "picha_tpu_torch.models.checkpoint",
             "picha_tpu_torch.optim", "picha_tpu_torch.models.resnet",
             "picha_tpu_torch.models._tree",
-            "picha_tpu_torch.ops.instance_norm"} <= set(mods)
+            "picha_tpu_torch.ops.instance_norm",
+            "picha_tpu_torch.ops.coef_host",
+            "picha_tpu_torch.ops.coef_restore"} <= set(mods)
 
 
 _REF_IMPORT = re.compile(

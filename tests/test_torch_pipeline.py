@@ -227,14 +227,11 @@ def test_batching_helpers_match_reference():
 
 
 # each unported option -> the ROADMAP.md item that lists it
-_UNPORTED_WHERE = {"raw420": "queue 1 item 1 (Slice A)",
-                   "tpu": "queue 1 item 5",
-                   "upload": "queue 1 item 5"}
+_UNPORTED_WHERE = {"raw420": "queue 1 item 1 (row 8b)",
+                   "tpu": "queue 1 item 5"}
 
 
 @pytest.mark.parametrize("kw", [dict(encode_backend="raw420"),
-                                dict(upload="gap4"),
-                                dict(upload="dense"),
                                 dict(encode_backend="tpu")])
 def test_unported_options_raise(kw):
     (key, value), = kw.items()
@@ -242,6 +239,19 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError) as err:
         JpegBatchPipeline(device="cpu", **{**KW, **kw})
     assert str(err.value).endswith(f"ROADMAP.md {where}"), str(err.value)
+
+
+@pytest.mark.parametrize("upload", ["gap4", "dense"])
+def test_host_coefficient_uploads_run(upload):
+    """The uploads that once raised here now run (host decode, the wire,
+    its restore): the scan upload's bytes on the same files, no fallback
+    (tests/test_torch_uploads.py holds every upload to the reference)."""
+    bufs = _corpus(2)
+    want = JpegBatchPipeline(device="cpu", **KW)(bufs)
+    port = JpegBatchPipeline(device="cpu", **{**KW, "upload": upload})
+    got = port(bufs)
+    assert _counters(port) == (0, 0, 0)
+    assert [bytes(g) for g in got] == [bytes(w) for w in want]
 
 
 @pytest.mark.parametrize("restart", [2, 0])

@@ -442,3 +442,40 @@ def attention_backward_mma(qkv, do, scale, terms=2):
     dv = _tc([p.transpose(-1, -2)], g)
     return torch.stack([dq, dk, dv], 1).permute(0, 3, 1, 2, 4).to(
         torch.bfloat16)
+
+
+def repeated_index_wires(seed: int, n: int = 3, bh: int = 2, bw: int = 3):
+    """Hand-made upload wires whose entries repeat indices (runs of zero
+    gaps, the index-0 clamp, duplicate sorted indices), each upload's
+    arguments as `_jit_batch_graph` takes them for one component of (n,
+    bh, bw, 64): {"sparse": (idx, val), "int8": (c8, idx, val), "gap8":
+    (g, v, ci, cv), "gap4": (prim, sg, sv, ci, cv)} as numpy arrays. A
+    packer writes no such wire; a restore must still add every entry, as
+    the reference's scatter-adds do."""
+    rng = np.random.default_rng(seed)
+    m = bh * bw * 64
+
+    def gaps(k):
+        """Gaps of 0-2 (0 first in some rows: the clamp), zeroed where
+        the running sum would pass the plane."""
+        g = rng.integers(0, 3, (n, k))
+        g[:, 0] = rng.integers(0, 2, n)
+        return np.where(np.cumsum(g, 1) <= m, g, 0).astype(np.uint8)
+
+    def vals(shape, lo=-20, hi=21):
+        return rng.integers(lo, hi, shape)
+
+    k = 3 * m // 4
+    idx = np.sort(rng.integers(0, m, (n, k)), 1).astype(np.int32)
+    kc = 40
+    ci = np.sort(rng.integers(0, n * m, kc)).astype(np.int32)
+    ci[1] = ci[0]
+    cv = vals(kc, -900, 900).astype(np.int16)
+    prim = (gaps(k).astype(np.int32) << 4 | rng.integers(0, 16, (n, k)))
+    return {
+        "sparse": (idx, vals((n, k)).astype(np.int16)),
+        "int8": (vals((n, bh, bw, 64), -128, 128).astype(np.int8), ci, cv),
+        "gap8": (gaps(k), vals((n, k), -128, 128).astype(np.int8), ci, cv),
+        "gap4": (prim.astype(np.uint8), gaps(k // 4),
+                 vals((n, k // 4), -128, 128).astype(np.int8), ci, cv),
+    }
