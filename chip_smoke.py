@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of picha_tpu_torch, the PyTorch/CUDA port: drives the
 all-device JPEG transcode paths (fused and staged pixel stages, the scan
-upload and the five host-coefficient uploads), the training ingest, the pixel-array path (BASELINE config 4, the
+upload and the five host-coefficient uploads, the four encode backends:
+device, tpu, raw420, host), the training ingest, the pixel-array path (BASELINE config 4, the
 single-image resize and convert, the batched PNG encode), the batched
 PNG and TIFF decode, the ViT-S/16 forward and train step (dense and
 switch-MoE) and the ResNet forward and train step, both fed by the
@@ -11,8 +12,8 @@ CUDA card, and checks them.
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (each prints one line; any failure raises and exits non-zero):
-  1. the card (nvidia-smi name, power limit); build kernels K1-K30 (and
-     the host C++ decoder and packers) from
+  1. the card (nvidia-smi name, power limit); build kernels K1-K31 (and
+     the host C++ decoder, packers and JPEG writer) from
      picha_tpu_torch/csrc/ (one nvcc per source, in parallel) into the
      gitignored csrc/build/;
   2. each kernel against its plain torch version on the card, at the
@@ -209,7 +210,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      upload, restore on the card, end-to-end Mpix/s);
  22. F5: forward and one train step on the card (depth 2, 4 images) of
      ViTConfig(image_size=384) (576 tokens), image_size=272 (289),
-     dim=768 heads=6 (head 128), dim=1280 heads=16 patch=14 (head 80,
+     dim=768 heads=6 (head 128), dim=768 heads=3 (head 256), dim=384
+     heads=2 (head 192; both through the tiled builds' wide kernels),
+     dim=1280 heads=16 patch=14 (head 80,
      width 1280), dim=387 heads=9 (odd width, head 43), moe_experts=128
      moe_every=1, and ResNetConfig(stem_channels=33, stage_channels=(33,
      65), blocks_per_stage=1): logits within 0.03 + 1 bf16 ulp of the
@@ -217,7 +220,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
      gradient leaf within 2e-2 relative L2, the ResNet's by the float64
      criterion; each kernel timed at these shapes (its `buckets`);
  23. the tiled K18 and K22 at S = 576, D = 128 (N = 16, H = 6) within
-     their bounds of the plain versions, timed beside SDPA.
+     their bounds of the plain versions, timed beside SDPA;
+ 24. K31 (the raw420 encode's 4:2:0 pack) bit for bit its plain version
+     on the slice's 960x544 pixels, fused (float32) and staged, timed;
+ 25. the host C++ JPEG writer (csrc/jpeg_write_host.cu) byte for byte the
+     numpy writer on 2 of the slice's K31 buffers and K2 coefficient sets,
+     and libjpeg's bytes on the committed tests/fixtures/port/raw420_*
+     cases; its time per image on one thread and per batch on 8;
+ 26. JpegBatchPipeline(encode_backend="raw420" | "tpu", fused=True|False,
+     upload="scan") on the restart corpus: <= 1 LSB (mean) of the strict
+     host path, no fallback, K31 (raw420) or K2 (tpu) launched and K3
+     not; raw420 byte for byte the same pipeline with K31's plain version
+     patched in; "tpu" the "device" backend's scan bytes behind libjpeg's
+     header;
+ 27. a forced overflow (scan_byte_cap 16 KiB, encode_backend="device")
+     redone by the reference's fallback: a raw420 clone with upload gap4
+     (K30, K31), byte for byte phase 26's raw420 output;
+ 28. the four encode backends timed in turns on the fused restart slice:
+     bytes read back, device ms, readback + host encode ms, end to end.
 Every kernel also gets its bound (the larger of its bytes over 3.35 TB/s
 and its FP32 FLOPs over 67 TFLOP/s plus its bf16 product FLOPs over 989
 TFLOP/s, counted from this run's shapes) and, where one PyTorch call
@@ -317,10 +337,12 @@ def attention_sass(backward):
 def pinned_route_dispatch(routes):
     """K19's plain version with each call's (eidx, sidx) replaced by the
     kernel path's (`routes`, in call order): the buffer scattered and the
-    gate taken at those slots. A router near-tie that a one-ulp move of
-    K17 or K18 flips moves, past capacity, which tokens drop, and a
-    dropped token's output, and its share of a router gradient, is all or
-    nothing."""
+    gate taken at those slots, the gate the routed expert's probability.
+    A router near-tie that a one-ulp move of K17 or K18 flips moves the
+    token to another expert and, past capacity, which tokens drop, and a
+    token's output, and its share of a router gradient, is all or
+    nothing. A gradient comparison pins the backward too
+    (`pinned_dispatch_backward`)."""
     import torch
 
     from picha_tpu_torch.ops import moe as moe_mod
@@ -330,12 +352,39 @@ def pinned_route_dispatch(routes):
     def call(logits, y, cap):
         eidx, sidx = next(calls)
         experts = logits.shape[1]
-        _best, gate = moe_mod.route_plain(logits)
+        ex, s = moe_mod._softmax_parts(logits)
+        keep = eidx < experts
+        gate = (ex / s).gather(1, eidx.long().clamp(max=experts - 1)[:, None])
         xe = torch.zeros((experts + 1, cap, y.shape[1]), dtype=y.dtype,
                          device=y.device)
         xe.index_put_((eidx.long(), sidx.long()), y, accumulate=True)
-        return xe[:experts], eidx, sidx, gate * (eidx < experts)
+        return xe[:experts], eidx, sidx, gate[:, 0] * keep
     return call
+
+
+def pinned_dispatch_backward(dxe, eidx, sidx, logits, dgk):
+    """K23's plain version (`moe.dispatch_backward_plain`) on pinned routes:
+    the gate's gradient enters the softmax at the routed expert `eidx`, as
+    the kernel path's does at its own logits' maximum, where the plain
+    version takes the maximum of the plain path's logits, which a near-tie
+    may put on another expert (a token's whole router-gradient row)."""
+    import torch
+
+    from picha_tpu_torch.ops import moe as moe_mod
+
+    experts, cap, d = dxe.shape
+    dxp = torch.cat([dxe, dxe.new_zeros((1, cap, d))])
+    dy = dxp[eidx.long(), sidx.long()]
+    ex, l = moe_mod._softmax_parts(logits)
+    keep = (eidx < experts).to(torch.float32)
+    routed = torch.nn.functional.one_hot(
+        eidx.long().clamp(max=experts - 1), experts).to(torch.float32)
+    dg = (dgk * keep)[:, None] * routed
+    w = (dg * (l * l).reciprocal()) * ex
+    c = w[:, :1]
+    for i in range(1, experts):
+        c = c + w[:, i:i + 1]
+    return dy, ((dg / l) + -c) * ex
 
 
 def phase(name, **kv):
@@ -839,7 +888,8 @@ def main():
           fallbacks=fallbacks(pipe_s))
 
     # staged decode-only: full-size uint8 images against Pillow's decode
-    pipe_d = JpegBatchPipeline(encode_quality=None, fused=False, device=dev)
+    pipe_d = JpegBatchPipeline(encode_quality=None, fused=False,
+                               upload="scan", device=dev)
     reset_launch_counts()
     imgs = pipe_d(corpus)
     torch.cuda.synchronize()
@@ -1035,6 +1085,11 @@ def main():
     # 22-23. the model configurations past the tuned kernels' envelopes (F5)
     f5_phases(dev, card, results, phase, timed)
 
+    # 24-28. the raw420 and "tpu" encode backends (row 8b) on the slice
+    raw420_launches = raw420_phases(dev, card, results, phase, timed, wall,
+                                    corpus, strict, {True: jpegs,
+                                                     False: jpegs_s})
+
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "picha_tpu" or m.startswith("picha_tpu."))
     if bad:
@@ -1046,14 +1101,15 @@ def main():
     # PNG and TIFF decode calls; K17, K18: the dense ViT forward; K19,
     # K20: the MoE one; K21, K22: the dense train step; K23, K24: the MoE
     # one; K25, K26: the ResNet train step; K27-K30: the fused restart
-    # slice of their upload)
+    # slice of their upload; K31: the fused restart raw420 slice)
     path_launches = {**main_launches,
                      **{k: nr_launches[k] for k in chunked_path[:2]},
                      **{k: s_launches[k] for k in staged_path[:3]},
                      **{k: ingest_launches[k]
                         for k in ("crop_flip_resize_w", "augment")},
                      **pixel_launches, **decode_launches, **vit_launches,
-                     **train_launches, **resnet_launches, **upload_launches}
+                     **train_launches, **resnet_launches, **upload_launches,
+                     **raw420_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # "buckets": a kernel also timed on another bucket of its path
@@ -2660,6 +2716,8 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
                 stack.enter_context(mock.patch.object(
                     moe_mod, "route_dispatch_k19",
                     pinned_route_dispatch(k_routes)))
+                stack.enter_context(mock.patch.object(
+                    moe_mod, "dispatch_backward", pinned_dispatch_backward))
             loss_p, g_p = grads(params, cfg)
         torch.cuda.synchronize()
         only(launch_counts(), {}, f"{label} plain step")
@@ -3757,6 +3815,8 @@ F5_N = 4                   # images per configuration of phase 22
 F5_VIT = (("tokens_576", dict(image_size=384)),
           ("tokens_289", dict(image_size=272)),
           ("head_128", dict(dim=768, heads=6)),
+          ("head_256", dict(dim=768, heads=3)),
+          ("head_192", dict(dim=384, heads=2)),
           ("vit_h14_widths", dict(dim=1280, heads=16, patch=14)),
           ("odd_width_head_43", dict(dim=387, heads=9)),
           ("experts_128", dict(moe_experts=128, moe_every=1)))
@@ -3913,6 +3973,9 @@ def f5_phases(dev, card, results, phase, timed):
                 if pinned is not None:
                     stack.enter_context(mock.patch.object(
                         moe_mod, "route_dispatch_k19", pinned))
+                    stack.enter_context(mock.patch.object(
+                        moe_mod, "dispatch_backward",
+                        pinned_dispatch_backward))
                 loss = vit_mod.loss_fn(tree_unflatten(params, leaves),
                                        images, labels, cfg)
                 g = torch.autograd.grad(loss, leaves)
@@ -4123,6 +4186,266 @@ def f5_phases(dev, card, results, phase, timed):
           note="the tiled builds; K18 within 1 bf16 ulp + 1 ulp of the "
                "row's largest |o| of its plain version, K22 within 1 ulp "
                "+ 1 ulp of its head block's largest |value|")
+
+
+def raw420_phases(dev, card, results, phase, timed, wall, corpus, strict,
+                  device_jpegs):
+    """Phases 24-28: row 8b, encode_backend="raw420" (K31 + the host C++
+    writer) and "tpu" (K2 + the host C++ writer) on the slice's batch
+    (see the module doc). `device_jpegs`: {fused: encode_backend="device"
+    outputs of the restart corpus in this run}. Fills results for K31;
+    returns its launches in the fused restart raw420 slice."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.ops import jpeg_write as jw
+    from picha_tpu_torch.ops.jpeg import (quality_tables, yuv420_pack,
+                                          yuv420_pack_plain)
+    from picha_tpu_torch.ops.jpeg_huffman_decode import scan_wire
+    from picha_tpu_torch.pipeline import JpegBatchPipeline
+    from picha_tpu_torch.pipeline import jpeg_batch as jb
+
+    mpix = N_IMG * SRC_W * SRC_H / 1e6
+    kw = dict(width=OUT_W, height=OUT_H, encode_quality=QUALITY,
+              upload="scan", num_threads=8, device=dev)
+    ql, qc = quality_tables(QUALITY)
+    head = jw.libjpeg_header(OUT_W, OUT_H, jw.resized_comp_sig(OUT_H, OUT_W, 3),
+                             (ql, qc, qc))
+
+    def scan_of(b):
+        return bytes(b)[bytes(b).index(b"\xff\xda"):]
+
+    def recorded(fn, store):
+        def call(*a):
+            store.append(a[0].detach().clone())
+            return fn(*a)
+        return call
+
+    # 24. K31 against its plain version on the slice's pixels
+    k31 = {}
+    planes = {}
+    for fused in (True, False):
+        px = []
+        p = JpegBatchPipeline(fused=fused, encode_backend="raw420", **kw)
+        with mock.patch.object(jb, "yuv420_pack", recorded(yuv420_pack, px)):
+            p(corpus)
+        p.close()
+        x = px[0]
+        got = yuv420_pack(x)
+        want = yuv420_pack_plain(x)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K31 (fused={fused}) differs from its "
+                                 f"plain version")
+        planes[fused] = got.cpu().numpy()
+        k31[fused] = dict(
+            input=list(x.shape), dtype=str(x.dtype), out=list(got.shape),
+            max_abs_err=0.0, ms=timed(lambda: yuv420_pack(x), 20),
+            plain_ms=timed(lambda: yuv420_pack_plain(x), 3),
+            library_ms=None,
+            **bound(x.numel() * x.element_size() + got.numel()))
+        del px, x, got, want
+    results["yuv420_pack"] = dict(k31[True])
+    results["yuv420_pack"]["buckets"] = [dict(bucket="staged pixels",
+                                              **k31[False])]
+    phase("K31", card=card, equal=True, fused=k31[True], staged=k31[False],
+          library="none: no one PyTorch call computes the 4:2:0 pack")
+
+    # 25. the host C++ writer against the numpy writer and libjpeg's bytes
+    buf = planes[True]
+    p_tpu = JpegBatchPipeline(fused=True, encode_backend="tpu", **kw)
+    infos = p_tpu.entropy_decode(corpus)
+    sig = jb.signature(infos[0])
+    ks, wire = scan_wire(infos)
+    wire_dev = torch.from_numpy(wire).to(dev)
+    coefs, _ok = p_tpu.run_bucket(sig, wire_dev, ks)
+    coefs = [c.cpu().numpy() for c in coefs]
+    for i in range(2):
+        y, cb, cr = jw.split_yuv420(buf[i], OUT_W, OUT_H)
+        if jw.write_raw420(y, cb, cr, OUT_W, OUT_H, QUALITY, native=True) \
+                != jw.write_raw420(y, cb, cr, OUT_W, OUT_H, QUALITY):
+            raise AssertionError(f"C++ raw420 writer differs from numpy on "
+                                 f"image {i}")
+        cs = [c[i] for c in coefs]
+        if jw.write_coefficients(cs, OUT_W, OUT_H, QUALITY, native=True) \
+                != jw.write_coefficients(cs, OUT_W, OUT_H, QUALITY):
+            raise AssertionError(f"C++ coefficient writer differs from "
+                                 f"numpy on image {i}")
+    sys.path.insert(0, str(FIXTURES))
+    import make_fixtures as mf
+
+    with np.load(FIXTURES / "raw420_inputs.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    for name, (kind, (h, w), q) in mf.HOST_WRITER_CASES.items():
+        a = {k.split(".", 1)[1]: v for k, v in arrays.items()
+             if k.startswith(name + ".")}
+        got = (jw.write_raw420(a["y"], a["cb"], a["cr"], w, h, q, native=True)
+               if kind == "raw420" else jw.write_coefficients(
+                   [a[f"c{i}"] for i in range(len(a))], w, h, q,
+                   native=True))
+        if got != (FIXTURES / f"raw420_{name}.jpg").read_bytes():
+            raise AssertionError(f"C++ writer differs from libjpeg's bytes "
+                                 f"on {name}")
+    pool = ThreadPoolExecutor(max_workers=8)
+    split = [jw.split_yuv420(buf[i], OUT_W, OUT_H) for i in range(N_IMG)]
+    one = split[0]
+    t = time.perf_counter()
+    jw.write_raw420(*one, OUT_W, OUT_H, QUALITY)
+    plain_raw_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    jw.write_coefficients([c[0] for c in coefs], OUT_W, OUT_H, QUALITY)
+    plain_coef_ms = (time.perf_counter() - t) * 1e3
+    writer = dict(
+        raw420_one_image_one_thread_ms=wall(lambda: jw.write_raw420(
+            *one, OUT_W, OUT_H, QUALITY, native=True), 9),
+        raw420_batch_8_threads_ms=wall(lambda: list(pool.map(
+            lambda pl: jw.write_raw420(*pl, OUT_W, OUT_H, QUALITY,
+                                       native=True), split)), 5),
+        coefficients_one_image_one_thread_ms=wall(
+            lambda: jw.write_coefficients([c[0] for c in coefs], OUT_W,
+                                          OUT_H, QUALITY, native=True), 9),
+        coefficients_batch_8_threads_ms=wall(lambda: list(pool.map(
+            lambda i: jw.write_coefficients([c[i] for c in coefs], OUT_W,
+                                            OUT_H, QUALITY, native=True),
+            range(N_IMG))), 5),
+        raw420_plain_ms_per_image=plain_raw_ms,
+        coefficients_plain_ms_per_image=plain_coef_ms)
+    pool.shutdown()
+    phase("host_writer", card=card, equal_to_numpy_images=2,
+          equal_to_libjpeg_fixtures=sorted(mf.HOST_WRITER_CASES), **writer)
+
+    # 26. the full batch through both backends, fused and staged
+    out = {}
+    raw = {}
+    k31_launches = {}
+    for backend in ("raw420", "tpu"):
+        for fused in (True, False):
+            p = JpegBatchPipeline(fused=fused, encode_backend=backend, **kw)
+            reset_launch_counts()
+            jpegs = p(corpus)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            want_k = (("yuv420_pack",) if backend == "raw420"
+                      else ("jpeg_encode_front",)) + (
+                ("huffman_decode_restart",) if fused else
+                ("huffman_decode_restart", "idct_plane", "upsample_color",
+                 "resize_axis"))
+            gone = ("huffman_encode_scan",) + (
+                ("jpeg_encode_front",) if backend == "raw420"
+                else ("yuv420_pack",))
+            if any(k not in counts for k in want_k) or any(
+                    k in counts for k in gone):
+                raise AssertionError(f"{backend} fused={fused}: launches "
+                                     f"{counts}")
+            if p.scan_fallbacks or p.overflow_fallbacks:
+                raise AssertionError(f"{backend} fused={fused}: fallbacks")
+            lsb = mean_abs(jpegs, strict)
+            if max(lsb) > PARITY_LSB:
+                raise AssertionError(f"{backend} fused={fused}: {max(lsb)} "
+                                     f"LSB from strict")
+            row = dict(launches=counts, lsb_vs_strict_mean=sum(lsb) / N_IMG,
+                       lsb_vs_strict_max=max(lsb),
+                       bytes=[len(j) for j in jpegs])
+            if backend == "tpu":
+                # K2's coefficients coded by the host writer: the device
+                # encode's scan bytes behind libjpeg's header
+                same = sum(bytes(j).startswith(head)
+                           and scan_of(j) == scan_of(d)
+                           for j, d in zip(jpegs, device_jpegs[fused]))
+                if same != N_IMG:
+                    raise AssertionError(f"tpu fused={fused}: {N_IMG - same}"
+                                         f" scans differ from 'device''s")
+                row["scan_identical_to_device"] = same
+            else:
+                raw[fused] = jpegs
+                with mock.patch.object(jb, "yuv420_pack", yuv420_pack_plain):
+                    plain = p(corpus)
+                same = sum(bytes(a) == bytes(b)
+                           for a, b in zip(jpegs, plain))
+                if same != N_IMG:
+                    raise AssertionError(f"raw420 fused={fused}: "
+                                         f"{N_IMG - same} outputs differ "
+                                         f"from the plain K31 path's")
+                row["identical_to_plain_k31_path"] = same
+                if fused:
+                    k31_launches = {"yuv420_pack": counts["yuv420_pack"]}
+            out[f"{backend}_fused_{fused}"] = row
+            p.close()
+    phase("slice_raw420", card=card, images=N_IMG, limit_lsb=PARITY_LSB,
+          fused=out["raw420_fused_True"], staged=out["raw420_fused_False"])
+    phase("slice_tpu", card=card, images=N_IMG, limit_lsb=PARITY_LSB,
+          fused=out["tpu_fused_True"], staged=out["tpu_fused_False"],
+          note="the scan bytes of encode_backend='device'; the header is "
+               "libjpeg's (DHT order DC0 AC0 DC1 AC1), the reference's "
+               "'tpu' header, where 'device' writes DC0 DC1 AC0 AC1")
+
+    # 27. a forced overflow takes the reference's raw420 fallback
+    p = JpegBatchPipeline(fused=True, encode_backend="device",
+                          scan_byte_cap=16384, **kw)
+    reset_launch_counts()
+    jpegs = p(corpus)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    clone = p._overflow_clone
+    if (p.overflow_retries, p.overflow_fallbacks) != (0, 1) or clone is None \
+            or (clone._encode_backend, clone._upload) != ("raw420", "gap4") \
+            or not counts.get("coef_gap4_restore") \
+            or counts.get("yuv420_pack") != 1:
+        raise AssertionError(f"overflow: counters {p.overflow_retries}, "
+                             f"{p.overflow_fallbacks}, launches {counts}")
+    lsb = mean_abs(jpegs, strict)
+    same = sum(bytes(a) == bytes(b) for a, b in zip(jpegs, raw[True]))
+    if max(lsb) > PARITY_LSB or same != N_IMG:
+        raise AssertionError(f"overflow fallback: {max(lsb)} LSB, "
+                             f"{N_IMG - same} outputs differ from raw420's")
+    p.close()
+    phase("overflow_raw420", card=card, images=N_IMG, scan_byte_cap=16384,
+          overflow_fallbacks=1, clone_upload="gap4", launches=counts,
+          lsb_vs_strict_mean=sum(lsb) / N_IMG, lsb_vs_strict_max=max(lsb),
+          identical_to_raw420_slice=same)
+
+    # 28. the four encode backends, fused restart-8, timed in turns
+    pipes = {b: JpegBatchPipeline(fused=True, encode_backend=b, **kw)
+             for b in ("device", "tpu", "raw420", "host")}
+    e2e = {b: [] for b in pipes}
+    for r in range(5):
+        order = list(pipes) if r % 2 == 0 else list(reversed(pipes))
+        for b in order:
+            e2e[b].append(wall(lambda: pipes[b](corpus), 1))
+    rows = {}
+    for b, p in pipes.items():
+        sig_out = p._process(p.entropy_decode(corpus))
+        torch.cuda.synchronize()
+        res = sig_out[1][1][0]
+        if b == "device":
+            nb = res[1].cpu().numpy()
+            d2h = 4 * N_IMG + N_IMG * min(
+                res[0].shape[1], -(-int(nb.max()) // 65536) * 65536)
+        elif b == "tpu":
+            d2h = sum(c.numel() * c.element_size() for c in res)
+        else:
+            d2h = res.numel() * res.element_size()
+        device_ms = timed(lambda: p.run_bucket(sig, wire_dev, ks), 10)
+        finish_ms = wall(lambda: p._finish(*sig_out), 5)
+        e2e_ms = sorted(e2e[b])[len(e2e[b]) // 2]
+        rows[b] = dict(d2h_bytes=int(d2h), device_ms=device_ms,
+                       readback_and_host_encode_ms=finish_ms,
+                       e2e_ms=e2e_ms, e2e_mpix_s=mpix / e2e_ms * 1e3)
+        p.close()
+    rows["raw420"]["host_writer_batch_8_threads_ms"] = \
+        writer["raw420_batch_8_threads_ms"]
+    rows["tpu"]["host_writer_batch_8_threads_ms"] = \
+        writer["coefficients_batch_8_threads_ms"]
+    phase("timing_encode_backends", card=card, images=N_IMG,
+          mpix_per_batch=mpix, **rows,
+          note="fused restart-8 slice, upload='scan'; e2e medians of 5 "
+               "rounds taken in turns; device_ms: the uploaded wire "
+               "through the backend's device stages (CUDA events)")
+    return k31_launches
 
 
 def _leaf_names(tree, prefix=""):

@@ -11,11 +11,15 @@ and its host codecs go through Pillow (`codecs/`).
 Ported so far, with hand-written CUDA kernels (`csrc/`, built by nvcc at
 first use):
 - the JPEG transcode, `pipeline.JpegBatchPipeline` (fused or staged
-  pixel path, scan upload, device encode): Huffman decode of restart
-  segments (K1) and of scans without restart markers (K4, with its DC
-  scan K5), the encoder front (K2) and the Huffman scan encode (K3);
-  the staged decode's dequant + IDCT (K6), upsample + colour (K7) and
-  the resize, one axis per launch (K8);
+  pixel path; every upload and encode backend of the reference, with its
+  defaults): Huffman decode of restart segments (K1) and of scans
+  without restart markers (K4, with its DC scan K5), the encoder front
+  (K2) and the Huffman scan encode (K3); the staged decode's dequant +
+  IDCT (K6), upsample + colour (K7) and the resize, one axis per launch
+  (K8); the host-coefficient uploads' restores (K27-K30) behind a host
+  C++ entropy decoder and packers; the raw420 encode's 4:2:0 pack (K31)
+  and, for "raw420" and "tpu", a host C++ JPEG writer (libjpeg's islow
+  fDCT, quantisation and Huffman scan, no libjpeg);
 - the training ingest, `pipeline.TrainingInput`: crop + flip + width
   pass (K9), clip + augment (K10);
 - the pixel-array path: unpack, crop window, channel map and pack (K11)

@@ -251,7 +251,7 @@ static bool tuned_shape(int s, int d) {
 }
 
 // qkv: (n, s, 3, h, d) bf16, 16-byte aligned; out: (n, s, h * d) bf16;
-// 1 <= d <= 128, s >= 1. The tuned kernel takes d in {32, 64, 128} and s
+// d >= 1, s >= 1. The tuned kernel takes d in {32, 64, 128} and s
 // <= 256, the tiled one every other shape (and every shape when
 // `force_tiled` is 1). Returns cudaGetLastError() (cudaErrorInvalidValue for a shape
 // neither takes).
@@ -274,7 +274,7 @@ extern "C" int picha_vit_attention(const void* qkv, int n, int s, int h, int d, 
 // local (spill) bytes a thread, dynamic shared bytes, threads and resident
 // blocks a multiprocessor. Launches nothing.
 extern "C" int picha_vit_attention_info(int s, int d, int force_tiled, int* out) {
-  if (s < 1 || d < 1 || d > tiled::kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (s < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (force_tiled || !tuned_shape(s, d)) return attn_tiled_forward_info(d, out);
   switch (d) {
     case 32: return info<32>(s, out);

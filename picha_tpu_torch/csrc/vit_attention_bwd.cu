@@ -584,7 +584,7 @@ static bool tuned_shape(int s, int d) {
 }
 
 // qkv, dqkv: (n, s, 3, h, d) bf16; dout: (n, s, h * d) bf16; all 16-byte
-// aligned; 1 <= d <= 128, s >= 1. The tuned kernel takes d in {32, 64} and
+// aligned; d >= 1, s >= 1. The tuned kernel takes d in {32, 64} and
 // s <= 256, the tiled one every other shape (and every shape when
 // `force_tiled` is 1), with stats: (n, h, s) float4 scratch. Returns cudaGetLastError()
 // (cudaErrorInvalidValue for a shape neither takes).
@@ -607,7 +607,7 @@ extern "C" int picha_vit_attention_bwd(const void* qkv, const void* dout, int n,
 // kernel when `force_tiled` is 1 or the shape is past the tuned one): out[0..4]
 // as picha_vit_attention_info's. Launches nothing.
 extern "C" int picha_vit_attention_bwd_info(int s, int d, int force_tiled, int* out) {
-  if (s < 1 || d < 1 || d > tiled::kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (s < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (force_tiled || !tuned_shape(s, d)) return attn_tiled_backward_info(d, out);
   switch (d) {
     case 32: return info<32>(s, out);

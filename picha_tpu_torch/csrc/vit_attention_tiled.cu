@@ -3,8 +3,9 @@
 // width 32, 64 or 128). picha_vit_attention chooses it by shape.
 //
 // Replaces, like the tuned kernel: picha_tpu/models/vit.py::forward's
-// attention (:171-180) at any token count and any head width up to 128
-// (ViTConfig(image_size=384): 576 tokens; ViT-H/14's heads of 80).
+// attention (:171-180) at any token count and any head width
+// (ViTConfig(image_size=384): 576 tokens; ViT-H/14's heads of 80;
+// ViTConfig(dim=768, heads=3): heads of 256, in attn_fwd_wide below).
 //
 // What bounds it on an H100: the same bytes as the tuned kernel (qkv read
 // once, o written once) and the same tensor-core products; this simpler
@@ -144,6 +145,96 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
                    static_cast<int64_t>(H) * D, 16 * warp, qrows, D, lane);
 }
 
+// head widths past kMaxD: the three passes above with every fragment read
+// from global memory (vit_attention_tiled.cuh, namespace wide); a block
+// owns 128 query rows and one window of 128 output columns, and sums each
+// score over all of D in the 16-deep round-to-nearest steps
+__global__ void __launch_bounds__(kWarps * 32)
+    attn_fwd_wide(const __nv_bfloat16* __restrict__ qkv, int N, int S, int H, int D, float scale,
+                  __nv_bfloat16* __restrict__ out) {
+  const int blocks = (S + kRows - 1) / kRows, windows = (D + wide::kOut - 1) / wide::kOut;
+  int64_t n;
+  int h, qb, win;
+  wide::item_of(blockIdx.x, H, blocks, windows, n, h, qb, win);
+  const int64_t tok = static_cast<int64_t>(3) * H * D;
+  const __nv_bfloat16* base = qkv + n * S * tok + static_cast<int64_t>(h) * D;
+  const int q0 = qb * kRows, qrows = min(kRows, S - q0), c0 = win * wide::kOut;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, r0 = 16 * warp;
+  if (r0 >= qrows) return;
+  const wide::Mat q = wide::mat(base, tok, q0, qrows, 0, D);
+  const wide::Mat k = wide::mat(base + H * D, tok, 0, S, 0, D);
+  const wide::Mat v = wide::mat(base + 2 * H * D, tok, 0, S, c0, D);
+  const int nt = (S + 15) / 16;
+  auto scores = [&](int kt, float (&s)[2][4]) {
+    wide::dots(q, r0, k, kt, lane, s);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+  };
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int kt = 0; kt < nt; ++kt) {
+    float s[2][4];
+    scores(kt, s);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        m[e >> 1] = fmaxf(m[e >> 1], 16 * kt + col_of(lane, j, e) < S ? s[j][e] : -INFINITY);
+  }
+  m[0] = attn::quad_max(m[0]);
+  m[1] = attn::quad_max(m[1]);
+  float ls[2] = {0.0f, 0.0f};
+  for (int kt = 0; kt < nt; ++kt) {
+    float s[2][4];
+    scores(kt, s);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ev = expf(__fsub_rn(s[j][e], m[e >> 1]));
+        ls[e >> 1] = __fadd_rn(ls[e >> 1], 16 * kt + col_of(lane, j, e) < S ? ev : 0.0f);
+      }
+  }
+  const float l[2] = {attn::quad_sum(ls[0]), attn::quad_sum(ls[1])};
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+  float o[wide::kOut / 8][4];
+  wide::zero(o);
+  for (int kt = 0; kt < nt; ++kt) {
+    float s[2][4];
+    scores(kt, s);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ev = expf(__fsub_rn(s[j][e], m[e >> 1]));
+        s[j][e] = attn::div_rn(16 * kt + col_of(lane, j, e) < S ? ev : 0.0f, l[e >> 1],
+                               rl[e >> 1]);
+      }
+    uint32_t pa[4];
+    attn::as_a(s, pa);
+    wide::times(pa, v, 16 * kt, lane, o);
+  }
+  wide::store_rows(o, out + (n * S + q0) * H * D + static_cast<int64_t>(h) * D + c0,
+                   static_cast<int64_t>(H) * D, r0, qrows, min(wide::kOut, D - c0), lane);
+}
+
+int launch_wide(const void* qkv, int n, int s, int h, int d, float scale, void* out,
+                cudaStream_t st) {
+  const int64_t grid = static_cast<int64_t>(n) * h * ((s + kRows - 1) / kRows) *
+                       ((d + wide::kOut - 1) / wide::kOut);
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // no shared memory: the carveout goes to L1, which the fragment loads use
+  const int rc = static_cast<int>(cudaFuncSetAttribute(
+      attn_fwd_wide, cudaFuncAttributePreferredSharedMemoryCarveout,
+      static_cast<int>(cudaSharedmemCarveoutMaxL1)));
+  if (rc != 0) return rc;
+  attn_fwd_wide<<<static_cast<unsigned>(grid), kWarps * 32, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(qkv), n, s, h, d, scale,
+      static_cast<__nv_bfloat16*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DP>
 int launch(const void* qkv, int n, int s, int h, int d, float scale, void* out,
            cudaStream_t st) {
@@ -166,11 +257,12 @@ int info(int* out) {
 }  // namespace
 
 // qkv: (n, s, 3, h, d) bf16 (2-byte aligned); out: (n, s, h * d) bf16;
-// 1 <= d <= 128, s >= 1
+// d >= 1 (past kMaxD the wide kernel), s >= 1
 int attn_tiled_forward(const void* qkv, int n, int s, int h, int d, float scale, void* out,
                        cudaStream_t st) {
-  if (n < 0 || s < 1 || h < 1 || d < 1 || d > tiled::kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 0 || s < 1 || h < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (d > tiled::kMaxD) return launch_wide(qkv, n, s, h, d, scale, out, st);
   switch (tiled::pad16(d)) {
     case 16: return launch<16>(qkv, n, s, h, d, scale, out, st);
     case 32: return launch<32>(qkv, n, s, h, d, scale, out, st);
@@ -184,6 +276,7 @@ int attn_tiled_forward(const void* qkv, int n, int s, int h, int d, float scale,
 }
 
 int attn_tiled_forward_info(int d, int* out) {
+  if (d > tiled::kMaxD) return attn::info(attn_fwd_wide, kWarps * 32, 0, out);
   switch (tiled::pad16(d)) {
     case 16: return info<16>(out);
     case 32: return info<32>(out);

@@ -230,3 +230,201 @@ __device__ __forceinline__ void item_of(int64_t item, int H, int blocks, int64_t
 }
 
 }  // namespace tiled
+
+// The wide kernels (head widths past tiled::kMaxD): the tiled kernels'
+// passes and rounding points with every operand fragment loaded from
+// global memory. A block owns kRows rows of one (image, head) and one
+// window of kOut output columns; each block recomputes the scores (and
+// dP) over all D, so the work grows with the number of windows: a
+// correct, slow path for the rare configurations that need it.
+namespace wide {
+
+constexpr int kOut = 128;   // output columns a block owns
+
+// a bf16 matrix in global memory: row r < rows at p + r * stride, columns
+// below cols; zeros elsewhere (the mma's padding)
+struct Mat {
+  const uint16_t* p;
+  int64_t stride;
+  int rows, cols;
+};
+
+__device__ __forceinline__ uint32_t elem(const Mat& m, int r, int c) {
+  return r < m.rows && c < m.cols ? static_cast<uint32_t>(__ldg(m.p + r * m.stride + c)) : 0u;
+}
+
+// elements (r, c) and (r, c + 1), packed low / high as a fragment register
+__device__ __forceinline__ uint32_t pair_row(const Mat& m, int r, int c) {
+  return elem(m, r, c) | (elem(m, r, c + 1) << 16);
+}
+
+// elements (r, c) and (r + 1, c)
+__device__ __forceinline__ uint32_t pair_col(const Mat& m, int r, int c) {
+  return elem(m, r, c) | (elem(m, r + 1, c) << 16);
+}
+
+// the A tile of rows r0 .. r0+15, columns k0 .. k0+15 (ldmatrix's layout,
+// vit_attention_mma.cuh)
+__device__ __forceinline__ void load_a(const Mat& m, int r0, int k0, int lane, uint32_t (&a)[4]) {
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  a[0] = pair_row(m, r0 + g, k0 + c);
+  a[1] = pair_row(m, r0 + g + 8, k0 + c);
+  a[2] = pair_row(m, r0 + g, k0 + c + 8);
+  a[3] = pair_row(m, r0 + g + 8, k0 + c + 8);
+}
+
+// B = m^T: depth k0 .. k0+15, columns n0 .. n0+7 (b[0], b[1]) and n0+8 ..
+// n0+15 (b[2], b[3])
+__device__ __forceinline__ void load_b_nk(const Mat& m, int n0, int k0, int lane,
+                                          uint32_t (&b)[4]) {
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  b[0] = pair_row(m, n0 + g, k0 + c);
+  b[1] = pair_row(m, n0 + g, k0 + c + 8);
+  b[2] = pair_row(m, n0 + g + 8, k0 + c);
+  b[3] = pair_row(m, n0 + g + 8, k0 + c + 8);
+}
+
+// B = m: depth (rows) k0 .. k0+15, columns n0 .. n0+15
+__device__ __forceinline__ void load_b_kn(const Mat& m, int k0, int n0, int lane,
+                                          uint32_t (&b)[4]) {
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  b[0] = pair_col(m, k0 + c, n0 + g);
+  b[1] = pair_col(m, k0 + c + 8, n0 + g);
+  b[2] = pair_col(m, k0 + c, n0 + g + 8);
+  b[3] = pair_col(m, k0 + c + 8, n0 + g + 8);
+}
+
+// s = A[r0 ..] . X[16 t ..]^T over the D = A.cols columns, each 16-deep
+// step from a zero accumulator added with round-to-nearest (the tiled
+// kernels' dots, over as many steps as D takes)
+__device__ __forceinline__ void dots(const Mat& A, int r0, const Mat& X, int t, int lane,
+                                     float (&s)[2][4]) {
+  const int steps = (A.cols + 15) / 16;
+  for (int kk = 0; kk < steps; ++kk) {
+    uint32_t a[4], b[4];
+    load_a(A, r0, 16 * kk, lane, a);
+    load_b_nk(X, 16 * t, 16 * kk, lane, b);
+    attn::mma_step_rn(s[0], a, b[0], b[1], kk == 0);
+    attn::mma_step_rn(s[1], a, b[2], b[3], kk == 0);
+  }
+}
+
+// s = |A| . |X|^T
+__device__ __forceinline__ void dots_abs(const Mat& A, int r0, const Mat& X, int t, int lane,
+                                         float (&s)[2][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+  const int steps = (A.cols + 15) / 16;
+  for (int kk = 0; kk < steps; ++kk) {
+    uint32_t a[4], b[4];
+    load_a(A, r0, 16 * kk, lane, a);
+    load_b_nk(X, 16 * t, 16 * kk, lane, b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] &= 0x7fff7fffu;
+      b[i] &= 0x7fff7fffu;
+    }
+    attn::mma(s[0], a, b[0], b[1]);
+    attn::mma(s[1], a, b[2], b[3]);
+  }
+}
+
+// acc[t] += a . M[rows k0 .. k0+15, window columns 8 t ..]
+__device__ __forceinline__ void times(const uint32_t (&a)[4], const Mat& m, int k0, int lane,
+                                      float (&acc)[kOut / 8][4]) {
+#pragma unroll
+  for (int t = 0; t < kOut / 16; ++t) {
+    uint32_t b[4];
+    load_b_kn(m, k0, 16 * t, lane, b);
+    attn::mma(acc[2 * t], a, b[0], b[1]);
+    attn::mma(acc[2 * t + 1], a, b[2], b[3]);
+  }
+}
+
+// acc += dS . M, dS as its two bf16 terms (hi, lo)
+__device__ __forceinline__ void ds_times(const float (&ds)[2][4], const Mat& m, int k0, int lane,
+                                         float (&acc)[kOut / 8][4]) {
+  uint32_t hi[4], lo[4];
+  attn::as_a_split(ds, hi, lo);
+#pragma unroll
+  for (int t = 0; t < kOut / 16; ++t) {
+    uint32_t b[4];
+    load_b_kn(m, k0, 16 * t, lane, b);
+    attn::mma(acc[2 * t], hi, b[0], b[1]);
+    attn::mma(acc[2 * t], lo, b[0], b[1]);
+    attn::mma(acc[2 * t + 1], hi, b[2], b[3]);
+    attn::mma(acc[2 * t + 1], lo, b[2], b[3]);
+  }
+}
+
+// the f32 dot of rows ra of A and rb of B over their columns, in order,
+// one FMA each (the tiled kernels' seq_dot)
+static __device__ __noinline__ float seq_dot(Mat A, int ra, Mat B, int rb) {
+  float acc = 0.0f;
+  for (int d = 0; d < A.cols; ++d)
+    acc = __fmaf_rn(__bfloat162float(__ushort_as_bfloat16(static_cast<uint16_t>(elem(A, ra, d)))),
+                    __bfloat162float(__ushort_as_bfloat16(static_cast<uint16_t>(elem(B, rb, d)))),
+                    acc);
+  return acc;
+}
+
+// the tiled kernels' resum_round: dP rounded to bf16, its ambiguous values
+// summed again in order first
+__device__ __forceinline__ void resum_round(const Mat& A, int r0, const Mat& B, int t, int lane,
+                                            const float (&ab)[2][4], float (&dp)[2][4]) {
+  uint32_t amb = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    amb |= static_cast<uint32_t>(attn::ambiguous(dp[k >> 2][k & 3], ab[k >> 2][k & 3])) << k;
+  if (__any_sync(0xffffffffu, amb)) {
+#pragma unroll 1
+    for (int k = 0; k < 8; ++k)
+      if (amb >> k & 1u)
+        dp[k >> 2][k & 3] = seq_dot(A, r0 + (lane >> 2) + 8 * ((k & 3) >> 1), B,
+                                    16 * t + attn::col_of(lane, k >> 2, k & 3));
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) dp[k >> 2][k & 3] = attn::round_bf16(dp[k >> 2][k & 3]);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[kOut / 8][4]) {
+#pragma unroll
+  for (int t = 0; t < kOut / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+}
+
+// rows r0 + g (+ 8) below `rows` of the window's accumulators, rounded to
+// bf16, at dst + row * stride + column for the columns below `cols`
+__device__ __forceinline__ void store_rows(const float (&acc)[kOut / 8][4], __nv_bfloat16* dst,
+                                           int64_t stride, int r0, int rows, int cols, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + (lane >> 2) + 8 * half;
+    if (row >= rows) continue;
+    __nv_bfloat16* p = dst + row * stride;
+#pragma unroll
+    for (int t = 0; t < kOut / 8; ++t) {
+      const int col = 8 * t + 2 * (lane & 3);
+      if (col < cols) p[col] = __float2bfloat16_rn(acc[t][2 * half]);
+      if (col + 1 < cols) p[col + 1] = __float2bfloat16_rn(acc[t][2 * half + 1]);
+    }
+  }
+}
+
+// a head's rows from `row0`, `rows` of them, columns [c0, D)
+__device__ __forceinline__ Mat mat(const __nv_bfloat16* base, int64_t stride, int row0, int rows,
+                                   int c0, int D) {
+  return Mat{reinterpret_cast<const uint16_t*>(base) + row0 * stride + c0, stride, rows, D - c0};
+}
+
+// (n, h, row block, window) of a block index
+__device__ __forceinline__ void item_of(int64_t item, int H, int blocks, int windows, int64_t& n,
+                                        int& h, int& b, int& w) {
+  w = static_cast<int>(item % windows);
+  tiled::item_of(item / windows, H, blocks, n, h, b);
+}
+
+}  // namespace wide

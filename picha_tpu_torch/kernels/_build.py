@@ -77,6 +77,9 @@ SIGNATURES = {
     "picha_host_gap8_pack": [P, Z, P, P, P, P, P, P],
     "picha_host_gap4_batch_begin": [P, I, Z, P, P, P, P],
     "picha_host_gap4_batch_finish": [P, P, Z, P, P, Z, P, P, Z],
+    "picha_yuv420_pack": [P, I, I, I, I, I, P, P],
+    "picha_host_jpeg_write_coefficients": [I, P, P, P, P, P, P, P, L, P],
+    "picha_host_jpeg_write_raw420": [P, P, P, I, I, P, P, P, P, L, P],
 }
 
 _lock = threading.Lock()
@@ -288,6 +291,10 @@ KERNELS = {
                "picha_tpu_torch/csrc/coef_restore.cu",
                "picha_tpu/pipeline/jpeg_batch.py:119 (gap4_restore_flat, "
                "via unpack_gap4_wire :145, upload='gap4')"),
+        Kernel("yuv420_pack", "picha_yuv420_pack",
+               "picha_tpu_torch/csrc/yuv420_pack.cu",
+               "picha_tpu/pipeline/jpeg_batch.py:384 (_jit_batch_graph's "
+               "yuv420_out branch, :384-413, encode_backend='raw420')"),
     )
 }
 

@@ -24,9 +24,11 @@ f32 and rounded to bf16 once. The scores are recomputed from qkv: no
 
 Each kernel has a tuned build (K18: up to 256 tokens, head width 32, 64
 or 128; K22: up to 256 tokens, head width 32 or 64) and a tiled one for
-every other head width up to 128 and any token count
-(`csrc/vit_attention_tiled.cu`, `csrc/vit_attention_bwd_tiled.cu`),
-chosen by shape in the C entry point. Past head width 128 both raise.
+every other head width and any token count (`csrc/vit_attention_tiled.cu`,
+`csrc/vit_attention_bwd_tiled.cu`; past head width 128 their wide
+kernels, which read the operands from global memory and split the
+outputs into windows of 128 columns), chosen by shape in the C entry
+point.
 """
 from __future__ import annotations
 
@@ -39,7 +41,6 @@ MAX_SEQ = 256                    # the tuned K18 / K22: a head's rows in one blo
 HEAD_DIMS = (32, 64, 128)        # the tuned K18's instantiations
 BWD_HEAD_DIMS = (32, 64)         # the tuned K22's: q, k, v, do of a head in
                                  # shared memory
-MAX_HEAD = 128                   # the tiled builds' widest head
 
 
 def tiled(s: int, d: int, backward: bool = False) -> bool:
@@ -87,9 +88,9 @@ def _check(qkv, kernel):
         raise TypeError(f"{kernel} takes (N, S, 3, H, D) bfloat16, got "
                         f"{tuple(qkv.shape)} {qkv.dtype}")
     _n, s, _, _h, d = qkv.shape
-    if not 1 <= d <= MAX_HEAD or s < 1:
-        raise ValueError(f"{kernel} takes head widths 1-{MAX_HEAD} and at "
-                         f"least one token, got {d} and {s}")
+    if d < 1 or s < 1:
+        raise ValueError(f"{kernel} takes a head width and a token count of "
+                         f"at least 1, got {d} and {s}")
 
 
 def attention_k18(qkv, scale: float, force_tiled: bool = False):

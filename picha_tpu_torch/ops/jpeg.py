@@ -16,6 +16,8 @@ launching its kernel for CUDA tensors (or raising):
   `dequant_idct_plane`  K6 `csrc/jpeg_idct_plane.cu`
   `upsample_color`      K7 `csrc/jpeg_upsample_color.cu`
   `encode_blocks`       K2 `csrc/jpeg_encode_front.cu`
+  `yuv420_pack`         K31 `csrc/yuv420_pack.cu` (the raw420 encode's
+                        4:2:0 planes)
 The quantisation tables (`quality_tables`) and the 64x64 Kronecker DCT
 (`_idct_kron`) are numpy constants (the port's copies of the
 reference's, pinned by `tests/test_torch_host_copies.py`), uploaded once
@@ -229,6 +231,56 @@ def front_samples(f255):
     cbh, cbw = _cdiv(cb.shape[-2], 8), _cdiv(cb.shape[-1], 8)
     return (plane_to_blocks(y, ybh, ybw), plane_to_blocks(cb, cbh, cbw),
             plane_to_blocks(cr, cbh, cbw))
+
+
+def yuv420_sizes(h: int, w: int):
+    """(hpad, wpad, Y bytes, Cb bytes) of the 4:2:0 planes `yuv420_pack`
+    writes for an h x w image: Y edge-padded to 16-multiples, Cb and Cr
+    half that."""
+    hpad, wpad = (h + 15) & ~15, (w + 15) & ~15
+    return hpad, wpad, hpad * wpad, (hpad // 2) * (wpad // 2)
+
+
+def yuv420_pack_plain(px):
+    """Plain torch version of K31, the reference's `yuv420_out` branch
+    (`picha_tpu/pipeline/jpeg_batch.py:384-413`): px (N, H, W, C) float32
+    on the 0-255 scale (packed floor(clip(v + 0.5))) or uint8 (taken as
+    they are), C 1 or 3 -> (N, Y + 2 Cb bytes) uint8, the padded Y plane,
+    then Cb, then Cr. Colour: jccolor's fixed point, each plane
+    edge-padded to (ceil16(H), ceil16(W)) before the 2x2 box downsample
+    of Cb and Cr; grey: Y and constant 128 chroma planes (the host writer
+    always writes three components)."""
+    n, h, w, c = px.shape
+    hpad, wpad, _, _ = yuv420_sizes(h, w)
+    img = (px if px.dtype == torch.uint8 else pack_u8(px)).to(torch.int32)
+    if c == 1:
+        y = _edge_pad(img[..., 0], hpad, wpad)
+        cb = cr = torch.full((n, hpad // 2, wpad // 2), 128,
+                             dtype=torch.int32, device=px.device)
+    else:
+        y, cb, cr = (_edge_pad(p, hpad, wpad) for p in rgb_to_ycbcr(img))
+        cb, cr = box_downsample_2x2(cb), box_downsample_2x2(cr)
+    return torch.cat([p.to(torch.uint8).reshape(n, -1) for p in (y, cb, cr)],
+                     1)
+
+
+def yuv420_pack(px):
+    """The 4:2:0 planes of the raw420 encode (see `yuv420_pack_plain`) in
+    one buffer per image. Launches K31 (`csrc/yuv420_pack.cu`) for CUDA
+    tensors; the plain version runs only for CPU tensors."""
+    if px.device.type == "cpu":
+        return yuv420_pack_plain(px)
+    require_cuda(px, "K31")
+    if px.dtype not in (torch.float32, torch.uint8) or px.dim() != 4 \
+            or px.shape[3] not in (1, 3):
+        raise TypeError("K31 takes a (N, H, W, 1|3) float32 or uint8 image")
+    px = px.contiguous()
+    n, h, w, c = px.shape
+    _, _, ysz, csz = yuv420_sizes(h, w)
+    out = torch.empty((n, ysz + 2 * csz), dtype=torch.uint8, device=px.device)
+    KERNELS["yuv420_pack"](ptr(px), int(px.dtype == torch.uint8), n, h, w, c,
+                           ptr(out), stream_of(px))
+    return out
 
 
 def encode_blocks_plain(f255, qluma, qchroma, kron):

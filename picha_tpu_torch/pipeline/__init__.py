@@ -1,7 +1,8 @@
 """Batched pipelines of the port (counterpart of picha_tpu/pipeline/).
 
   JpegBatchPipeline — decode -> resize -> {uint8 | re-encode} on one
-  device; the all-device JPEG transcode path.
+  device; the JPEG transcode path, with the reference's uploads and
+  encode backends.
   TrainingInput — decode -> random crop + flip -> resize -> clip (+
   augment) on one device; the training ingest.
   ImageBatchPipeline — host decode (Pillow) -> crop -> resize -> convert

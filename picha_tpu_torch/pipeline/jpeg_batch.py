@@ -1,50 +1,63 @@
 """Batched JPEG transcode on one CUDA device: the throughput path.
 
-Counterpart of `picha_tpu/pipeline/jpeg_batch.py` for the all-device
-configurations
+Counterpart of `picha_tpu/pipeline/jpeg_batch.py`, with the reference's
+API and defaults:
 
     JpegBatchPipeline(width, height, encode_quality=85,
-                      encode_backend="device", fused=True|False,
-                      upload="scan")
+                      encode_backend="tpu" | "device" | "raw420" | "host",
+                      fused=False | True,
+                      upload="dense" | "scan" | "sparse" | "int8" |
+                             "gap8" | "gap4")
 
-Host: header parse (`parse_baseline`) and the scan wire (`scan_wire`,
-`ops/scan_batch.py::ScanBatch`), the port's numpy copies of the
-reference's host prep. Device, per same-signature batch: one coalesced
-pinned upload -> `wire_unpack` -> Huffman decode -> `split_planes` ->
-pixel stages -> encoder front (kernel K2) -> Huffman scan encode (kernel
-K3). The decode is kernel K1 (one thread per restart segment) for
-batches that carry restart markers, and the speculative chunked decoder,
-kernels K4 + K5, for the rest. The pixel stages are the reference's
-`pixel_stages`: with `fused=True` the folded dequant+IDCT+upsample+resize
-matmuls; with `fused=False` the staged, libjpeg-exact decode
-(dequant+IDCT, kernel K6; fancy upsample + colour, kernel K7) and then
-the separable resize (kernel K8, width pass then height pass). Host
-again: read back the byte counts and the used prefix of the scan buffer,
-prepend the header.
+Host: header parse (`parse_baseline`). With `upload="scan"` the scan wire
+(`scan_wire`, `ops/scan_batch.py::ScanBatch`) goes up as it is and the
+device decodes it: one coalesced pinned upload -> `wire_unpack` ->
+Huffman decode -> `split_planes`. The decode is kernel K1 (one thread per
+restart segment) for batches that carry restart markers, and the
+speculative chunked decoder, kernels K4 + K5, for the rest. The
+host-coefficient uploads (`upload="dense"`, the reference's default,
+and "sparse", "int8", "gap8", "gap4", the reference's :457-476) decode
+the scans on the host instead (`ops/coef_host.py`: the host C++ decoder
+of `csrc/jpeg_entropy_host.cu` on a thread pool of `num_threads` for a
+CUDA device, the numpy `decode_reference` for the CPU), `stack_bucket`
+packs them as the reference's wire (dense int16 planes; (index, value)
+pairs; int8 bodies + corrections; the gap8 and gap4 wires, the latter two
+one coalesced buffer each), and the device restores them
+(`ops/coef_restore.py`: kernels K27-K30; the dense planes need none).
+Their coefficients are K1's / K4 + K5's, so every upload gives the same
+bytes.
 
-The host-coefficient uploads (`upload="dense" | "sparse" | "int8" |
-"gap8" | "gap4"`, the reference's :457-476): the host decodes the scans
-to quantised coefficients (`ops/coef_host.py`: the host C++ decoder of
-`csrc/jpeg_entropy_host.cu` on a thread pool of `num_threads` for a CUDA
-device, the numpy `decode_reference` for the CPU), `stack_bucket` packs
-them as the reference's wire (dense int16 planes; (index, value) pairs;
-int8 bodies + corrections; the gap8 and gap4 wires, the latter two one
-coalesced buffer each), and the device restores them
-(`ops/coef_restore.py`: kernels K27-K30; the dense planes need none)
-ahead of the same pixel and encode stages. Their coefficients are K1's /
-K4 + K5's, so their outputs are `upload="scan"`'s byte for byte. The
-reference's default upload is "dense"; the port's stays "scan", which
-ships the least and keeps the host to a header parse.
+Device, per same-signature batch, after the coefficients: the pixel
+stages are the reference's `pixel_stages`: with `fused=True` the folded
+dequant+IDCT+upsample+resize matmuls; with `fused=False` (the default)
+the staged, libjpeg-exact decode (dequant+IDCT, kernel K6; fancy upsample
++ colour, kernel K7) and then the separable resize (kernel K8, width pass
+then height pass). Then the encode backend:
+  "tpu" (the default)  encoder front (kernel K2: u8 pack, YCbCr, 4:2:0,
+                       fDCT, quantisation); the int16 planes are read
+                       back and the host writes the scan
+                       (`ops/jpeg_write.py::write_coefficients`, the
+                       reference's `native.jpeg_coef_write`);
+  "device"             K2, then the Huffman scan encode (kernel K3): the
+                       host reads back the byte counts and the used
+                       prefix of the scan buffer and prepends the header;
+  "raw420"             the 4:2:0 pack (kernel K31: u8 pack, YCbCr, edge
+                       pad to 16, 2x2 box downsample) into one (N, bytes)
+                       buffer, read back once; the host writes each image
+                       (`ops/jpeg_write.py::write_raw420`: libjpeg's
+                       islow fDCT, quantisation and Huffman scan, the
+                       reference's `native.jpeg_encode_raw420`);
+  "host"               the uint8 images are read back and Pillow's
+                       libjpeg encodes them (`codecs/jpeg_host.py`).
+The host writers of "tpu" and "raw420" are the port's own host C++
+(`csrc/jpeg_write_host.cu`, no libjpeg) on the pool for a CUDA device and
+their numpy plain versions for the CPU; both give libjpeg's bytes.
 
-Ported options: `fused` False (the default, as the reference's) and
-True; `normalize` (float32 images on
-the 0-1 scale, as the reference's training output; with `encode_quality`
-set too, the normalized images are returned, as the reference's batch
-graph returns them before its encode); `upload` "scan", "dense",
-"sparse", "int8", "gap8", "gap4"; `num_threads`; `encode_backend`
-"device" (and "host", the overflow target); `encode_quality=None` (uint8
-images out). Everything else raises NotImplementedError naming its
-ROADMAP.md item.
+Options: `normalize` (float32 images on the 0-1 scale, as the
+reference's training output; with `encode_quality` set too, the
+normalized images are returned, as the reference's batch graph returns
+them before its encode); `num_threads`; `encode_quality=None` (uint8
+images out); `scan_byte_cap` (the device encode's buffer).
 
 The reference's content fallbacks stay, each counted on the instance.
 `scan_fallbacks` counts the batches the device decoder (or, for the
@@ -55,10 +68,12 @@ chunked decode that did not converge, a lane that ran out of its symbol
 budget). Such a batch is decoded to pixels on the host
 (`codecs/jpeg_host.py`, Pillow's libjpeg), uploaded as uint8 and taken
 through the device pixel stages that follow a decode: the K8 resize
-(whatever `fused` says), then K2 -> K3, the pack or the normalisation.
-`overflow_retries` counts an encode overflow retried once at twice the
-quality-derived cap, `overflow_fallbacks` the batches then encoded on
-the host from the same device pixels (`jpeg_host.encode`).
+(whatever `fused` says), then the encode backend, the pack or the
+normalisation. `overflow_retries` counts a "device" encode overflow
+retried once at twice the quality-derived cap, `overflow_fallbacks` the
+batches then redone, as the reference redoes them (:806-829), through a
+clone with `encode_backend="raw420"` and the same upload ("gap4" in
+place of "scan", its scans decoded on the host).
 """
 from __future__ import annotations
 
@@ -69,9 +84,10 @@ import numpy as np
 import torch
 
 from ..codecs import jpeg_host
-from ..ops import coef_host, coef_restore
+from ..ops import coef_host, coef_restore, jpeg_write
+from ..ops.jpeg_write import resized_comp_sig
 from ..ops.jpeg import _idct_kron, build_decode_stage, encode_blocks, pack_u8
-from ..ops.jpeg import quality_tables
+from ..ops.jpeg import quality_tables, yuv420_pack
 from ..ops.jpeg_fused import IDENTITY, component_weights, fused_decode_resize
 from ..ops.jpeg_huffman import (ScanLayout, _mcu_layout, assemble,
                                 code_table, jpeg_header, scan_encode)
@@ -119,19 +135,6 @@ def channels_of(sig) -> int:
     if sig[2] == HOST:
         return sig[3]
     return 1 if len(sig[3]) == 1 else 3
-
-
-def resized_comp_sig(h: int, w: int, channels: int):
-    """Component block grids of the re-encoded image (4:2:0 colour)."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    if channels == 1:
-        return ((cdiv(h, 8), cdiv(w, 8), 1, 1),)
-    ch, cw = cdiv(h, 2), cdiv(w, 2)
-    return ((cdiv(h, 8), cdiv(w, 8), 2, 2),
-            (cdiv(ch, 8), cdiv(cw, 8), 1, 1),
-            (cdiv(ch, 8), cdiv(cw, 8), 1, 1))
 
 
 def bucket_by_signature(cos):
@@ -262,30 +265,41 @@ def pixel_stages(sig, coefs, qtabs, consts: DeviceConstants,
     return resized_pixels(rgb, consts.windows, normalize)
 
 
-def output_stages(px, consts: DeviceConstants, encode: bool,
+ENCODE_BACKENDS = ("tpu", "device", "raw420", "host")
+
+
+def output_stages(px, consts: DeviceConstants, backend: Optional[str],
                   byte_cap: Optional[int], normalize: bool):
-    """Pixel-stage output -> the batch's result: the normalised floats
-    as they are, the uint8 images (pack) or the encoded scans (K2 ->
-    K3: (scan (N, byte_cap) uint8, nbytes (N,) int32))."""
+    """Pixel-stage output -> the batch's device result: the normalised
+    floats as they are; for `backend` None or "host" the uint8 images
+    (pack); "device" the encoded scans (K2 -> K3: (scan (N, byte_cap)
+    uint8, nbytes (N,) int32)); "tpu" K2's quantised planes (a tuple of
+    (N, bh, bw, 64) int16); "raw420" K31's (N, bytes) uint8 4:2:0
+    planes."""
     if normalize:
         return px
-    if not encode:
+    if backend in (None, "host"):
         return px if px.dtype == torch.uint8 else pack_u8(px)
+    if backend == "raw420":
+        return yuv420_pack(px)
     blocks = encode_blocks(px.to(torch.float32), consts.qluma,
                            consts.qchroma, consts.kron)
+    if backend == "tpu":
+        return blocks
     return scan_encode(blocks, consts.layout, consts.tab, byte_cap)
 
 
 def device_graph(sig, wire, consts: DeviceConstants, scan_ks,
-                 encode: bool = True, byte_cap: Optional[int] = None,
-                 fused: bool = False, normalize: bool = False):
+                 backend: Optional[str] = "device",
+                 byte_cap: Optional[int] = None, fused: bool = False,
+                 normalize: bool = False):
     """One scan batch through the device stages: the uploaded wire ->
     (result, ok), result as `output_stages` gives it."""
     dec_args, qtabs = wire_unpack(wire, scan_ks, len(sig[3]))
     scan_out, ok = decode_scan(dec_args, scan_ks, consts.comp_of)
     coefs = split_planes(scan_out, sig[3], consts.split_idx)
     px = pixel_stages(sig, coefs, qtabs, consts, fused, normalize)
-    return output_stages(px, consts, encode, byte_cap, normalize), ok
+    return output_stages(px, consts, backend, byte_cap, normalize), ok
 
 
 UPLOADS = ("scan", "dense", "sparse", "int8", "gap8", "gap4")
@@ -317,7 +331,8 @@ def restore_planes(sig, args, sparse_ks=None, int8_ks=None, gap8_ks=None,
     return tuple(args[:n]), tuple(args[n:2 * n])
 
 
-def coef_graph(sig, args, consts: DeviceConstants, encode: bool = True,
+def coef_graph(sig, args, consts: DeviceConstants,
+               backend: Optional[str] = "device",
                byte_cap: Optional[int] = None, fused: bool = False,
                normalize: bool = False, **upload_ks):
     """One host-coefficient batch through the device stages: the restore
@@ -325,7 +340,7 @@ def coef_graph(sig, args, consts: DeviceConstants, encode: bool = True,
     path."""
     coefs, qtabs = restore_planes(sig, args, **upload_ks)
     px = pixel_stages(sig, coefs, qtabs, consts, fused, normalize)
-    return output_stages(px, consts, encode, byte_cap, normalize)
+    return output_stages(px, consts, backend, byte_cap, normalize)
 
 
 def upload_args(args, device):
@@ -449,11 +464,6 @@ def stack_coefficients(cos, upload: str, native: bool = False):
     return sig, args + qtabs()
 
 
-def _unported(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not ported to picha_tpu_torch yet: ROADMAP.md {where}")
-
-
 class JpegBatchPipeline:
     """decode -> (resize) -> {uint8 | normalized | re-encoded JPEG} over
     homogeneous-signature batches on one device (see module doc)."""
@@ -464,18 +474,15 @@ class JpegBatchPipeline:
                  filter_scale: Optional[float] = None,
                  normalize: bool = False,
                  encode_quality: Optional[int] = None,
-                 encode_backend: str = "device",
-                 upload: str = "scan",
+                 encode_backend: str = "tpu",
+                 upload: str = "dense",
                  fused: bool = False,
                  num_threads: Optional[int] = None,
                  scan_byte_cap: Optional[int] = None,
                  device="cuda"):
-        if encode_backend == "raw420":
-            raise _unported("encode_backend='raw420'",
-                            "queue 1 item 1 (row 8b)")
-        if encode_backend not in ("device", "host"):
-            raise _unported(f"encode_backend={encode_backend!r}",
-                            "queue 1 item 5")
+        if encode_backend not in ENCODE_BACKENDS:
+            raise ValueError(f"encode_backend must be one of "
+                             f"{ENCODE_BACKENDS}, got {encode_backend!r}")
         if upload not in UPLOADS:
             raise ValueError(f"upload must be one of {UPLOADS}, got "
                              f"{upload!r}")
@@ -503,18 +510,37 @@ class JpegBatchPipeline:
         self.overflow_fallbacks = 0
 
     def close(self):
-        """Release the host decoder's thread pool (idempotent); the
-        pipeline stays usable and starts a new pool when it needs one."""
+        """Release the host thread pool, and the overflow clone's
+        (idempotent); the pipeline stays usable and starts a new pool when
+        it needs one."""
         if self._pool is not None:
             self._pool.shutdown(wait=False)
             self._pool = None
+        if self._overflow_clone is not None:
+            self._overflow_clone.close()
 
     # -- host stage ----------------------------------------------------------
 
     def _native(self) -> bool:
-        """The host C++ decoder and packers serve a CUDA device; the CPU
-        takes their numpy plain versions."""
+        """The host C++ decoder, packers and JPEG writer serve a CUDA
+        device; the CPU takes their numpy plain versions."""
         return self.device.type == "cuda"
+
+    def _host_pool(self):
+        """The pool of `num_threads` host threads that runs the host C++
+        (which releases the GIL) for a CUDA device; None for the CPU,
+        whose plain versions run serially."""
+        if self._native() and self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self._num_threads,
+                thread_name_prefix="picha-entropy")
+        return self._pool
+
+    def _map(self, fn, seq):
+        pool = self._host_pool()
+        if pool is None:
+            return [fn(x) for x in seq]
+        return list(pool.map(fn, seq))
 
     def entropy_decode(self, bufs):
         """upload="scan": parsed headers (the device decodes the scans);
@@ -526,12 +552,9 @@ class JpegBatchPipeline:
         on the host (counted)."""
         infos = [parse_baseline(bytes(b)) for b in bufs]
         if self._upload != "scan" and all(i is not None for i in infos):
-            if self._native() and self._pool is None:
-                self._pool = ThreadPoolExecutor(
-                    max_workers=self._num_threads,
-                    thread_name_prefix="picha-entropy")
             return coef_host.entropy_decode(infos, self._native(),
-                                            self._pool, self._num_threads)
+                                            self._host_pool(),
+                                            self._num_threads)
         if self._upload == "scan" and all(i is not None for i in infos):
             uniq = set()
             for i in infos:
@@ -551,7 +574,7 @@ class JpegBatchPipeline:
 
     def constants(self, sig) -> DeviceConstants:
         quality = (self._encode_quality
-                   if self._encode_backend == "device" else None)
+                   if self._encode_backend in ("device", "tpu") else None)
         key = (sig, quality)
         if key not in self._consts:
             self._consts[key] = device_constants(
@@ -559,9 +582,16 @@ class JpegBatchPipeline:
                 quality, self.device, fused=self._fused)
         return self._consts[key]
 
-    def _encodes(self) -> bool:
-        return (self._encode_quality is not None and not self._normalize
-                and self._encode_backend == "device")
+    def _backend(self) -> Optional[str]:
+        """The encode backend of the device stages: None when the batch
+        is not encoded (no quality, or normalize)."""
+        if self._encode_quality is None or self._normalize:
+            return None
+        return self._encode_backend
+
+    def _cap(self, sig) -> Optional[int]:
+        return (self._scan_cap_for(sig) if self._backend() == "device"
+                else None)
 
     def stack_bucket(self, cos):
         """Same-signature coefficient sets -> the upload's host arrays, as
@@ -575,24 +605,21 @@ class JpegBatchPipeline:
         host-coefficient batch's arguments (`sparse_ks`, `int8_ks`,
         `gap8_ks` or `gap4_ks`, none for "dense") -> the output (see
         coef_graph)."""
-        encode = self._encodes()
-        cap = self._scan_cap_for(sig) if encode else None
+        backend, cap = self._backend(), self._cap(sig)
         if scan_ks is not None:
             return device_graph(sig, args, self.constants(sig), scan_ks,
-                                encode=encode, byte_cap=cap,
+                                backend=backend, byte_cap=cap,
                                 fused=self._fused, normalize=self._normalize)
-        return coef_graph(sig, args, self.constants(sig), encode=encode,
+        return coef_graph(sig, args, self.constants(sig), backend=backend,
                           byte_cap=cap, fused=self._fused,
                           normalize=self._normalize, **upload_ks)
 
     def run_pixels(self, sig, rgb):
         """Uploaded host-decoded uint8 images of one batch -> the device
         output (the resize, then as `output_stages`)."""
-        encode = self._encodes()
         consts = self.constants(sig)
         px = resized_pixels(rgb, consts.windows, self._normalize)
-        return output_stages(px, consts, encode,
-                             self._scan_cap_for(sig) if encode else None,
+        return output_stages(px, consts, self._backend(), self._cap(sig),
                              self._normalize)
 
     def _scan_cap_for(self, sig) -> int:
@@ -631,17 +658,24 @@ class JpegBatchPipeline:
 
     def _overflow_fallback(self, cos):
         """Redo a batch whose device encode overflowed through a clone
-        that encodes on the host (same device decode and pixel
-        stages)."""
+        with `encode_backend="raw420"` (the device pixel stages, then the
+        host writer, which has no budget), as the reference's :806-829:
+        the clone's upload is this one's, "gap4" in place of "scan", and
+        a scan batch is decoded on the host first."""
         self.overflow_fallbacks += 1
         if self._overflow_clone is None:
             self._overflow_clone = JpegBatchPipeline(
                 width=self._width, height=self._height, filter=self._filter,
                 filter_scale=self._fscale,
-                encode_quality=self._encode_quality, encode_backend="host",
-                fused=self._fused, upload=self._upload,
+                encode_quality=self._encode_quality, encode_backend="raw420",
+                fused=self._fused,
+                upload=self._upload if self._upload != "scan" else "gap4",
                 num_threads=self._num_threads, device=self.device)
         clone = self._overflow_clone
+        if isinstance(cos[0], ScanInfo):
+            cos = coef_host.entropy_decode(cos, clone._native(),
+                                           clone._host_pool(),
+                                           clone._num_threads)
         return clone._finish(*clone._process(cos))
 
     def _process(self, cos):
@@ -678,11 +712,16 @@ class JpegBatchPipeline:
             if not bool(okf):
                 return self._scan_fallback(srcs)
             out = res
-        if self._encode_quality is None or self._normalize:
+        backend = self._backend()
+        if backend is None:
             return out
-        if self._encode_backend == "host":
+        if backend == "host":
             q = self._encode_quality
             return [jpeg_host.encode(img, q) for img in out.cpu().numpy()]
+        if backend == "raw420":
+            return self.raw420_encode(out, sig)
+        if backend == "tpu":
+            return self.huffman_encode(out, sig)
         return self.scan_finish(out, sig)
 
     def _scan_fallback(self, bufs):
@@ -691,6 +730,36 @@ class JpegBatchPipeline:
         device stages that follow a decode."""
         self.scan_fallbacks += 1
         return self._finish(*self._process(host_decode(bufs)))
+
+    def _encode_size(self, sig):
+        return (self._width if self._width is not None else sig[0],
+                self._height if self._height is not None else sig[1])
+
+    def raw420_encode(self, planes, sig):
+        """Host stage of "raw420" (the reference's :1263-1282): one
+        readback of K31's (N, bytes) buffer, then the host writer per
+        image on the pool."""
+        ew, eh = self._encode_size(sig)
+        buf = planes.cpu().numpy()
+        q, native = self._encode_quality, self._native()
+
+        def enc(i):
+            return jpeg_write.write_raw420(
+                *jpeg_write.split_yuv420(buf[i], ew, eh), ew, eh, q,
+                native=native)
+        return self._map(enc, range(buf.shape[0]))
+
+    def huffman_encode(self, coefs, sig):
+        """Host stage of "tpu" (the reference's :1284-1306): K2's int16
+        planes read back, then the host writer per image on the pool."""
+        ew, eh = self._encode_size(sig)
+        outs = [c.cpu().numpy() for c in coefs]
+        q, native = self._encode_quality, self._native()
+
+        def enc(i):
+            return jpeg_write.write_coefficients([o[i] for o in outs], ew,
+                                                 eh, q, native=native)
+        return self._map(enc, range(outs[0].shape[0]))
 
     def scan_finish(self, out, sig):
         """Read back the byte counts, then only the used prefix of the
@@ -702,11 +771,10 @@ class JpegBatchPipeline:
             raise OverflowError(
                 f"device scan encode overflow ({int(nb.max())} > {cap}): "
                 "raise scan_byte_cap, lower the quality, or use "
-                "encode_backend='host'")
+                "encode_backend='tpu' / 'raw420' / 'host'")
         m = min(cap, -(-int(nb.max()) // 65536) * 65536)
         host = scan[:, :m].cpu().numpy()
-        ew = self._width if self._width is not None else sig[0]
-        eh = self._height if self._height is not None else sig[1]
+        ew, eh = self._encode_size(sig)
         header = jpeg_header(ew, eh,
                              resized_comp_sig(eh, ew, channels_of(sig)),
                              self._encode_quality)

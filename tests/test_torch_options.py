@@ -29,11 +29,11 @@ def test_jpeg_pipeline_defaults_to_the_staged_path():
     """F1: the default equals fused=False byte for byte on the restart-8
     corpus, and differs from the fused matmuls."""
     bufs = port_corpus(3)
-    default = JpegBatchPipeline(960, 544, encode_quality=85, device="cpu")
-    staged = JpegBatchPipeline(960, 544, encode_quality=85, fused=False,
-                               device="cpu")
-    fused = JpegBatchPipeline(960, 544, encode_quality=85, fused=True,
-                              device="cpu")
+    kw = dict(encode_quality=85, encode_backend="device", upload="scan",
+              device="cpu")
+    default = JpegBatchPipeline(960, 544, **kw)
+    staged = JpegBatchPipeline(960, 544, fused=False, **kw)
+    fused = JpegBatchPipeline(960, 544, fused=True, **kw)
     got, want = default(bufs), staged(bufs)
     assert [bytes(g) for g in got] == [bytes(w) for w in want]
     assert [bytes(g) for g in got] != [bytes(f) for f in fused(bufs)]

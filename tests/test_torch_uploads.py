@@ -263,7 +263,7 @@ def test_uploads_give_the_scan_bytes(fused):
     """Each upload's transcode on the CPU: upload="scan"'s bytes (the same
     coefficients enter the same graph)."""
     kw = dict(width=W, height=H, encode_quality=85, fused=fused,
-              device="cpu")
+              encode_backend="device", device="cpu")
     want = JpegBatchPipeline(upload="scan", **kw)(COLOUR)
     for upload in UPLOADS:
         pipe = JpegBatchPipeline(upload=upload, num_threads=2, **kw)
@@ -277,7 +277,8 @@ def test_upload_normalize_and_mixed_signatures():
     gap8 and int8: the scan upload's tensors."""
     bufs = COLOUR[:2] + [FILES["grey"]]
     for kw in (dict(normalize=True), dict(encode_quality=None)):
-        want = JpegBatchPipeline(width=W, height=H, device="cpu", **kw)(bufs)
+        want = JpegBatchPipeline(width=W, height=H, upload="scan",
+                                 device="cpu", **kw)(bufs)
         for upload in ("gap8", "int8"):
             got = JpegBatchPipeline(width=W, height=H, device="cpu",
                                     upload=upload, **kw)(bufs)
@@ -286,9 +287,10 @@ def test_upload_normalize_and_mixed_signatures():
 
 def test_upload_overflow_retries_then_host_encode():
     """The encode overflow path carries the upload: one retry at twice the
-    cap, then a clone with the same upload encodes on the host; both
-    give what the scan upload gives on the same path."""
-    kw = dict(width=W, height=H, encode_quality=85, fused=True, device="cpu")
+    cap, then a raw420 clone with the same upload ("gap4" for "scan", as
+    the reference's) encodes on the host; both give the same bytes."""
+    kw = dict(width=W, height=H, encode_quality=85, fused=True,
+              encode_backend="device", device="cpu")
     outs, counters = [], []
     for up in ("scan", "gap4"):
         p = JpegBatchPipeline(upload=up, **kw)
@@ -296,7 +298,8 @@ def test_upload_overflow_retries_then_host_encode():
         outs.append([bytes(g) for g in p(COLOUR[:1])])
         counters.append((p.scan_fallbacks, p.overflow_retries,
                          p.overflow_fallbacks))
-        assert p._overflow_clone._upload == up
+        assert p._overflow_clone._upload == "gap4"
+        assert p._overflow_clone._encode_backend == "raw420"
     assert outs[0] == outs[1] and counters == [(0, 1, 1)] * 2
 
 
@@ -306,7 +309,8 @@ def test_undecodable_file_takes_the_pixel_route():
     prog = pil_jpeg(_noisy(48, 64, 5), quality=85, progressive=True)
     assert parse_baseline(prog) is None
     pipe = JpegBatchPipeline(width=W, height=H, encode_quality=85,
-                             upload="gap4", device="cpu")
+                             encode_backend="device", upload="gap4",
+                             device="cpu")
     out = pipe([prog, COLOUR[0]])
     assert len(out) == 2 and pipe.scan_fallbacks == 1
 

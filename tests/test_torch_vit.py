@@ -298,6 +298,16 @@ def test_forward_matches_reference(name, seed):
     _compare_forward(getattr(ref_vit, name), seed)
 
 
+@pytest.mark.parametrize("head", [160, 256])
+def test_forward_past_head_128_matches_reference(head):
+    """Head widths past 128 (two heads, TINY's depth and patching): the
+    plain path takes them as the reference does (K18 takes them on the
+    card), logits within 0.03."""
+    cfg = ref_vit.ViTConfig(image_size=32, patch=8, dim=2 * head, depth=2,
+                            heads=2, mlp_ratio=4, classes=16)
+    _compare_forward(cfg, head, n=4)
+
+
 def test_function_and_module_forms_agree():
     cfg = port_vit.TINY_MOE
     model = port_vit.ViT(cfg, seed=3, device="cpu")

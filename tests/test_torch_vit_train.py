@@ -429,6 +429,16 @@ def test_loss_and_gradients_match_reference(name, seed):
         np.testing.assert_array_equal(routes[0].numpy(), want[0])
 
 
+@pytest.mark.parametrize("head", [160, 256])
+def test_gradients_past_head_128_match_reference(head):
+    """Head widths past 128 (two heads, TINY's depth and patching): loss
+    and every gradient leaf within the bounds above (K22 takes these
+    widths on the card)."""
+    cfg = ref_vit.ViTConfig(image_size=32, patch=8, dim=2 * head, depth=2,
+                            heads=2, mlp_ratio=4, classes=16)
+    _grads_vs_reference(cfg, head)
+
+
 # --- the optimizer -----------------------------------------------------------
 
 @pytest.mark.parametrize("lr", [3e-4, 1e-2])
