@@ -6,8 +6,9 @@ device, tpu, raw420, host), the training ingest, the pixel-array path (BASELINE 
 single-image resize and convert, the batched PNG encode), the batched
 PNG and TIFF decode, the ViT-S/16 forward and train step (dense and
 switch-MoE) and the ResNet forward and train step, both fed by the
-ingest, and model configurations past the tuned kernels' shapes, on one
-CUDA card, and checks them.
+ingest, model configurations past the tuned kernels' shapes and the
+ViT-S/16 widths at 384^2 at full depth, on one CUDA card, and checks
+them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -209,7 +210,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      goes per upload beside scan's (host decode, pack, wire bytes,
      upload, restore on the card, end-to-end Mpix/s);
  22. F5: forward and one train step on the card (depth 2, 4 images) of
-     ViTConfig(image_size=384) (576 tokens), image_size=272 (289),
+     ViTConfig(image_size=272) (289 tokens; 576 tokens is phase 29's),
      dim=768 heads=6 (head 128), dim=768 heads=3 (head 256), dim=384
      heads=2 (head 192; both through the tiled builds' wide kernels),
      dim=1280 heads=16 patch=14 (head 80,
@@ -220,7 +221,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      gradient leaf within 2e-2 relative L2, the ResNet's by the float64
      criterion; each kernel timed at these shapes (its `buckets`);
  23. the tiled K18 and K22 at S = 576, D = 128 (N = 16, H = 6) within
-     their bounds of the plain versions, timed beside SDPA;
+     their bounds of the plain versions, timed beside SDPA (and the
+     kernels SDPA launched), K22 beside a copy of its dP scratch's bytes;
+     the wide kernels beside SDPA at heads 256 and 192 (N = 4, S = 196);
  24. K31 (the raw420 encode's 4:2:0 pack) bit for bit its plain version
      on the slice's 960x544 pixels, fused (float32) and staged, timed;
  25. the host C++ JPEG writer (csrc/jpeg_write_host.cu) byte for byte the
@@ -237,7 +240,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      redone by the reference's fallback: a raw420 clone with upload gap4
      (K30, K31), byte for byte phase 26's raw420 output;
  28. the four encode backends timed in turns on the fused restart slice:
-     bytes read back, device ms, readback + host encode ms, end to end.
+     bytes read back, device ms, readback + host encode ms, end to end;
+ 29. ViTConfig(image_size=384) (ViT-S/16's widths at 384^2, 576 tokens:
+     the tiled K18 / K22) at full depth on 8 random images: logits within
+     0.03 + 1 bf16 ulp and every gradient leaf within 2e-2 relative L2 of
+     the plain path, one train step, each kernel timed at its shapes;
+ 30. the same at N = 128 through ViT(cfg) and make_train_step: K18 and
+     K22 launched 12 times a forward and a step (K17 / K21 25), no plain
+     version and no SDPA; forward and step ms (medians of 5 CUDA-event
+     timings), K18 x 12 through the mark hook, K22 x 12 by events around
+     its calls, peak memory; one K18 and one K22 launch at the step's
+     shapes beside SDPA, the bounds and K22's dP scratch traffic.
 Every kernel also gets its bound (the larger of its bytes over 3.35 TB/s
 and its FP32 FLOPs over 67 TFLOP/s plus its bf16 product FLOPs over 989
 TFLOP/s, counted from this run's shapes) and, where one PyTorch call
@@ -1089,6 +1102,9 @@ def main():
     raw420_launches = raw420_phases(dev, card, results, phase, timed, wall,
                                     corpus, strict, {True: jpegs,
                                                      False: jpegs_s})
+
+    # 29-30. ViTConfig(image_size=384) at full width: the tiled K18 / K22
+    vit384_phases(dev, card, results, phase, timed)
 
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "picha_tpu" or m.startswith("picha_tpu."))
@@ -3812,8 +3828,7 @@ def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
 
 
 F5_N = 4                   # images per configuration of phase 22
-F5_VIT = (("tokens_576", dict(image_size=384)),
-          ("tokens_289", dict(image_size=272)),
+F5_VIT = (("tokens_289", dict(image_size=272)),
           ("head_128", dict(dim=768, heads=6)),
           ("head_256", dict(dim=768, heads=3)),
           ("head_192", dict(dim=384, heads=2)),
@@ -3823,45 +3838,96 @@ F5_VIT = (("tokens_576", dict(image_size=384)),
 F5_RESNET = dict(stem_channels=33, stage_channels=(33, 65),
                  blocks_per_stage=1)
 F5_ATTENTION = (16, 576, 6, 128)   # phase 23's (N, S, H, D)
+F5_WIDE = ((4, 196, 3, 256), (4, 196, 2, 192))   # the wide kernels' shapes
 
 
-def f5_phases(dev, card, results, phase, timed):
-    """Phases 22-23: the model configurations past the tuned kernels'
-    envelopes (F5; see the module doc). Adds each kernel's times at these
-    shapes to its `buckets` in results."""
+def _ulp(v):
+    """One bf16 ulp at |v| (8 significant bits), elementwise."""
+    import torch
+
+    m = v.abs().double().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _nbytes(*ts):
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def _first_args(fn, mods_names):
+    """Run fn with each (module, name) wrapper recording the detached
+    arguments of its first call: {name: args}."""
     import contextlib
     from unittest import mock
 
     import torch
-    import torch.nn.functional as F
 
-    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from picha_tpu_torch.models import resnet as rn
-    from picha_tpu_torch.models import vit as vit_mod
-    from picha_tpu_torch.models.vit import ViT, ViTConfig, make_train_step
+    got = {}
+
+    def rec(name, real):
+        def call(*a):
+            got.setdefault(name, tuple(
+                x.detach() if isinstance(x, torch.Tensor) else x for x in a))
+            return real(*a)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for mod, name in mods_names:
+            stack.enter_context(mock.patch.object(
+                mod, name, rec(name, getattr(mod, name))))
+        fn()
+    return got
+
+
+def _bucket(results, timed, kernel, label, args, kfn, pfn, nbytes):
+    """Time a kernel and its plain version on one call's arguments; append
+    the row to the kernel's buckets (the attention's bound also counts its
+    bf16 products: 2 of 2 n h s^2 d FLOPs forward, 5 backward)."""
+    got, want = kfn(*args), pfn(*args)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in pairs if a.numel())
+    flops = 0
+    if kernel in ("vit_attention", "vit_attention_bwd"):
+        n, s, _, h, d = args[0].shape
+        flops = (4 if kernel == "vit_attention" else 10) * n * h * s * s * d
+    row = dict(bucket=label, max_abs_err=err,
+               ms=timed(lambda: kfn(*args), 5),
+               plain_ms=timed(lambda: pfn(*args), 2, warm=0),
+               library_ms=None, **bound(nbytes, bf16_flops=flops))
+    results[kernel].setdefault("buckets", []).append(row)
+    return row
+
+
+def vit_kernel_names():
+    """The ViT's kernel wrappers: (forward wrappers in models.vit: {name:
+    (kernel, plain)}, backward wrappers: {name: (module, kernel, plain)},
+    [(module, name, plain)] that turn a step's kernel calls into the
+    plain versions, the autograd Functions staying)."""
     from picha_tpu_torch.ops import attention as att_mod
-    from picha_tpu_torch.ops import instance_norm as inm
     from picha_tpu_torch.ops import layernorm as ln_mod
     from picha_tpu_torch.ops import moe as moe_mod
-    from picha_tpu_torch.ops.jpeg import full_precision
-    from picha_tpu_torch.optim import tree_leaves, tree_unflatten
 
-    bf16 = torch.bfloat16
-    gen = torch.Generator().manual_seed(11)
-    fwd_wrappers = {"layer_norm": ("vit_layernorm", ln_mod.layer_norm_plain),
-                    "attention": ("vit_attention", att_mod.attention_plain),
-                    "route_dispatch": ("moe_route_dispatch",
-                                       moe_mod.route_dispatch_plain),
-                    "combine": ("moe_combine", moe_mod.combine_plain)}
-    bwd_wrappers = {
-        "layer_norm_backward": (ln_mod, "vit_layernorm_bwd",
-                                ln_mod.layer_norm_backward_plain),
-        "attention_backward": (att_mod, "vit_attention_bwd",
-                               att_mod.attention_backward_plain),
-        "dispatch_backward": (moe_mod, "moe_dispatch_bwd",
-                              moe_mod.dispatch_backward_plain),
-        "combine_backward": (moe_mod, "moe_combine_bwd",
-                             moe_mod.combine_backward_plain)}
+    fwd = {"layer_norm": ("vit_layernorm", ln_mod.layer_norm_plain),
+           "attention": ("vit_attention", att_mod.attention_plain),
+           "route_dispatch": ("moe_route_dispatch",
+                              moe_mod.route_dispatch_plain),
+           "combine": ("moe_combine", moe_mod.combine_plain)}
+    bwd = {"layer_norm_backward": (ln_mod, "vit_layernorm_bwd",
+                                   ln_mod.layer_norm_backward_plain),
+           "attention_backward": (att_mod, "vit_attention_bwd",
+                                  att_mod.attention_backward_plain),
+           "dispatch_backward": (moe_mod, "moe_dispatch_bwd",
+                                 moe_mod.dispatch_backward_plain),
+           "combine_backward": (moe_mod, "moe_combine_bwd",
+                                moe_mod.combine_backward_plain)}
     plain_ops = [
         (ln_mod, "layer_norm_k17", ln_mod.layer_norm_plain),
         (ln_mod, "layer_norm_backward", ln_mod.layer_norm_backward_plain),
@@ -3870,68 +3936,40 @@ def f5_phases(dev, card, results, phase, timed):
         (moe_mod, "combine_k20", moe_mod.combine_plain),
         (moe_mod, "dispatch_backward", moe_mod.dispatch_backward_plain),
         (moe_mod, "combine_backward", moe_mod.combine_backward_plain)]
+    return fwd, bwd, plain_ops
 
-    def ulp(v):
-        m = v.abs().double().clamp_min(2.0 ** -126)
-        return torch.exp2(torch.floor(torch.log2(m)) - 7)
 
-    def rel_l2(a, b):
-        a, b = a.double(), b.double()
-        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+def vit_config_checks(dev, results, timed, configs, n, depth, gen, prefix):
+    """Each ViT configuration (label, ViTConfig keywords) at `depth` on `n`
+    random images from `gen`: the forward's launches, logits within 0.03 +
+    1 bf16 ulp of the plain path (the MoE's on the kernel path's routes),
+    every gradient leaf within 2e-2 relative L2 of the plain path's, one
+    train step, and each kernel timed on the arguments of its first call
+    (a row of its `buckets`, labelled `prefix label`). Returns {label:
+    its numbers}."""
+    import contextlib
+    from unittest import mock
 
-    def first_args(fn, mods_names):
-        """Run fn with each (module, name) wrapper recording the detached
-        arguments of its first call: {name: args}."""
-        got = {}
+    import torch
 
-        def rec(name, real):
-            def call(*a):
-                got.setdefault(name, tuple(
-                    x.detach() if isinstance(x, torch.Tensor) else x
-                    for x in a))
-                return real(*a)
-            return call
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.models import vit as vit_mod
+    from picha_tpu_torch.models.vit import ViT, ViTConfig, make_train_step
+    from picha_tpu_torch.ops import attention as att_mod
+    from picha_tpu_torch.ops import layernorm as ln_mod
+    from picha_tpu_torch.ops import moe as moe_mod
+    from picha_tpu_torch.ops.jpeg import full_precision
+    from picha_tpu_torch.optim import tree_leaves, tree_unflatten
 
-        with contextlib.ExitStack() as stack:
-            for mod, name in mods_names:
-                stack.enter_context(mock.patch.object(
-                    mod, name, rec(name, getattr(mod, name))))
-            fn()
-        return got
-
-    def bucket(kernel, label, args, kfn, pfn, nbytes):
-        """Time a kernel and its plain version on one call's arguments;
-        append the row to the kernel's buckets (the attention's bound
-        also counts its bf16 products: 2 of 2 n h s^2 d FLOPs forward,
-        5 backward)."""
-        got, want = kfn(*args), pfn(*args)
-        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-        err = max(float((a.double() - b.double()).abs().max())
-                  for a, b in pairs if a.numel())
-        flops = 0
-        if kernel in ("vit_attention", "vit_attention_bwd"):
-            n, s, _, h, d = args[0].shape
-            flops = (4 if kernel == "vit_attention" else 10) * n * h * s * s * d
-        row = dict(bucket=f"F5 {label}", max_abs_err=err,
-                   ms=timed(lambda: kfn(*args), 5),
-                   plain_ms=timed(lambda: pfn(*args), 2, warm=0),
-                   library_ms=None, **bound(nbytes, bf16_flops=flops))
-        results[kernel].setdefault("buckets", []).append(row)
-        return row
-
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts
-                   if isinstance(t, torch.Tensor))
-
-    # 22. each ViT configuration: forward and one train step, depth 2
+    fwd_wrappers, bwd_wrappers, plain_ops = vit_kernel_names()
     out = {}
-    for label, kw in F5_VIT:
-        cfg = ViTConfig(depth=2, **kw)
+    for label, kw in configs:
+        cfg = ViTConfig(depth=depth, **kw)
         model = ViT(cfg, seed=0, device=dev)
         params = model.params()
-        images = torch.rand((F5_N, cfg.image_size, cfg.image_size, 3),
+        images = torch.rand((n, cfg.image_size, cfg.image_size, 3),
                             generator=gen).to(dev)
-        labels = torch.randint(0, 1000, (F5_N,), generator=gen).to(dev)
+        labels = torch.randint(0, 1000, (n,), generator=gen).to(dev)
         routes = []
         real_rd = vit_mod.route_dispatch
 
@@ -3951,7 +3989,7 @@ def f5_phases(dev, card, results, phase, timed):
             n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.depth))
             want.update(moe_route_dispatch=n_moe, moe_combine=n_moe)
         if fwd_launches != want:
-            raise AssertionError(f"F5 {label}: forward launches "
+            raise AssertionError(f"{prefix} {label}: forward launches "
                                  f"{fwd_launches}, want {want}")
         plains = {k: p for k, (_n, p) in fwd_wrappers.items()}
         if cfg.moe_experts:
@@ -3959,12 +3997,12 @@ def f5_phases(dev, card, results, phase, timed):
         with mock.patch.multiple(vit_mod, **plains):
             logits_p = model(images)
         diff = (logits - logits_p).abs()
-        lim = VIT_LOGIT_TOL + ulp(torch.maximum(logits.abs(),
-                                                logits_p.abs()))
+        lim = VIT_LOGIT_TOL + _ulp(torch.maximum(logits.abs(),
+                                                 logits_p.abs()))
         if not bool(torch.isfinite(logits).all()) or \
                 bool((diff > lim).any()):
-            raise AssertionError(f"F5 {label}: logits {float(diff.max())} "
-                                 f"from the plain path")
+            raise AssertionError(f"{prefix} {label}: logits "
+                                 f"{float(diff.max())} from the plain path")
 
         def grads(record=None, pinned=None):
             leaves = [p.detach().requires_grad_()
@@ -3993,23 +4031,23 @@ def f5_phases(dev, card, results, phase, timed):
             loss_p, g_p = grads(pinned=pinned_route_dispatch(list(routes))
                                 if cfg.moe_experts else
                                 moe_mod.route_dispatch_plain)
-        rl2 = [rel_l2(a, b) for a, b in zip(g_k, g_p)]
-        names = [n for n, _ in _leaf_names(params)]
+        rl2 = [_rel_l2(a, b) for a, b in zip(g_k, g_p)]
+        names = [nm for nm, _ in _leaf_names(params)]
         if max(rl2) > GRAD_RL2:
             worst = names[rl2.index(max(rl2))]
-            raise AssertionError(f"F5 {label}: gradient leaf {worst} "
+            raise AssertionError(f"{prefix} {label}: gradient leaf {worst} "
                                  f"{max(rl2)} from the plain path")
         init_opt, step = make_train_step(cfg, TRAIN_LR, dev)
         _p, state, loss1 = step(params, init_opt(params), images, labels)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(loss1)) or int(state.count) != 1:
-            raise AssertionError(f"F5 {label}: train step loss {loss1}")
+            raise AssertionError(f"{prefix} {label}: train step loss {loss1}")
         # each kernel's time at this configuration's shapes (the arguments
         # of its first call)
-        fa = first_args(lambda: model(images),
-                        [(vit_mod, k) for k in fwd_wrappers])
-        ba = first_args(grads, [(mod, k) for k, (mod, _n, _p)
-                                in bwd_wrappers.items()])
+        fa = _first_args(lambda: model(images),
+                         [(vit_mod, k) for k in fwd_wrappers])
+        ba = _first_args(grads, [(mod, k) for k, (mod, _n, _p)
+                                 in bwd_wrappers.items()])
         rows = {}
         for k, (kernel, pfn) in fwd_wrappers.items():
             if k in fa:
@@ -4019,23 +4057,23 @@ def f5_phases(dev, card, results, phase, timed):
                        "route_dispatch": moe_mod.route_dispatch_k19,
                        "combine": moe_mod.combine_k20}[k]
                 o = kfn(*a)
-                rows[kernel] = bucket(kernel, label, a, kfn, pfn,
-                                      nbytes(*a) + nbytes(
-                                          *(o if isinstance(o, tuple)
+                rows[kernel] = _bucket(
+                    results, timed, kernel, f"{prefix} {label}", a, kfn, pfn,
+                    _nbytes(*a) + _nbytes(*(o if isinstance(o, tuple)
                                             else (o,))))
         for k, (mod, kernel, pfn) in bwd_wrappers.items():
             if k in ba:
                 a = ba[k]
                 kfn = getattr(mod, k)
                 o = kfn(*a)
-                rows[kernel] = bucket(kernel, label, a, kfn, pfn,
-                                      nbytes(*a) + nbytes(
-                                          *(o if isinstance(o, tuple)
+                rows[kernel] = _bucket(
+                    results, timed, kernel, f"{prefix} {label}", a, kfn, pfn,
+                    _nbytes(*a) + _nbytes(*(o if isinstance(o, tuple)
                                             else (o,))))
         s, d = cfg.seq_len, cfg.head_dim
         out[label] = dict(
             config=dict(kw, depth=cfg.depth), tokens=s, head_dim=d,
-            images=F5_N, forward_launches=fwd_launches,
+            images=n, forward_launches=fwd_launches,
             step_launches=step_launches,
             logits_max_abs_vs_plain=float(diff.max()),
             loss=float(loss_k), loss_plain=float(loss_p),
@@ -4048,6 +4086,30 @@ def f5_phases(dev, card, results, phase, timed):
             forward_ms=timed(lambda: model(images), 3),
             kernel_ms={k: r["ms"] for k, r in rows.items()})
         del model, params, g_k, g_p, logits, logits_p
+    return out
+
+
+def f5_phases(dev, card, results, phase, timed):
+    """Phases 22-23: the model configurations past the tuned kernels'
+    envelopes (F5; see the module doc). Adds each kernel's times at these
+    shapes to its `buckets` in results."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.models import resnet as rn
+    from picha_tpu_torch.ops import attention as att_mod
+    from picha_tpu_torch.ops import instance_norm as inm
+    from picha_tpu_torch.optim import tree_leaves, tree_unflatten
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(11)
+
+    # 22. each ViT configuration: forward and one train step, depth 2
+    out = vit_config_checks(dev, results, timed, F5_VIT, F5_N, 2, gen, "F5")
 
     # the ResNet with odd channel counts
     cfg = rn.ResNetConfig(**F5_RESNET)
@@ -4106,15 +4168,16 @@ def f5_phases(dev, card, results, phase, timed):
     _p, state, loss1 = step(params, init_opt(params), images, labels)
     if not bool(torch.isfinite(loss1)):
         raise AssertionError(f"F5 ResNet step loss {loss1}")
-    ka = first_args(lambda: rn_grads(), [(inm, "norm_relu_k25"),
-                                        (inm, "norm_relu_backward")])
+    ka = _first_args(lambda: rn_grads(), [(inm, "norm_relu_k25"),
+                                         (inm, "norm_relu_backward")])
     x25, s25 = ka["norm_relu_k25"]
-    r25 = bucket("resnet_norm", "ResNet odd channels", (x25, s25),
-                 inm.norm_relu_k25, inm.norm_relu_plain, nbytes(x25) * 2)
+    r25 = _bucket(results, timed, "resnet_norm", "F5 ResNet odd channels",
+                  (x25, s25), inm.norm_relu_k25, inm.norm_relu_plain,
+                  _nbytes(x25) * 2)
     a26 = ka["norm_relu_backward"]
-    r26 = bucket("resnet_norm_bwd", "ResNet odd channels", a26,
-                 inm.norm_relu_backward, inm.norm_relu_backward_plain,
-                 nbytes(*a26[:3]) * 4 // 3)
+    r26 = _bucket(results, timed, "resnet_norm_bwd", "F5 ResNet odd channels",
+                  a26, inm.norm_relu_backward, inm.norm_relu_backward_plain,
+                  _nbytes(*a26[:3]) * 4 // 3)
     out["resnet_odd_channels"] = dict(
         config=F5_RESNET, images=F5_N, launches=rn_launches,
         logits_max_abs_vs_plain=lmax, logits_float64_ratio=lratio,
@@ -4139,13 +4202,13 @@ def f5_phases(dev, card, results, phase, timed):
     row = want.view(n, s, h, d).abs().amax(-1, keepdim=True).expand(
         n, s, h, d).reshape(n, s, h * d)
     dd = (o.double() - want.double()).abs()
-    over18 = float((dd - ulp(torch.maximum(o.abs(), want.abs()))
-                    - ulp(row)).max())
+    over18 = float((dd - _ulp(torch.maximum(o.abs(), want.abs()))
+                    - _ulp(row)).max())
     dq = att_mod.attention_backward(qkv, do, scale)
     wq = att_mod.attention_backward_plain(qkv, do, scale)
     blk = wq.abs().amax(dim=(1, 4), keepdim=True)
     over22 = float(((dq.double() - wq.double()).abs()
-                    - ulp(torch.maximum(dq.abs(), wq.abs())) - ulp(blk))
+                    - _ulp(torch.maximum(dq.abs(), wq.abs())) - _ulp(blk))
                    .max())
     del want, wq, row, dd, blk
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -4173,6 +4236,12 @@ def f5_phases(dev, card, results, phase, timed):
                build=att_mod.kernel_info(s, d, backward=True),
                **bound(qkv.numel() * 4 + do.numel() * 2,
                        bf16_flops=int(2.5 * fl)))
+    k22.update(dp_scratch_traffic(n, s, h, timed))
+    k18["sdpa_kernels"] = attention_library(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    k22["sdpa_backward_kernels"] = attention_library(
+        lambda: torch.autograd.grad(og, (qg, kg, vg), gout,
+                                    retain_graph=True))
     for key, r in (("vit_attention", k18), ("vit_attention_bwd", k22)):
         results[key].setdefault("buckets", []).append(dict(
             bucket=f"tiled, S = {s}, D = {d}, N = {n}, H = {h}",
@@ -4182,10 +4251,251 @@ def f5_phases(dev, card, results, phase, timed):
     if over18 > 0 or over22 > 0:
         raise AssertionError(f"K18 / K22 at S = {s}, D = {d}: past their "
                              f"bounds by {over18} / {over22}")
+    # the wide kernels (heads past 128) beside SDPA at their shapes
+    wide = {}
+    for (wn, ws, wh, wd) in F5_WIDE:
+        wqkv = torch.randn((wn, ws, 3, wh, wd), generator=g2).to(bf16).to(dev)
+        wdo = torch.randn((wn, ws, wh * wd), generator=g2).to(bf16).to(dev)
+        wsc = wd ** -0.5
+        q, k, v = (wqkv[:, :, i].transpose(1, 2) for i in range(3))
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        og = F.scaled_dot_product_attention(qg, kg, vg, scale=wsc)
+        gout = wdo.view(wn, ws, wh, wd).transpose(1, 2)
+        wfl = 4 * wn * wh * ws * ws * wd
+        wide[f"head_{wd}"] = dict(
+            shape=[wn, ws, wh, wd],
+            k18_ms=timed(lambda: att_mod.attention_k18(wqkv, wsc), 10),
+            k22_ms=timed(lambda: att_mod.attention_backward(wqkv, wdo, wsc),
+                         5),
+            sdpa_ms=timed(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=wsc), 10),
+            sdpa_backward_ms=timed(lambda: torch.autograd.grad(
+                og, (qg, kg, vg), gout, retain_graph=True), 5),
+            sdpa_kernels=attention_library(
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=wsc)),
+            sdpa_backward_kernels=attention_library(
+                lambda: torch.autograd.grad(og, (qg, kg, vg), gout,
+                                            retain_graph=True)),
+            k18_bound=bound(_nbytes(wqkv) * 4 // 3, bf16_flops=wfl),
+            k22_bound=bound(_nbytes(wqkv) * 2 + _nbytes(wdo),
+                            bf16_flops=int(2.5 * wfl)))
     phase("f5_attention", card=card, shape=[n, s, h, d], K18=k18, K22=k22,
+          wide=wide,
           note="the tiled builds; K18 within 1 bf16 ulp + 1 ulp of the "
                "row's largest |o| of its plain version, K22 within 1 ulp "
-               "+ 1 ulp of its head block's largest |value|")
+               "+ 1 ulp of its head block's largest |value|; "
+               "dp_scratch_copy_ms: a copy of as many bytes as K22's dP "
+               "scratch, which it writes once and reads back; *_kernels: "
+               "the CUDA kernels "
+               "SDPA launched (its backend); wide: the wide kernels (heads "
+               "past 128) beside SDPA at their shapes")
+
+
+VIT384 = dict(image_size=384)  # ViT-S/16's widths at 384^2: 576 tokens
+VIT384_N = 128                 # images of phase 30's timing
+VIT384_PARITY_N = 8            # images of phase 29's parity run
+
+
+def attention_library(fn):
+    """The CUDA kernels one call of fn launches (torch.profiler), to name
+    the SDPA backend that ran; "not measured" where the profiler records
+    no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type.name == "CUDA"})
+    except Exception as exc:     # the profiler is the card machine's
+        return f"not measured ({type(exc).__name__}: {exc})"
+    return names or "not measured"
+
+
+def dp_scratch_traffic(n, s, h, timed):
+    """The tiled K22's dP scratch at (n, s, h): its bytes, and the CUDA-event
+    ms of a copy of as many bytes (one write and one read of them, the
+    least its traffic costs)."""
+    import torch
+
+    sp = (s + 63) // 64 * 64
+    a = torch.empty(n * h * sp * sp, dtype=torch.bfloat16, device="cuda")
+    b = torch.empty_like(a)
+    return dict(dp_scratch_bytes=a.numel() * 2,
+                dp_scratch_copy_ms=timed(lambda: b.copy_(a), 5))
+
+
+def vit384_phases(dev, card, results, phase, timed):
+    """Phases 29-30: ViTConfig(image_size=384) at full width and depth on
+    the card (see the module doc). Adds the tiled K18's and K22's rows at
+    its shapes to their `buckets`; returns their launches a forward and a
+    step."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from picha_tpu_torch.models import vit as vit_mod
+    from picha_tpu_torch.models.vit import ViT, ViTConfig, make_train_step
+    from picha_tpu_torch.ops import attention as att_mod
+    from picha_tpu_torch.ops import layernorm as ln_mod
+
+    gen = torch.Generator().manual_seed(13)
+    cfg = ViTConfig(**VIT384)
+    s, h, d = cfg.seq_len, cfg.heads, cfg.head_dim
+    if not (att_mod.tiled(s, d) and att_mod.tiled(s, d, backward=True)):
+        raise AssertionError(f"ViT-S/384: ({s}, {d}) does not take the "
+                             "tiled K18 / K22")
+
+    # 29. parity at full depth: the forward and the gradients against the
+    # plain path, one train step
+    par = vit_config_checks(dev, results, timed, (("vit_s384", VIT384),),
+                            VIT384_PARITY_N, cfg.depth, gen, "ViT-S/384")
+    phase("vit_s384", card=card, **par["vit_s384"],
+          limit_logits=f"{VIT_LOGIT_TOL} + 1 bf16 ulp", limit_rel_l2=GRAD_RL2,
+          note="ViTConfig(image_size=384) (ViT-S/16's widths at 384^2, 576 "
+               "tokens, mean-pooled) at full depth on 8 random images: "
+               "logits and every gradient leaf against the same forward and "
+               "step through the plain versions, one train step")
+
+    # 30. full width at N = 128: launches (no plain version, no SDPA),
+    # forward and step times, K18 / K22 x 12, peak memory
+    model = ViT(cfg, seed=0, device=dev)
+    params = model.params()
+    images = torch.rand((VIT384_N, cfg.image_size, cfg.image_size, 3),
+                        generator=gen).to(dev)
+    labels = torch.randint(0, cfg.classes, (VIT384_N,),
+                           generator=gen).to(dev)
+    init_opt, step = make_train_step(cfg, TRAIN_LR, dev)
+    box = [params, init_opt(params)]
+
+    def one(mark=None):
+        box[0], box[1], loss = step(box[0], box[1], images, labels,
+                                    mark=mark)
+        return loss
+
+    def refuse(name):
+        def call(*_a, **_k):
+            raise AssertionError(f"ViT-S/384 called {name}")
+        return call
+
+    plain_names = [(att_mod, "attention_plain"),
+                   (att_mod, "attention_backward_plain"),
+                   (ln_mod, "layer_norm_plain"),
+                   (ln_mod, "layer_norm_backward_plain"),
+                   (F, "scaled_dot_product_attention")]
+    with contextlib.ExitStack() as stack:
+        for mod, name in plain_names:
+            stack.enter_context(mock.patch.object(mod, name, refuse(name)))
+        reset_launch_counts()
+        logits = model(images)
+        torch.cuda.synchronize()
+        fwd = only(launch_counts(), {"vit_layernorm": 2 * cfg.depth + 1,
+                                     "vit_attention": cfg.depth},
+                   "ViT-S/384 forward")
+        reset_launch_counts()
+        loss = one()
+        torch.cuda.synchronize()
+        stp = only(launch_counts(), {
+            "vit_layernorm": 2 * cfg.depth + 1, "vit_attention": cfg.depth,
+            "vit_layernorm_bwd": 2 * cfg.depth + 1,
+            "vit_attention_bwd": cfg.depth}, "ViT-S/384 step")
+    if tuple(logits.shape) != (VIT384_N, cfg.classes) or \
+            not bool(torch.isfinite(logits).all()) or \
+            not bool(torch.isfinite(loss)):
+        raise AssertionError(f"ViT-S/384: logits {tuple(logits.shape)}, "
+                             f"loss {float(loss)}")
+    fwd_ms = median_ms(lambda: model(images), 5)
+    step_ms = median_ms(one, 5)
+    # K18 x 12 through the forward's mark hook; K22 x 12 by events around
+    # its calls inside a step
+    k18x = []
+    for _ in range(3):
+        m = Marks()
+        model(images, m)
+        k18x.append(m.ms()["K18"])
+    real_bwd = att_mod.attention_backward
+    k22_events = []
+
+    def evented(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_bwd(*a, **k)
+        ev[1].record()
+        k22_events.append(ev)
+        return out
+
+    k22x = []
+    for _ in range(3):
+        k22_events.clear()
+        with mock.patch.object(att_mod, "attention_backward", evented):
+            one()
+        torch.cuda.synchronize()
+        k22x.append(sum(a.elapsed_time(b) for a, b in k22_events))
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    one()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    fl = 4 * VIT384_N * h * s * s * d            # K18's bf16 product FLOPs
+    phase("timing_vit_s384", card=card, images=VIT384_N, tokens=s,
+          forward_launches=fwd, step_launches=stp,
+          forward_ms=fwd_ms, forward_images_per_s=VIT384_N / fwd_ms * 1e3,
+          step_ms=step_ms, step_images_per_s=VIT384_N / step_ms * 1e3,
+          k18_x12_ms=sorted(k18x)[1], k22_x12_ms=sorted(k22x)[1],
+          peak_device_bytes=peak, peak_above_resident_bytes=peak - base,
+          note="forward_ms, step_ms: medians of 5 CUDA-event timings of "
+               "ViT(cfg)(images) and make_train_step's step; k18_x12_ms: "
+               "the forward's K18 stage (mark hook), k22_x12_ms: CUDA "
+               "events around the step's 12 K22 calls, medians of 3; the "
+               "plain versions and F.scaled_dot_product_attention patched "
+               "to raise during the counted forward and step")
+
+    # one launch of each at the step's shapes beside SDPA and the bounds
+    fa = _first_args(lambda: model(images), [(vit_mod, "attention")])
+    ba = _first_args(one, [(att_mod, "attention_backward")])
+    qkv, scale = fa["attention"]
+    qkv_b, do, _sc = ba["attention_backward"]
+    o = att_mod.attention_k18(qkv, scale)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    k18 = dict(ms=timed(lambda: att_mod.attention_k18(qkv, scale), 10),
+               library_ms=timed(lambda: F.scaled_dot_product_attention(
+                   q, k, v, scale=scale), 10),
+               build=att_mod.kernel_info(s, d),
+               **bound(_nbytes(qkv, o), bf16_flops=fl))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in
+                  (qkv_b[:, :, i].transpose(1, 2) for i in range(3)))
+    og = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    gout = do.view(VIT384_N, s, h, d).transpose(1, 2)
+    dqkv = att_mod.attention_backward(qkv_b, do, scale)
+    k22 = dict(ms=timed(lambda: att_mod.attention_backward(qkv_b, do, scale),
+                        5),
+               library_ms=timed(lambda: torch.autograd.grad(
+                   og, (qg, kg, vg), gout, retain_graph=True), 5),
+               build=att_mod.kernel_info(s, d, backward=True),
+               **dp_scratch_traffic(VIT384_N, s, h, timed),
+               **bound(_nbytes(qkv_b, do, dqkv), bf16_flops=int(2.5 * fl)))
+    for key, r, args in (("vit_attention", k18, qkv),
+                         ("vit_attention_bwd", k22, qkv_b)):
+        results[key].setdefault("buckets", []).append(dict(
+            bucket=f"ViT-S/384 step, {tuple(args.shape)}", max_abs_err=None,
+            ms=r["ms"], plain_ms=None, library_ms=r["library_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"]))
+    phase("vit_s384_attention", card=card, shape=list(qkv.shape), K18=k18,
+          K22=k22, note="one launch each on the step's first call's "
+                        "arguments; library_ms: F.scaled_dot_product_"
+                        "attention (K22: its backward alone); "
+                        "dp_scratch_copy_ms: a copy of as many bytes as "
+                        "K22's dP scratch, which it writes once and reads "
+                        "back")
+    return {"vit_attention": fwd["vit_attention"],
+            "vit_attention_bwd": stp["vit_attention_bwd"]}
 
 
 def raw420_phases(dev, card, results, phase, timed, wall, corpus, strict,

@@ -586,14 +586,16 @@ static bool tuned_shape(int s, int d) {
 // qkv, dqkv: (n, s, 3, h, d) bf16; dout: (n, s, h * d) bf16; all 16-byte
 // aligned; d >= 1, s >= 1. The tuned kernel takes d in {32, 64} and
 // s <= 256, the tiled one every other shape (and every shape when
-// `force_tiled` is 1), with stats: (n, h, s) float4 scratch. Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape neither takes).
+// `force_tiled` is 1), with stats: (n, h, s) float4 scratch and dp: (n,
+// h, s', s') bf16 scratch, s' = s rounded up to 64 (past head width 128
+// unused). Returns cudaGetLastError() (cudaErrorInvalidValue for a shape
+// neither takes).
 extern "C" int picha_vit_attention_bwd(const void* qkv, const void* dout, int n, int s, int h,
                                        int d, float scale, int force_tiled, void* dqkv, void* stats,
-                                       void* stream) {
+                                       void* dp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (force_tiled || !tuned_shape(s, d))
-    return attn_tiled_backward(qkv, dout, n, s, h, d, scale, dqkv, stats, st);
+    return attn_tiled_backward(qkv, dout, n, s, h, d, scale, dqkv, stats, dp, st);
   if (!attn::takes(n, s, h)) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   switch (d) {
@@ -603,9 +605,10 @@ extern "C" int picha_vit_attention_bwd(const void* qkv, const void* dout, int n,
   }
 }
 
-// K22's build at s tokens of head width d (the tiled one's query-side
-// kernel when `force_tiled` is 1 or the shape is past the tuned one): out[0..4]
-// as picha_vit_attention_info's. Launches nothing.
+// K22's build at s tokens of head width d: out[0..4] as
+// picha_vit_attention_info's (the tiled one's query-side kernel when
+// `force_tiled` is 1 or the shape is past the tuned one, and then its
+// key-side kernel's in out[5..9]). Launches nothing.
 extern "C" int picha_vit_attention_bwd_info(int s, int d, int force_tiled, int* out) {
   if (s < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (force_tiled || !tuned_shape(s, d)) return attn_tiled_backward_info(d, out);

@@ -63,7 +63,7 @@ SIGNATURES = {
     "picha_moe_route_dispatch": [P, P, L, I, I, I, P, P, P, P, P, P, P],
     "picha_moe_combine": [P, P, P, P, L, I, I, I, P, P],
     "picha_vit_layernorm_bwd": [P, P, P, L, I, P, P, P, P, P],
-    "picha_vit_attention_bwd": [P, P, I, I, I, I, F, I, P, P, P],
+    "picha_vit_attention_bwd": [P, P, I, I, I, I, F, I, P, P, P, P],
     "picha_vit_attention_bwd_info": [I, I, I, P],
     "picha_moe_dispatch_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
     "picha_moe_combine_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],

@@ -28,7 +28,9 @@ every other head width and any token count (`csrc/vit_attention_tiled.cu`,
 `csrc/vit_attention_bwd_tiled.cu`; past head width 128 their wide
 kernels, which read the operands from global memory and split the
 outputs into windows of 128 columns), chosen by shape in the C entry
-point.
+point. The tiled K22's two kernels share each query row's statistics and
+the settled bf16 dP through scratches that `attention_backward`
+allocates: (N, H, S', S') bf16 with S' = S rounded up to 64.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ MAX_SEQ = 256                    # the tuned K18 / K22: a head's rows in one blo
 HEAD_DIMS = (32, 64, 128)        # the tuned K18's instantiations
 BWD_HEAD_DIMS = (32, 64)         # the tuned K22's: q, k, v, do of a head in
                                  # shared memory
+TILED_MAX_D = 128                # past it the tiled builds' wide kernels
+TILED_CHUNK = 64                 # the tiled K22's chunk of rows
 
 
 def tiled(s: int, d: int, backward: bool = False) -> bool:
@@ -121,36 +125,51 @@ def attention_backward(qkv, do, scale: float, force_tiled: bool = False):
                         f"{(n, s, h * d)}")
     qkv, do = aligned(qkv), aligned(do)
     dqkv = torch.empty_like(qkv)
-    # the tiled build keeps each query row's max, l, 1 / l and c
-    stats = (torch.empty((max(n, 1), h, s, 4), dtype=torch.float32,
-                         device=qkv.device)
-             if force_tiled or tiled(s, d, backward=True) else None)
+    stats = dp = None
+    if force_tiled or tiled(s, d, backward=True):
+        # each query row's max, l, 1 / l and c, and the settled bf16 dP
+        # (rows and columns rounded up to the tiled build's 64-row chunks)
+        # that its two kernels share
+        stats = torch.empty((max(n, 1), h, s, 4), dtype=torch.float32,
+                            device=qkv.device)
+        if d <= TILED_MAX_D:
+            sp = -(-s // TILED_CHUNK) * TILED_CHUNK
+            dp = torch.empty((max(n, 1), h, sp, sp), dtype=torch.bfloat16,
+                             device=qkv.device)
     KERNELS["vit_attention_bwd"](ptr(qkv), ptr(do), n, s, h, d, float(scale),
                                  int(force_tiled), ptr(dqkv),
                                  None if stats is None else ptr(stats),
+                                 None if dp is None else ptr(dp),
                                  stream_of(qkv))
     return dqkv
+
+
+_INFO = ("registers", "local_bytes", "shared_bytes", "threads",
+         "blocks_per_sm")
 
 
 def kernel_info(s: int, d: int, backward: bool = False,
                 force_tiled: bool = False) -> dict:
     """K18's (K22's) build at `s` tokens of head width `d` (the tiled one
-    past the tuned one's shapes, or with `force_tiled`; K22's query-side
-    kernel), as the card reports it: registers and local (spill) bytes a
-    thread, dynamic shared bytes, threads and resident blocks a
-    multiprocessor. Launches nothing and counts no launch."""
+    past the tuned one's shapes, or with `force_tiled`), as the card
+    reports it: registers and local (spill) bytes a thread, dynamic
+    shared bytes, threads and resident blocks a multiprocessor. For the
+    tiled K22 these are its query-side kernel's, with the key-side
+    kernel's under "key_side". Launches nothing and counts no launch."""
     import ctypes
 
     from ..kernels._build import library
 
-    vals = (ctypes.c_int * 5)()
+    vals = (ctypes.c_int * 10)()
     fn = "picha_vit_attention_bwd_info" if backward else \
         "picha_vit_attention_info"
     rc = getattr(library(), fn)(s, d, int(force_tiled), vals)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
-                     "blocks_per_sm"), vals))
+    out = dict(zip(_INFO, vals[:5]))
+    if backward and (force_tiled or tiled(s, d, backward=True)):
+        out["key_side"] = dict(zip(_INFO, vals[5:]))
+    return out
 
 
 class _Attention(torch.autograd.Function):

@@ -48,7 +48,7 @@ from picha_tpu_torch.ops.attention import (attention_backward_plain,
                                            attention_plain)
 
 SHAPES = [(2, 196, 3, 64), (2, 1, 2, 32), (2, 17, 2, 32), (1, 255, 2, 32),
-          (1, 256, 2, 32), (1, 300, 2, 40)]
+          (1, 256, 2, 32), (1, 300, 2, 40), (1, 576, 1, 64)]
 KINDS = ["random", "uniform", "saturated", "near_keys"]
 
 

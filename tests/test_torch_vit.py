@@ -278,16 +278,20 @@ def _compare_forward(cfg, seed, n=8):
     return got
 
 
-@pytest.mark.parametrize("widths", ["tiny", "vit_s_64px"])
+@pytest.mark.parametrize("widths", ["tiny", "vit_s_64px", "vit_s_384px"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_one_dense_block_matches_reference(widths, seed):
-    """depth 1: logits within 0.03, argmax equal past a 0.06 margin."""
+    """depth 1: logits within 0.03, argmax equal past a 0.06 margin
+    (vit_s_384px: ViT-S/16's widths at 384², 576 tokens, the tiled K18's
+    shapes on the card, 2 images)."""
     if widths == "tiny":
         cfg = ref_vit.ViTConfig(image_size=32, patch=8, dim=128, depth=1,
                                 heads=4, classes=16)
-    else:
+    elif widths == "vit_s_64px":
         cfg = ref_vit.ViTConfig(image_size=64, depth=1)
-    _compare_forward(cfg, seed, n=4)
+    else:
+        cfg = ref_vit.ViTConfig(image_size=384, depth=1)
+    _compare_forward(cfg, seed, n=2 if widths == "vit_s_384px" else 4)
 
 
 @pytest.mark.parametrize("name", ["TINY", "TINY_MOE"])

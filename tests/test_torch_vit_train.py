@@ -362,8 +362,8 @@ def test_warp_order_sum_is_a_sum():
 
 # --- the loss and its gradients ----------------------------------------------
 
-def _grads_vs_reference(cfg, seed):
-    params, npp, x, labels = _setup(cfg, seed)
+def _grads_vs_reference(cfg, seed, n=8):
+    params, npp, x, labels = _setup(cfg, seed, n)
     want_loss, want = jax.jit(jax.value_and_grad(
         lambda p, a, b: ref_vit.loss_fn(p, a, b, cfg)))(params, x, labels)
     tp = port_vit.params_from_jax(npp, "cpu")
@@ -418,11 +418,16 @@ def _reference_routes(params, x, cfg):
 
 @pytest.mark.parametrize("name,seed", [
     ("TINY", 0), ("TINY", 1), ("vit_s_64px", 0), ("vit_s_64px", 1),
-    ("TINY_MOE", 5), ("TINY_MOE", 9)])
+    ("TINY_MOE", 5), ("TINY_MOE", 9), ("vit_s_384px", 0)])
 def test_loss_and_gradients_match_reference(name, seed):
-    cfg = (ref_vit.ViTConfig(image_size=64, depth=1) if name == "vit_s_64px"
-           else getattr(ref_vit, name))
-    params, x, routes = _grads_vs_reference(cfg, seed)
+    """Loss and every gradient leaf (vit_s_384px: ViT-S/16's widths at
+    384², 576 tokens, the tiled K18 / K22's shapes on the card, depth 1,
+    2 images)."""
+    sizes = {"vit_s_64px": 64, "vit_s_384px": 384}
+    cfg = (ref_vit.ViTConfig(image_size=sizes[name], depth=1)
+           if name in sizes else getattr(ref_vit, name))
+    params, x, routes = _grads_vs_reference(
+        cfg, seed, 2 if name == "vit_s_384px" else 8)
     if cfg.moe_experts:
         want = _reference_routes(params, x, cfg)
         assert len(routes) == len(want) == 1
