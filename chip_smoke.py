@@ -91,8 +91,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      distinct images), K14 (PNG transform) on the samples. Both
      transforms are the identity on these rgba buckets, so a clone of
      their input is their one-call yardstick; K16 is also timed on the
-     same sources written with predictor 2 and orientation 6, K14 on a
-     palette + tRNS bucket;
+     same sources written with predictor 2 and orientation 6 and on the
+     rows as a view at byte offset 5, K14 on a palette + tRNS bucket and
+     on the sources as 16-bit rgb decoded deep; each with the build of
+     the kernel it launches (registers, spills, shared bytes, blocks an
+     SM);
  12. TiffBatchPipeline over the 256 TIFF-LZW files (K15 and K16 once
      each, nothing else; equal to image_host.decode_tiff of each file
      and to the sources) and over their predictor-2 orientation-6 twins
@@ -1800,6 +1803,8 @@ def decode_phases(dev, card, results, phase, timed, wall):
                                                  ihdr)
     from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
     from picha_tpu_torch.ops.lzw import check_strips, lzw_decode
+    from picha_tpu_torch.ops import png_transform as k14_mod
+    from picha_tpu_torch.ops import tiff_transform as k16_mod
     from picha_tpu_torch.ops.png_transform import (png_transform,
                                                    png_transform_plain)
     from picha_tpu_torch.ops.png_unfilter import (check_status,
@@ -1853,8 +1858,9 @@ def decode_phases(dev, card, results, phase, timed, wall):
 
     # 11. the four kernels against their plain versions on the card's
     # inputs (K13 and K15's plain versions on the 8 distinct images);
-    # K14 and K16 also on a second bucket whose arithmetic is not the
-    # identity of the rgba buckets -----------------------------------------
+    # K14 and K16 also on buckets whose arithmetic is not the identity of
+    # the rgba buckets, K16 on rows at an unaligned byte offset, each
+    # with the build of the kernel it launches ------------------------------
     sub = len(srcs)
     rb = IMG_W * 4
 
@@ -1902,7 +1908,25 @@ def decode_phases(dev, card, results, phase, timed, wall):
         max_abs_err=0, ms=timed(lambda: tiff_transform(rows, sig), 10),
         plain_ms=timed(lambda: tiff_transform_plain(rows, sig), 3),
         library_ms=timed(lambda: rows.clone(), 10),
-        **bound(rows.numel() + rgba.numel()))
+        **bound(rows.numel() + rgba.numel()),
+        build=k16_mod.kernel_info(sig))
+    # the same rows as a view at byte offset 5 of a larger buffer, as the
+    # pipeline hands K16 the rows of uncompressed files
+    flat = torch.zeros(rows.numel() + 21, dtype=torch.uint8, device=dev)
+    rows5 = flat[5:5 + rows.numel()].view_as(rows)
+    rows5.copy_(rows)
+    rgba5 = tiff_transform(rows5, sig)
+    if not torch.equal(rgba5, tiff_transform_plain(rows5, sig)) or \
+            not torch.equal(rgba5, rgba):
+        raise AssertionError("K16 on rows at byte offset 5 differs")
+    k16_buckets = [dict(
+        bucket="rgba8, predictor 1, orientation 1, rows at byte offset 5",
+        max_abs_err=0, ms=timed(lambda: tiff_transform(rows5, sig), 10),
+        plain_ms=timed(lambda: tiff_transform_plain(rows5, sig), 3),
+        library_ms=timed(lambda: rows5.clone(), 10),
+        **bound(rows5.numel() + rgba5.numel()),
+        build=k16_mod.kernel_info(sig))]
+    del flat, rows5, rgba5
     items26 = tpipe.host_stage(tiffs26)
     sig26 = items26[0].sig
     if sig26[5:7] != (2, 6):
@@ -1916,7 +1940,8 @@ def decode_phases(dev, card, results, phase, timed, wall):
         bucket="rgba8, predictor 2, orientation 6", max_abs_err=0,
         ms=timed(lambda: tiff_transform(rows26, sig26), 10),
         plain_ms=timed(lambda: tiff_transform_plain(rows26, sig26), 3),
-        library_ms=None, **bound(rows26.numel() + rgba26.numel()))]
+        library_ms=None, **bound(rows26.numel() + rgba26.numel()),
+        build=k16_mod.kernel_info(sig26))] + k16_buckets
     phase("K15_K16", card=card, strips=table.shape[1],
           segment_bytes=segs.numel(), rows=list(rows.shape),
           rgba=list(rgba.shape), rgba_p2_o6=list(rgba26.shape), equal=True,
@@ -1925,7 +1950,9 @@ def decode_phases(dev, card, results, phase, timed, wall):
                f"strips); K16: both on all {IMG_N}, library_ms a clone of "
                f"the rows (K16 is the identity on this bucket), buckets: "
                f"K16 on the predictor-2 orientation-6 files, equal to the "
-               f"turned sources",
+               f"turned sources, and on the rows at byte offset 5 (library "
+               f"a clone of that view); build: the launched kernel's "
+               f"registers, spill bytes, shared bytes and blocks an SM",
           K15=results["lzw_decode"], K16=results["tiff_transform"])
     del rows, rgba, rows26, rgba26
 
@@ -1961,7 +1988,8 @@ def decode_phases(dev, card, results, phase, timed, wall):
         plain_ms=timed(lambda: png_transform_plain(samples, 6, 8, "rgba"),
                        3),
         library_ms=timed(lambda: samples.clone(), 10),
-        **bound(samples.numel() + px.numel()))
+        **bound(samples.numel() + px.numel()),
+        build=k14_mod.kernel_info(6, 8, "rgba"))
     del plane, samples, px
     pparts = ppal.host_stage(pals)
     phost, groups, tables = png_batch.pack(pparts)
@@ -1981,14 +2009,37 @@ def decode_phases(dev, card, results, phase, timed, wall):
         plain_ms=timed(lambda: png_transform_plain(samples, 3, 8, "rgba",
                                                    pal, trns), 3),
         library_ms=None,
-        **bound(samples.numel() + pal.numel() + trns.numel() + px.numel()))]
+        **bound(samples.numel() + pal.numel() + trns.numel() + px.numel()),
+        build=k14_mod.kernel_info(3, 8, "rgba"))]
+    del samples, px, pbuf
+    # config 4's sources as 16-bit rgb, decoded deep: K14 turns the
+    # big-endian sample bytes into uint16 r16g16b16
+    dparts = PngBatchPipeline(deep=True, device=dev).host_stage(pngs16)
+    phost, groups, _tables = png_batch.pack(dparts)
+    pbuf = upload(phost, dev)
+    samples, statuses = png_batch.unfilter_groups(pbuf, dparts, groups)
+    check_status(*statuses)
+    px = png_transform(samples, 2, 16, "r16g16b16")
+    if px.dtype != torch.uint16 or not torch.equal(
+            px, png_transform_plain(samples, 2, 16, "r16g16b16")) or \
+            not np.array_equal(px.cpu().numpy(), np.stack(tile(list(deep)))):
+        raise AssertionError("K14 (16-bit rgb, deep) differs")
+    results["png_transform"]["buckets"].append(dict(
+        bucket="16-bit rgb to r16g16b16 (deep)", max_abs_err=0,
+        ms=timed(lambda: png_transform(samples, 2, 16, "r16g16b16"), 10),
+        plain_ms=timed(lambda: png_transform_plain(samples, 2, 16,
+                                                   "r16g16b16"), 3),
+        library_ms=None, **bound(samples.numel() + 2 * px.numel()),
+        build=k14_mod.kernel_info(2, 16, "r16g16b16")))
     phase("K13_K14", card=card, rows=list(prows.shape), bpp=4,
           filter_types=filt, equal=True,
           note=f"K13: kernel on all {IMG_N} images, plain (on the host, "
                f"one run) on the {sub} distinct ones; K14: both on all "
                f"{IMG_N}, library_ms a clone of the samples (K14 is the "
                f"identity on this bucket), buckets: K14 on the palette + "
-               f"tRNS files",
+               f"tRNS files and on the 16-bit rgb files decoded deep (equal "
+               f"to the sources); build: the launched kernel's registers, "
+               f"spill bytes, shared bytes and blocks an SM",
           K13=results["png_unfilter"], K14=results["png_transform"])
     del samples, px, pbuf
 

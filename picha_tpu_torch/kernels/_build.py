@@ -55,8 +55,10 @@ SIGNATURES = {
     "picha_png_filter": [P, I, I, I, I, I, P, P],
     "picha_png_unfilter": [P, L, I, I, I, I, P, P, P],
     "picha_png_transform": [P, I, I, I, I, I, P, P, I, I, I, P, P],
+    "picha_png_transform_info": [I, I, I, I, I, P],
     "picha_lzw_decode": [P, P, P, P, P, I, P, P, P, P, P],
     "picha_tiff_transform": [P, I, I, I, L, I, I, I, I, I, I, I, P, P, P],
+    "picha_tiff_transform_info": [I, I, I, I, I, I, P],
     "picha_vit_layernorm": [P, P, P, L, I, P, P],
     "picha_vit_attention": [P, I, I, I, I, F, I, P, P],
     "picha_vit_attention_info": [I, I, I, P],

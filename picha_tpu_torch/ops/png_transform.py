@@ -17,6 +17,7 @@ as PNG stores them) at depth 16, else 1 with sub-byte samples unpacked.
   `png_transform_plain`  the torch version
   `png_transform`        K14 (`csrc/png_transform.cu`) for CUDA tensors,
                          the plain version for CPU tensors
+  `kernel_info`          the build of the K14 kernel a signature launches
 """
 from __future__ import annotations
 
@@ -120,3 +121,27 @@ def png_transform(samples, color_type: int, depth: int, target: str,
         int(fmt.is_color), int(fmt.has_alpha), int(fmt.is_deep), ptr(out),
         stream_of(samples))
     return out
+
+
+_INFO = ("registers", "local_bytes", "shared_bytes", "threads",
+         "blocks_per_sm", "group_px")
+
+
+def kernel_info(color_type: int, depth: int, target: str) -> dict:
+    """The build of the K14 kernel that (colour type, depth) -> `target`
+    launches, as the card reports it: registers and local (spill) bytes a
+    thread, shared bytes and threads a block, resident blocks a
+    multiprocessor, and the pixels a thread converts at a time. Launches
+    nothing and counts no launch."""
+    import ctypes
+
+    from ..kernels._build import library
+
+    fmt = pixel_format(target)
+    vals = (ctypes.c_int * 6)()
+    rc = library().picha_png_transform_info(
+        int(color_type), int(depth), int(fmt.is_color), int(fmt.has_alpha),
+        int(fmt.is_deep), vals)
+    if rc != 0:
+        raise RuntimeError(f"picha_png_transform_info: CUDA error {rc}")
+    return dict(zip(_INFO, vals))

@@ -16,6 +16,7 @@ or 255; orientations 1-8, 5-8 transposed.
   `tiff_transform_plain`  the torch version
   `tiff_transform`        K16 (`csrc/tiff_transform.cu`) for CUDA
                           tensors, the plain version for CPU tensors
+  `kernel_info`           the build of the K16 kernel a signature launches
 """
 from __future__ import annotations
 
@@ -168,3 +169,29 @@ def tiff_transform(rows, sig, cmaps=None):
         None if photometric != 3 else ptr(cmaps), ptr(out),
         stream_of(rows))
     return out
+
+
+ROUTES = ("generic", "straight", "transposed")
+_INFO = ("registers", "local_bytes", "shared_bytes", "threads",
+         "blocks_per_sm")
+
+
+def kernel_info(sig) -> dict:
+    """The build of the K16 kernel that signature `sig` launches, as the
+    card reports it: registers and local (spill) bytes a thread, shared
+    bytes and threads a block, resident blocks a multiprocessor, and its
+    route (the straight or transposed fast kernel, or the generic one).
+    Launches nothing and counts no launch."""
+    import ctypes
+
+    from ..kernels._build import library
+
+    (_w, _h, spp, bits, photometric, predictor, orientation, _endian,
+     has_extras) = sig
+    vals = (ctypes.c_int * 6)()
+    rc = library().picha_tiff_transform_info(
+        spp, bits, photometric, predictor, orientation, int(bool(has_extras)),
+        vals)
+    if rc != 0:
+        raise RuntimeError(f"picha_tiff_transform_info: CUDA error {rc}")
+    return {**dict(zip(_INFO, vals[:5])), "route": ROUTES[vals[5]]}

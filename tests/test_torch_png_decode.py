@@ -3,7 +3,8 @@ Pillow on the same numpy inputs: K13's plain version (the unfilter)
 inverts the reference's JAX `filter_batch` for every strategy and bpp;
 K14's plain version (the spec transforms) equals the reference's
 `png_batch._jit_transform` (JAX on the CPU) for every colour type, depth,
-target and tRNS case it accepts; `PngBatchPipeline(device="cpu")` equals
+target and tRNS case it accepts, and at config 4's buckets at full width
+(also on samples and tables at an odd byte offset); `PngBatchPipeline(device="cpu")` equals
 Pillow's decode of Pillow-written files, and of interlaced files from a
 writer here (Pillow writes no Adam7); the 16-bit rgb fixture against the
 reference's `_to_target`; 16-bit round trips through the port's encode;
@@ -123,6 +124,53 @@ def test_transform_matches_reference_jit(ct, depth):
                                                                got.dtype)
             np.testing.assert_array_equal(got.numpy().astype(np.int64),
                                           want.astype(np.int64))
+
+
+# BASELINE config 4's PNG buckets at full width (384x256): its rgba
+# sources, as palette + tRNS files, and as 16-bit rgb decoded deep; K14
+# times its kernel on these
+CONFIG4_PNG = {"rgba8": (6, 8, "rgba"), "palette_trns": (3, 8, "rgba"),
+               "rgb16_deep": (2, 16, "r16g16b16")}
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("bucket", list(CONFIG4_PNG))
+def test_transform_matches_reference_at_config4_buckets(bucket, offset):
+    """K14's plain version, the card's yardstick, equals `_jit_transform`
+    on config 4's buckets at full width (3 images), also on samples and
+    palette / tRNS tables that start at an odd byte offset of a larger
+    buffer, as the pipeline slices its upload buffer."""
+    ct, depth, target = CONFIG4_PNG[bucket]
+    n, h, w = 3, 256, 384
+    rng = np.random.default_rng(50 + offset)
+    s = _samples(rng, n, ct, depth, h, w)
+    sb = _sample_bytes(s, depth).reshape(-1)
+    flat = torch.zeros(sb.numel() + offset + 16, dtype=torch.uint8)
+    flat[offset:offset + sb.numel()] = sb
+    view = flat[offset:offset + sb.numel()].view(n, h, w, -1)
+    sig = (w, h, depth, ct)
+    if ct == 3:
+        pal = rng.integers(0, 256, (n, 256, 3), np.uint8)
+        ta = np.full((n, 256), 255, np.uint8)
+        ta[:, :200] = rng.integers(0, 256, (n, 200))
+        tab = torch.zeros(n * 1024 + 2 * offset + 16, dtype=torch.uint8)
+        tab[offset:offset + n * 768] = torch.from_numpy(pal.reshape(-1))
+        t0 = offset + n * 768 + offset + 1
+        tab[t0:t0 + n * 256] = torch.from_numpy(ta.reshape(-1))
+        offs = (np.arange(n, dtype=np.int32) * 256)[:, None, None]
+        want = np.asarray(ref_transform(sig, target, True)(
+            s[..., 0].astype(np.int32)[..., None] + offs[..., None],
+            pal.reshape(-1, 3), ta.reshape(-1)))
+        got = png_transform(view, ct, depth, target,
+                            tab[offset:offset + n * 768].view(n, 256, 3),
+                            tab[t0:t0 + n * 256].view(n, 256))
+    else:
+        want = np.asarray(ref_transform(sig, target, False)(
+            s, np.zeros((1, 3), np.uint8), np.zeros((1,), np.uint8)))
+        got = png_transform(view, ct, depth, target)
+    assert str(got.dtype).endswith(str(want.dtype)) and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy().astype(np.int64),
+                                  want.astype(np.int64))
 
 
 def _pil_png(arr, mode, **kw):

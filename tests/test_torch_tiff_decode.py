@@ -5,7 +5,9 @@ libtiff-style encoder here (validated through Pillow) for KwKwK, a table
 clear, each code-width boundary at the end of a strip, the cap and the
 errors; K16's plain version (the sample transforms) equals the
 reference's `tiff_batch._jit_transform` (JAX on the CPU) for every bits,
-byte order, predictor, photometric, extras and orientation;
+byte order, predictor, photometric, extras and orientation, and at
+config 4's bucket signatures at full width (also on rows at an odd
+byte offset);
 `TiffBatchPipeline(device="cpu")` equals the reference's on uncompressed
 files (the struct-only builders of tests/test_tiff.py), Pillow's decode
 on LZW, deflate and PackBits files, and refuses the crafted tags the
@@ -256,6 +258,31 @@ def test_transform_matches_reference_jit(bits, ph, spp):
                              else torch.from_numpy(cmaps))
         assert got.dtype == torch.uint8
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# BASELINE config 4's TIFF buckets at full width (384x256 rgba8, alpha as
+# an extra sample, as Pillow writes them); K16 times its kernel on these
+CONFIG4_TIFF = {"p1_o1": (384, 256, 4, 8, 2, 1, 1, "<", True),
+                "p2_o6": (384, 256, 4, 8, 2, 2, 6, "<", True)}
+
+
+@pytest.mark.parametrize("offset", [0, 7])
+@pytest.mark.parametrize("bucket", list(CONFIG4_TIFF))
+def test_transform_matches_reference_at_config4_buckets(bucket, offset):
+    """K16's plain version, the card's yardstick, equals `_jit_transform`
+    on config 4's bucket signatures at full width (3 images), also on rows
+    that start at an odd byte offset of a larger buffer, as the pipeline
+    slices its upload buffer."""
+    sig = CONFIG4_TIFF[bucket]
+    n, (w, h), rb = 3, sig[:2], sig[0] * 4
+    flat = np.random.default_rng(40 + offset).integers(
+        0, 256, n * h * rb + offset + 16, np.uint8)
+    rows = flat[offset:offset + n * h * rb].reshape(n, h, rb)
+    want = np.asarray(ref_transform(sig)(rows, np.zeros((n, 1, 3), np.uint8)))
+    view = torch.from_numpy(flat)[offset:offset + n * h * rb].view(n, h, rb)
+    got = tiff_transform(view, sig)
+    assert got.shape == ((n, h, w, 4) if sig[6] < 5 else (n, w, h, 4))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_sub_byte_predictor_raises_like_reference():
