@@ -86,7 +86,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
  11. the decode kernels against their plain versions, bit for bit, on
      config 4's 256 sources: K15 (LZW strips) on their TIFF-LZW files
      (Pillow's writer, 7 strips each; the pure-Python twin on the 8
-     distinct images), K16 (TIFF transform) on the rows, K13 (unfilter)
+     distinct images; rows, lengths and statuses), also timed on the
+     predictor-2 orientation-6 files and on compressible files (the
+     sources without noise, 8 levels a channel; rows equal to them), the
+     twin on 2 images each, with K15's build; K16 (TIFF transform) on
+     the rows, K13 (unfilter)
      on their PNGs (the port's encode, default probe; the twin on the 8
      distinct images), K14 (PNG transform) on the samples. Both
      transforms are the identity on these rgba buckets, so a clone of
@@ -1482,21 +1486,34 @@ def only(counts, want, label):
     return got
 
 
+def _config4_waves(i):
+    """Image i of bench.py's config-4 recipe before its noise term."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:IMG_H, 0:IMG_W].astype(np.float32)
+    base = 127 + 70 * np.sin(xx / (11 + i)) + 40 * np.cos(yy / (7 + i))
+    return np.stack([base, 255 - base, base * 0.5 + 60,
+                     np.full_like(base, 255) - (xx + yy) % 17], -1)
+
+
 def config4_sources():
     """bench.py's config-4 recipe (seed 9): 8 RGBA 384x256 images (the
     call tiles them to IMG_N, as bench.py does)."""
     import numpy as np
 
     rng = np.random.default_rng(9)
-    srcs = []
-    for i in range(8):
-        yy, xx = np.mgrid[0:IMG_H, 0:IMG_W].astype(np.float32)
-        base = 127 + 70 * np.sin(xx / (11 + i)) + 40 * np.cos(yy / (7 + i))
-        srcs.append(np.clip(np.stack(
-            [base, 255 - base, base * 0.5 + 60,
-             np.full_like(base, 255) - (xx + yy) % 17], -1)
-            + rng.normal(0, 4, (IMG_H, IMG_W, 4)), 0, 255).astype(np.uint8))
-    return srcs
+    return [np.clip(_config4_waves(i) + rng.normal(0, 4, (IMG_H, IMG_W, 4)),
+                    0, 255).astype(np.uint8) for i in range(8)]
+
+
+def compressible_sources():
+    """config4_sources' recipe without its noise term, quantised to 8
+    levels a channel: what an LZW strip compresses well (long strings,
+    KwKwK)."""
+    import numpy as np
+
+    return [np.clip(_config4_waves(i), 0, 255).astype(np.uint8) // 32 * 32
+            for i in range(8)]
 
 
 def pixel_phases(dev, card, results, phase, timed, wall):
@@ -1803,6 +1820,7 @@ def decode_phases(dev, card, results, phase, timed, wall):
                                                  ihdr)
     from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
     from picha_tpu_torch.ops.lzw import check_strips, lzw_decode
+    from picha_tpu_torch.ops import lzw as k15_mod
     from picha_tpu_torch.ops import png_transform as k14_mod
     from picha_tpu_torch.ops import tiff_transform as k16_mod
     from picha_tpu_torch.ops.png_transform import (png_transform,
@@ -1864,8 +1882,11 @@ def decode_phases(dev, card, results, phase, timed, wall):
     sub = len(srcs)
     rb = IMG_W * 4
 
-    def lzw_rows(items):
-        """One bucket's upload and K15 -> (rows, strip table, segments)."""
+    def lzw_rows(items, n_plain, label):
+        """One bucket's upload and K15, checked bit for bit (rows,
+        lengths, statuses) against the plain version (on the host, one
+        run) on the strips of its first n_plain images -> (rows, strip
+        table, segments, the K15 bucket record without its time)."""
         host, lay = tiff_batch.pack(items)
         buf = upload(host, dev)
         table = buf[:lay.segs].view(torch.int64).view(4, lay.nstrips)
@@ -1875,22 +1896,33 @@ def decode_phases(dev, card, results, phase, timed, wall):
         n, st = lzw_decode(segs, table[0], table[1], rows, table[2],
                            table[3])
         check_strips(n, st, table[3])
-        return rows, n, table, segs
+        k = sum(len(it.strips) for it in items[:n_plain])
+        rows_p = torch.zeros((n_plain, IMG_H, rb), dtype=torch.uint8)
+        tab_c = table[:, :k].cpu()
+        t0 = time.perf_counter()
+        n_p, st_p = lzw_decode(segs.cpu(), tab_c[0], tab_c[1], rows_p,
+                               tab_c[2], tab_c[3])
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if not (torch.equal(rows[:n_plain].cpu(), rows_p)
+                and torch.equal(n[:k].cpu(), n_p)
+                and torch.equal(st[:k].cpu(), st_p)):
+            raise AssertionError(f"K15 differs from its plain version "
+                                 f"({label})")
+        rec = dict(bucket=label, max_abs_err=0, plain_ms=plain_ms,
+                   plain_images=n_plain, plain_strips=k, library_ms=None,
+                   strips=lay.nstrips, segment_bytes=segs.numel(),
+                   **bound(segs.numel() + rows.numel()),
+                   build=k15_mod.kernel_info())
+        return rows, table, segs, rec
+
+    def k15_ms(rows, table, segs):
+        return timed(lambda: lzw_decode(segs, table[0], table[1], rows,
+                                        table[2], table[3]), 20)
 
     items = tpipe.host_stage(tiffs)
-    rows, n15, table, segs = lzw_rows(items)
-    k_sub = sum(len(it.strips) for it in items[:sub])
-    rows_p = torch.zeros((sub, IMG_H, rb), dtype=torch.uint8)
-    tab_c, segs_c = table[:, :k_sub].cpu(), segs.cpu()
-    t0 = time.perf_counter()     # the plain version's one (checked) run
-    n_p, st_p = lzw_decode(segs_c, tab_c[0], tab_c[1], rows_p, tab_c[2],
-                           tab_c[3])
-    k15_plain = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    if not (torch.equal(rows[:sub].cpu(), rows_p)
-            and torch.equal(n15[:k_sub].cpu(), n_p)
-            and not bool(st_p.any())):
-        raise AssertionError("K15 differs from its plain version")
+    rows, table, segs, k15 = lzw_rows(items, sub, "rgba8, predictor 1, "
+                                      "orientation 1 (config 4's sources)")
     sig = items[0].sig
     rgba = tiff_transform(rows, sig)
     if not torch.equal(rgba, tiff_transform_plain(rows, sig)):
@@ -1899,11 +1931,7 @@ def decode_phases(dev, card, results, phase, timed, wall):
     # so one copy of the rows is the same function
     if not torch.equal(rgba.view_as(rows), rows):
         raise AssertionError("the rgba TIFF bucket is not the identity")
-    results["lzw_decode"] = dict(
-        max_abs_err=0, ms=timed(lambda: lzw_decode(
-            segs, table[0], table[1], rows, table[2], table[3]), 5),
-        plain_ms=k15_plain, library_ms=None,
-        **bound(segs.numel() + rows.numel()))
+    results["lzw_decode"] = dict(ms=k15_ms(rows, table, segs), **k15)
     results["tiff_transform"] = dict(
         max_abs_err=0, ms=timed(lambda: tiff_transform(rows, sig), 10),
         plain_ms=timed(lambda: tiff_transform_plain(rows, sig), 3),
@@ -1931,7 +1959,25 @@ def decode_phases(dev, card, results, phase, timed, wall):
     sig26 = items26[0].sig
     if sig26[5:7] != (2, 6):
         raise AssertionError(f"predictor/orientation not written: {sig26}")
-    rows26 = lzw_rows(items26)[0]
+    rows26, table26, segs26, k15_26 = lzw_rows(
+        items26, 2, "rgba8, predictor 2, orientation 6")
+    k15_26["ms"] = k15_ms(rows26, table26, segs26)
+    # config 4's sources without their noise, 8 levels a channel: long
+    # strings and KwKwK, so K15's expansion dominates; the rows are the
+    # sources themselves (predictor 1, orientation 1)
+    csrcs = compressible_sources()
+    itemsc = tpipe.host_stage(tile([image_host.encode_tiff(
+        Image.from_array(a, "rgba"), {"compression": "lzw"})
+        for a in csrcs]))
+    rowsc, tablec, segsc, k15_c = lzw_rows(
+        itemsc, 2, "rgba8, compressible (no noise, 8 levels a channel)")
+    if not np.array_equal(rowsc.cpu().numpy().reshape(want8.shape),
+                          np.stack(tile(csrcs))):
+        raise AssertionError("K15 (compressible bucket) differs from the "
+                             "sources")
+    k15_c["ms"] = k15_ms(rowsc, tablec, segsc)
+    results["lzw_decode"]["buckets"] = [k15_26, k15_c]
+    del rowsc, tablec, segsc, table26, segs26
     rgba26 = tiff_transform(rows26, sig26)
     if not torch.equal(rgba26, tiff_transform_plain(rows26, sig26)) or \
             not np.array_equal(rgba26.cpu().numpy(), want26):
@@ -1946,8 +1992,13 @@ def decode_phases(dev, card, results, phase, timed, wall):
           segment_bytes=segs.numel(), rows=list(rows.shape),
           rgba=list(rgba.shape), rgba_p2_o6=list(rgba26.shape), equal=True,
           note=f"K15: kernel on all {IMG_N} images, plain (pure Python, "
-               f"on the host, one run) on the {sub} distinct ones ({k_sub} "
-               f"strips); K16: both on all {IMG_N}, library_ms a clone of "
+               f"on the host, one run) on the {sub} distinct ones "
+               f"({k15['plain_strips']} strips), bit for bit (rows, "
+               f"lengths, statuses); buckets: K15 on the predictor-2 "
+               f"orientation-6 files and on compressible files (no noise, "
+               f"8 levels a channel; rows equal to the sources), plain on "
+               f"2 images each; K16: both on all {IMG_N}, library_ms a "
+               f"clone of "
                f"the rows (K16 is the identity on this bucket), buckets: "
                f"K16 on the predictor-2 orientation-6 files, equal to the "
                f"turned sources, and on the rows at byte offset 5 (library "

@@ -56,7 +56,8 @@ SIGNATURES = {
     "picha_png_unfilter": [P, L, I, I, I, I, P, P, P],
     "picha_png_transform": [P, I, I, I, I, I, P, P, I, I, I, P, P],
     "picha_png_transform_info": [I, I, I, I, I, P],
-    "picha_lzw_decode": [P, P, P, P, P, I, P, P, P, P, P],
+    "picha_lzw_decode": [P, P, P, P, P, I, P, P, P, P],
+    "picha_lzw_decode_info": [P],
     "picha_tiff_transform": [P, I, I, I, L, I, I, I, I, I, I, I, P, P, P],
     "picha_tiff_transform_info": [I, I, I, I, I, I, P],
     "picha_vit_layernorm": [P, P, P, L, I, P, P],

@@ -14,8 +14,11 @@ the strip.
   `lzw_decode_plain`  pure Python on bytes, one strip: the correctness
                       twin of the kernel (slow; tests and checks only)
   `lzw_decode`        every strip of a batch: K15 (`csrc/lzw_decode.cu`,
-                      one thread per strip) for CUDA tensors, the plain
-                      version strip by strip for CPU tensors
+                      a block a strip, each epoch's codes decoded in
+                      parallel) for CUDA tensors, the plain version strip
+                      by strip for CPU tensors
+  `kernel_info`       K15's registers, spill and shared bytes, threads and
+                      resident blocks, read from the card
   `check_strips`      one readback of the strips' statuses and lengths;
                       raises CodecError("LZW decode failed") or
                       CodecError("TIFF strip too short")
@@ -127,12 +130,29 @@ def lzw_decode(segs, seg_off, seg_len, out, out_off, cap):
                             f"{out.device}, got {t.dtype} on {t.device}")
     got = torch.empty((k,), dtype=torch.int32, device=out.device)
     status = torch.empty((k,), dtype=torch.int32, device=out.device)
-    scratch = torch.empty((max(k, 1), TABLE, 2), dtype=torch.int32,
-                          device=out.device)
     KERNELS["lzw_decode"](ptr(segs), ptr(seg_off), ptr(seg_len), ptr(out_off),
-                          ptr(cap), k, ptr(out), ptr(scratch), ptr(got),
-                          ptr(status), stream_of(out))
+                          ptr(cap), k, ptr(out), ptr(got), ptr(status),
+                          stream_of(out))
     return got, status
+
+
+_INFO = ("registers", "local_bytes", "shared_bytes", "threads",
+         "blocks_per_sm")
+
+
+def kernel_info() -> dict:
+    """K15's build as the card reports it: registers and local (spill)
+    bytes a thread, shared bytes and threads a block, resident blocks a
+    multiprocessor. Launches nothing and counts no launch."""
+    import ctypes
+
+    from ..kernels._build import library
+
+    vals = (ctypes.c_int * len(_INFO))()
+    rc = library().picha_lzw_decode_info(vals)
+    if rc != 0:
+        raise RuntimeError(f"picha_lzw_decode_info: CUDA error {rc}")
+    return dict(zip(_INFO, vals))
 
 
 def check_strips(got, status, need):

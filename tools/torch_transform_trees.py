@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's PNG and TIFF transform kernels (K14, K16) of several
-checkouts in turns on one CUDA card.
+"""Time the port's PNG and TIFF transform kernels (K14, K16) and its TIFF
+LZW kernel (K15) of several checkouts in turns on one CUDA card.
 
     python3 tools/torch_transform_trees.py [--json OUT] LABEL=PATH ...
 
@@ -8,14 +8,21 @@ Each LABEL=PATH is a checkout of this repository (its root directory);
 list them in the order to run, e.g. `old=a new=. new=. old=a` for a
 comparison within one call. Each run is a process of its own that
 imports the checkout's `picha_tpu_torch`, builds its kernels and, on
-BASELINE config 4's buckets (256 images of 384x256, seeded random bytes,
-the same in every run), reports per bucket: a digest of the kernel's
-output bits, whether they equal the plain version's, the kernel's
-CUDA-event time (median of 3 rounds of 20 launches), a `clone()` of the
-input where the kernel is the identity, the bound (bytes in and out at
-3.35 TB/s) and, where the checkout has `kernel_info`, the build of the
-kernel the bucket launches. Prints the card's name and power limit, then
-one JSON line a run; with --json, also writes them all to OUT.
+BASELINE config 4's buckets (256 images of 384x256, the same in every
+run), reports per bucket: a digest of the kernel's output bits, whether
+they equal the plain version's, the kernel's CUDA-event time (median of
+3 rounds of 20 launches), a `clone()` of the input where the kernel is
+the identity, the bound (bytes in and out at 3.35 TB/s) and, where the
+checkout has `kernel_info`, the build of the kernel the bucket launches.
+K14 / K16 run on seeded random bytes. K15 runs on the LZW strips of TIFF
+files that Pillow writes from config 4's seeded sources (8 images tiled
+to 256): as they are, with predictor 2 and orientation 6, and made
+compressible (no noise, 8 levels a channel); its digest covers (rows,
+out_len, status), its plain version runs on the first 2 images' strips,
+and `one_strip_ms` is one launch on the bucket's longest strip alone
+(the serial chain a strip cannot beat). Prints the card's name and power
+limit, then one JSON line a run; with --json, also writes them all to
+OUT.
 """
 import hashlib
 import json
@@ -105,6 +112,99 @@ def buckets(dev):
     }
 
 
+def config4_tiffs(kind):
+    """chip_smoke.py's config-4 sources (seed 9; 8 images) as Pillow
+    TIFF-LZW files, tiled to N: "plain", "p2o6" (predictor 2, orientation
+    6) or "compressible" (no noise term, quantised to 8 levels a
+    channel)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(9)
+    files = []
+    for i in range(8):
+        yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+        base = 127 + 70 * np.sin(xx / (11 + i)) + 40 * np.cos(yy / (7 + i))
+        a = np.stack([base, 255 - base, base * 0.5 + 60,
+                      np.full_like(base, 255) - (xx + yy) % 17], -1)
+        if kind != "compressible":
+            a = a + rng.normal(0, 4, (H, W, 4))
+        a = np.clip(a, 0, 255).astype(np.uint8)
+        if kind == "compressible":
+            a = a // 32 * 32
+        out = io.BytesIO()
+        Image.fromarray(a, "RGBA").save(
+            out, "TIFF", compression="tiff_lzw",
+            tiffinfo={317: 2, 274: 6} if kind == "p2o6" else {})
+        files.append(out.getvalue())
+    return [files[i % 8] for i in range(N)]
+
+
+def lzw_buckets(dev):
+    """name -> (segs, (4, K) strip table, rows shape, strips of the first
+    2 images) on `dev`, from the checkout's own host stage and pack."""
+    from picha_tpu_torch.codecs import tiff_host
+    from picha_tpu_torch.pipeline import tiff_batch
+    from picha_tpu_torch.runtime import upload
+
+    out = {}
+    for kind in ("plain", "p2o6", "compressible"):
+        items = [tiff_host.host_stage(b) for b in config4_tiffs(kind)]
+        host, lay = tiff_batch.pack(items)
+        buf = upload(host, dev)
+        table = buf[:lay.segs].view(__import__("torch").int64).view(
+            4, lay.nstrips)
+        sig = items[0].sig
+        rb = (sig[0] * sig[2] * sig[3] + 7) // 8
+        out[f"lzw {kind}"] = (buf[lay.segs:lay.rows], table, (N, sig[1], rb),
+                              sum(len(it.strips) for it in items[:2]))
+    return out
+
+
+def run_lzw(res, dev):
+    """K15 on the three LZW buckets into res; True when every bucket
+    equals the plain version on its first 2 images."""
+    import torch
+
+    from picha_tpu_torch.ops import lzw
+
+    ok = True
+    for name, (segs, table, shape, k2) in lzw_buckets(dev).items():
+        rows = torch.zeros(shape, dtype=torch.uint8, device=dev)
+
+        def fn(rows=rows, segs=segs, table=table):
+            return lzw.lzw_decode(segs, table[0], table[1], rows, table[2],
+                                  table[3])
+
+        n, st = fn()
+        torch.cuda.synchronize()
+        rows_p = torch.zeros((2,) + shape[1:], dtype=torch.uint8)
+        tab_c = table[:, :k2].cpu()
+        n_p, st_p = lzw.lzw_decode(segs.cpu(), tab_c[0], tab_c[1], rows_p,
+                                   tab_c[2], tab_c[3])
+        equal = bool(torch.equal(rows[:2].cpu(), rows_p)
+                     and torch.equal(n[:k2].cpu(), n_p)
+                     and torch.equal(st[:k2].cpu(), st_p))
+        longest = int(torch.argmax(table[1]))
+        one = table[:, longest:longest + 1].contiguous()
+        nbytes = segs.numel() + rows.numel()
+        res[name] = {
+            "bits": digest(torch.cat([rows.view(-1), n.view(torch.uint8),
+                                      st.view(torch.uint8)])),
+            "equal_to_plain": equal, "ms": timed(fn),
+            "one_strip_ms": timed(lambda: lzw.lzw_decode(
+                segs, one[0], one[1], rows, one[2], one[3])),
+            "strips": int(table.shape[1]), "segment_bytes": segs.numel(),
+            "failed_strips": int(st.sum()),
+            "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bytes": nbytes,
+            "build": lzw.kernel_info() if hasattr(lzw, "kernel_info")
+            else "not in this checkout"}
+        ok = ok and equal and res[name]["failed_strips"] == 0
+    return ok
+
+
 def info(kind, args):
     from picha_tpu_torch.ops import png_transform as k14
     from picha_tpu_torch.ops import tiff_transform as k16
@@ -137,9 +237,10 @@ def run(label):
             r["identity"] = bool(torch.equal(got.view(-1), ident.reshape(-1)))
             r["clone_ms"] = timed(ident.clone)
         res[name] = r
+    lzw_ok = run_lzw(res, dev)
     print("RESULT " + json.dumps(res), flush=True)
-    return 0 if all(v["equal_to_plain"] for k, v in res.items()
-                    if isinstance(v, dict)) else 1
+    return 0 if lzw_ok and all(v["equal_to_plain"] for k, v in res.items()
+                               if isinstance(v, dict)) else 1
 
 
 def main(argv):
