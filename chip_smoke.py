@@ -3514,9 +3514,20 @@ def resnet_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
             plain_ms=timed(lambda: inm.norm_relu_backward_plain(*a), 3),
             library_ms=timed(lambda: torch.autograd.grad(
                 out, (xl, wl), gl, retain_graph=True), 10),
-            **bound(x.numel() * 8 + n * c * 8 + c * 8, 20 * x.numel()))
+            **bound(x.numel() * 6 + n * c * 8 + c * 8, 20 * x.numel()),
+            bound_ms_with_y=bound(x.numel() * 8 + n * c * 8 + c * 8)[
+                "bound_ms"])
         del out
         return row
+
+    def builds(x):
+        """K25's and K26's plans and builds at x's planes, and the bytes
+        an element each moves (K25: x twice, y once; K26: x and dy twice,
+        dx once)."""
+        info = inm.kernel_info(x.shape[1] * x.shape[2], x.shape[3])
+        info["K25"]["bytes_an_element"] = 6
+        info["K26"]["bytes_an_element"] = 10
+        return info
 
     def summed(rows):
         return dict(calls=len(rows),
@@ -3542,8 +3553,14 @@ def resnet_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
                "output (256, 224, 224, 64) in a forward / a backward; "
                "buckets: the other end of the net, and the sum over the 12 "
                "calls; library_ms: F.instance_norm + relu on the "
-               "channels-last NCHW view (K26: their autograd)",
-          K25=results["resnet_norm"], K26=results["resnet_norm_bwd"])
+               "channels-last NCHW view (K26: their autograd); K26's bound "
+               "counts 6 bytes an element (x, dy, dx: it recomputes the "
+               "ReLU's mask from x and K25's statistics and reads no y), "
+               "bound_ms_with_y 8; builds: kernel_info at the stem's and "
+               "the last call's planes, with the bytes an element each "
+               "moves",
+          K25=results["resnet_norm"], K26=results["resnet_norm_bwd"],
+          builds={"stem": builds(a25[0][0]), "last": builds(a25[-1][0])})
     del a25, a26
 
     # 18. timing: forward and step on both paths, where the step goes,

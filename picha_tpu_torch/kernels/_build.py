@@ -70,8 +70,11 @@ SIGNATURES = {
     "picha_vit_attention_bwd_info": [I, I, I, P],
     "picha_moe_dispatch_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
     "picha_moe_combine_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
-    "picha_resnet_norm": [P, P, I, L, I, P, P, P, P],
-    "picha_resnet_norm_bwd": [P, P, P, P, P, P, I, L, I, P, P, P, P, P],
+    "picha_resnet_norm": [P, P, I, L, I, P, P, P],
+    "picha_resnet_norm_info": [L, I, I, P],
+    "picha_resnet_div_check": [P, P, L, P, P],
+    "picha_resnet_norm_bwd": [P, P, P, P, P, I, L, I, P, P, P, P],
+    "picha_resnet_norm_bwd_info": [L, I, I, P],
     "picha_coef_densify": [P, P, L, L, L, P, P],
     "picha_coef_int8_restore": [P, L, P, P, L, P, P],
     "picha_coef_gap8_restore": [P, P, L, L, L, P, P, L, P, P],

@@ -3,9 +3,11 @@ inside: kernels K25 (forward) and K26 (backward).
 
 Counterpart of `picha_tpu/models/resnet.py::_norm` (:100-106) followed by
 `jax.nn.relu` (:129, :131): per (image, channel), x -> f32, the mean over
-(H, W), then the mean of the squared deviations (two passes), (x - mu) /
+(H, W), then the mean of the squared deviations around it, (x - mu) /
 sqrt(var + 1e-5) as a true division, `* scale` with the f32 (C,) scale,
-one rounding to bf16, then the ReLU. The backward is the VJP JAX derives
+one rounding to bf16, then the ReLU. The plain version takes two passes;
+K25 one pass for both sums (x and x * x, exact float64 where they meet)
+and one for the output. The backward is the VJP JAX derives
 from those lines, with its rounding points (read off `jax.make_jaxpr`):
 the ReLU's mask is `w > 0` on the bf16 norm output (the saved output y
 has `y > 0` exactly there), the bf16 cotangent is selected and then
@@ -17,6 +19,7 @@ means divide by H * W as a true division, and dx is rounded once to bf16.
   `norm_relu_k25`    K25 (`csrc/resnet_norm.cu`) on CUDA tensors
   `norm_relu_backward`  K26 (`csrc/resnet_norm_bwd.cu`) for CUDA tensors,
                      the plain version only for CPU tensors
+  `kernel_info`      K25's and K26's plans and builds at a shape
   `norm_relu`        differentiable (`torch.autograd.Function`): K25 and
                      K26 for CUDA tensors, the plain versions for CPU ones
 
@@ -28,11 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
+from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
 from .layernorm import true_div
 
 EPS = 1e-5
-PIXELS_PER_BLOCK = 256   # K25 / K26: one block's run of pixels (a partial)
 
 
 def normalize_relu(x, scale, mu, sigma, dtype=torch.bfloat16):
@@ -100,32 +102,30 @@ def _check(x, scale, kernel):
         raise TypeError(f"{kernel}'s scale is ({c},) float32 on {x.device}")
 
 
-def _partials(x):
-    n, h, w, c = x.shape
-    return n, h * w, c, max(1, -(-(h * w) // PIXELS_PER_BLOCK))
-
-
 def norm_relu_k25(x, scale):
     """K25: x (N, H, W, C) bf16 on the card -> (y bf16, mu, sigma (N, C)
-    f32). The sums run per 256-pixel run of a plane in f32, then over the
-    runs in float64 in a fixed order: no atomics, two runs give the same
-    bits."""
+    f32). Each plane's sums of x and x * x run in one pass, in f32 over a
+    few pixels a thread, then in float64 in a fixed order (a thread-block
+    cluster a plane, no atomics): two runs give the same bits."""
     _check(x, scale, "K25")
-    n, hw, c, runs = _partials(x)
-    x, scale = aligned(x, 4), aligned(scale, 8)
+    n, h, w, c = x.shape
+    x, scale = x.contiguous(), scale.contiguous()
     y = torch.empty_like(x)
     stats = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
-    partial = torch.empty((n, runs, c), dtype=torch.float64, device=x.device)
-    KERNELS["resnet_norm"](ptr(x), ptr(scale), n, hw, c, ptr(y), ptr(stats),
-                           ptr(partial), stream_of(x))
+    KERNELS["resnet_norm"](ptr(x), ptr(scale), n, h * w, c, ptr(y),
+                           ptr(stats), stream_of(x))
     return y, stats[0], stats[1]
 
 
 def norm_relu_backward(x, y, dy, scale, mu, sigma):
     """`norm_relu_backward_plain`'s result: K26 for CUDA tensors, the
-    plain version only for CPU tensors. K26 sums each plane's terms per
-    256-pixel run, the runs in float64 in order, and dscale's per-(n, c)
-    partials over n in order: two runs give the same bits."""
+    plain version only for CPU tensors. y must be K25's output for this
+    x, scale, mu and sigma, as `norm_relu` saves them: K26 does not read
+    it, it recomputes the ReLU's mask, bf16(((x - mu) / sigma) * scale)
+    > 0, in K25's rounding order, which is y > 0 bit for bit. K26 sums
+    each plane's terms in f32 over a few pixels a thread, then in float64
+    in a fixed order, and dscale's per-(n, c) terms over n in order: two
+    runs give the same bits."""
     if x.device.type == "cpu":
         return norm_relu_backward_plain(x, y, dy, scale, mu, sigma)
     _check(x, scale, "K26")
@@ -134,22 +134,54 @@ def norm_relu_backward(x, y, dy, scale, mu, sigma):
                 t.device != x.device:
             raise TypeError(f"K26 takes y and dy as bfloat16 of x's shape "
                             f"{tuple(x.shape)}")
-    n, hw, c, runs = _partials(x)
+    n, h, w, c = x.shape
     for t in (mu, sigma):
         if t.dtype != torch.float32 or tuple(t.shape) != (n, c) or \
                 t.device != x.device:
             raise TypeError(f"K26 takes mu and sigma as ({n}, {c}) float32")
-    x, y, dy = aligned(x, 4), aligned(y, 4), aligned(dy, 4)
-    scale, mu, sigma = aligned(scale, 8), aligned(mu, 8), aligned(sigma, 8)
+    x, dy = x.contiguous(), dy.contiguous()
+    scale, mu, sigma = scale.contiguous(), mu.contiguous(), sigma.contiguous()
     dx = torch.empty_like(x)
     dscale = torch.empty((c,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((n, runs, 4, c), dtype=torch.float64,
-                          device=x.device)
     plane = torch.empty((n, 3, c), dtype=torch.float64, device=x.device)
-    KERNELS["resnet_norm_bwd"](ptr(x), ptr(y), ptr(dy), ptr(scale), ptr(mu),
-                               ptr(sigma), n, hw, c, ptr(dx), ptr(dscale),
-                               ptr(partial), ptr(plane), stream_of(x))
+    KERNELS["resnet_norm_bwd"](ptr(x), ptr(dy), ptr(scale), ptr(mu),
+                               ptr(sigma), n, h * w, c, ptr(dx), ptr(dscale),
+                               ptr(plane), stream_of(x))
     return dx, dscale
+
+
+_PLAN = ("vector_width", "threads_per_pixel", "channel_groups",
+         "cluster_size", "launches")
+_BUILD = ("registers", "local_bytes", "shared_bytes", "threads",
+          "blocks_per_sm")
+
+
+def kernel_info(hw: int, c: int, vector_width: int = 8) -> dict:
+    """K25's and K26's plans and builds for a call on planes of hw pixels
+    and c channels at a vector width (8: c % 8 == 0 and 16-byte aligned
+    bases, 2, or 1), as the card reports them: channels a thread, threads
+    across a pixel, channel groups, CTAs a cluster and launches a call;
+    then for each kernel (the plane kernel; K25's output kernel, K26's
+    dx kernel) its registers and local (spill) bytes a thread, shared
+    bytes a block (static and dynamic), threads a block and resident
+    blocks a multiprocessor. Launches nothing and counts no launch."""
+    import ctypes
+
+    from ..kernels._build import library
+
+    out = {}
+    for key, sym in (("K25", "picha_resnet_norm_info"),
+                     ("K26", "picha_resnet_norm_bwd_info")):
+        vals = (ctypes.c_int * 15)()
+        rc = getattr(library(), sym)(hw, c, vector_width, vals)
+        if rc != 0:
+            raise RuntimeError(f"{sym}: CUDA error {rc}")
+        plan = dict(zip(_PLAN, vals[:5]))
+        names = ("plane", "output") if key == "K25" else ("plane", "dx")
+        plan["kernels"] = {name: dict(zip(_BUILD, vals[5 + 5 * i:10 + 5 * i]))
+                           for i, name in enumerate(names)}
+        out[key] = plan
+    return out
 
 
 class _NormReLU(torch.autograd.Function):

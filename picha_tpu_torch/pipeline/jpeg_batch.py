@@ -464,6 +464,15 @@ def stack_coefficients(cos, upload: str, native: bool = False):
     return sig, args + qtabs()
 
 
+def _not_ported(what: str):
+    """The reference's libjpeg host paths and its streaming schedulers
+    (`host_fast_scale`, `host_raw`, `host_draft`, `fast_guard`,
+    `host_encode_batch*`, `stream*`) are ROADMAP queue 1 item 5."""
+    raise NotImplementedError(
+        f"JpegBatchPipeline: {what} is not ported yet (ROADMAP queue 1 "
+        f"item 5)")
+
+
 class JpegBatchPipeline:
     """decode -> (resize) -> {uint8 | normalized | re-encoded JPEG} over
     homogeneous-signature batches on one device (see module doc)."""
@@ -479,7 +488,18 @@ class JpegBatchPipeline:
                  fused: bool = False,
                  num_threads: Optional[int] = None,
                  scan_byte_cap: Optional[int] = None,
+                 host_fast_scale: bool = False,
+                 host_raw: bool = False,
+                 host_draft: bool = False,
+                 fast_guard: Optional[float] = None,
                  device="cuda"):
+        host_opts = dict(host_fast_scale=host_fast_scale, host_raw=host_raw,
+                         host_draft=host_draft)
+        for name, value in host_opts.items():
+            if value:
+                _not_ported(f"{name}=True")
+        if fast_guard is not None:
+            _not_ported("fast_guard")
         if encode_backend not in ENCODE_BACKENDS:
             raise ValueError(f"encode_backend must be one of "
                              f"{ENCODE_BACKENDS}, got {encode_backend!r}")
@@ -508,6 +528,23 @@ class JpegBatchPipeline:
         self.scan_fallbacks = 0
         self.overflow_retries = 0
         self.overflow_fallbacks = 0
+
+    # -- the reference's host and streaming paths, not ported -------------
+
+    def host_encode_batch(self, bufs):
+        _not_ported("host_encode_batch")
+
+    def host_encode_batch_staged(self, bufs, stats, q):
+        _not_ported("host_encode_batch_staged")
+
+    def stream_hybrid(self, batches, depth: int = 2):
+        _not_ported("stream_hybrid")
+
+    def stream_host(self, batches):
+        _not_ported("stream_host")
+
+    def stream(self, batches, depth: int = 2):
+        _not_ported("stream")
 
     def close(self):
         """Release the host thread pool, and the overflow clone's

@@ -329,6 +329,39 @@ def test_defaults_are_the_reference_defaults(name):
     assert _PORT_PARAMS[name].default == _REF_PARAMS[name].default
 
 
+def test_every_public_method_of_the_reference_exists():
+    """The port's class has every public method of the reference's."""
+    public = {m for m in dir(Ref) if not m.startswith("_")
+              and callable(getattr(Ref, m))}
+    assert public <= {m for m in dir(JpegBatchPipeline)
+                      if callable(getattr(JpegBatchPipeline, m))}
+
+
+_NOT_PORTED = {"host_fast_scale": True, "host_raw": True, "host_draft": True,
+               "fast_guard": 0.5}
+
+
+@pytest.mark.parametrize("name", sorted(_NOT_PORTED))
+def test_host_options_raise_naming_item_5(name):
+    """The reference's libjpeg host options are queue 1 item 5: set, they
+    raise NotImplementedError naming it (left at their defaults, they do
+    not)."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        JpegBatchPipeline(device="cpu", **{name: _NOT_PORTED[name]})
+    JpegBatchPipeline(device="cpu", **{name: _REF_PARAMS[name].default})
+
+
+@pytest.mark.parametrize("name,args", [
+    ("host_encode_batch", ([b""],)), ("host_encode_batch_staged",
+                                      ([b""], None, 85)),
+    ("stream_hybrid", ([[b""]],)), ("stream_host", ([[b""]],)),
+    ("stream", ([[b""]],))])
+def test_host_and_stream_methods_raise_naming_item_5(name, args):
+    pipe = JpegBatchPipeline(width=W, height=H, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        getattr(pipe, name)(*args)
+
+
 def test_default_pipeline_is_the_reference_default():
     """No backend or upload given: the same path as the reference's (the
     host decode, dense planes, staged pixels, K2, the host writer) and

@@ -63,6 +63,8 @@ import numpy as np
 import optax
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from torch_helpers import float64_criterion, resnet_forward64, xla_same_pads
 
@@ -270,6 +272,186 @@ def test_k25_refuses_cpu_tensors():
     x = torch.zeros((1, 2, 2, 4), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K25"):
         norm_relu_k25(x, torch.ones(4))
+
+
+# --- K25 / K26 on the card: numpy models of the kernels' arithmetic ---------
+# (torch_helpers.k25_stats_model, k26_model, relu_open_model: the kernels'
+# cut of each plane, f32 chunks of 4 pixels a thread, float64 beyond, in
+# their order), held to the plain versions where no kernel runs
+
+def _stats_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "offset_small_spread":        # 40 +- 0.05
+        x = 40.0 + 0.05 * rng.standard_normal((2, 37, 41, 16))
+    elif name == "single_outlier":
+        x = 0.5 + 2.0 * rng.standard_normal((2, 48, 48, 8))
+        x[0, 17, 5, :] = 1e4
+        x[1, 47, 47, 3] = -3e5
+    elif name == "outlier_first_pixel":      # a thread's first pixel
+        x = 40.0 + 0.05 * rng.standard_normal((1, 48, 48, 8))
+        x[0, 0, 0, :] = 9e3
+    elif name == "constant":
+        x = np.full((2, 9, 13, 8), 2.5)
+        x[1] = -7.0
+        x[0, :, :, 3] = 1e-3
+    elif name == "one_pixel":
+        x = rng.standard_normal((3, 1, 1, 8))
+    elif name == "ragged_clusters":          # 5 CTAs over 9,216 pixels
+        x = 1.0 + rng.standard_normal((1, 96, 96, 64))
+    elif name == "ragged_rows":              # H * W a multiple of nothing
+        x = -3.0 + 0.5 * rng.standard_normal((2, 13, 7, 24))
+    elif name == "pairs":                    # c even, not a multiple of 8
+        x = rng.standard_normal((2, 11, 9, 6)) * 3.0
+    else:                                    # one channel a thread
+        x = 100.0 + rng.standard_normal((2, 10, 9, 33))
+    return _bf16_np(x.astype(np.float32))
+
+
+STATS_CASES = ["offset_small_spread", "single_outlier", "outlier_first_pixel",
+               "constant", "one_pixel", "ragged_clusters", "ragged_rows",
+               "pairs", "singles"]
+
+
+def _width(c):
+    return 8 if c % 8 == 0 else (2 if c % 2 == 0 else 1)
+
+
+def _stats_within(x, mu, sigma, want_mu, want_sigma):
+    """mu within 1e-6 of the plane's mean |x|, sigma within 1e-6
+    relative."""
+    absmean = np.abs(x.astype(np.float64)).mean((1, 2))
+    return ((np.abs(mu.astype(np.float64) - want_mu) <= 1e-6 * absmean
+             + 1e-30).all()
+            and (np.abs(sigma.astype(np.float64) - want_sigma)
+                 <= 1e-6 * want_sigma).all())
+
+
+@pytest.mark.parametrize("name", STATS_CASES)
+def test_k25_stats_model_matches_plain_and_float64(name):
+    """K25's one-pass statistics (f32 chunk sums of x and x * x, float64
+    beyond, the exact two-product finish) against norm_relu_plain's two
+    passes and float64, at the 1e-6 tolerances; constant planes exactly
+    (mu the constant, the variance 0)."""
+    from torch_helpers import k25_stats_model
+
+    x = _stats_case(name)
+    mu, sigma = k25_stats_model(x, _width(x.shape[3]))
+    _y, wmu, wsigma = norm_relu_plain(_tb(x), torch.ones(x.shape[3]))
+    assert _stats_within(x, mu, sigma, wmu.numpy(), wsigma.numpy())
+    x64 = x.astype(np.float64)
+    mu64 = x64.mean((1, 2))
+    sig64 = np.sqrt(((x64 - mu64[:, None, None]) ** 2).mean((1, 2)) + 1e-5)
+    assert _stats_within(x, mu, sigma, mu64, sig64)
+    flat = (x.max((1, 2)) == x.min((1, 2)))
+    if name in ("constant", "one_pixel"):
+        assert flat.all()
+    assert (mu[flat] == x[:, 0, 0, :][flat]).all()
+    assert (sigma[flat] == np.sqrt(np.float32(1e-5))).all()
+    assert (mu[flat] == wmu.numpy()[flat]).all()
+    assert (sigma[flat] == wsigma.numpy()[flat]).all()
+
+
+@settings(max_examples=40, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(n=st.integers(1, 2), h=st.integers(1, 24), w=st.integers(1, 24),
+       c=st.sampled_from([1, 2, 3, 6, 8, 16, 24, 40]),
+       offset=st.sampled_from([0.0, 1.0, -40.0, 1000.0]),
+       spread=st.sampled_from([0.0, 1e-3, 0.05, 1.0, 30.0]),
+       outlier=st.sampled_from([None, 50.0, -1e4]),
+       seed=st.integers(0, 2 ** 16))
+def test_k25_stats_model_on_drawn_planes(n, h, w, c, offset, spread,
+                                         outlier, seed):
+    from torch_helpers import k25_stats_model
+
+    rng = np.random.default_rng(seed)
+    x = offset + spread * rng.standard_normal((n, h, w, c))
+    if outlier is not None:
+        x[0, rng.integers(h), rng.integers(w), :] = outlier
+    x = _bf16_np(x.astype(np.float32))
+    mu, sigma = k25_stats_model(x, _width(c))
+    _y, wmu, wsigma = norm_relu_plain(_tb(x), torch.ones(c))
+    assert _stats_within(x, mu, sigma, wmu.numpy(), wsigma.numpy())
+
+
+def test_k26_mask_from_x_is_y_above_zero():
+    """K26's ReLU mask, recomputed from x (masked_dy: a sign test past a
+    bound, else bf16(((x - mu) / sigma) * scale) > 0), equals y > 0 of
+    the elementwise pass on the same mu and sigma, on planes where many w
+    round to 0 or -0: x equal to mu, scales of 0, -0, denormals and 2^-126,
+    sigmas from sqrt(1e-5) to 1e30, and p near the bound."""
+    from torch_helpers import relu_open_bound, relu_open_model
+
+    rng = np.random.default_rng(7)
+    c = 12
+    x = _bf16_np(rng.choice([0.0, 1.0, -1.0, 2.5, 3e-38, -1e-40],
+                            (3, 16, 16, c)).astype(np.float32)
+                 + (rng.random((3, 16, 16, c)) < 0.3)
+                 * rng.standard_normal((3, 16, 16, c)).astype(np.float32))
+    scale = np.array([0.0, -0.0, 1e-45, -1e-45, 2.0 ** -126, -2.0 ** -126,
+                      1e-38, 1.0, -3.0, 2.0 ** -100, 1e30, -1e-20],
+                     np.float32)
+    mu = _bf16_np(rng.choice([0.0, 1.0, -1.0, 2.5, 3e-38], (3, c))
+                  .astype(np.float32))
+    sigma = np.sqrt(np.float32(1e-5)) * np.ones((3, c), np.float32)
+    sigma[1] = 1e30
+    sigma[2, ::2] = 7.5
+    tx = _tb(x)
+    y = normalize_relu(tx, torch.from_numpy(scale), torch.from_numpy(mu),
+                       torch.from_numpy(sigma))
+    p = (x.reshape(3, 256, c) - mu[:, None, :]).astype(np.float32)
+    bound = relu_open_bound(sigma, scale)
+    got = relu_open_model(p, sigma, scale, bound)
+    want = _np(y).reshape(3, 256, c) > 0
+    assert (got == want).all()
+    assert (~want).mean() > 0.6            # mostly closed: 0, -0, denormals
+    # p right at the bound: the sign test and the exact path agree
+    at = np.broadcast_to(bound[:, None, :], p.shape).copy()
+    ok = np.isfinite(at)
+    for q in (at, np.nextafter(at, np.float32(0)), -at):
+        q = np.where(ok, q, 0).astype(np.float32)
+        exact = relu_open_model(q, sigma, scale, np.full_like(bound, np.nan))
+        assert (relu_open_model(q, sigma, scale, bound) == exact).all()
+
+
+@pytest.mark.parametrize("name", ["single_outlier", "offset_small_spread",
+                                  "constant", "ragged_rows", "pairs"])
+def test_k26_model_matches_plain(name):
+    """K26's arithmetic (the ReLU's mask from x, the plane's terms from
+    the sums of p, g and g p in the kernel's order, dscale's image terms
+    in order) against norm_relu_backward_plain: dx within 1 bf16 ulp plus
+    2^-16 of its plane's largest |dx|, dscale within 1e-5 of the sum of
+    its terms' magnitudes. Where the plain version's own f32 sums sit
+    further than that from float64 (a dx that cancels to 1e-3 of its
+    plane's largest beside a -3e5 outlier), dx may instead be no further
+    from float64 than the plain version plus 1 bf16 ulp."""
+    from torch_helpers import k26_model
+
+    x = _stats_case(name)
+    n, h, w, c = x.shape
+    rng = np.random.default_rng(c)
+    scale = (1.0 + 0.3 * rng.standard_normal(c)).astype(np.float32)
+    scale[::3] = -scale[::3]
+    dy = _bf16_np(rng.standard_normal(x.shape).astype(np.float32))
+    tx, ts, tdy = _tb(x), torch.from_numpy(scale), _tb(dy)
+    y, mu, sigma = norm_relu_plain(tx, ts)
+    wdx, wds = norm_relu_backward_plain(tx, y, tdy, ts, mu, sigma)
+    dx, ds = k26_model(x, dy, scale, mu.numpy(), sigma.numpy(), _width(c))
+    got, want = _np(torch.from_numpy(dx).to(torch.bfloat16)), _np(wdx)
+    x64 = x.astype(np.float64)
+    r = sigma.numpy().astype(np.float64)[:, None, None, :]
+    p = x64 - mu.numpy()[:, None, None, :]
+    gs = np.where(_np(y) > 0, dy, 0).astype(np.float64) * scale
+    dvar_hw = -(gs / (r * r) * p).sum((1, 2), keepdims=True) * 0.5 / r / \
+        (h * w)
+    d64 = gs / r + dvar_hw * 2 * p - (gs / r + dvar_hw * 2 * p).sum(
+        (1, 2), keepdims=True) / (h * w)
+    u = _ulp(np.maximum(np.abs(got), np.abs(want)))
+    near = np.abs(got - want) <= u + 2.0 ** -16 * np.abs(want).max(
+        (1, 2), keepdims=True)
+    assert (near | (np.abs(got - d64) <= np.abs(want - d64) + u)).all()
+    xhat = p / r
+    terms = np.abs(xhat * dy * (_np(y) > 0)).sum((0, 1, 2))
+    assert (np.abs(ds - wds.numpy()) <= 1e-5 * terms + 1e-30).all()
 
 
 # --- the convolutions: the reference's SAME padding --------------------------

@@ -479,3 +479,185 @@ def repeated_index_wires(seed: int, n: int = 3, bh: int = 2, bw: int = 3):
         "gap4": (prim.astype(np.uint8), gaps(k // 4),
                  vals((n, k // 4), -128, 128).astype(np.int8), ci, cv),
     }
+
+
+# --- K25 / K26: numpy models of the kernels' arithmetic -----------------------
+# (csrc/resnet_norm.cuh, resnet_norm.cu, resnet_norm_bwd.cu): the same cut of
+# each plane into clusters, rows and chunks, the same f32 and float64
+# roundings, in the same order. They run here, where no kernel does.
+
+NORM_THREADS = 256     # a plane kernel's block
+NORM_CHUNK = 8         # pixels a thread sums in f32 before float64
+
+
+def norm_plan(hw: int, c: int, vector_width: int = 8):
+    """(tp, rows, cl) of a plane kernel: threads across a pixel, rows of a
+    block, CTAs of a cluster (`threads_per_pixel`, `cluster_size`)."""
+    tp = 32
+    if vector_width == 8:
+        tp = 1
+        while tp < 32 and tp * 8 < c:
+            tp *= 2
+    rows = NORM_THREADS // tp
+    cl = min(8, max(1, -(-hw // (64 * rows))))
+    return tp, rows, cl
+
+
+def _f32(a):
+    return np.asarray(a, np.float32)
+
+
+def _tree(v):
+    """A warp's xor-shuffle butterfly over its rows (axis 0, a power of
+    two): pairs, then pairs of pairs, in float64."""
+    while v.shape[0] > 1:
+        v = v[0::2] + v[1::2]
+    return v[0]
+
+
+def norm_plane_sums(terms, hw: int, c: int, vector_width: int = 8):
+    """The plane kernels' float64 (Q, C) sums in the kernel's order: f32
+    over NORM_CHUNK rows a thread, float64 over the thread's chunks, a
+    shuffle tree over a warp's rows, the warps in order, the cluster's
+    ranks in order. `terms(px0, px1)` gives a rank's Q quantities for its
+    pixels: an (L, C) float32 array is added, a pair (a, b) accumulates
+    a * b with one rounding (fmaf)."""
+    tp, rows, cl = norm_plan(hw, c, vector_width)
+    per_warp = max(1, 32 // tp)
+    total = None
+    for r in range(cl):
+        block = []
+        for term in terms(hw * r // cl, hw * (r + 1) // cl):
+            pair = isinstance(term, tuple)
+            parts = term if pair else (term,)
+            length = parts[0].shape[0]
+            chunks = -(-(-(-length // rows)) // NORM_CHUNK)
+            padded = []
+            for v in parts:
+                pad = np.zeros((chunks * NORM_CHUNK * rows, c), np.float32)
+                pad[:length] = v
+                padded.append(pad.reshape(chunks, NORM_CHUNK, rows, c))
+            acc = np.zeros((chunks, rows, c), np.float32)
+            for u in range(NORM_CHUNK):
+                if pair:
+                    acc = _f32(acc.astype(np.float64) + padded[0][:, u]
+                               .astype(np.float64) * padded[1][:, u])
+                else:
+                    acc = _f32(acc + padded[0][:, u])
+            s = np.zeros((rows, c))
+            for j in range(chunks):
+                s = s + acc[j].astype(np.float64)
+            warps = s.reshape(rows // per_warp, per_warp, c)
+            t = _tree(warps[0])
+            for w in range(1, warps.shape[0]):
+                t = t + _tree(warps[w])
+            block.append(t)
+        block = np.stack(block)
+        total = block if total is None else total + block
+    return total
+
+
+def _exact(f):
+    from fractions import Fraction
+
+    return Fraction(float(f))
+
+
+def k25_stats_model(x, vector_width: int = 8):
+    """K25's mu and sigma, (N, C) float32, of x (N, H, W, C): bf16 values
+    as float32 numpy."""
+    n, h, w, c = x.shape
+    hw = h * w
+    mu = np.zeros((n, c), np.float32)
+    sigma = np.zeros((n, c), np.float32)
+    for i in range(n):
+        flat = x[i].reshape(hw, c).astype(np.float32)
+        s1, s2 = norm_plane_sums(
+            lambda a, b: [flat[a:b], (flat[a:b], flat[a:b])], hw, c,
+            vector_width)
+        for ch in range(c):
+            mu[i, ch], sigma[i, ch] = _finish_stats(s1[ch], s2[ch], hw)
+    return mu, sigma
+
+
+def _finish_stats(s1, s2, hw):
+    """K25's finish_plane: mu = f32(S1) / hw; the sum of (x - mu)^2 as
+    (hw S2 - S1^2 + (S1 - hw mu)^2) / hw with exact two-products."""
+    hwf = np.float32(hw)
+    mu = np.float32(np.float32(s1) / hwf)
+    n = float(hw)
+    a = n * s2
+    a_lo = float(_exact(n) * _exact(s2) - _exact(a))
+    b = s1 * s1
+    b_lo = float(_exact(s1) * _exact(s1) - _exact(b))
+    nm2 = (a - b) + (a_lo - b_lo)
+    e = float(_exact(s1) - _exact(n) * _exact(mu))
+    q = float(_exact(e) * _exact(e) + _exact(nm2)) / n
+    if q < 0:
+        q = 0.0
+    var = np.float32(np.float32(q) / hwf)
+    return mu, np.sqrt(np.float32(var + np.float32(1e-5)))
+
+
+def relu_open_bound(sigma, scale):
+    """K26's open_bound: (N, C) float32, NaN where the exact path always
+    runs (scale 0 or NaN, or the bound not finite)."""
+    a = np.abs(scale.astype(np.float64))[None, :]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = sigma.astype(np.float64) * np.maximum(2.0 ** -99,
+                                                  2.0 ** -109 / a)
+    tf = t.astype(np.float32)
+    low = tf.astype(np.float64) < t            # round up (__double2float_ru)
+    tf[low] = np.nextafter(tf[low], np.float32(np.inf))
+    bad = ~(a > 0) | ~np.isfinite(tf)
+    return np.where(np.broadcast_to(bad, tf.shape), np.float32(np.nan), tf)
+
+
+def relu_open_model(p, sigma, scale, bound):
+    """K26's mask (masked_dy) on (N, HW, C) float32 p = x - mu: the sign test at
+    |p| >= bound, else bf16(((p / sigma) * scale)) > 0 in f32."""
+    import torch
+
+    r = sigma[:, None, :]
+    sc = scale[None, None, :]
+    with np.errstate(all="ignore"):
+        fast = np.abs(p) >= bound[:, None, :]
+        w = _f32(_f32(p / r) * sc)
+    exact = torch.from_numpy(w).to(torch.bfloat16).float().numpy() > 0
+    return np.where(fast, (p > 0) == (sc > 0), exact)
+
+
+def k26_model(x, dy, scale, mu, sigma, vector_width: int = 8):
+    """K26's dx (float32 before its bf16 rounding) and dscale (float32)
+    from numpy x, dy (N, H, W, C: bf16 values as float32), scale (C,),
+    mu, sigma (N, C) float32."""
+    n, h, w, c = x.shape
+    hw = h * w
+    hwf = np.float32(hw)
+    bound = relu_open_bound(sigma, scale)
+    dx = np.zeros((n, hw, c), np.float32)
+    terms = np.zeros((n, c))
+    for i in range(n):
+        xi = x[i].reshape(hw, c).astype(np.float32)
+        p = _f32(xi - mu[i])
+        g = np.where(relu_open_model(p[None], sigma[i:i + 1], scale,
+                                     bound[i:i + 1])[0],
+                     dy[i].reshape(hw, c), np.float32(0))
+        sums = norm_plane_sums(lambda a, b: [p[a:b], g[a:b], (g[a:b], p[a:b])],
+                               hw, c, vector_width)
+        r = sigma[i]
+        u = _f32(np.float32(1) / _f32(r * r))
+        a = _f32(u.astype(np.float64) * scale.astype(np.float64) * sums[2])
+        dvar = _f32(-a * _f32(np.float32(0.5) / r))
+        dvar_hw = _f32(dvar / hwf)
+        b = _f32(-(scale.astype(np.float64) * sums[1]) / r.astype(np.float64))
+        by = -_f32(dvar_hw * _f32(np.float32(2) * _f32(sums[0])))
+        dmu = _f32(_f32(b + by) / hwf)
+        terms[i] = sums[2] / r.astype(np.float64)
+        gr = _f32(_f32(g * scale) / r)
+        bv = _f32(dvar_hw * _f32(np.float32(2) * p))
+        dx[i] = _f32(_f32(gr + bv) + dmu)
+    dscale = np.zeros(c)
+    for i in range(n):
+        dscale = dscale + terms[i]
+    return dx.reshape(x.shape), dscale.astype(np.float32)
