@@ -58,8 +58,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the port's flip, the CPU windowed resize) within 1/255 mean; one
      pre_crop=False step on 16 images;
   7. the ingest's timing: ms per step by stage (host parse and draws,
-     wire, upload, decode, K6/K7, K9, K8-H, K10), images/s, peak device
-     memory;
+     wire, upload; K4, K5, split, K6 a component, K7, K9, K8-H, K10, a
+     CUDA event each), images/s, peak device memory;
   8. the pixel-array kernels against their plain versions at the path's
      shapes, bit for bit: K11 (unpack, crop window, channel map, pack)
      as the config-4 call's head ((256, 256, 384, 4) uint8, crop
@@ -432,6 +432,48 @@ def decode_source(buf):
                       dtype=np.int32)
 
 
+def k4_own_tables(dev, phase, timed, srcs_nr):
+    """K4 + K5 on 1920x1088 no-restart JPEGs that each carry their own
+    optimised Huffman tables (Pillow's optimize=True, as mozjpeg writes
+    by default): 16 unique table rows, past the 96 KB of tables K4 keeps
+    in shared memory, so its builds that read them from global memory
+    run. Equal to the plain version: coefficients, ok and passes."""
+    import torch
+    from PIL import Image
+
+    from picha_tpu_torch.ops import jpeg_huffman_decode as hd
+    from picha_tpu_torch.ops.jpeg_scan import mcu_slot_tables, parse_baseline
+    from picha_tpu_torch.pipeline.jpeg_batch import signature
+
+    bufs = []
+    for i, q in enumerate((80, 85, 90, 95)):
+        b = io.BytesIO()
+        Image.open(io.BytesIO(srcs_nr[i % 3])).save(b, "JPEG", quality=q,
+                                                     optimize=True)
+        bufs.append(b.getvalue())
+    infos = [parse_baseline(b) for b in bufs]
+    ks, wire = hd.scan_wire(infos)
+    comp_sig = signature(infos[0])[3]
+    comp_of = torch.as_tensor(mcu_slot_tables(comp_sig)).to(dev, torch.int32)
+    args, _q = hd.wire_unpack(torch.from_numpy(wire).to(dev), ks,
+                              len(comp_sig))
+    build = hd.kernel_info(n_uniq=ks[7], n_lanes=ks[1])
+    if ks[9] or ks[7] <= 10 or build["tables_in_shared"]:
+        raise AssertionError(f"not the global-table build: {ks}")
+    got, ok, passes = hd.decode_scan_chunked(args, ks, comp_of)
+    want, ok_p, passes_p = hd.decode_scan_chunked_plain(args, ks, comp_of)
+    torch.cuda.synchronize()
+    if not (bool(ok) and bool(ok_p)) or int(passes) != int(passes_p) \
+            or not torch.equal(got, want):
+        raise AssertionError("K4 with tables in global memory disagrees "
+                             "with its plain version")
+    phase("K4_own_tables", images=len(bufs), equal=True, ok=True,
+          passes=int(passes), unique_table_rows=ks[7], lanes=ks[1],
+          build=build, ms=timed(lambda: hd.decode_scan_chunked(
+              args, ks, comp_of), 5),
+          note="ms: K4 + K5 with the tables read from global memory")
+
+
 def mean_abs(a_bufs, b_bufs):
     return [float(abs(decode_rgb(a) - decode_rgb(b)).mean())
             for a, b in zip(a_bufs, b_bufs)]
@@ -460,6 +502,9 @@ def main():
 
     from picha_tpu_torch.kernels import (KERNELS, _build, launch_counts,
                                          reset_launch_counts)
+    from picha_tpu_torch.ops import jpeg as jpeg_mod
+    from picha_tpu_torch.ops import jpeg_huffman_decode as hd_mod
+    from picha_tpu_torch.ops.scan_batch import MAX_PASSES
     from picha_tpu_torch.ops.jpeg import (
         dequant_idct_plane, dequant_idct_plane_plain, encode_blocks,
         encode_blocks_plain, front_samples, full_fp32, idct_samples,
@@ -626,8 +671,13 @@ def main():
         ms=timed(k4, 5), plain_ms=timed(k4_plain, 1, warm=0))
     phase("K4", equal=True, ok=True, equal_to_K1=True, passes=int(passes4),
           chunk_bits=ks_nr[0], lanes=ks_nr[1], steps=ks_nr[2],
+          windows=hd_mod.K4_WINDOWS,
+          build=hd_mod.kernel_info(n_uniq=ks_nr[7], n_lanes=ks_nr[1]),
+          k4_alone_ms=timed(lambda: hd_mod._decode_scan_chunked_kernel(
+              dargs_nr, ks_nr, consts.comp_of, MAX_PASSES), 5),
           note="ms: K4 + K5, plain_ms: decode_scan_chunked_plain",
           **results["huffman_decode_chunked"])
+    k4_own_tables(dev, phase, timed, srcs_nr)
 
     # K5 alone: K4's output read as DC diffs
     ri_blk = dargs_nr.ri_blk
@@ -670,12 +720,21 @@ def main():
                                  "from a .5 tie")
     if err > 1:
         raise AssertionError(f"K6: max |diff| {err}")
+    planes16 = [pl.to(torch.int16) for pl in planes]
+    ys16 = [dequant_idct_plane(p, q, consts_s.kron, dh, dw)
+            for p, q, (dh, dw, _fx, _fy) in zip(planes16, qtabs, geom)]
+    if not all(torch.equal(a, b) for a, b in zip(ys16, ys_k)):
+        raise AssertionError("K6 on int16 coefficients differs from int32")
     results["idct_plane"] = dict(
         max_abs_err=err, ms=timed(k6, 10),
         plain_ms=timed(lambda: k6(plain=True), 3))
     phase("K6", off_by_one=k6_off, near_ties=k6_ties, samples=n6,
           near_tie_limit=K6_NEAR_TIE, planes=[list(y.shape) for y in ys_k],
-          **results["idct_plane"])
+          int16_equal=True, ms_int16=timed(lambda: [
+              dequant_idct_plane(p, q, consts_s.kron, dh, dw)
+              for p, q, (dh, dw, _fx, _fy) in zip(planes16, qtabs, geom)], 10),
+          build=jpeg_mod.kernel_info(), **results["idct_plane"])
+    del planes16, ys16
 
     color = (sig[3], sig[2], SRC_W, SRC_H)
     rgb_k = upsample_color(ys_k, *color)
@@ -747,9 +806,14 @@ def main():
     with full_fp32():
         k6_lib = timed(lambda: torch.matmul(deq, consts_s.kron), 10)
     coef_elems = sum(pl.numel() for pl in planes)
+    nonzero = int((deq != 0).sum())
+    # K6 skips zero coefficients: the work is the nonzero
+    # coefficients' 64 products each (the dense bound beside it)
     results["idct_plane"].update(
-        bound(coef_elems * 4 + sum(y.numel() for y in ys_k),
-              coef_elems * 128), library_ms=k6_lib)
+        bound(coef_elems * 4 + sum(y.numel() for y in ys_k), nonzero * 128),
+        library_ms=k6_lib, nonzero=nonzero, dense_bound_ms=bound(
+            coef_elems * 4 + sum(y.numel() for y in ys_k),
+            coef_elems * 128)["bound_ms"])
     results["upsample_color"].update(
         bound(sum(y.numel() for y in ys_k) + rgb_k.numel()), library_ms=None)
     w_dense = torch.as_tensor(resize_weights(OUT_W, SRC_W, pipe_s._filter,
@@ -769,6 +833,8 @@ def main():
           "FP32 FLOPs / 67 TFLOP/s); library_ms: one PyTorch call for the "
           "same function (K2, K6: the (..., 64) @ kron product; K8: dense "
           "torch.matmul, width + height)",
+          k6_nonzero=results["idct_plane"]["nonzero"],
+          k6_dense_bound_ms=results["idct_plane"]["dense_bound_ms"],
           **{k: {f: r[f] for f in ("bound_ms", "bound_by", "bound_bytes",
                                    "bound_flops", "library_ms")}
              for k, r in results.items()})
@@ -1158,15 +1224,17 @@ def training_phases(dev, card, results, phase, timed, wall):
     from PIL import Image
 
     from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from picha_tpu_torch.ops.jpeg import _idct_kron, build_decode_stage
+    from picha_tpu_torch.ops.jpeg import (_idct_kron, dequant_idct_plane,
+                                          plane_geometry, upsample_color)
     from picha_tpu_torch.ops.jpeg_huffman_decode import (
-        decode_scan, scan_wire, split_planes, wire_unpack)
+        _decode_scan_chunked_kernel, dc_integrate, scan_wire, split_planes,
+        wire_unpack)
     from picha_tpu_torch.ops.jpeg_scan import mcu_slot_tables
     from picha_tpu_torch.ops.resize import (
         crop_flip_resize_w, crop_flip_resize_w_plain, resize_axis,
         resize_axis_windowed_plain)
     from picha_tpu_torch.ops.resize_weights import resize_weights
-    from picha_tpu_torch.ops.scan_batch import split_indices
+    from picha_tpu_torch.ops.scan_batch import MAX_PASSES, split_indices
     from picha_tpu_torch.ops.jpeg import full_fp32
     from picha_tpu_torch.pipeline import TrainingInput
     from picha_tpu_torch.pipeline.augment import (augment_fused,
@@ -1372,8 +1440,11 @@ def training_phases(dev, card, results, phase, timed, wall):
     # 7. where one ingest step's time goes
     kron = torch.as_tensor(_idct_kron()).to(dev)
 
-    def stages_once(ti, epoch):
-        """The stages of epoch `epoch`'s first step, one by one."""
+    def stages_once(ti, epoch, check=False):
+        """The stages of epoch `epoch`'s first step, one by one. With
+        `check`, the frames of the hand-built chain must equal those of
+        the ingest's own entry (`TrainingInput.decode`: decode_scan,
+        split_planes, build_decode_stage) on the same scans."""
         perm = np.random.default_rng((ti.seed, epoch)).permutation(TRAIN_N)
         bufs = [ti.items[i] for i in perm]
         host, t = {}, time.perf_counter()
@@ -1385,7 +1456,7 @@ def training_phases(dev, card, results, phase, timed, wall):
         host["wire"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
         buf = torch.from_numpy(wire).pin_memory().to(dev, non_blocking=True)
         xs = torch.as_tensor(windows[:, 0]).to(dev)
-        ys = torch.as_tensor(windows[:, 1]).to(dev)
+        ys_win = torch.as_tensor(windows[:, 1]).to(dev)
         flip, aug = draws.flip.to(dev), draws.aug.to(dev)
         torch.cuda.synchronize()
         host["upload"] = (time.perf_counter() - t) * 1e3
@@ -1393,30 +1464,57 @@ def training_phases(dev, card, results, phase, timed, wall):
                                                                torch.int32)
         split_idx = [torch.as_tensor(i).to(dev, torch.int64)
                      for i in split_indices(sig[3])]
-        names = ["decode_K4_K5_split", "K6_K7", "K9", "K8_height", "K10"]
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        ev[0].record()
+        if ks[9]:
+            raise AssertionError("the ingest corpus took the restart path")
+        geom = plane_geometry(sig[3], sig[0], sig[1])
+        # decode_scan's chunked path (K4, K5) and the decode stage (K6 a
+        # component, K7), a CUDA event after each kernel
+        names = (["K4", "K5", "split"]
+                 + [f"K6_{c}" for c in range(len(geom))]
+                 + ["K7", "K9", "K8_height", "K10"])
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(names) + 1)]
+        at = iter(ev)
+        next(at).record()
         dargs, qt = wire_unpack(buf, ks, len(sig[3]))
-        coefs, ok = decode_scan(dargs, ks, comp_of)
+        coefs, ok, _passes = _decode_scan_chunked_kernel(dargs, ks, comp_of,
+                                                         MAX_PASSES)
+        next(at).record()
+        coefs = dc_integrate(coefs, comp_of, dargs.ri_blk, ks[5])
+        next(at).record()
         planes = split_planes(coefs, sig[3], split_idx)
-        ev[1].record()
-        rgb = build_decode_stage(sig[3], sig[2], sig[0], sig[1],
-                                 force_rgb=True)(planes, qt, kron)
-        ev[2].record()
-        f = crop_flip_resize_w(rgb, xs, ys, flip, CROP, sw, tw)
-        ev[3].record()
+        del coefs
+        next(at).record()
+        ys = []
+        for p_, q_, (dh, dw, _fx, _fy) in zip(planes, qt, geom):
+            ys.append(dequant_idct_plane(p_, q_, kron, dh, dw))
+            next(at).record()
+        del planes
+        rgb = upsample_color(ys, sig[3], sig[2], sig[0], sig[1],
+                             force_rgb=True)
+        next(at).record()
+        f = crop_flip_resize_w(rgb, xs, ys_win, flip, CROP, sw, tw)
+        next(at).record()
         f = resize_axis(f, sh, th, -3)
-        ev[4].record()
+        next(at).record()
         f = augment_fused(f, aug, AUGMENT)
-        ev[5].record()
+        next(at).record()
         torch.cuda.synchronize()
         if not bool(ok):
             raise AssertionError("stage run flagged")
+        if check:
+            del f, ys
+            rgb_e, ok_e = ti.decode(items)
+            if not (bool(ok_e) and torch.equal(rgb, rgb_e)):
+                raise AssertionError("the timed chain's frames differ from "
+                                     "TrainingInput.decode's")
+            del rgb_e
         return host, {n: ev[i].elapsed_time(ev[i + 1])
                       for i, n in enumerate(names)}
 
     ti_t = make()
-    runs = [stages_once(ti_t, epoch) for epoch in range(4)][1:]
+    runs = [stages_once(ti_t, epoch, check=epoch == 0)
+            for epoch in range(4)][1:]
     host_ms = {k: sorted(r[0][k] for r in runs)[len(runs) // 2]
                for k in runs[0][0]}
     device_ms = {k: sorted(r[1][k] for r in runs)[len(runs) // 2]
@@ -1429,7 +1527,7 @@ def training_phases(dev, card, results, phase, timed, wall):
           ms_per_step=step, images_per_s=TRAIN_N / step * 1e3,
           host_ms=host_ms, device_ms=device_ms,
           host_sum_ms=sum(host_ms.values()),
-          device_sum_ms=sum(device_ms.values()),
+          device_sum_ms=sum(device_ms.values()), chain_equals_entry=True,
           idle_share=1.0 - sum(device_ms.values()) / step,
           peak_device_bytes=peak, peak_device_gb=peak / 1e9)
     return main_launches, sum(device_ms.values())

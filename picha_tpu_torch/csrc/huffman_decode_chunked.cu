@@ -11,37 +11,46 @@
 // from a guessed entry state (bit offset, MCU slot, coefficient index);
 // chunk i+1's entry becomes chunk i's exit until no entry changes.
 //
-// What bounds it on an H100: the decode is a serial chain of dependent
-// loads per lane (bit window -> code length -> symbol -> value bits), so
-// it is latency bound: ~10k lanes at 16 x 1080p are a few percent of the
-// threads the card keeps resident, and a pass lasts as long as its
-// longest lane (~C / 5 symbols). After the first two passes only the
-// unsynchronised frontier of lanes has a new entry, yet every pass still
-// costs a launch and its slowest live lane.
+// What bounds it on an H100: each pass is as long as its slowest lane's
+// serial chain (bit window -> table lookup -> next position), ~1,000
+// symbols of a 4096-bit lane, some 250 ns a symbol on an H100 (the loop's
+// dependent instructions, not its loads: shared-memory tables, branch-
+// free variants and fewer lanes a warp measured no faster); then the
+// emission writes the (N, mcus*B, 64) int32 output, 200 MB at 16 x
+// 1080p and 3.2 GB at 256, the bytes of the bound. The first port spent
+// ~1,000 cycles a symbol (global loads and 16 compares a symbol),
+// enqueued all 48 pass launches, and emitted by scattering 4-byte
+// values a lane at a time into a zeroed output: at 256 images that
+// emission alone took 8.5 ms, a partial-sector write a value.
 //
 // What the design does about it:
-//  * one thread per lane, the U unique table rows in shared memory (as
-//    K1), the symbol decode shared with K1 (huffman_symbol.cuh);
-//  * exact Jacobi with one launch per pass: exits are double-buffered by
-//    pass parity, so pass p reads only pass p-1's exits of the previous
-//    lane (propagating inside a pass would converge in fewer passes and
-//    change `ok` at the max_passes bound);
-//  * frontier: a lane whose new entry equals its previous entry copies
-//    its stored exit instead of decoding (the reference's compaction in
-//    meaning; identical exits);
-//  * no host sync: all max_passes pass launches are enqueued at once;
-//    each returns at its first instruction once the change flag of the
-//    pass before last is clear (the fixpoint was reached);
-//  * block starts are a hand-written single-block scan of the per-lane
-//    block counts; the emission pass re-decodes each lane from its
-//    converged entry straight into the zeroed output (no (steps, L)
-//    emission buffers, no placement): lanes that share a boundary block
-//    write disjoint cells. Writes are bounded by the exact block start
-//    blk_start + nblk < blk_limit, so a segment's last chunk decoding the
-//    1-bit padding writes nothing into the next image.
-// Length-sorted lanes, a warp-cooperative decode and a CUDA graph or a
-// persistent kernel for the pass loop are later work.
-//
+//  * a symbol is one shared-memory load of a 2^10-entry table per unique
+//    Huffman table row, built on the card: the bits it takes, its code
+//    length, its AC index step and its byte, for every 10-bit prefix the
+//    exact rule gives one length <= 10; the longer codes of a prefix
+//    through a second 64-entry table of the next 6 bits (up to 16 such
+//    prefixes a row; the 16-compare rule of huffman_symbol.cuh past
+//    that); the stream words in registers, the next one loaded a word
+//    ahead; the slot -> component map packed in a register;
+//  * a thread a lane for the Jacobi passes (windows of a lane decoded by
+//    several threads from guessed entries needed a round a window to
+//    agree, as long as the serial decode, and two to three times the
+//    work at 256 images); one cooperative launch runs them with a grid
+//    barrier between passes and stops at the fixpoint (no empty
+//    launches), then the settle test and a two-level block-start scan;
+//  * each decode records the lane's state where it first passes each of
+//    kWindows equal bit offsets (checkpoints); a later decode of the
+//    lane that meets an old checkpoint takes over the rest of the old
+//    decode;
+//  * the emission runs a thread a window from the checkpoints, each
+//    replaying its share of the lane's (already capped) symbols. A
+//    window builds each block in a shared-memory row; the blocks it
+//    starts and ends its warp stores together, a 256-byte row an
+//    instruction; the rows of blocks it shares with a neighbour window
+//    (at most its first and last) are zeroed first and get only its
+//    cells, as are the rows no lane reaches; nothing else is zeroed.
+//    Writes are bounded by blk_limit. Without convergence (ok false) the
+//    output is zeroed whole and every value scattered.
 // Semantics held exactly to the reference (and to the plain twin
 // picha_tpu_torch/ops/jpeg_huffman_decode.py::decode_scan_chunked_plain):
 //  * a lane reads only the words of its window [word_base, word_base +
@@ -50,26 +59,42 @@
 //    the window);
 //  * a pass decodes at most `steps` symbols per lane and stops at
 //    bit_end; exit offset = pos - (word_base*32 + C), overflow = pos <
-//    bit_end;
+//    bit_end; exits are double-buffered by pass parity, so pass p reads
+//    only pass p-1's exits of the previous lane (Jacobi);
 //  * passes run while an entry changed, at most max_passes; ok = the
 //    last propagation changed nothing and no lane overflowed.
+// No atomics: flags are plain stores of 1.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "huffman_symbol.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-using picha::decode_symbol;
 using picha::kRowInts;
 using picha::kZigzag;
-using picha::Symbol;
+using picha::table_symbol;
 
 constexpr int kMaxB = 64;                   // blocks per MCU handled here
+constexpr int kPackedB = 16;                // slot -> component in a register
 constexpr int kMaxComp = 4;
-constexpr int kThreads = 64;                // per-lane launches
-constexpr int kScanThreads = 1024;          // single-block scans
-constexpr int kSmemTableLimit = 40 * 1024;  // + static smem stays < 48 KB
+constexpr int kThreads = 256;               // K4's blocks
+constexpr int kMaxGrid = 2048;              // block sums of the lane scan
+constexpr int kWindowBits = 3;              // checkpoints a lane (emission
+constexpr int kWindows = 1 << kWindowBits;  // threads a lane): 8
+constexpr int kLutBits = 10;                // first bits a table entry
+constexpr int kLutSize = 1 << kLutBits;
+constexpr int kSubBits = 6;                 // the next bits, long codes
+constexpr int kSubTables = 16;              // long-code prefixes a row
+constexpr int kSubSize = kSubTables << kSubBits;
+constexpr int kRowLut = kLutSize + kSubSize;  // entries a row
+constexpr int kSmemTableLimit = 96 * 1024;  // tables in shared memory
+constexpr int kScanThreads = 256;           // K5
+constexpr int kDcPerThread = 8;             // K5: blocks a thread
+constexpr int kDcTile = kScanThreads * kDcPerThread;
 constexpr unsigned kFull = 0xffffffffu;
 
 // the wire's lane arrays and tables (ScanBatch.args() order)
@@ -87,23 +112,34 @@ struct Wire {
   const int* hv;
   const int* comp_of;
   int n_uniq, B, n_lanes, C, W, steps;
+  unsigned comp2;  // slot s -> component in bits 2s..2s+1 (B <= kPackedB)
 };
 
-// carved from the caller's zeroed int32 workspace: 13 lane arrays, then
-// max_passes change flags, then one overflow flag
+// Carved from the caller's int32 workspace (no zeroing needed: the
+// kernel clears chg and flags itself):
+//   path  (L, kWindows) int4  the lane's last decode where it first
+//                       reached bit offset t * C / kWindows: pos - start,
+//                       slot | z << 8, symbols and blocks before it;
+//                       [L * kWindows] the end of the decode
+//   12 lane arrays, max_passes change flags, 2 flags, kMaxGrid block
+//   sums, then the lookup tables (n_uniq * kRowLut).
 struct Work {
-  int* ent[3];     // the entry (off, slot, z) of each lane's last pass
+  int4* path;
+  int* ent[3];     // the entry (off, slot, z) of each lane's last decode
   int* ex[2][3];   // exits by pass parity
   int* nblk;       // blocks the lane's last decode ended
   int* over;       // 1: its last decode stopped short of bit_end
-  int* blk_start;  // first block the lane writes
   int* prev;       // exclusive prefix of nblk over all lanes
   int* chg;        // chg[p] = 1: propagating pass p's exits changed an entry
-  int* flags;      // [0]: some lane's last decode overflowed
+  int* flags;      // [0]: some lane's last decode overflowed, [1]: converged
+  int* csum;       // per-block sums of the lane scan
+  unsigned* lut;
 };
 
 Work carve(int* w, int n_lanes, int max_passes) {
   Work k;
+  k.path = reinterpret_cast<int4*>(w);
+  w += 4 * (kWindows + 1) * n_lanes;
   for (int i = 0; i < 3; ++i, w += n_lanes) k.ent[i] = w;
   for (int p = 0; p < 2; ++p)
     for (int i = 0; i < 3; ++i, w += n_lanes) k.ex[p][i] = w;
@@ -111,137 +147,559 @@ Work carve(int* w, int n_lanes, int max_passes) {
   w += n_lanes;
   k.over = w;
   w += n_lanes;
-  k.blk_start = w;
-  w += n_lanes;
   k.prev = w;
   w += n_lanes;
   k.chg = w;
-  k.flags = w + max_passes;
+  w += max_passes;
+  k.flags = w;
+  w += 2;
+  k.csum = w;
+  w += kMaxGrid;
+  k.lut = reinterpret_cast<unsigned*>(w);
   return k;
 }
 
-struct Tables {
+// A symbol as a table entry: bits 0-4 the bits it takes (code + value),
+// 5-9 the code length, 10-16 the coefficient-index step it makes in an
+// AC position (run + 1; 16 for ZRL; 64 for EOB, which ends the block),
+// 24-31 the symbol byte. Never 0 in bits 0-4 (a code is >= 1 bit). An
+// entry with bits 0-4 zero sends the lookup on: to sub-table i (bit 5
+// set, i in bits 6-9) of the next kSubBits bits, or (0) to the exact
+// rule.
+__device__ __forceinline__ unsigned pack_entry(int clen, int sym) {
+  const int size = sym & 15, run = sym >> 4;
+  const int zadd = size ? run + 1 : (run == 15 ? 16 : 64);
+  return static_cast<unsigned>(clen + size) | (static_cast<unsigned>(clen) << 5) |
+         (static_cast<unsigned>(zadd) << 10) | (static_cast<unsigned>(sym) << 24);
+}
+
+// The exact rule's symbol at the 16-bit window P as a table entry.
+__device__ __forceinline__ unsigned exact_entry(int P, const int* lim,
+                                                const int* dlt, const int* hv) {
+  int clen;
+  const int sym = table_symbol(static_cast<uint32_t>(P) << 16, lim, dlt, hv, clen);
+  return pack_entry(clen, sym & 255);
+}
+
+// One block per unique table row: entry q of the first kLutBits bits is
+// the symbol wherever the exact rule gives every 16-bit P with these
+// first bits the same length <= kLutBits (#(P >= lim[k]) is monotone in
+// P, so the ends of the range decide); the first kSubTables other
+// prefixes, in order, get a sub-table of the exact rule at each of the
+// next kSubBits bits; the rest 0.
+__global__ void lut_build_kernel(const int* __restrict__ limit,
+                                 const int* __restrict__ delta,
+                                 const int* __restrict__ hv,
+                                 unsigned* __restrict__ lut) {
+  __shared__ int red[32];
+  const int u = blockIdx.x;
+  const int* lim = limit + u * 16;
+  const int* dlt = delta + u * 17;
+  const int* h = hv + u * 256;
+  unsigned* row = lut + static_cast<size_t>(u) * kRowLut;
+  int before = 0;  // long prefixes in the chunks before
+  for (int q0 = 0; q0 < kLutSize; q0 += blockDim.x) {
+    const int q = q0 + threadIdx.x;
+    const int lo = q << (16 - kLutBits);
+    const int hi = lo | ((1 << (16 - kLutBits)) - 1);
+    int c_lo = 0, c_hi = 0;
+    for (int k = 0; k < 16; ++k) {
+      c_lo += lo >= lim[k] ? 1 : 0;
+      c_hi += hi >= lim[k] ? 1 : 0;
+    }
+    const int clen = min(1 + c_lo, 16);
+    const int idx = min(max((lo >> (16 - clen)) + dlt[clen], 0), 255);
+    const int sym = h[idx];
+    const bool fast = q < kLutSize && c_lo == c_hi && clen <= kLutBits &&
+                      sym >= 0 && sym < 256;
+    const bool longp = q < kLutSize && !fast;
+    // rank of this long prefix among the row's long prefixes
+    const unsigned bal = __ballot_sync(kFull, longp);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) red[warp] = __popc(bal);
+    __syncthreads();
+    int rank = before + __popc(bal & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) rank += red[w];
+    int total = 0;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) total += red[w];
+    __syncthreads();
+    before += total;
+    if (q < kLutSize) {
+      unsigned e = 0;
+      if (fast) {
+        e = pack_entry(clen, sym);
+      } else if (rank < kSubTables) {
+        e = (1u << 5) | (static_cast<unsigned>(rank) << 6);
+        for (int j = 0; j < (1 << kSubBits); ++j)
+          row[kLutSize + (rank << kSubBits) + j] = exact_entry(lo | j, lim, dlt, h);
+      }
+      row[q] = e;
+    }
+  }
+}
+
+struct Tabs {
+  const unsigned* lut;  // n_uniq rows of kRowLut entries
   const int* lim;
   const int* dlt;
   const int* hv;
 };
 
-// Loads comp_of (and the table rows, when they fit) into shared memory;
-// the caller synchronises before use.
-__device__ Tables load_tables(const Wire& wr, int* smem, int* comp_s,
-                              int in_smem) {
-  for (int i = threadIdx.x; i < wr.B; i += blockDim.x) comp_s[i] = wr.comp_of[i];
-  if (!in_smem) return Tables{wr.limit, wr.delta, wr.hv};
-  const int n = wr.n_uniq;
-  for (int i = threadIdx.x; i < n * 16; i += blockDim.x) smem[i] = wr.limit[i];
-  for (int i = threadIdx.x; i < n * 17; i += blockDim.x) smem[n * 16 + i] = wr.delta[i];
-  for (int i = threadIdx.x; i < n * 256; i += blockDim.x) smem[n * 33 + i] = wr.hv[i];
-  return Tables{smem, smem + n * 16, smem + n * 33};
+// The table entry of the 32 stream bits w32 under table row u.
+__device__ __forceinline__ unsigned lookup(const Tabs& tb, int u, uint32_t w32) {
+  const unsigned* row = tb.lut + u * kRowLut;
+  unsigned e = row[w32 >> (32 - kLutBits)];
+  if ((e & 31u) == 0) {
+    if (e) {
+      e = row[kLutSize + (((e >> 6) & 15u) << kSubBits) +
+              ((w32 >> (32 - kLutBits - kSubBits)) & ((1u << kSubBits) - 1u))];
+    } else {
+      e = exact_entry(static_cast<int>(w32 >> 16), tb.lim + u * 16, tb.dlt + u * 17,
+                      tb.hv + u * 256);
+    }
+  }
+  return e;
 }
 
-struct LaneEnd {
-  int pos, slot, z, nblk;
+// Loads comp_of, the zigzag order and (kSmem) the lookup tables and
+// table rows into shared memory at `smem`; the caller synchronises. With
+// the tables' address space fixed at compile time, their loads are
+// shared-memory loads with 32-bit addresses, not generic ones.
+template <bool kSmem>
+__device__ __forceinline__ Tabs load_tables(const Wire& wr, const unsigned* lut,
+                                            unsigned char* smem, int* comp_s,
+                                            int* zz_s) {
+  for (int i = threadIdx.x; i < wr.B; i += blockDim.x) comp_s[i] = wr.comp_of[i];
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) zz_s[i] = kZigzag[i];
+  if (!kSmem) return Tabs{lut, wr.limit, wr.delta, wr.hv};
+  const int n = wr.n_uniq;
+  unsigned* lut_s = reinterpret_cast<unsigned*>(smem);
+  int* rows = reinterpret_cast<int*>(lut_s + n * kRowLut);
+  for (int i = threadIdx.x; i < n * kRowLut; i += blockDim.x) lut_s[i] = lut[i];
+  for (int i = threadIdx.x; i < n * 16; i += blockDim.x) rows[i] = wr.limit[i];
+  for (int i = threadIdx.x; i < n * 17; i += blockDim.x) rows[n * 16 + i] = wr.delta[i];
+  for (int i = threadIdx.x; i < n * 256; i += blockDim.x) rows[n * 33 + i] = wr.hv[i];
+  return Tabs{lut_s, rows, rows + n * 16, rows + n * 33};
+}
+
+struct Lane {
+  int base, start, bit_end, blk_limit;
+  unsigned long long uid;  // the lane's 6 table-row ids, byte t = row t
 };
 
-// Decodes one lane from entry (off, slot, z): at most `steps` symbols,
-// stopping once pos reaches the lane's bit_end. With `out`, every value
-// lands in natural order in block blk_start + (blocks ended so far)
-// while that block is below the lane's blk_limit.
-__device__ LaneEnd decode_lane(const Wire& wr, const Tables& tb,
-                               const int* comp_s, int lane, int off, int slot,
-                               int z, int* __restrict__ out, int blk_start) {
-  const int base = wr.word_base[lane];
-  int pos = base * 32 + off;
-  const int bit_end = base * 32 + wr.bits[lane];
-  const int blk_limit = wr.blk_limit[lane];
-  int uid6[6];
-  for (int t = 0; t < 6; ++t) uid6[t] = wr.uid6[lane * 6 + t];
-  int nblk = 0;
-  for (int i = 0; i < wr.steps && pos < bit_end; ++i) {
-    // 32-bit window at pos; words outside the lane's window read as 0
-    const int wl = pos >> 5;
-    const int rel = wl - base;
-    const uint32_t w0 = (rel >= 0 && rel < wr.W) ? wr.words[wl] : 0u;
-    const uint32_t w1 = (rel + 1 >= 0 && rel + 1 < wr.W) ? wr.words[wl + 1] : 0u;
-    const int b = pos & 31;
-    const uint32_t w32 = b ? (w0 << b) | (w1 >> (32 - b)) : w0;
-    const int u = uid6[comp_s[slot] * 2 + (z > 0 ? 1 : 0)];
-    const Symbol s = decode_symbol(w32, z, tb.lim + u * 16, tb.dlt + u * 17,
-                                   tb.hv + u * 256);
-    if (out != nullptr && s.has_value) {
-      const int blk = blk_start + nblk;
-      if (blk < blk_limit) out[static_cast<int64_t>(blk) * 64 + kZigzag[s.z_coef]] = s.val;
-    }
-    pos += s.adv;
-    if (s.z_new >= 64) {
-      z = 0;
-      slot = (slot + 1 == wr.B) ? 0 : slot + 1;
-      ++nblk;
-    } else {
-      z = s.z_new;
-    }
-  }
-  return LaneEnd{pos, slot, z, nblk};
+__device__ __forceinline__ Lane lane_of(const Wire& wr, int lane) {
+  Lane l;
+  l.base = wr.word_base[lane];
+  l.start = l.base * 32;
+  l.bit_end = l.start + wr.bits[lane];
+  l.blk_limit = wr.blk_limit[lane];
+  l.uid = 0;
+  for (int t = 0; t < 6; ++t)
+    l.uid |= static_cast<unsigned long long>(wr.uid6[lane * 6 + t]) << (8 * t);
+  return l;
 }
 
-// The entry pass p gives `lane`: the previous lane's exit of pass p-1,
-// or (0, 0, 0) on the first pass and for segment-first (pinned) lanes.
-__device__ void next_entry(const Wire& wr, const Work& wk, int lane, int p,
-                           int e[3]) {
-  e[0] = e[1] = e[2] = 0;
-  if (p > 0 && lane > 0 && !wr.pinned[lane]) {
-    const int par = (p - 1) & 1;
-    for (int k = 0; k < 3; ++k) e[k] = wk.ex[par][k][lane - 1];
-  }
+struct St {
+  int pos, slot, z;
+};
+
+// A decode from state s: the table rows of the current block's
+// component, the stream words around pos, the symbols and blocks so far.
+struct Run {
+  int pos, slot, z, cnt, blocks, wl, dc, ac;
+  uint32_t w0, w1, w2;
+};
+
+__device__ __forceinline__ uint32_t stream_word(const Wire& wr, const Lane& ln, int i) {
+  const int rel = i - ln.base;
+  return (rel >= 0 && rel < wr.W) ? __ldg(wr.words + i) : 0u;
 }
 
-// One Jacobi pass: propagation of pass p-1's exits, then the decode of
-// every lane whose entry changed.
-__global__ void chunk_pass_kernel(Wire wr, Work wk, int p, int in_smem) {
-  // chg[p-2] clear: pass p-1 changed no entry, the fixpoint is reached
-  if (p >= 2 && wk.chg[p - 2] == 0) return;
-  extern __shared__ int smem[];
-  __shared__ int comp_s[kMaxB];
-  const Tables tb = load_tables(wr, smem, comp_s, in_smem);
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= wr.n_lanes) return;
-  const int cur = p & 1;
-  int e[3];
-  next_entry(wr, wk, lane, p, e);
+__device__ __forceinline__ void set_rows(const Wire& wr, const int* comp_s,
+                                         const Lane& ln, Run& r) {
+  const int c = wr.B <= kPackedB ? static_cast<int>((wr.comp2 >> (2 * r.slot)) & 3u)
+                                 : comp_s[r.slot];
+  r.dc = static_cast<int>((ln.uid >> (16 * c)) & 0xffu);
+  r.ac = static_cast<int>((ln.uid >> (16 * c + 8)) & 0xffu);
+}
+
+__device__ __forceinline__ Run run_from(const Wire& wr, const int* comp_s,
+                                        const Lane& ln, St s) {
+  Run r;
+  r.pos = s.pos;
+  r.slot = s.slot;
+  r.z = s.z;
+  r.cnt = 0;
+  r.blocks = 0;
+  r.wl = s.pos >> 5;
+  r.w0 = stream_word(wr, ln, r.wl);
+  r.w1 = stream_word(wr, ln, r.wl + 1);
+  r.w2 = stream_word(wr, ln, r.wl + 2);
+  set_rows(wr, comp_s, ln, r);
+  return r;
+}
+
+// One symbol: returns its table entry (the caller reads the value from
+// w32 when it needs it) and moves r past it.
+__device__ __forceinline__ unsigned step(const Wire& wr, const Tabs& tb,
+                                         const int* comp_s, const Lane& ln, Run& r,
+                                         uint32_t& w32) {
+  w32 = __funnelshift_l(r.w1, r.w0, r.pos);  // the 32 bits from pos
+  const unsigned e = lookup(tb, r.z ? r.ac : r.dc, w32);
+  r.pos += static_cast<int>(e & 31u);
+  ++r.cnt;
+  if ((r.pos >> 5) != r.wl) {  // at most one word on (a symbol < 32 bits)
+    ++r.wl;
+    r.w0 = r.w1;
+    r.w1 = r.w2;
+    r.w2 = stream_word(wr, ln, r.wl + 2);
+  }
+  const int zn = r.z ? r.z + static_cast<int>((e >> 10) & 127u) : 1;
+  if (zn >= 64) {
+    r.z = 0;
+    r.slot = (r.slot + 1 == wr.B) ? 0 : r.slot + 1;
+    ++r.blocks;
+    set_rows(wr, comp_s, ln, r);
+  } else {
+    r.z = zn;
+  }
+  return e;
+}
+
+// The value a symbol carries: (has, zigzag position, value).
+__device__ __forceinline__ bool symbol_value(unsigned e, int z, uint32_t w32,
+                                             int& zc, int& v) {
+  const int clen = static_cast<int>((e >> 5) & 31u);
+  const int sym = static_cast<int>(e >> 24);
+  const int size = sym & 15;
+  zc = z ? z + (sym >> 4) : 0;
+  v = 0;
+  if (size) {
+    v = static_cast<int>((w32 << clen) >> (32 - size));
+    if (v < (1 << (size - 1))) v += 1 - (1 << size);
+  }
+  return (z == 0 || size) && zc < 64;
+}
+
+__device__ __forceinline__ int4 pack_state(const Run& r, int start) {
+  return make_int4(r.pos - start, r.slot | (r.z << 8), r.cnt, r.blocks);
+}
+
+// One Jacobi pass of `lane` (a thread a lane).
+__device__ __forceinline__ void lane_pass(const Wire& wr, const Work& wk, const Tabs& tb,
+                          const int* comp_s, int lane, int p) {
+  int e0 = 0, e1 = 0, e2 = 0;
   if (p > 0) {
-    if (e[0] == wk.ent[0][lane] && e[1] == wk.ent[1][lane] && e[2] == wk.ent[2][lane]) {
-      for (int k = 0; k < 3; ++k) wk.ex[cur][k][lane] = wk.ex[cur ^ 1][k][lane];
+    if (lane > 0 && !wr.pinned[lane]) {
+      const int par = (p - 1) & 1;
+      e0 = wk.ex[par][0][lane - 1];
+      e1 = wk.ex[par][1][lane - 1];
+      e2 = wk.ex[par][2][lane - 1];
+    }
+    if (e0 == wk.ent[0][lane] && e1 == wk.ent[1][lane] && e2 == wk.ent[2][lane]) {
+      for (int k = 0; k < 3; ++k) wk.ex[p & 1][k][lane] = wk.ex[(p & 1) ^ 1][k][lane];
       return;  // same entry, same exit
     }
     wk.chg[p - 1] = 1;
   }
-  for (int k = 0; k < 3; ++k) wk.ent[k][lane] = e[k];
-  const LaneEnd x = decode_lane(wr, tb, comp_s, lane, e[0], e[1], e[2], nullptr, 0);
-  const int start = wr.word_base[lane] * 32;
-  wk.ex[cur][0][lane] = x.pos - (start + wr.C);
-  wk.ex[cur][1][lane] = x.slot;
-  wk.ex[cur][2][lane] = x.z;
-  wk.nblk[lane] = x.nblk;
-  wk.over[lane] = x.pos < start + wr.bits[lane] ? 1 : 0;
+  wk.ent[0][lane] = e0;
+  wk.ent[1][lane] = e1;
+  wk.ent[2][lane] = e2;
+  const Lane ln = lane_of(wr, lane);
+  Run r = run_from(wr, comp_s, ln, St{ln.start + e0, e1, e2});
+  // checkpoints: the state where the decode first reaches each window.
+  // After the first pass, where a checkpoint's state (pos, slot, z) is
+  // the lane's previous decode's, the rest of the decode is that one's,
+  // symbol and block counts shifted, unless the previous decode stopped
+  // at `steps` or the shift takes the count past it.
+  const int S = wr.C / kWindows;
+  int4* cp = wk.path + static_cast<int64_t>(lane) * kWindows;
+  int4* cp_end = wk.path + static_cast<int64_t>(wr.n_lanes) * kWindows + lane;
+  const int4 old_end = p > 0 ? *cp_end : make_int4(0, 0, 0, 0);
+  const bool may_merge = p > 0 && ln.start + old_end.x >= ln.bit_end;
+  cp[0] = pack_state(r, ln.start);
+  int t = 1;
+  int bound = ln.start + S;
+  int4 end = make_int4(0, 0, 0, 0);
+  bool merged = false;
+  while (!merged && r.cnt < wr.steps && r.pos < ln.bit_end) {
+    while (t < kWindows && r.pos >= bound) {
+      const int4 now = pack_state(r, ln.start);
+      if (may_merge) {
+        const int4 was = cp[t];
+        const int dn = now.z - was.z, db = now.w - was.w;
+        if (was.x == now.x && was.y == now.y && old_end.z + dn <= wr.steps) {
+          for (; t < kWindows; ++t) {
+            const int4 c = cp[t];
+            cp[t] = make_int4(c.x, c.y, c.z + dn, c.w + db);
+          }
+          end = make_int4(old_end.x, old_end.y, old_end.z + dn, old_end.w + db);
+          merged = true;
+          break;
+        }
+      }
+      cp[t++] = now;
+      bound += S;
+    }
+    if (merged) break;
+    uint32_t w32;
+    step(wr, tb, comp_s, ln, r, w32);
+  }
+  if (!merged) {
+    for (; t < kWindows; ++t) cp[t] = pack_state(r, ln.start);
+    end = pack_state(r, ln.start);
+  }
+  *cp_end = end;
+  wk.ex[p & 1][0][lane] = end.x - wr.C;
+  wk.ex[p & 1][1][lane] = end.y & 0xff;
+  wk.ex[p & 1][2][lane] = end.y >> 8;
+  wk.nblk[lane] = end.w;
+  wk.over[lane] = ln.start + end.x < ln.bit_end ? 1 : 0;
 }
 
-// After the last pass: collects overflow, and when every pass changed an
-// entry, whether propagating the last pass's exits changes one more.
-__global__ void chunk_settle_kernel(Wire wr, Work wk, int max_passes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= wr.n_lanes) return;
-  if (wk.over[lane]) wk.flags[0] = 1;
-  for (int j = 0; j + 1 < max_passes; ++j)
-    if (wk.chg[j] == 0) return;  // converged within the budget
-  int e[3];
-  next_entry(wr, wk, lane, max_passes, e);
-  if (e[0] != wk.ent[0][lane] || e[1] != wk.ent[1][lane] || e[2] != wk.ent[2][lane])
-    wk.chg[max_passes - 1] = 1;
+// The entry pass p gives `lane` (settle's check after the last pass).
+__device__ bool entry_changes(const Wire& wr, const Work& wk, int lane, int p) {
+  int e[3] = {0, 0, 0};
+  if (lane > 0 && !wr.pinned[lane])
+    for (int k = 0; k < 3; ++k) e[k] = wk.ex[(p - 1) & 1][k][lane - 1];
+  return e[0] != wk.ent[0][lane] || e[1] != wk.ent[1][lane] || e[2] != wk.ent[2][lane];
 }
 
-// segmented-sum scan element: s = sum since the last reset, f = a reset
-// happened in the span
+__device__ __forceinline__ int load_flag(const int* f) {
+  return *reinterpret_cast<const volatile int*>(f);
+}
+
+// Sum over the block (every thread calls it; red holds 32 ints).
+__device__ int block_sum(int v, int* red) {
+  for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int s = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// Exclusive prefix over the block's threads in thread order.
+__device__ int block_exclusive_sum(int v, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += o;
+  }
+  if (lane == 31) red[warp] = inc;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += red[w];
+  __syncthreads();
+  return before + inc - v;
+}
+
+__device__ __forceinline__ int blk_start(const Wire& wr, const Work& wk, int lane) {
+  const int f = min(max(wr.seg_first[lane], 0), wr.n_lanes - 1);
+  return wr.blk_base[lane] + wk.prev[lane] - wk.prev[f];
+}
+
+__device__ __forceinline__ void zero_row(int* out, int blk) {
+  int4* row = reinterpret_cast<int4*>(out + static_cast<int64_t>(blk) * 64);
+  for (int c = 0; c < 16; ++c) row[c] = make_int4(0, 0, 0, 0);
+}
+
+// K4's passes in one cooperative launch: the Jacobi passes to the
+// fixpoint (at most max_passes), settle, block starts, and the rows the
+// emission does not write whole zeroed (all of them without convergence).
+template <bool kSmem>
+__global__ void __launch_bounds__(kThreads) chunk_pass_kernel(
+    Wire wr, Work wk, int max_passes, int* __restrict__ out, int64_t out_rows,
+    int* __restrict__ info) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int comp_s[kMaxB];
+  __shared__ int zz_s[64];
+  __shared__ int red[32];
+  const Tabs tb = load_tables<kSmem>(wr, wk.lut, smem, comp_s, zz_s);
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i <= max_passes; i += blockDim.x)
+      (i < max_passes ? wk.chg[i] : wk.flags[0]) = 0;
+  __syncthreads();
+  const int L = wr.n_lanes;
+  const int stride = gridDim.x * blockDim.x;
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  int p = 0;
+  for (; p < max_passes; ++p) {
+    if (p >= 2 && load_flag(wk.chg + p - 2) == 0) break;  // fixpoint reached
+    for (int lane = gid; lane < L; lane += stride) lane_pass(wr, wk, tb, comp_s, lane, p);
+    grid.sync();
+  }
+  // settle: overflow, and when every pass changed an entry (no early
+  // stop, and the last pass changed one), whether propagating the last
+  // pass's exits changes one more
+  const bool all_changed =
+      p == max_passes && (max_passes < 2 || load_flag(wk.chg + max_passes - 2) != 0);
+  for (int lane = gid; lane < L; lane += stride) {
+    if (wk.over[lane]) wk.flags[0] = 1;
+    if (all_changed && entry_changes(wr, wk, lane, max_passes)) wk.chg[max_passes - 1] = 1;
+  }
+  // block starts: each block's contiguous share of the lanes, its sum,
+  // then the sums of the blocks before it
+  const int chunk = (L + gridDim.x - 1) / gridDim.x;
+  const int lo = min(static_cast<int>(blockIdx.x) * chunk, L);
+  const int hi = min(lo + chunk, L);
+  const int per = (hi - lo + blockDim.x - 1) / blockDim.x;
+  const int a = min(lo + static_cast<int>(threadIdx.x) * per, hi);
+  const int z = min(a + per, hi);
+  int sum = 0;
+  for (int i = a; i < z; ++i) sum += wk.nblk[i];
+  const int total = block_sum(sum, red);
+  if (threadIdx.x == 0) wk.csum[blockIdx.x] = total;
+  grid.sync();
+  int before = 0;
+  for (int i = threadIdx.x; i < static_cast<int>(blockIdx.x); i += blockDim.x)
+    before += wk.csum[i];
+  int acc = block_sum(before, red);
+  acc += block_exclusive_sum(sum, red);
+  for (int i = a; i < z; ++i) {
+    wk.prev[i] = acc;
+    acc += wk.nblk[i];
+  }
+  int passes = max_passes, converged = 0;
+  for (int j = 0; j < max_passes; ++j) {
+    if (load_flag(wk.chg + j) == 0) {
+      passes = j + 1;
+      converged = 1;
+      break;
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const int overflow = load_flag(wk.flags);
+    info[0] = converged && !overflow;
+    info[1] = passes;
+    info[2] = overflow;
+    wk.flags[1] = converged;
+  }
+  grid.sync();
+  if (!converged) {  // the emission scatters every value
+    int4* o = reinterpret_cast<int4*>(out);
+    for (int64_t i = gid; i < out_rows * 16; i += stride) o[i] = make_int4(0, 0, 0, 0);
+    return;
+  }
+  // the rows a window shares with its neighbour, and those past the
+  // decode of a segment's last lane, are zeroed here
+  for (int64_t g = gid; g < static_cast<int64_t>(L) * kWindows; g += stride) {
+    const int lane = static_cast<int>(g >> kWindowBits);
+    const int t = static_cast<int>(g & (kWindows - 1));
+    const int4 c0 = wk.path[g];
+    const int4 c1 = t + 1 < kWindows ? wk.path[g + 1]
+                                     : wk.path[static_cast<int64_t>(L) * kWindows + lane];
+    const int limit = wr.blk_limit[lane];
+    const int b0 = blk_start(wr, wk, lane) + c0.w;
+    if (c1.z > c0.z) {  // the window decodes symbols
+      if ((c0.y >> 8) > 0 && b0 < limit) zero_row(out, b0);
+      const int b1 = blk_start(wr, wk, lane) + c1.w;
+      if ((c1.y >> 8) > 0 && b1 < limit) zero_row(out, b1);
+    }
+    const bool last = lane + 1 == L || wr.pinned[lane + 1];
+    if (last && t == kWindows - 1) {
+      for (int b = blk_start(wr, wk, lane) + c1.w + ((c1.y >> 8) > 0 ? 1 : 0); b < limit; ++b)
+        zero_row(out, b);
+    }
+  }
+}
+
+// The emission: a thread a window of a lane, from its checkpoint, the
+// window's symbols only; each block built in the thread's shared-memory
+// row (16-byte chunks swizzled by thread). The blocks a window starts
+// and ends are stored whole by its warp together, a 256-byte row an
+// instruction; the others (and all of them without convergence) cell by
+// cell into their zeroed rows. DC stays as diffs.
+template <bool kSmem>
+__global__ void __launch_bounds__(kThreads) chunk_emit_kernel(
+    Wire wr, Work wk, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int comp_s[kMaxB];
+  __shared__ int zz_s[64];
+  const Tabs tb = load_tables<kSmem>(wr, wk.lut, smem + kThreads * 256, comp_s, zz_s);
+  int* const bufs = reinterpret_cast<int*>(smem) + (threadIdx.x & ~31) * 64;
+  const int lane_id = threadIdx.x & 31;
+  int* buf = bufs + lane_id * 64;
+  int4* buf4 = reinterpret_cast<int4*>(buf);
+  const int sw = threadIdx.x & 15;  // logical chunk c sits at c ^ sw
+  for (int c = 0; c < 16; ++c) buf4[c ^ sw] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t g_end = static_cast<int64_t>(wr.n_lanes) * kWindows;
+  if ((g & ~31ll) >= g_end) return;  // the whole warp is past the end
+  int n = 0, lane = 0;
+  int4 c0 = make_int4(0, 0, 0, 0);
+  if (g < g_end) {
+    lane = static_cast<int>(g >> kWindowBits);
+    const int t = static_cast<int>(g & (kWindows - 1));
+    c0 = wk.path[g];
+    const int4 c1 = t + 1 < kWindows ? wk.path[g + 1] : wk.path[g_end + lane];
+    n = c1.z - c0.z;
+  }
+  const Lane ln = lane_of(wr, lane);
+  const bool whole = load_flag(wk.flags + 1) != 0;
+  Run r = run_from(wr, comp_s, ln, St{ln.start + c0.x, c0.y & 0xff, c0.y >> 8});
+  const int blk0 = n > 0 ? blk_start(wr, wk, lane) + c0.w : 0;
+  bool shared_first = r.z > 0 || !whole;  // the block began before this window
+  unsigned long long set = 0;             // cells of buf written
+  auto cell = [&](int zz) { return buf + (((zz >> 2) ^ sw) << 2) + (zz & 3); };
+  auto scatter = [&](int blk) {
+    while (set) {
+      const int zz = __ffsll(static_cast<long long>(set)) - 1;
+      set &= set - 1;
+      int* s = cell(zz);
+      if (blk < ln.blk_limit) out[static_cast<int64_t>(blk) * 64 + zz] = *s;
+      *s = 0;
+    }
+  };
+  for (int i = 0; __any_sync(kFull, i < n); ++i) {
+    bool store = false;
+    int blk = 0;
+    if (i < n) {
+      const int z = r.z;
+      blk = blk0 + r.blocks;
+      uint32_t w32;
+      const unsigned e = step(wr, tb, comp_s, ln, r, w32);
+      int zc, v;
+      if (symbol_value(e, z, w32, zc, v)) {
+        const int zz = zz_s[zc];
+        *cell(zz) = v;
+        set |= 1ull << zz;
+      }
+      if (r.blocks != blk - blk0) {  // the symbol ended block blk
+        if (shared_first) {
+          scatter(blk);
+          shared_first = !whole;
+        } else {
+          store = true;  // the warp stores it below and clears the row
+          set = 0;
+        }
+      }
+    }
+    unsigned todo = __ballot_sync(kFull, store);
+    if (todo) {
+      __syncwarp();
+      while (todo) {  // a finished block a step: 8 bytes a thread
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int b = __shfl_sync(kFull, blk, src);
+        const int limit = __shfl_sync(kFull, ln.blk_limit, src);
+        const int c = lane_id >> 1;
+        int2* s = reinterpret_cast<int2*>(bufs + src * 64 + ((c ^ (src & 15)) << 2) +
+                                          (lane_id & 1) * 2);
+        if (b < limit)
+          reinterpret_cast<int2*>(out + static_cast<int64_t>(b) * 64)[lane_id] = *s;
+        *s = make_int2(0, 0);
+      }
+      __syncwarp();
+    }
+  }
+  if (n > 0) scatter(blk0 + r.blocks);  // the block the window leaves unfinished
+}
+
 struct Seg {
   int s, f;
 };
@@ -280,66 +738,39 @@ __device__ Seg block_exclusive(Seg v, Seg* sh) {
   return res;
 }
 
-// One block: blk_start[i] = blk_base[i] + (blocks ended by the lanes of
-// i's segment before i), and info = (ok, passes run, overflow).
-__global__ void chunk_block_start_kernel(Wire wr, Work wk, int max_passes,
-                                         int* __restrict__ info) {
-  __shared__ Seg sh[32];
-  const int L = wr.n_lanes;
-  const int per = (L + blockDim.x - 1) / blockDim.x;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, L);
-  const int hi = min(lo + per, L);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += wk.nblk[i];
-  int acc = block_exclusive(Seg{sum, 0}, sh).s;
-  for (int i = lo; i < hi; ++i) {
-    wk.prev[i] = acc;
-    acc += wk.nblk[i];
-  }
-  __syncthreads();
-  for (int i = lo; i < hi; ++i) {
-    const int f = min(max(wr.seg_first[i], 0), L - 1);
-    wk.blk_start[i] = wr.blk_base[i] + wk.prev[i] - wk.prev[f];
-  }
-  if (threadIdx.x == 0) {
-    int passes = max_passes, converged = 0;
-    for (int j = 0; j < max_passes; ++j) {
-      if (wk.chg[j] == 0) {
-        passes = j + 1;
-        converged = 1;
-        break;
-      }
+// K5's view of one tile of one image: kDcPerThread consecutive blocks a
+// thread, their DC diffs loaded at once, each component's segmented sum,
+// restarting where blk % ri_blk is the component's first MCU slot.
+struct DcTile {
+  int* dc;  // the image's first cell
+  int lo, hi, ri;
+  int v[kDcPerThread];
+};
+
+// The thread's blocks of the tile and their DC diffs: from the output's
+// cells (a 256-byte stride), copied to `dcs` (a 4-byte stride), or (the
+// second level) from `dcs`.
+__device__ void dc_tile(int* out, const int* ri_blk, int nblk_img, int* dcs,
+                        bool from_dcs, DcTile& d) {
+  d.dc = out + static_cast<int64_t>(blockIdx.x) * nblk_img * 64;
+  d.ri = max(ri_blk[blockIdx.x], 1);
+  d.lo = min(static_cast<int>(blockIdx.y) * kDcTile +
+                 static_cast<int>(threadIdx.x) * kDcPerThread, nblk_img);
+  d.hi = min(d.lo + kDcPerThread, nblk_img);
+  int* compact = dcs + static_cast<int64_t>(blockIdx.x) * nblk_img;
+#pragma unroll
+  for (int i = 0; i < kDcPerThread; ++i) {
+    const int b = d.lo + i;
+    if (from_dcs) {
+      d.v[i] = b < d.hi ? compact[b] : 0;
+    } else {
+      d.v[i] = b < d.hi ? d.dc[static_cast<int64_t>(b) * 64] : 0;
+      if (b < d.hi) compact[b] = d.v[i];
     }
-    info[0] = converged && !wk.flags[0];
-    info[1] = passes;
-    info[2] = wk.flags[0];
   }
 }
 
-// Emission: every lane again from its converged entry, values straight
-// into the zeroed output (DC still as diffs).
-__global__ void chunk_emit_kernel(Wire wr, Work wk, int* __restrict__ out,
-                                  int in_smem) {
-  extern __shared__ int smem[];
-  __shared__ int comp_s[kMaxB];
-  const Tables tb = load_tables(wr, smem, comp_s, in_smem);
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= wr.n_lanes) return;
-  decode_lane(wr, tb, comp_s, lane, wk.ent[0][lane], wk.ent[1][lane],
-              wk.ent[2][lane], out, wk.blk_start[lane]);
-}
-
-// K5: one block per image. Per component, a segmented inclusive sum of
-// the DC diffs over the image's blocks in scan order, restarting where
-// blk % ri_blk is the component's first MCU slot.
-__global__ void dc_integrate_kernel(int* __restrict__ out,
-                                    const int* __restrict__ g_comp_of,
-                                    const int* __restrict__ ri_blk,
-                                    int nblk_img, int B) {
-  __shared__ int comp_s[kMaxB];
-  __shared__ int first_s[kMaxComp];
-  __shared__ Seg sh[32];
+__device__ void dc_setup(const int* g_comp_of, int B, int* comp_s, int* first_s) {
   if (threadIdx.x == 0) {
     for (int c = 0; c < kMaxComp; ++c) first_s[c] = -1;
     for (int s = 0; s < B; ++s) {
@@ -349,92 +780,243 @@ __global__ void dc_integrate_kernel(int* __restrict__ out,
     }
   }
   __syncthreads();
-  int* dc = out + static_cast<int64_t>(blockIdx.x) * nblk_img * 64;
-  const int ri = max(ri_blk[blockIdx.x], 1);
-  const int per = (nblk_img + blockDim.x - 1) / blockDim.x;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, nblk_img);
-  const int hi = min(lo + per, nblk_img);
+}
+
+// Per component the tile's segmented sum (carry = nullptr), or the
+// absolute DC written back after `carry` (the sum before the thread's
+// first block).
+__device__ void dc_walk(DcTile& d, int B, const int* comp_s, const int* first_s,
+                        Seg loc[kMaxComp], int* carry) {
+  if (!carry)
+    for (int c = 0; c < kMaxComp; ++c) loc[c] = Seg{0, 0};
+  int m = d.lo % B, r = d.lo % d.ri;
+#pragma unroll
+  for (int i = 0; i < kDcPerThread; ++i) {
+    const int b = d.lo + i;
+    const int c = comp_s[m];
+    if (b < d.hi && c >= 0 && c < kMaxComp) {
+      const bool reset = r == first_s[c];
+      if (carry) {
+        carry[c] = reset ? d.v[i] : carry[c] + d.v[i];
+        d.dc[static_cast<int64_t>(b) * 64] = carry[c];
+      } else {
+        loc[c] = reset ? Seg{d.v[i], 1} : Seg{loc[c].s + d.v[i], loc[c].f};
+      }
+    }
+    m = m + 1 == B ? 0 : m + 1;
+    r = r + 1 == d.ri ? 0 : r + 1;
+  }
+}
+
+// K5 runs an image a grid column (blockIdx.x) and a tile a grid row
+// (blockIdx.y). First level: each tile's per-component aggregate.
+__global__ void __launch_bounds__(kScanThreads) dc_tile_kernel(
+    int* __restrict__ out, const int* __restrict__ g_comp_of,
+    const int* __restrict__ ri_blk, int nblk_img, int B, Seg* __restrict__ agg,
+    int* __restrict__ dcs) {
+  __shared__ int comp_s[kMaxB];
+  __shared__ int first_s[kMaxComp];
+  __shared__ Seg sh[32];
+  DcTile d;
+  dc_tile(out, ri_blk, nblk_img, dcs, false, d);
+  dc_setup(g_comp_of, B, comp_s, first_s);
   Seg loc[kMaxComp];
-  for (int c = 0; c < kMaxComp; ++c) loc[c] = Seg{0, 0};
-  for (int b = lo; b < hi; ++b) {
-    const int c = comp_s[b % B];
-    if (c < 0 || c >= kMaxComp) continue;
-    const int d = dc[static_cast<int64_t>(b) * 64];
-    loc[c] = (b % ri == first_s[c]) ? Seg{d, 1} : Seg{loc[c].s + d, loc[c].f};
+  dc_walk(d, B, comp_s, first_s, loc, nullptr);
+  for (int c = 0; c < kMaxComp; ++c) {
+    const Seg ex = block_exclusive(loc[c], sh);
+    if (threadIdx.x == blockDim.x - 1)
+      agg[(static_cast<int64_t>(blockIdx.x) * gridDim.y + blockIdx.y) * kMaxComp + c] =
+          seg_join(ex, loc[c]);
   }
+}
+
+// K5, second level: the tiles before this one folded in order (a
+// contiguous share a lane of warp 0, then a warp scan), then the tile's
+// own scan, DC made absolute in place.
+__global__ void __launch_bounds__(kScanThreads) dc_apply_kernel(
+    int* __restrict__ out, const int* __restrict__ g_comp_of,
+    const int* __restrict__ ri_blk, int nblk_img, int B, const Seg* __restrict__ agg,
+    int* __restrict__ dcs) {
+  __shared__ int comp_s[kMaxB];
+  __shared__ int first_s[kMaxComp];
+  __shared__ Seg sh[32];
+  __shared__ Seg cin[kMaxComp];
+  DcTile d;
+  dc_tile(out, ri_blk, nblk_img, dcs, true, d);
+  if (threadIdx.x < 32) {
+    const Seg* a = agg + static_cast<int64_t>(blockIdx.x) * gridDim.y * kMaxComp;
+    const int nt = blockIdx.y;
+    const int per = (nt + 31) / 32;
+    const int j0 = min(static_cast<int>(threadIdx.x) * per, nt);
+    const int j1 = min(j0 + per, nt);
+    for (int c = 0; c < kMaxComp; ++c) {
+      Seg acc{0, 0};
+      for (int j = j0; j < j1; ++j) acc = seg_join(acc, a[j * kMaxComp + c]);
+      acc = warp_inclusive(acc);
+      if (threadIdx.x == 31) cin[c] = acc;
+    }
+  }
+  dc_setup(g_comp_of, B, comp_s, first_s);  // synchronises
+  Seg loc[kMaxComp];
+  dc_walk(d, B, comp_s, first_s, loc, nullptr);
   int carry[kMaxComp];
-  for (int c = 0; c < kMaxComp; ++c) carry[c] = block_exclusive(loc[c], sh).s;
-  for (int b = lo; b < hi; ++b) {
-    const int c = comp_s[b % B];
-    if (c < 0 || c >= kMaxComp) continue;
-    int64_t cell = static_cast<int64_t>(b) * 64;
-    carry[c] = (b % ri == first_s[c]) ? dc[cell] : carry[c] + dc[cell];
-    dc[cell] = carry[c];
-  }
+  for (int c = 0; c < kMaxComp; ++c)
+    carry[c] = seg_join(cin[c], block_exclusive(loc[c], sh)).s;
+  dc_walk(d, B, comp_s, first_s, loc, carry);
+}
+
+size_t table_smem(int n_uniq) {
+  return static_cast<size_t>(n_uniq) * (kRowLut + kRowInts) * sizeof(int);
+}
+
+int set_smem(const void* fn, size_t smem) {
+  if (smem > 48 * 1024)
+    return static_cast<int>(cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+  return 0;
+}
+
+// Launch shapes: the tables in shared memory when they fit; the pass
+// kernel's cooperative grid (a thread a lane, at most the resident
+// blocks); the emission's 256-byte row a thread on top of the tables.
+struct Shape {
+  const void* pass;
+  const void* emit;
+  int grid;
+  size_t smem, emit_smem;
+  unsigned emit_blocks;
+};
+
+Shape shape_of(int n_uniq, int n_lanes) {
+  Shape sh;
+  const bool in_smem = table_smem(n_uniq) <= static_cast<size_t>(kSmemTableLimit);
+  sh.pass = in_smem ? reinterpret_cast<const void*>(chunk_pass_kernel<true>)
+                    : reinterpret_cast<const void*>(chunk_pass_kernel<false>);
+  sh.emit = in_smem ? reinterpret_cast<const void*>(chunk_emit_kernel<true>)
+                    : reinterpret_cast<const void*>(chunk_emit_kernel<false>);
+  sh.smem = in_smem ? table_smem(n_uniq) : 0;
+  sh.emit_smem = sh.smem + kThreads * 256;
+  set_smem(sh.pass, sh.smem);
+  int per_sm = 0, sms = 132, dev = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sh.pass, kThreads, sh.smem);
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int want = (n_lanes + kThreads - 1) / kThreads;
+  sh.grid = want < kMaxGrid ? want : kMaxGrid;
+  if (sh.grid > per_sm * sms) sh.grid = per_sm * sms;
+  sh.emit_blocks = static_cast<unsigned>(
+      (static_cast<int64_t>(n_lanes) * kWindows + kThreads - 1) / kThreads);
+  return sh;
 }
 
 }  // namespace
 
-// work: zeroed int32, 13 * n_lanes + max_passes + 1; out: zeroed
-// (n_blk_total, 64) int32, DC left as diffs (K5 integrates it); info:
-// 3 int32 (ok, passes run, overflow). Launches max_passes pass kernels,
-// then settle, block starts and emission, all on `stream`. Returns the
+// work: int32, 4*(kWindows+1)*n_lanes + 12*n_lanes + max_passes + 2 +
+// 2048 + n_uniq*2048 (no zeroing needed); out: (out_rows, 64) int32, the
+// batch's blocks (no zeroing needed), DC left as diffs (K5 integrates
+// it); info: 3 int32 (ok, passes run, overflow). comp2: comp_of packed 2
+// bits a slot (read when B <= 16). Launches the table build, the
+// cooperative pass kernel and the emission, on `stream`. Returns the
 // first launch error, else cudaGetLastError().
 extern "C" int picha_huffman_decode_chunked(
     const void* words, const void* lane_word_base, const void* lane_bits,
     const void* lane_pinned, const void* lane_seg_first,
     const void* lane_blk_base, const void* lane_blk_limit, const void* limit,
     const void* delta, const void* hv, int n_uniq, const void* lane_uid6,
-    const void* comp_of, int B, int n_lanes, int C, int steps,
-    int max_passes, int nw, void* work, void* out, void* info,
-    void* stream) {
+    const void* comp_of, int comp2, int B, int n_lanes, int C, int steps,
+    int max_passes, int nw, void* work, void* out,
+    int64_t out_rows, void* info, void* stream) {
   const int W = C / 32 + 2;
   if (B < 1 || B > kMaxB || n_uniq < 1 || n_lanes < 1 || max_passes < 1 ||
-      C < 32 || C % 32 != 0 || nw < W)
+      C < 32 || C % 32 != 0 || nw < W || out_rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Wire wr{static_cast<const uint32_t*>(words),
-                static_cast<const int*>(lane_word_base),
-                static_cast<const int*>(lane_bits),
-                static_cast<const uint8_t*>(lane_pinned),
-                static_cast<const int*>(lane_seg_first),
-                static_cast<const int*>(lane_blk_base),
-                static_cast<const int*>(lane_blk_limit),
-                static_cast<const uint8_t*>(lane_uid6),
-                static_cast<const int*>(limit),
-                static_cast<const int*>(delta),
-                static_cast<const int*>(hv),
-                static_cast<const int*>(comp_of),
-                n_uniq, B, n_lanes, C, W, steps};
-  const Work wk = carve(static_cast<int*>(work), n_lanes, max_passes);
-  const size_t table_bytes = static_cast<size_t>(n_uniq) * kRowInts * sizeof(int);
-  const int in_smem = table_bytes <= static_cast<size_t>(kSmemTableLimit) ? 1 : 0;
-  const size_t smem = in_smem ? table_bytes : 0;
-  const int blocks = (n_lanes + kThreads - 1) / kThreads;
+  Wire wr{static_cast<const uint32_t*>(words),
+          static_cast<const int*>(lane_word_base),
+          static_cast<const int*>(lane_bits),
+          static_cast<const uint8_t*>(lane_pinned),
+          static_cast<const int*>(lane_seg_first),
+          static_cast<const int*>(lane_blk_base),
+          static_cast<const int*>(lane_blk_limit),
+          static_cast<const uint8_t*>(lane_uid6),
+          static_cast<const int*>(limit),
+          static_cast<const int*>(delta),
+          static_cast<const int*>(hv),
+          static_cast<const int*>(comp_of),
+          n_uniq, B, n_lanes, C, W, steps, static_cast<unsigned>(comp2)};
+  Work wk = carve(static_cast<int*>(work), n_lanes, max_passes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int p = 0; p < max_passes; ++p) {
-    chunk_pass_kernel<<<blocks, kThreads, smem, st>>>(wr, wk, p, in_smem);
-    const cudaError_t err = cudaGetLastError();
+  lut_build_kernel<<<n_uniq, 256, 0, st>>>(wr.limit, wr.delta, wr.hv, wk.lut);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Shape sh = shape_of(n_uniq, n_lanes);
+  int rc = set_smem(sh.pass, sh.smem);
+  if (!rc) rc = set_smem(sh.emit, sh.emit_smem);
+  if (rc) return rc;
+  if (sh.grid < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  int* o = static_cast<int*>(out);
+  int* inf = static_cast<int*>(info);
+  void* args[] = {&wr, &wk, &max_passes, &o, &out_rows, &inf};
+  err = cudaLaunchCooperativeKernel(sh.pass, dim3(sh.grid), dim3(kThreads), args,
+                                    sh.smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* eargs[] = {&wr, &wk, &o};
+  err = cudaLaunchKernel(sh.emit, dim3(sh.emit_blocks), dim3(kThreads), eargs,
+                         sh.emit_smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's builds and launch shapes at n_uniq table rows and n_lanes lanes:
+// out[0..6] the pass kernel's registers, local bytes a thread, static
+// and dynamic shared bytes, resident blocks an SM, threads a block and
+// grid; out[7..13] the emission kernel's.
+extern "C" int picha_huffman_decode_chunked_info(int n_uniq, int n_lanes, int* out) {
+  const Shape sh = shape_of(n_uniq, n_lanes);
+  const void* fns[2] = {sh.pass, sh.emit};
+  const size_t smems[2] = {sh.smem, sh.emit_smem};
+  const int grids[2] = {sh.grid, static_cast<int>(sh.emit_blocks)};
+  for (int k = 0; k < 2; ++k) {
+    const int rc = set_smem(fns[k], smems[k]);
+    if (rc) return rc;
+    cudaFuncAttributes fa;
+    const cudaError_t err = cudaFuncGetAttributes(&fa, fns[k]);
     if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[k], kThreads, smems[k]);
+    int* o = out + 7 * k;
+    o[0] = fa.numRegs;
+    o[1] = static_cast<int>(fa.localSizeBytes);
+    o[2] = static_cast<int>(fa.sharedSizeBytes);
+    o[3] = static_cast<int>(smems[k]);
+    o[4] = per_sm;
+    o[5] = kThreads;
+    o[6] = grids[k];
   }
-  chunk_settle_kernel<<<blocks, kThreads, 0, st>>>(wr, wk, max_passes);
-  chunk_block_start_kernel<<<1, kScanThreads, 0, st>>>(wr, wk, max_passes,
-                                                       static_cast<int*>(info));
-  chunk_emit_kernel<<<blocks, kThreads, smem, st>>>(wr, wk, static_cast<int*>(out),
-                                                    in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out: (n_img, nblk_img, 64) int32 with DC diffs at [.., 0], integrated
-// in place; comp_of: (B,) int32; ri_blk: (n_img,) int32.
+// in place; comp_of: (B,) int32; ri_blk: (n_img,) int32; scratch: int32,
+// 2 * 4 * n_img * ceil(nblk_img / 2048) (one aggregate per tile and
+// component), then n_img * nblk_img (the DC diffs, packed). Two launches:
+// tile aggregates (reading each DC once), then the tiles in place.
 extern "C" int picha_dc_integrate(void* out, const void* comp_of,
                                   const void* ri_blk, int n_img, int nblk_img,
-                                  int B, void* stream) {
-  if (B < 1 || B > kMaxB || n_img < 0 || nblk_img < 0)
+                                  int B, void* scratch, void* stream) {
+  const int tiles = (nblk_img + kDcTile - 1) / kDcTile;
+  if (B < 1 || B > kMaxB || n_img < 0 || nblk_img < 0 || tiles > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_img > 0 && nblk_img > 0) {
-    dc_integrate_kernel<<<n_img, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(n_img, tiles);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    Seg* agg = static_cast<Seg*>(scratch);
+    int* dcs = static_cast<int*>(scratch) + 2 * kMaxComp * static_cast<int64_t>(tiles) * n_img;
+    dc_tile_kernel<<<grid, kScanThreads, 0, st>>>(
         static_cast<int*>(out), static_cast<const int*>(comp_of),
-        static_cast<const int*>(ri_blk), nblk_img, B);
+        static_cast<const int*>(ri_blk), nblk_img, B, agg, dcs);
+    dc_apply_kernel<<<grid, kScanThreads, 0, st>>>(
+        static_cast<int*>(out), static_cast<const int*>(comp_of),
+        static_cast<const int*>(ri_blk), nblk_img, B, agg, dcs);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 // One baseline Huffman symbol, as the reference's lockstep `sym` step
 // (picha_tpu/ops/jpeg_huffman_decode_tpu.py::build_decoder_core) decodes
-// it. Shared by K1 (huffman_decode_restart.cu) and K4
-// (huffman_decode_chunked.cu); the plain twin is
+// it. K1 (huffman_decode_restart.cu) decodes with it; K4
+// (huffman_decode_chunked.cu) looks most codes up in tables of their
+// first bits and takes the exact rule, `table_symbol`, for the rest. The
+// plain twin is
 // picha_tpu_torch/ops/jpeg_huffman_decode.py::_symbol.
 #pragma once
 
@@ -27,23 +29,32 @@ struct Symbol {
   bool has_value;  // a DC, or an AC of nonzero size, inside the block
 };
 
-// w32: the 32 stream bits from the symbol's first bit, MSB first. z: the
-// coefficient index before it (0 = DC). lim/dlt/hv: the table row
-// (16 exclusive left-aligned bounds, 17 valptr - mincode, 256 symbols).
-// The code length is min(1 + #(P >= lim[k]), 16) and the symbol index is
-// clamped to 0..255, so any bit pattern decodes to something in range.
-__device__ __forceinline__ Symbol decode_symbol(uint32_t w32, int z,
-                                                const int* lim,
-                                                const int* dlt,
-                                                const int* hv) {
+// The exact table rule: lim/dlt/hv the table row (16 exclusive
+// left-aligned bounds, 17 valptr - mincode, 256 symbols). The code
+// length is min(1 + #(P >= lim[k]), 16) for the top 16 bits P of w32,
+// and the symbol index is clamped to 0..255, so any bit pattern decodes
+// to something in range. Returns the symbol byte, the length in clen.
+__device__ __forceinline__ int table_symbol(uint32_t w32, const int* lim,
+                                            const int* dlt, const int* hv,
+                                            int& clen) {
   const int P = static_cast<int>(w32 >> 16);
   int cnt = 0;
 #pragma unroll
   for (int k = 0; k < 16; ++k) cnt += (P >= lim[k]) ? 1 : 0;
-  const int clen = min(1 + cnt, 16);
+  clen = min(1 + cnt, 16);
   int idx = (P >> (16 - clen)) + dlt[clen];
   idx = min(max(idx, 0), 255);
-  const int sym = hv[idx];
+  return hv[idx];
+}
+
+// w32: the 32 stream bits from the symbol's first bit, MSB first. z: the
+// coefficient index before it (0 = DC). lim/dlt/hv: the table row.
+__device__ __forceinline__ Symbol decode_symbol(uint32_t w32, int z,
+                                                const int* lim,
+                                                const int* dlt,
+                                                const int* hv) {
+  int clen;
+  const int sym = table_symbol(w32, lim, dlt, hv, clen);
   const int run = z > 0 ? (sym >> 4) : 0;
   const int size = sym & 15;
   Symbol s;

@@ -43,9 +43,12 @@ SIGNATURES = {
     "picha_huffman_encode_scan": [
         P, I, I, I, P, P, P, P, P, P, P, P, I, P, P, I, P, P],
     "picha_huffman_decode_chunked": [
-        P, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, P, P, P, P],
-    "picha_dc_integrate": [P, P, P, I, I, I, P],
+        P, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, I, P, P, L,
+        P, P],
+    "picha_huffman_decode_chunked_info": [I, I, P],
+    "picha_dc_integrate": [P, P, P, I, I, I, P, P],
     "picha_idct_plane": [P, I, P, P, I, I, I, I, I, P, P],
+    "picha_idct_plane_info": [I, P],
     "picha_upsample_color": [P, P, P, P, *[I] * 16, I, I, I, I, I, P, P],
     "picha_resize_axis": [P, I, L, I, I, L, P, P, I, F, F, P, P],
     "picha_crop_flip_resize_w": [P, I, I, I, I, P, P, P, I, P, P, I, I, F,

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..errors import CodecError
-from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
+from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 
 # JPEG colour spaces (libjpeg J_COLOR_SPACE numbering)
 CS_GRAYSCALE, CS_RGB, CS_YCBCR, CS_CMYK, CS_YCCK = 1, 2, 3, 4, 5
@@ -373,11 +373,35 @@ def dequant_idct_plane(coefs, qtable, kron, out_h, out_w):
             or tuple(kron.shape) != (64, 64):
         raise TypeError("K6 takes the (64, 64) float32 Kronecker IDCT on "
                         "the coefficients' device")
-    coefs, qtable, kron = (t.contiguous() for t in (coefs, qtable, kron))
+    coefs = aligned(coefs)
+    qtable, kron = qtable.contiguous(), kron.contiguous()
     out = torch.empty((n, out_h, out_w), dtype=torch.uint8, device=dev)
     KERNELS["idct_plane"](ptr(coefs), coefs.element_size(), ptr(qtable),
                           ptr(kron), n, bh, bw, out_h, out_w, ptr(out),
                           stream_of(coefs))
+    return out
+
+
+def kernel_info() -> dict:
+    """K6's builds (int32 and int16 coefficients) as the card reports
+    them: registers and local (spill) bytes a thread, static shared bytes
+    a block, resident blocks a multiprocessor, threads a block, tile
+    buffers in flight and dynamic shared bytes a block. Launches
+    nothing."""
+    import ctypes
+
+    from ..kernels._build import library
+
+    out = {}
+    for name, width in (("int32", 4), ("int16", 2)):
+        vals = (ctypes.c_int * 7)()
+        rc = library().picha_idct_plane_info(width, vals)
+        if rc != 0:
+            raise RuntimeError(f"picha_idct_plane_info: CUDA error {rc}")
+        out[f"K6_{name}"] = dict(zip(
+            ("registers", "local_bytes", "static_shared_bytes",
+             "blocks_per_sm", "threads", "stages", "dynamic_shared_bytes"),
+            vals))
     return out
 
 

@@ -12,9 +12,12 @@ wire) is the port's copy in `ops/scan_batch.py`, behind `scan_wire`.
   `decode_scan_plain` for CPU tensors;
 - chunked speculative decode (scans without restart markers, or with
   segments no lane can hold whole): kernel K4
-  (`csrc/huffman_decode_chunked.cu`, Jacobi passes to a fixpoint, block
-  starts, emission) then the DC scan K5 (`dc_integrate`) for CUDA
-  tensors, `decode_scan_chunked_plain` for CPU tensors.
+  (`csrc/huffman_decode_chunked.cu`: a thread a lane for the Jacobi
+  passes, block starts and settle in one cooperative launch, then an
+  emission a thread a window of K4_WINDOWS from checkpoints the passes
+  record, storing whole 256-byte blocks) then the DC scan K5
+  (`dc_integrate`, two launches) for CUDA tensors,
+  `decode_scan_chunked_plain` for CPU tensors.
 Both plain decoders step every lane in lockstep through `_symbol`, one
 Huffman symbol per step, and integrate DC with `dc_integrate_plain`.
 """
@@ -328,31 +331,57 @@ def decode_scan_chunked(a: DecoderArgs, scan_ks, comp_of: torch.Tensor,
     return dc_integrate(out, comp_of, a.ri_blk, scan_ks[5]), ok, passes
 
 
-# K4's int32 workspace (csrc/huffman_decode_chunked.cu, `Work`):
-# K4_LANE_ARRAYS arrays of n_lanes, then max_passes change flags, then
-# one overflow flag
-K4_LANE_ARRAYS = 13
+# K4's int32 workspace (csrc/huffman_decode_chunked.cu, `carve`): the
+# checkpoints, 4 ints each, K4_WINDOWS + 1 a lane (the passes record the
+# decode's state at kWindows = 8 equal bit offsets of each lane, and the
+# emission runs a thread a window from them); K4_LANE_ARRAYS arrays of
+# n_lanes; max_passes change flags; 2 flags; K4_MAX_GRID block sums; the
+# lookup tables, K4_LUT_INTS a unique table row
+K4_WINDOWS = 8
+K4_LANE_ARRAYS = 12
+K4_MAX_GRID = 2048
+K4_LUT_INTS = 2048
+# K5's int32 scratch: 2 ints (sum, reset flag) a component of 4 a tile of
+# K5_TILE_BLOCKS blocks, then the DC diffs packed, an int a block
+K5_TILE_BLOCKS = 2048
+
+
+def k4_work_ints(n_lanes: int, max_passes: int, n_uniq: int) -> int:
+    """Length of K4's int32 workspace (`carve` in its source)."""
+    return ((4 * (K4_WINDOWS + 1) + K4_LANE_ARRAYS) * n_lanes + max_passes + 2
+            + K4_MAX_GRID + K4_LUT_INTS * n_uniq)
+
+
+def _comp2(comp_sig_of) -> int:
+    """comp_of packed 2 bits a slot, as a signed 32-bit int (K4 reads it
+    for 16 slots or fewer)."""
+    if len(comp_sig_of) > 16:
+        return 0
+    v = sum((c & 3) << (2 * s) for s, c in enumerate(comp_sig_of))
+    return v - (1 << 32) if v >= 1 << 31 else v
 
 
 def _decode_scan_chunked_kernel(a: DecoderArgs, scan_ks, comp_of,
                                 max_passes):
     """K4: Jacobi passes, block starts and emission, DC left as diffs."""
-    (C, n_lanes, steps, B, _comp_sig_of, mcus, n_img, n_uniq, _nblkmax,
+    (C, n_lanes, steps, B, comp_sig_of, mcus, n_img, n_uniq, _nblkmax,
      _single, nw) = scan_ks
     _check_kernel_args(a, scan_ks, comp_of, "K4")
     if max_passes < 1 or C % 32:
         raise ValueError("K4 needs max_passes >= 1 and C % 32 == 0")
     dev = a.words.device
-    out = torch.zeros((n_img * mcus * B, 64), dtype=torch.int32, device=dev)
-    work = torch.zeros(K4_LANE_ARRAYS * n_lanes + max_passes + 1,
+    rows = n_img * mcus * B
+    out = torch.empty((rows, 64), dtype=torch.int32, device=dev)
+    work = torch.empty(k4_work_ints(n_lanes, max_passes, n_uniq),
                        dtype=torch.int32, device=dev)
     info = torch.zeros(3, dtype=torch.int32, device=dev)
     KERNELS["huffman_decode_chunked"](
         ptr(a.words), ptr(a.lane_word_base), ptr(a.lane_bits),
         ptr(a.lane_pinned), ptr(a.lane_seg_first), ptr(a.lane_blk_base),
         ptr(a.lane_blk_limit), ptr(a.limit), ptr(a.delta), ptr(a.hv),
-        n_uniq, ptr(a.lane_uid6), ptr(comp_of), B, n_lanes, C, steps,
-        max_passes, nw, ptr(work), ptr(out), ptr(info), stream_of(out))
+        n_uniq, ptr(a.lane_uid6), ptr(comp_of), _comp2(comp_sig_of), B,
+        n_lanes, C, steps, max_passes, nw, ptr(work), ptr(out), rows,
+        ptr(info), stream_of(out))
     return out.view(n_img, mcus * B, 64), info[0] != 0, info[1]
 
 
@@ -446,11 +475,37 @@ def dc_integrate(out: torch.Tensor, comp_of: torch.Tensor,
             raise ValueError("K5 inputs must be contiguous on one device")
         if t.dtype != torch.int32:
             raise TypeError("K5 takes int32 blocks, comp_of and ri_blk")
-    if not 1 <= B <= 64 or ri_blk.numel() != n_img:
-        raise ValueError("K5 handles B <= 64 and one ri_blk per image")
+    tiles = -(-nblk_img // K5_TILE_BLOCKS)
+    if not 1 <= B <= 64 or ri_blk.numel() != n_img or tiles > 65535:
+        raise ValueError("K5 handles B <= 64, one ri_blk per image and at "
+                         "most 65535 tiles of 2048 blocks an image")
+    scratch = torch.empty(2 * 4 * n_img * tiles + n_img * nblk_img,
+                          dtype=torch.int32, device=out.device)
     KERNELS["dc_integrate"](ptr(out), ptr(comp_of), ptr(ri_blk), n_img,
-                            nblk_img, B, stream_of(out))
+                            nblk_img, B, ptr(scratch), stream_of(out))
     return out
+
+
+def kernel_info(n_uniq: int = 4, n_lanes: int = 10240) -> dict:
+    """K4's builds and launch shapes as the card reports them, at
+    `n_uniq` unique table rows and `n_lanes` lanes: for the pass kernel and the emission kernel, registers and
+    local (spill) bytes a thread, static and dynamic shared bytes a block,
+    resident blocks a multiprocessor, threads a block and the grid.
+    Launches nothing."""
+    import ctypes
+
+    from ..kernels._build import library
+
+    vals = (ctypes.c_int * 14)()
+    rc = library().picha_huffman_decode_chunked_info(n_uniq, n_lanes, vals)
+    if rc != 0:
+        raise RuntimeError(f"picha_huffman_decode_chunked_info: CUDA error "
+                           f"{rc}")
+    keys = ("registers", "local_bytes", "static_shared_bytes",
+            "dynamic_shared_bytes", "blocks_per_sm", "threads", "grid")
+    return {"K4_passes": dict(zip(keys, vals[:7])),
+            "K4_emit": dict(zip(keys, vals[7:])),
+            "tables_in_shared": vals[3] > 0}
 
 
 def split_planes(out: torch.Tensor, comp_sig, split_idx):

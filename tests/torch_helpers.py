@@ -154,6 +154,68 @@ def chunked_fault_batch(case: str):
     return sb, {"max_passes": 1} if case == "max_passes_1" else {}
 
 
+def desync_jpeg(h: int = 128, w: int = 128, seed: int = 0) -> bytes:
+    """A valid grey baseline JPEG whose scan never resynchronises from a
+    guessed entry: 15 codes of each table are 4 bits long (0000-1110),
+    every value 0 or 4 bits, and one AC code 11110 (with a 1-bit value)
+    is used once, in the first block, so the true symbol boundaries sit
+    at 2 mod 4 from there on while every guess (lane or window starts,
+    at multiples of 32 or of the window's width) sits at 0 mod 4. The
+    later codes and value nibbles all start with a 0 bit, so a
+    misaligned 4-bit read (xx0x) never starts 1111 and a guessed path
+    stays misaligned: the chunked decoder needs a Jacobi pass a chunk,
+    and a windowed lane a round a window."""
+    rng = np.random.default_rng(seed)
+    # canonical codes: 15 of length 4 (code i -> symbol i), then 11110
+    dc_vals = [0, 4] * 7 + [0, 0]                   # DC sizes 0 / 4
+    ac_vals = [0x00, 0x04, 0x14, 0xF0] + [0x04] * 11 + [0x01]
+    bits = []
+
+    def put(v, n):
+        bits.extend((v >> (n - 1 - i)) & 1 for i in range(n))
+
+    for blk in range((h // 8) * (w // 8)):
+        if rng.random() < 0.5:
+            put(0, 4)                                   # DC diff 0
+        else:
+            put(1, 4)                                   # DC size 4
+            put(int(rng.integers(0, 8)), 4)
+        if blk == 0:
+            put(0b11110, 5)                             # AC size 1: + 1 bit
+            put(1, 1)
+        z = 1 if blk else 2
+        for _ in range(int(rng.integers(0, 5))):
+            kind = int(rng.integers(0, 3))
+            if kind == 2 and z + 16 < 63:
+                put(3, 4)                               # ZRL
+                z += 16
+            elif z + kind < 63:
+                put(1 + kind, 4)                        # run 0 / 1, size 4
+                put(int(rng.integers(0, 8)), 4)
+                z += 1 + kind
+        put(0, 4)                                       # EOB
+    bits.extend([1] * (-len(bits) % 8))
+    scan = bytearray()
+    for i in range(0, len(bits), 8):
+        byte = int("".join(map(str, bits[i:i + 8])), 2)
+        scan.append(byte)
+        if byte == 0xFF:
+            scan.append(0)
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") \
+            + bytes(body)
+
+    counts = [0, 0, 0, 15, 1] + [0] * 11
+    return (b"\xff\xd8"
+            + seg(0xDB, [0] + [1] * 64)
+            + seg(0xC0, [8, h >> 8, h & 255, w >> 8, w & 255, 1, 1, 0x11, 0])
+            + seg(0xC4, [0x00] + counts + dc_vals)
+            + seg(0xC4, [0x10] + counts + ac_vals)
+            + seg(0xDA, [1, 1, 0x00, 0, 63, 0])
+            + bytes(scan) + b"\xff\xd9")
+
+
 def synthetic_coefs(width: int, height: int, samp, seed: int,
                     qualities=(85, 50)):
     """Quantised DCT blocks of smooth, noisy, in-gamut planes (with some
