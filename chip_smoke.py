@@ -23,7 +23,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      same pixels encoded without restart markers, where K4 must also
      give K1's coefficients exactly; the staged decode's K6 (dequant +
      IDCT; off by one only at near-.5 ties) and K7 (upsample + colour,
-     exact) on K1's coefficients, and K8 (one resize axis) on K7's
+     exact; its build, and its other compiled-in signatures, 4:2:2,
+     4:4:4, grey and grey to rgb, on 16 random 1080p planes) on K1's
+     coefficients, and K8 (one resize axis) on K7's
      output, exactly its windowed twin and within 1e-6 of the
      reference's banded plan;
   3. the slice end to end through JpegBatchPipeline(width=960,
@@ -92,7 +94,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      twin on 2 images each, with K15's build; K16 (TIFF transform) on
      the rows, K13 (unfilter)
      on their PNGs (the port's encode, default probe; the twin on the 8
-     distinct images), K14 (PNG transform) on the samples. Both
+     distinct images; with its build, and its buckets: the sources
+     encoded with strategies 4, 3 and 2, as rgb8, rgb16 and rgba16, and
+     one 1920x1088 rgb8 image, each equal to its sources and to the twin
+     on 32 rows of 2 images), K14 (PNG transform) on the samples. Both
      transforms are the identity on these rgba buckets, so a clone of
      their input is their one-call yardstick; K16 is also timed on the
      same sources written with predictor 2 and orientation 6 and on the
@@ -508,7 +513,7 @@ def main():
     from picha_tpu_torch.ops.jpeg import (
         dequant_idct_plane, dequant_idct_plane_plain, encode_blocks,
         encode_blocks_plain, front_samples, full_fp32, idct_samples,
-        plane_geometry, upsample_color, upsample_color_plain)
+        k7_build, plane_geometry, upsample_color, upsample_color_plain)
     from picha_tpu_torch.ops.jpeg_fused import fused_decode_resize
     from picha_tpu_torch.ops.jpeg_huffman import (scan_encode,
                                                   scan_encode_plain)
@@ -741,11 +746,24 @@ def main():
     rgb_p = upsample_color_plain(ys_k, *color)
     if not torch.equal(rgb_k, rgb_p):
         raise AssertionError("K7 disagrees with its plain version")
+    k7_builds = {k[3:]: v for k, v in jpeg_mod.kernel_info().items()
+                 if k.startswith("K7_")}
     results["upsample_color"] = dict(
         max_abs_err=int((rgb_k.int() - rgb_p.int()).abs().max()),
         ms=timed(lambda: upsample_color(ys_k, *color), 10),
-        plain_ms=timed(lambda: upsample_color_plain(ys_k, *color), 3))
+        plain_ms=timed(lambda: upsample_color_plain(ys_k, *color), 3),
+        build=k7_builds[k7_build(*color)],
+        buckets=k7_signature_buckets(dev, timed, k7_builds))
     phase("K7", equal=True, shape=list(rgb_k.shape),
+          build_name=k7_build(*color),
+          bound=bound(sum(y.numel() for y in ys_k) + rgb_k.numel()),
+          note="buckets: K7's other compiled-in signatures on 16 seeded "
+               "random 1920x1088 planes, each equal to its plain version; "
+               "the ingest's 256 x 1920x1088 4:2:0 bucket is "
+               "timing_training's K7 stage (appended there; held against "
+               "the plain version once, 64 images at a time); build: the "
+               "launched build's registers, spill bytes, static shared "
+               "bytes, blocks an SM and threads",
           **results["upsample_color"])
 
     (sw, tw), (sh, th) = consts_s.windows
@@ -1225,7 +1243,8 @@ def training_phases(dev, card, results, phase, timed, wall):
 
     from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
     from picha_tpu_torch.ops.jpeg import (_idct_kron, dequant_idct_plane,
-                                          plane_geometry, upsample_color)
+                                          plane_geometry, upsample_color,
+                                          upsample_color_plain)
     from picha_tpu_torch.ops.jpeg_huffman_decode import (
         _decode_scan_chunked_kernel, dc_integrate, scan_wire, split_planes,
         wire_unpack)
@@ -1439,11 +1458,14 @@ def training_phases(dev, card, results, phase, timed, wall):
 
     # 7. where one ingest step's time goes
     kron = torch.as_tensor(_idct_kron()).to(dev)
+    k7_check = {}
 
     def stages_once(ti, epoch, check=False):
         """The stages of epoch `epoch`'s first step, one by one. With
-        `check`, the frames of the hand-built chain must equal those of
-        the ingest's own entry (`TrainingInput.decode`: decode_scan,
+        `check`, K7's output must equal its plain version's on the same
+        planes (max |diff| and the plain version's ms into k7_check), and
+        the frames of the hand-built chain must equal those of the
+        ingest's own entry (`TrainingInput.decode`: decode_scan,
         split_planes, build_decode_stage) on the same scans."""
         perm = np.random.default_rng((ti.seed, epoch)).permutation(TRAIN_N)
         bufs = [ti.items[i] for i in perm]
@@ -1503,7 +1525,25 @@ def training_phases(dev, card, results, phase, timed, wall):
         if not bool(ok):
             raise AssertionError("stage run flagged")
         if check:
-            del f, ys
+            # the plain version 64 images at a time (its int32
+            # temporaries), one checked run
+            del f
+            err, plain_ms = 0, 0.0
+            for i in range(0, rgb.shape[0], 64):
+                t = time.perf_counter()
+                want = upsample_color_plain([p[i:i + 64] for p in ys],
+                                            sig[3], sig[2], sig[0], sig[1],
+                                            force_rgb=True)
+                torch.cuda.synchronize()
+                plain_ms += (time.perf_counter() - t) * 1e3
+                err = max(err, int((rgb[i:i + 64].to(torch.int16)
+                                    - want.to(torch.int16)).abs().max()))
+                del want
+            if err:
+                raise AssertionError(f"K7 differs from its plain version at "
+                                     f"the ingest's shape by {err}")
+            k7_check.update(max_abs_err=err, plain_ms=plain_ms)
+            del ys
             rgb_e, ok_e = ti.decode(items)
             if not (bool(ok_e) and torch.equal(rgb, rgb_e)):
                 raise AssertionError("the timed chain's frames differ from "
@@ -1523,6 +1563,15 @@ def training_phases(dev, card, results, phase, timed, wall):
     ti_m = make()
     step = wall(ti_m.__next__, 3)
     peak = torch.cuda.max_memory_allocated(dev)
+    # 4:2:0 planes in: luma and two half-size chroma planes
+    ys_bytes = TRAIN_N * (SRC_H * SRC_W
+                          + 2 * -(-SRC_H // 2) * -(-SRC_W // 2))
+    results["upsample_color"]["buckets"].append(dict(
+        bucket=f"the ingest's {TRAIN_N} x {SRC_W}x{SRC_H} 4:2:0 "
+               f"(timing_training's K7 stage)", images=TRAIN_N,
+        ms=device_ms["K7"], max_abs_err=k7_check["max_abs_err"],
+        plain_ms=k7_check["plain_ms"], library_ms=None,
+        **bound(ys_bytes + TRAIN_N * SRC_H * SRC_W * 3)))
     phase("timing_training", card=card, images=TRAIN_N,
           ms_per_step=step, images_per_s=TRAIN_N / step * 1e3,
           host_ms=host_ms, device_ms=device_ms,
@@ -1612,6 +1661,136 @@ def compressible_sources():
 
     return [np.clip(_config4_waves(i), 0, 255).astype(np.uint8) // 32 * 32
             for i in range(8)]
+
+
+def k7_signature_buckets(dev, timed, builds=None):
+    """K7 on N_IMG seeded random SRC_W x SRC_H planes of each compiled-in
+    signature but h2v2 (`K7_SIGNATURES` of ops/jpeg.py, whose h2v2 is
+    phase K7's own), each exactly its plain version: one record a bucket
+    with a digest of the output and, where the checkout names its builds
+    (`k7_build`; `builds` from `kernel_info`), the build it launches."""
+    import hashlib
+
+    import torch
+
+    from picha_tpu_torch.ops import jpeg as jp
+
+    out = []
+    for name, (samp, cs, force) in jp.K7_SIGNATURES.items():
+        if name == "h2v2":
+            continue
+        sig = jp.comp_sig_of(samp, SRC_W, SRC_H)
+        g = torch.Generator(device=dev).manual_seed(len(name))
+        planes = [torch.randint(0, 256, (N_IMG, dh, dw), generator=g,
+                                device=dev, dtype=torch.uint8)
+                  for dh, dw, _fx, _fy in jp.plane_geometry(sig, SRC_W,
+                                                            SRC_H)]
+        args = (planes, sig, cs, SRC_W, SRC_H, force)
+        got = jp.upsample_color(*args)
+        if not torch.equal(got, jp.upsample_color_plain(*args)):
+            raise AssertionError(f"K7 ({name}) differs from its plain "
+                                 f"version")
+        rec = dict(
+            bucket=f"{name}, {N_IMG} random {SRC_W}x{SRC_H} planes",
+            max_abs_err=0, ms=timed(lambda: jp.upsample_color(*args), 10),
+            plain_ms=timed(lambda: jp.upsample_color_plain(*args), 3),
+            library_ms=None,
+            digest=hashlib.sha256(got.cpu().numpy().tobytes()
+                                  ).hexdigest()[:16],
+            **bound(sum(p.numel() for p in planes) + got.numel()))
+        if builds is not None:
+            rec["build_name"] = jp.k7_build(sig, cs, SRC_W, SRC_H, force)
+            rec["build"] = builds[rec["build_name"]]
+        out.append(rec)
+    return out
+
+
+K13_BIG = (1088, 1920)       # the single-image K13 bucket, rgb8
+K13_PLAIN_ROWS = 32          # rows of 2 images a K13 bucket checked against
+                             # the plain version (a torch loop a pixel)
+
+
+def k13_bucket_records(dev, unfilter, timed, info=None):
+    """K13 on its buckets: config 4's sources (8 images tiled to IMG_N)
+    PNG-encoded by the port (`encode_filtered`) with the default probe
+    as rgba8, with strategies 4 (all Paeth), 3 (all average) and 2 (all
+    up), as rgb8 (`src[..., :3]`, bpp 3), as phase 11's 16-bit rgb deep
+    files (bpp 6) and as 16-bit rgba (bpp 8); and one 1920x1088 rgb8
+    image alone (waves and noise, seed 5), a single big image's latency.
+    Each bucket's rows come from the files' own inflated streams. The
+    output of `unfilter(rows, bpp)` must equal the sources' bytes and
+    the plain version's (on the first K13_PLAIN_ROWS rows of the first 2
+    images: four warps' row groups at rgba8, every chunk); statuses 0.
+    Returns one record a bucket: filter-type counts, a digest of the
+    output, CUDA-event ms (10 launches), the bound (rows in, bytes out),
+    and `info(n, h, rb, bpp)` where given."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from picha_tpu_torch.ops.png_unfilter import png_unfilter_plain
+    from picha_tpu_torch.pipeline import encode_filtered, png_batch
+
+    src = np.stack(config4_sources())
+    rng = np.random.default_rng(5)
+    bh, bw = K13_BIG
+    yy, xx = np.mgrid[0:bh, 0:bw].astype(np.float32)
+    big = np.stack([127 + 70 * np.sin(xx / (13 + k))
+                    + 40 * np.cos(yy / (9 + k)) for k in range(3)], -1)
+    big = np.clip(big + rng.normal(0, 4, big.shape), 0, 255).astype(np.uint8)
+    buckets = [
+        ("rgba8, default probe (config 4's PNGs)", src, None, IMG_N),
+        ("rgba8, strategy 4 (all Paeth)", src, 4, IMG_N),
+        ("rgba8, strategy 3 (all average)", src, 3, IMG_N),
+        ("rgba8, strategy 2 (all up)", src, 2, IMG_N),
+        ("rgb8, default probe", src[..., :3], None, IMG_N),
+        ("rgb16, default probe (phase 11's deep files)",
+         src[..., :3].astype(np.uint16) * 257, None, IMG_N),
+        ("rgba16, default probe", src.astype(np.uint16) * 257, None, IMG_N),
+        ("rgb8, one 1920x1088 image, default probe", big[None], None, 1),
+    ]
+    out = []
+    for label, arr, strategy, n in buckets:
+        files = encode_filtered(arr, 4, strategy, device=dev)
+        raws = [png_batch.host_stage(f)[1] for f in files]
+        k, h = len(files), arr.shape[1]
+        rb = arr.shape[2] * arr.shape[3] * arr.itemsize
+        bpp = arr.shape[3] * arr.itemsize
+        tile = torch.arange(n) % k
+        rows = torch.from_numpy(np.stack(raws).reshape(k, h, rb + 1))
+        rows = rows.to(dev)[tile.to(dev)]
+        want = torch.from_numpy(np.ascontiguousarray(
+            arr.astype(arr.dtype.newbyteorder(">"))).view(np.uint8).reshape(
+                k, h, rb)).to(dev)[tile.to(dev)]
+        got, status = unfilter(rows, bpp)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or bool(status.any()):
+            raise AssertionError(f"K13 differs from the sources ({label})")
+        plain_rows, plain_n = min(h, K13_PLAIN_ROWS), min(2, n)
+        t0 = time.perf_counter()
+        want_p, st_p = png_unfilter_plain(rows[:plain_n, :plain_rows].cpu(),
+                                          bpp)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got[:plain_n, :plain_rows].cpu(), want_p) or \
+                bool(st_p.any()):
+            raise AssertionError(f"K13 differs from its plain version "
+                                 f"({label})")
+        filt = [int(t) for t in rows[:, :, 0].reshape(-1).to(
+            torch.int64).bincount(minlength=5).cpu()]
+        rec = dict(bucket=label, images=n, rows=list(rows.shape), bpp=bpp,
+                   filter_types=filt, equal_to_sources=True, max_abs_err=0,
+                   plain_images=plain_n, plain_rows=plain_rows,
+                   plain_ms=plain_ms, library_ms=None,
+                   digest=hashlib.sha256(got.cpu().numpy().tobytes()
+                                         ).hexdigest()[:16],
+                   ms=timed(lambda: unfilter(rows, bpp), 10),
+                   **bound(rows.numel() + got.numel()))
+        if info is not None:
+            rec["build"] = info(n, h, rb, bpp)
+        out.append(rec)
+        del rows, want, got, status
+    return out
 
 
 def pixel_phases(dev, card, results, phase, timed, wall):
@@ -1919,6 +2098,7 @@ def decode_phases(dev, card, results, phase, timed, wall):
     from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
     from picha_tpu_torch.ops.lzw import check_strips, lzw_decode
     from picha_tpu_torch.ops import lzw as k15_mod
+    from picha_tpu_torch.ops import png_unfilter as k13_mod
     from picha_tpu_torch.ops import png_transform as k14_mod
     from picha_tpu_torch.ops import tiff_transform as k16_mod
     from picha_tpu_torch.ops.png_transform import (png_transform,
@@ -2130,7 +2310,10 @@ def decode_phases(dev, card, results, phase, timed, wall):
     results["png_unfilter"] = dict(
         max_abs_err=0, ms=timed(lambda: png_unfilter(prows, 4), 10),
         plain_ms=k13_plain, library_ms=None,
-        **bound(prows.numel() + plane.numel()))
+        **bound(prows.numel() + plane.numel()),
+        build=k13_mod.kernel_info(IMG_N, IMG_H, rb, 4),
+        buckets=k13_bucket_records(dev, png_unfilter, timed,
+                                   k13_mod.kernel_info)[1:])
     results["png_transform"] = dict(
         max_abs_err=0,
         ms=timed(lambda: png_transform(samples, 6, 8, "rgba"), 10),
@@ -2183,7 +2366,11 @@ def decode_phases(dev, card, results, phase, timed, wall):
     phase("K13_K14", card=card, rows=list(prows.shape), bpp=4,
           filter_types=filt, equal=True,
           note=f"K13: kernel on all {IMG_N} images, plain (on the host, "
-               f"one run) on the {sub} distinct ones; K14: both on all "
+               f"one run) on the {sub} distinct ones; K13's buckets "
+               f"(k13_bucket_records: strategies 4, 3, 2, rgb8, rgb16, "
+               f"rgba16, one 1920x1088 rgb8 image), each equal to its "
+               f"sources and, on {K13_PLAIN_ROWS} rows of 2 images, to the "
+               f"plain version; K14: both on all "
                f"{IMG_N}, library_ms a clone of the samples (K14 is the "
                f"identity on this bucket), buckets: K14 on the palette + "
                f"tRNS files and on the 16-bit rgb files decoded deep (equal "

@@ -50,6 +50,8 @@ SIGNATURES = {
     "picha_idct_plane": [P, I, P, P, I, I, I, I, I, P, P],
     "picha_idct_plane_info": [I, P],
     "picha_upsample_color": [P, P, P, P, *[I] * 16, I, I, I, I, I, P, P],
+    "picha_upsample_color_build": [I] * 10,
+    "picha_upsample_color_info": [I, P],
     "picha_resize_axis": [P, I, L, I, I, L, P, P, I, F, F, P, P],
     "picha_crop_flip_resize_w": [P, I, I, I, I, P, P, P, I, P, P, I, I, F,
                                  P, P],
@@ -57,6 +59,7 @@ SIGNATURES = {
     "picha_pixel_map": [P, I, L, I, I, I, I, I, I, I, I, I, F, F, F, P, P],
     "picha_png_filter": [P, I, I, I, I, I, P, P],
     "picha_png_unfilter": [P, L, I, I, I, I, P, P, P],
+    "picha_png_unfilter_info": [I, I, I, I, P],
     "picha_png_transform": [P, I, I, I, I, I, P, P, I, I, I, P, P],
     "picha_png_transform_info": [I, I, I, I, I, P],
     "picha_lzw_decode": [P, P, P, P, P, I, P, P, P, P],

@@ -383,11 +383,11 @@ def dequant_idct_plane(coefs, qtable, kron, out_h, out_w):
 
 
 def kernel_info() -> dict:
-    """K6's builds (int32 and int16 coefficients) as the card reports
-    them: registers and local (spill) bytes a thread, static shared bytes
-    a block, resident blocks a multiprocessor, threads a block, tile
-    buffers in flight and dynamic shared bytes a block. Launches
-    nothing."""
+    """K6's builds (int32 and int16 coefficients) and K7's (`K7_BUILDS`)
+    as the card reports them: registers and local (spill) bytes a
+    thread, static shared bytes a block, resident blocks a
+    multiprocessor, threads a block (K6 also its tile buffers in flight
+    and dynamic shared bytes a block). Launches nothing."""
     import ctypes
 
     from ..kernels._build import library
@@ -402,6 +402,14 @@ def kernel_info() -> dict:
             ("registers", "local_bytes", "static_shared_bytes",
              "blocks_per_sm", "threads", "stages", "dynamic_shared_bytes"),
             vals))
+    for i, name in enumerate(K7_BUILDS):
+        vals = (ctypes.c_int * 5)()
+        rc = library().picha_upsample_color_info(i, vals)
+        if rc != 0:
+            raise RuntimeError(f"picha_upsample_color_info: CUDA error {rc}")
+        out[f"K7_{name}"] = dict(zip(
+            ("registers", "local_bytes", "static_shared_bytes",
+             "blocks_per_sm", "threads"), vals))
     return out
 
 
@@ -504,8 +512,30 @@ def plane_geometry(comp_sig, width, height):
     return out
 
 
-# K7's colour modes (csrc/jpeg_upsample_color.cu)
+# K7's colour modes and builds (csrc/jpeg_upsample_color.cu): YCbCr
+# h2v2 (4:2:0), h2v1 (4:2:2), h1v1 (4:4:4) and grey to 1 or 3 channels
+# compiled in, a thread a pixel for every other signature
 GREY, YCBCR, RGB, YCCK, CMYK = 0, 1, 2, 3, 4
+K7_BUILDS = ("h2v2", "h2v1", "h1v1", "grey", "grey_rgb", "generic")
+# the compiled-in builds' signatures: build -> (per-component (h_samp,
+# v_samp), colour space, force_rgb)
+K7_SIGNATURES = {
+    "h2v2": (((2, 2), (1, 1), (1, 1)), CS_YCBCR, False),
+    "h2v1": (((2, 1), (1, 1), (1, 1)), CS_YCBCR, False),
+    "h1v1": (((1, 1),) * 3, CS_YCBCR, False),
+    "grey": (((1, 1),), CS_GRAYSCALE, False),
+    "grey_rgb": (((1, 1),), CS_GRAYSCALE, True),
+}
+
+
+def comp_sig_of(samp, width, height):
+    """The comp_sig (block rows, block columns, h_samp, v_samp a
+    component) of a width x height image whose components have these
+    (h_samp, v_samp): whole MCUs, as a JPEG codes them."""
+    max_h = max(h for h, _ in samp)
+    max_v = max(v for _, v in samp)
+    return tuple((-(-height // (8 * max_v)) * v, -(-width // (8 * max_h)) * h,
+                  h, v) for h, v in samp)
 
 
 def color_mode(color_space, ncomp):
@@ -545,12 +575,25 @@ def upsample_color_plain(planes, comp_sig, color_space, width, height,
     return out.to(torch.uint8)
 
 
+def k7_build(comp_sig, color_space, width, height, force_rgb=False) -> str:
+    """The K7 build (`K7_BUILDS`) that `upsample_color` launches for this
+    signature, as the kernel library picks it."""
+    from ..kernels._build import library
+
+    mode = color_mode(color_space, len(comp_sig))
+    geom = plane_geometry(comp_sig, width, height)
+    used = 1 if mode == GREY else (4 if mode in (YCCK, CMYK) else 3)
+    ratios = [r for i in range(4) for r in geom[min(i, used - 1)][2:]]
+    c = 3 if mode != GREY or force_rgb else 1
+    return K7_BUILDS[library().picha_upsample_color_build(*ratios, mode, c)]
+
+
 def upsample_color(planes, comp_sig, color_space, width, height,
                    force_rgb=False):
     """Chroma upsample + colour transform: per-component uint8 planes
-    (N, dh, dw) as `dequant_idct_plane` crops them -> (N, height, width,
-    C) uint8. Launches K7 for CUDA tensors; the plain version runs only
-    for CPU tensors."""
+    (N, dh, dw) as `dequant_idct_plane` crops them (contiguous, at any
+    byte offset) -> (N, height, width, C) uint8. Launches K7 for CUDA
+    tensors; the plain version runs only for CPU tensors."""
     if planes[0].device.type == "cpu":
         return upsample_color_plain(planes, comp_sig, color_space, width,
                                     height, force_rgb)

@@ -13,11 +13,16 @@ mod bpp is a dependent chain.
                         sub rows whole (sub as a per-lane running sum),
                         average and Paeth rows along x, vectorised over
                         the images and the bpp lanes
-  `png_unfilter`        K13 (`csrc/png_unfilter.cu`) for CUDA tensors,
-                        the plain version for CPU tensors
+  `png_unfilter`        K13 (`csrc/png_unfilter.cu`, a skewed row
+                        wavefront: rows one pixel apart, a warp a group
+                        of 32 // bpp rows, column chunks in block-wide
+                        phases) for CUDA tensors, the plain version for
+                        CPU tensors
   `check_status`        one readback of the per-image statuses; raises
                         CodecError("invalid PNG filter type") where a
                         filter type byte was > 4
+  `kernel_info`         the launch K13 makes for a shape, as the card
+                        reports it
 
 Both are byte-identical to the native function for every filter type.
 """
@@ -29,11 +34,15 @@ from ..errors import CodecError
 from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
 
 
+_INFO = ("registers", "local_bytes", "dynamic_shared_bytes", "blocks_per_sm",
+         "threads", "chunk", "rows_a_warp", "phases")
+
+
 def _validate(rows, bpp):
     if rows.dim() != 3 or rows.dtype != torch.uint8 or rows.shape[2] < 2:
         raise ValueError("png_unfilter expects (N, H, RB+1) uint8 rows")
-    if bpp < 1:
-        raise ValueError("png_unfilter: bpp must be >= 1")
+    if not 1 <= bpp <= 8:
+        raise ValueError("png_unfilter: bpp must be in 1..8")
 
 
 def _paeth(a, b, c):
@@ -91,7 +100,9 @@ def png_unfilter(rows, bpp: int):
     status), without reading the status back (`check_status` does).
     The image dimension may be strided (an Adam7 pass cut from the
     whole stream); each image's rows must be contiguous. Launches K13
-    for CUDA tensors; the plain version runs only for CPU tensors."""
+    for CUDA tensors (its chunk width and warps a block come from the
+    shape and the card's occupancy); the plain version runs only for CPU
+    tensors."""
     bpp = int(bpp)
     if rows.device.type == "cpu":
         return png_unfilter_plain(rows, bpp)
@@ -107,6 +118,23 @@ def png_unfilter(rows, bpp: int):
                             rb1 - 1, bpp, ptr(out), ptr(status),
                             stream_of(rows))
     return out, status
+
+
+def kernel_info(n: int, h: int, rb: int, bpp: int) -> dict:
+    """The launch K13 makes for n images of h rows of rb bytes at bpp, as
+    the card reports it: registers and local (spill) bytes a thread,
+    dynamic shared bytes a block, resident blocks a multiprocessor,
+    threads a block, the chunk width in pixels, rows a warp and the
+    block-wide phases. Launches nothing."""
+    import ctypes
+
+    from ..kernels._build import library
+
+    vals = (ctypes.c_int * len(_INFO))()
+    rc = library().picha_png_unfilter_info(n, h, rb, bpp, vals)
+    if rc != 0:
+        raise RuntimeError(f"picha_png_unfilter_info: CUDA error {rc}")
+    return dict(zip(_INFO, vals))
 
 
 def check_status(*statuses):

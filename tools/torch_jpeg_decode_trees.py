@@ -27,13 +27,20 @@ apart); the bounds (bytes over 3.35 TB/s; K6 also its operations over
 67 TFLOP/s, dense and on this data's nonzero coefficients); the
 one-call yardstick of K6 (the dequantised blocks' product with the
 Kronecker IDCT, full f32); and, at (a) and (c), equality with
-`decode_scan_chunked_plain`. Then the builds: `nvcc -Xptxas -v` of the
-checkout's two sources, and `kernel_info()` at each shape where the
-checkout has it.
+`decode_scan_chunked_plain`. K7 also: a digest of its output, equality
+with `upsample_color_plain` on the card, its bound (planes in, pixels
+out) and, where the checkout has `k7_build`, the build it launches;
+then K7 alone on 16 seeded random 1920x1088 planes of its other
+compiled-in signatures (4:2:2, 4:4:4, grey, grey to rgb: the checkout's
+`ops.jpeg.K7_SIGNATURES`; "not available" for a checkout without
+them), through this script's own `chip_smoke.k7_signature_buckets`.
+Then the builds: `nvcc -Xptxas -v` of the checkout's three
+sources, and `kernel_info()` at each shape where the checkout has it.
 Prints the card's name and power limit, then one JSON line a run; with
 --json, also writes them all to OUT.
 """
 import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -48,7 +55,9 @@ FIXTURES = pathlib.Path(__file__).resolve().parent.parent / "tests" / \
 SHAPES = {"a": 16, "b": 256, "c": 16}
 OWN_TABLES = "c"      # the shape whose images carry their own tables
 HBM, FP32 = 3.35e12, 67e12
-SOURCES = ("huffman_decode_chunked.cu", "jpeg_idct_plane.cu")
+SOURCES = ("huffman_decode_chunked.cu", "jpeg_idct_plane.cu",
+           "jpeg_upsample_color.cu")
+TOOL_ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 def timed(fn, reps=10, rounds=3):
@@ -243,12 +252,31 @@ def shape_run(shape, dev):
     r["k6_kernels"] = by_kernel(lambda: [
         jp.dequant_idct_plane(p, q, kron, dh, dw)
         for p, q, (dh, dw, _fx, _fy) in zip(planes, qtabs, geom)])
-    r["k7_ms"] = timed(lambda: jp.upsample_color(ys, comp_sig, cs, width,
-                                                 height, force_rgb=True))
+    r["k7"] = k7_record(ys, comp_sig, cs, width, height, True)
     r["k6_planes_bits"] = digest(*ys)
     del planes, ys
     torch.cuda.empty_cache()
     return r
+
+
+def k7_record(planes, comp_sig, cs, width, height, force_rgb):
+    """K7 on these planes: digest, equality with the plain version on
+    the card, CUDA-event ms, bound, and the build where the checkout
+    names it."""
+    import torch
+
+    from picha_tpu_torch.ops import jpeg as jp
+
+    args = (planes, comp_sig, cs, width, height, force_rgb)
+    rgb = jp.upsample_color(*args)
+    want = jp.upsample_color_plain(*args)
+    rec = {"bits": digest(rgb), "equal_to_plain": bool(torch.equal(rgb, want)),
+           "ms": timed(lambda: jp.upsample_color(*args)),
+           **bound(sum(p.numel() for p in planes) + rgb.numel())}
+    if hasattr(jp, "k7_build"):
+        rec["build"] = jp.k7_build(comp_sig, cs, width, height, force_rgb)
+    del rgb, want
+    return rec
 
 
 def run(label):
@@ -265,6 +293,17 @@ def run(label):
            "device": torch.cuda.get_device_name(0)}
     for name in SHAPES:
         res[name] = shape_run(name, dev)
+    # K7's other compiled-in signatures, through this script's own
+    # chip_smoke.k7_signature_buckets (the same planes for every checkout)
+    res["k7_signatures"] = "not available"
+    if hasattr(jp, "K7_SIGNATURES"):
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_buckets", TOOL_ROOT / "chip_smoke.py")
+        own = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(own)
+        res["k7_signatures"] = own.k7_signature_buckets(
+            dev, timed, {k[3:]: v for k, v in jp.kernel_info().items()
+                         if k.startswith("K7_")})
     res["ptxas"] = ptxas(pathlib.Path.cwd())
     res["kernel_info"] = {"jpeg": jp.kernel_info() if hasattr(jp, "kernel_info")
                           else "not available"}
