@@ -154,7 +154,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      excesses recorded; the plain version's f32 dP = do . v^T checked
      bit for bit against the same sums taken in order, the order K22
      re-sums its ambiguous dP values in), K23 also on a router that
-     sends every token to expert 0; one step's gradients through the
+     sends every token to expert 0 (K21 also timed by kernel with
+     torch.profiler, beside its plan and build from
+     `ops.layernorm.kernel_info`); one step's gradients through the
      kernels against the same step through the plain versions on the card
      (each leaf within 2e-2 relative L2; the MoE's routes compared); three
      steps at learning_rate=1e-3 (finite losses, the third below the
@@ -213,7 +215,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the restart corpus's wires and on 4 of its sources re-encoded at
      q = 100 (a non-empty correction list; gap4 escapes on the corpus),
      the C++ packers' wires byte for byte the numpy packers'; timed, with
-     their bounds (K27's yardstick one index_add_ per component);
+     their bounds (K27's yardstick one index_add_ per component), each
+     call's device time by kernel (torch.profiler) and K30's tile and
+     builds (`ops.coef_restore.kernel_info`);
  21. JpegBatchPipeline(width=960, height=544, encode_quality=85,
      encode_backend="device", fused=True|False, upload=u) for u in dense,
      sparse, int8, gap8, gap4 on both corpora: every output byte for byte
@@ -3243,6 +3247,8 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
         plain_ms=timed(lambda: ln_mod.layer_norm_backward_plain(*a21), 5),
         library_ms=timed(lambda: torch.autograd.grad(
             out21, (xl, wl, bl), dy21, retain_graph=True), 20),
+        by_kernel=device_ms_by_kernel(lambda: k21(*a21)),
+        build=ln_mod.kernel_info(t21, d),
         **bound(3 * t21 * d * 2 + 3 * d * 4, 20 * t21 * d))
     del out21, xl, wl, bl
     qkv22, do22, sc22 = a22
@@ -3295,7 +3301,9 @@ def train_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
     phase("K21_K24", card=card, tokens=t21, dim=d,
           note="each kernel on the arguments of its first call in the "
                "step's backward (dense step: K21, K22; MoE step: K23, "
-               "K24); library_ms: F.layer_norm's backward (autograd.grad "
+               "K24); K21's by_kernel: its device time by kernel "
+               "(torch.profiler), build: its plan (kernel_info); "
+               "library_ms: F.layer_norm's backward (autograd.grad "
                "on a kept graph), F.scaled_dot_product_attention forward + "
                "backward (library_backward_only_ms: its backward alone)",
           K21=results["vit_layernorm_bwd"], K22=results["vit_attention_bwd"],
@@ -4122,7 +4130,10 @@ def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
         results[name] = dict(
             max_abs_err=0, ms=timed(run, 10), plain_ms=timed(run_plain, 3),
             library_ms=library_ms, launches_per_batch=len(sig[3]),
+            by_kernel=device_ms_by_kernel(run),
             **bound(entry["restart_wire_bytes"] + out_bytes), **entry)
+        if upload == "gap4":
+            results[name]["build"] = coef_restore.kernel_info()
         checks[name] = results[name]
         del dargs, got
     phase("K27_K30", card=card, images=N_IMG, q100_images=len(hi_bufs),
@@ -4130,7 +4141,9 @@ def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
                "coefficients on the restart corpus's wire and on a q = 100 "
                "batch (corrections past int8); the C++ packers' wire equal "
                "to the numpy packers'; ms: the batch's 3 launches (one per "
-               "component); library_ms: K27's one index_add_ per component "
+               "component) and the wire's unpack; by_kernel: the call's "
+               "device time by kernel (torch.profiler); build: K30's tile "
+               "and kernels; library_ms: K27's one index_add_ per component "
                "on a zeroed tensor; K28-K30 have no one-call PyTorch "
                "counterpart", **checks)
 
@@ -4718,6 +4731,36 @@ def attention_library(fn):
     except Exception as exc:     # the profiler is the card machine's
         return f"not measured ({type(exc).__name__}: {exc})"
     return names or "not measured"
+
+
+def device_ms_by_kernel(fn, reps=10):
+    """Device ms and launches a call of fn, by kernel name (torch.profiler;
+    memsets under their own name), and their sum; "not measured" where
+    the profiler records no device time."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "device_time_total", 0)
+              or getattr(e, "cuda_time_total", 0))
+        if us:
+            name = e.key.replace("(anonymous namespace)::", "")
+            if not name.startswith("Memset"):
+                name = re.split(r"[(<]", name)[0].split()[-1].split("::")[-1]
+            rows[name] = {"ms": us / 1e3 / reps, "launches": e.count / reps}
+    if not rows:
+        return "not measured"
+    rows["sum_ms"] = sum(v["ms"] for v in rows.values())
+    return rows
 
 
 def dp_scratch_traffic(n, s, h, timed):

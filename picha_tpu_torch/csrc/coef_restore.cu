@@ -20,23 +20,36 @@
 // What bounds them on an H100: memory traffic. At the slice's batch (16
 // 1920x1088 4:2:0 sources, q85) they read a few MB of wire and write the
 // dense planes, 16 x 3.13 M int32 = 200 MB: ~0.06 ms at HBM peak. The
-// design: the output is cleared with one memset, then
-//   - K29 / K30, one block of 1024 threads per image (a row of the wire):
-//     the row is walked in tiles of 8192 entries, each thread summing 8
-//     consecutive gaps, a block-wide inclusive scan of the thread sums
-//     written here (warp shuffles, then the 32 warp totals) plus the
-//     carry of the earlier tiles gives every entry its index. The primary
-//     stream writes each nonzero cell once (a plain store): of the
-//     entries at one index (zero-valued gap extensions, the tail pin,
-//     padding) only the first stores, and a later nonzero one, which a
-//     well-formed wire does not hold, is added after a barrier;
-//   - K30's side stream is walked the same way after the primary and adds
-//     its values with integer atomicAdd into the cells already written;
+// designs:
+//   - K29, one block of 1024 threads per image (a row of the wire), the
+//     output cleared first with one memset: the row is walked in tiles of
+//     8192 entries, each thread summing 8 consecutive gaps, a block-wide
+//     inclusive scan of the thread sums written here (warp shuffles, then
+//     the 32 warp totals) plus the carry of the earlier tiles gives every
+//     entry its index. Each nonzero cell is written once (a plain store):
+//     of the entries at one index (zero-valued gap extensions, the tail
+//     pin, padding) only the first stores, and a later nonzero one, which
+//     a well-formed wire does not hold, is added after a barrier;
+//   - K30, the whole batch in tiles of kG4Tile entries, no memset:
+//     gap4_tile_sums sums every tile's gaps (primary and side stream) in
+//     one grid of (tile, image) blocks, 8 entries a thread by one 8-byte
+//     load; gap4_write gives each primary tile its base (the sum of its
+//     image's earlier tiles), its entries their indices by a block scan,
+//     and writes the cells the tile owns, zeros included, once: indices
+//     within an image never decrease, so tile t owns [its first entry's
+//     index, the next tile's first index) (tile 0 from cell 0, the last
+//     tile up to m), staged kG4Cells at a time in shared memory where the
+//     tile's values are summed, then stored by 16-byte stores. A tile's
+//     entries at the next tile's first index (a run of equal indices
+//     across the boundary) are summed into one spill a tile; then
+//     gap4_adds adds the side stream's values (its tiles indexed the same
+//     way), the spills and the corrections with integer atomicAdd into
+//     the written cells;
 //   - K27: one thread per entry (no prefix sum: the entries carry their
 //     index), first-of-index entries storing, the others added after;
 //   - K28: one thread per cell widens the int8 body (every cell written
 //     once, no memset);
-//   - then a second launch adds the corrections (K28-K30) and K27's
+//   - then a second launch adds the corrections (K28, K29) and K27's
 //     repeated indices with integer atomicAdd, one thread an entry.
 // Integer sums are exact in any order, so the result is bit for bit the
 // plain version's (picha_tpu_torch/ops/coef_restore.py) and the
@@ -81,10 +94,9 @@ __device__ __forceinline__ int block_scan(int v, int* warp_tot, int* total) {
 
 // walk one image's gap stream of k entries: gap_of(j) and val_of(j) give
 // entry j's gap and value; the entry lands at idx = max(running sum - 1,
-// 0). kAdd: every nonzero value is added atomically (K30's side stream);
-// else the first entry at an index stores its nonzero value and a later
+// 0). The first entry at an index stores its nonzero value and a later
 // nonzero one at the same index is added after a barrier.
-template <bool kAdd, typename G, typename V>
+template <typename G, typename V>
 __device__ __forceinline__ void walk(int64_t k, int64_t m, int* out, G gap_of, V val_of) {
   __shared__ int warp_tot[32];
   int64_t carry = 0;
@@ -109,9 +121,7 @@ __device__ __forceinline__ void walk(int64_t k, int64_t m, int* out, G gap_of, V
       if (j0 + it < k) {
         const int v = val_of(j0 + it);
         if (v != 0 && idx < m) {
-          if (kAdd)
-            atomicAdd(out + idx, v);
-          else if (idx != prev)
+          if (idx != prev)
             out[idx] = v;
           else
             later[it] = idx;
@@ -119,12 +129,10 @@ __device__ __forceinline__ void walk(int64_t k, int64_t m, int* out, G gap_of, V
       }
       prev = idx;
     }
-    if (!kAdd) {
-      __syncthreads();
+    __syncthreads();
 #pragma unroll
-      for (int it = 0; it < kItems; ++it)
-        if (later[it] >= 0) atomicAdd(out + later[it], val_of(j0 + it));
-    }
+    for (int it = 0; it < kItems; ++it)
+      if (later[it] >= 0) atomicAdd(out + later[it], val_of(j0 + it));
     carry += total;
   }
 }
@@ -136,30 +144,198 @@ __global__ void __launch_bounds__(kThreads) gap8_restore(const uint8_t* __restri
   const int64_t img = blockIdx.x;
   const uint8_t* gi = g + img * k;
   const int8_t* vi = v + img * k;
-  walk<false>(k, m, out + img * m, [&](int64_t j) { return static_cast<int>(gi[j]); },
+  walk(k, m, out + img * m, [&](int64_t j) { return static_cast<int>(gi[j]); },
               [&](int64_t j) { return static_cast<int>(vi[j]); });
 }
 
-// K30: one block per image, the primary stream, then the side stream
-__global__ void __launch_bounds__(kThreads) gap4_restore(const uint8_t* __restrict__ prim,
-                                                         const uint8_t* __restrict__ sg,
-                                                         const int8_t* __restrict__ sv,
-                                                         int64_t k1, int64_t k2, int64_t m,
-                                                         int* __restrict__ out) {
-  const int64_t img = blockIdx.x;
-  const uint8_t* p = prim + img * k1;
-  int* o = out + img * m;
-  walk<false>(k1, m, o, [&](int64_t j) { return static_cast<int>(p[j] >> 4); },
-              [&](int64_t j) {
-                const int nib = p[j] & 15;
-                return nib == 15 ? 0 : nib - 7;
-              });
-  __syncthreads();
-  const uint8_t* gs = sg + img * k2;
-  const int8_t* vs = sv + img * k2;
-  walk<true>(k2, m, o, [&](int64_t j) { return static_cast<int>(gs[j]); },
-             [&](int64_t j) { return static_cast<int>(vs[j]); });
+// --- K30 ------------------------------------------------------------------
+
+constexpr int kG4Threads = 256;
+constexpr int kG4Tile = kG4Threads * kItems;   // entries a tile
+constexpr int kG4Cells = 8192;                 // cells a block stages at once
+
+// the entries j0 .. j0 + 7 of a row of k bytes (0 past k): one 8-byte load
+// where they lie whole and aligned
+__device__ __forceinline__ void load8(const uint8_t* row, int64_t k, int64_t j0,
+                                      uint8_t (&b)[kItems]) {
+  const uint8_t* p = row + j0;
+  if (j0 + kItems <= k && reinterpret_cast<uintptr_t>(p) % 8 == 0) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      b[i] = static_cast<uint8_t>(w.x >> (8 * i));
+      b[4 + i] = static_cast<uint8_t>(w.y >> (8 * i));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) b[i] = j0 + i < k ? p[i] : 0;
+  }
 }
+
+// the block's sum of v, in every thread (red: 32 int64 of shared memory)
+__device__ __forceinline__ int64_t block_sum64(int64_t v, int64_t* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int64_t t = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) t += red[w];
+  __syncthreads();
+  return t;
+}
+
+// the sum of an image's tile sums before tile t
+__device__ __forceinline__ int64_t tile_base(const int* sums, int t, int64_t* red) {
+  int64_t b = 0;
+  for (int i = threadIdx.x; i < t; i += blockDim.x) b += sums[i];
+  return block_sum64(b, red);
+}
+
+// index of an entry at running sum `run`
+__device__ __forceinline__ int64_t index_at(int64_t run) { return run - 1 > 0 ? run - 1 : 0; }
+
+// block (x, image): x < tp sums primary tile x's gaps into psum[image][x],
+// else side tile x - tp's into ssum[image][x - tp]
+__global__ void __launch_bounds__(kG4Threads) gap4_tile_sums(
+    const uint8_t* __restrict__ prim, const uint8_t* __restrict__ sg, int64_t k1, int64_t k2,
+    int tp, int ts, int* __restrict__ psum, int* __restrict__ ssum) {
+  __shared__ int64_t red[32];
+  const int64_t img = blockIdx.y;
+  const bool side = static_cast<int>(blockIdx.x) >= tp;
+  const int t = side ? blockIdx.x - tp : blockIdx.x;
+  const int64_t k = side ? k2 : k1;
+  const int64_t j0 = static_cast<int64_t>(t) * kG4Tile + threadIdx.x * kItems;
+  uint8_t b[kItems];
+  load8((side ? sg : prim) + img * k, k, j0, b);
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) s += side ? b[i] : b[i] >> 4;
+  const int64_t total = block_sum64(s, red);
+  if (threadIdx.x == 0) (side ? ssum + img * ts : psum + img * tp)[t] = static_cast<int>(total);
+}
+
+// block (t, image): primary tile t writes the cells it owns (see the file's
+// doc) and its spill: spill_val[image][t] summed at cell spill_cell (-1:
+// none). vec: out and m allow 16-byte stores
+__global__ void __launch_bounds__(kG4Threads) gap4_write(
+    const uint8_t* __restrict__ prim, int64_t k1, int64_t m, int tp, const int* __restrict__ psum,
+    int vec, int* __restrict__ out, int64_t* __restrict__ spill_cell,
+    int* __restrict__ spill_val) {
+  __shared__ __align__(16) int buf[kG4Cells + 4];
+  __shared__ int warp_tot[32];
+  __shared__ int64_t red[32];
+  const int64_t img = blockIdx.y;
+  const int t = blockIdx.x;
+  const uint8_t* row = prim + img * k1;
+  int* o = out + img * m;
+  const int64_t first = static_cast<int64_t>(t) * kG4Tile;
+  const int64_t base = tile_base(psum + img * tp, t, red);
+
+  uint8_t b[kItems];
+  const int64_t j0 = first + threadIdx.x * kItems;
+  load8(row, k1, j0, b);
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) s += b[i] >> 4;
+  int total = 0;
+  const int incl = block_scan(s, warp_tot, &total);
+  int64_t idx[kItems];
+  int val[kItems];
+  int64_t run = base + incl - s;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    run += b[i] >> 4;
+    idx[i] = index_at(run);
+    const int nib = b[i] & 15;
+    val[i] = j0 + i < k1 && nib != 15 ? nib - 7 : 0;
+  }
+  // the owned cells [lo, hi)
+  int64_t lo = 0, hi = m;
+  if (t > 0) lo = index_at(base + (row[first] >> 4));
+  if (t + 1 < tp) hi = index_at(base + total + (row[first + kG4Tile] >> 4));
+  lo = lo < m ? lo : m;
+  hi = hi < m ? hi : m;
+
+  for (int64_t c0 = lo; c0 < hi; c0 += kG4Cells) {
+    const int64_t c1 = c0 + kG4Cells < hi ? c0 + kG4Cells : hi;
+    const int64_t cb = c0 & ~static_cast<int64_t>(3);   // buf[0] is cell cb
+    const int quads = static_cast<int>((c1 - cb + 3) / 4);
+    for (int q = threadIdx.x; q < quads; q += blockDim.x)
+      reinterpret_cast<int4*>(buf)[q] = make_int4(0, 0, 0, 0);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (val[i] != 0 && idx[i] >= c0 && idx[i] < c1) atomicAdd(buf + (idx[i] - cb), val[i]);
+    __syncthreads();
+    // [a, e): the cells of whole 16-byte words, stored by words
+    int64_t a = vec ? (c0 + 3) & ~static_cast<int64_t>(3) : c1;
+    int64_t e = vec ? c1 & ~static_cast<int64_t>(3) : c1;
+    if (a >= e) a = e = c1;
+    for (int64_t c = c0 + threadIdx.x; c < a; c += blockDim.x) o[c] = buf[c - cb];
+    for (int64_t q = threadIdx.x; q < (e - a) / 4; q += blockDim.x)
+      *reinterpret_cast<int4*>(o + a + 4 * q) =
+          reinterpret_cast<const int4*>(buf)[(a - cb) / 4 + q];
+    for (int64_t c = e + threadIdx.x; c < c1; c += blockDim.x) o[c] = buf[c - cb];
+    __syncthreads();
+  }
+
+  // the entries past the owned cells lie at hi, the next tile's first cell
+  int64_t sp = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i)
+    if (idx[i] >= hi && idx[i] < m) sp += val[i];
+  sp = block_sum64(sp, red);
+  if (threadIdx.x == 0) {
+    spill_cell[img * tp + t] = hi < m ? img * m + hi : -1;
+    spill_val[img * tp + t] = static_cast<int>(sp);
+  }
+}
+
+// blocks [0, n * ts): side tile (b % ts) of image b / ts adds its values;
+// the others add the spills and the corrections, a thread an entry
+__global__ void __launch_bounds__(kG4Threads) gap4_adds(
+    const uint8_t* __restrict__ sg, const int8_t* __restrict__ sv, int64_t k2, int64_t m,
+    int64_t n, int ts, const int* __restrict__ ssum, const int64_t* __restrict__ spill_cell,
+    const int* __restrict__ spill_val, int64_t nsp, const int* __restrict__ ci,
+    const int16_t* __restrict__ cv, int64_t kc, int* __restrict__ out) {
+  __shared__ int warp_tot[32];
+  __shared__ int64_t red[32];
+  const int64_t side_blocks = n * ts;
+  if (static_cast<int64_t>(blockIdx.x) < side_blocks) {
+    const int64_t img = blockIdx.x / ts;
+    const int t = static_cast<int>(blockIdx.x % ts);
+    const int64_t base = tile_base(ssum + img * ts, t, red);
+    const int64_t j0 = static_cast<int64_t>(t) * kG4Tile + threadIdx.x * kItems;
+    uint8_t g[kItems], v[kItems];
+    load8(sg + img * k2, k2, j0, g);
+    load8(reinterpret_cast<const uint8_t*>(sv) + img * k2, k2, j0, v);
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) s += g[i];
+    int total = 0;
+    int64_t run = base + block_scan(s, warp_tot, &total) - s;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      run += g[i];
+      const int64_t idx = index_at(run);
+      const int val = static_cast<int8_t>(v[i]);
+      if (val != 0 && idx < m) atomicAdd(out + img * m + idx, val);
+    }
+    return;
+  }
+  const int64_t cells = n * m;
+  for (int64_t e = (blockIdx.x - side_blocks) * blockDim.x + threadIdx.x; e < nsp + kc;
+       e += (gridDim.x - side_blocks) * blockDim.x) {
+    if (e < nsp) {
+      if (spill_val[e] != 0 && spill_cell[e] >= 0) atomicAdd(out + spill_cell[e], spill_val[e]);
+    } else {
+      const int i = ci[e - nsp], v = cv[e - nsp];
+      if (v != 0 && i >= 0 && i < cells) atomicAdd(out + i, v);
+    }
+  }
+}
+
+int g4_tiles(int64_t k) { return static_cast<int>(k > 0 ? (k + kG4Tile - 1) / kG4Tile : 0); }
 
 // K27: one thread an entry; the first entry at an index of its row stores
 __global__ void __launch_bounds__(256) densify_first(const int* __restrict__ idx,
@@ -282,22 +458,74 @@ extern "C" int picha_coef_gap8_restore(const void* g, const void* v, int64_t n, 
   return add_corrections(ci, cv, kc, n * m, out, st);
 }
 
+// K30's scratch for (n, k1, k2): the spill cells (int64), then the primary
+// tiles' sums, the spills' values and the side tiles' sums (int32)
+static int64_t gap4_scratch_bytes(int64_t n, int tp, int ts) {
+  return n * tp * 8 + n * tp * 4 * 2 + n * ts * 4;
+}
+
+// K30's tiles and builds: out[0] entries a tile, out[1] cells a block
+// stages at once, then for gap4_tile_sums, gap4_write and gap4_adds:
+// registers, local bytes, shared bytes, threads, blocks a multiprocessor
+// (out[2..16]). Returns a CUDA error code.
+extern "C" int picha_coef_gap4_info(int* out) {
+  out[0] = kG4Tile;
+  out[1] = kG4Cells;
+  const void* kernels[3] = {reinterpret_cast<const void*>(gap4_tile_sums),
+                            reinterpret_cast<const void*>(gap4_write),
+                            reinterpret_cast<const void*>(gap4_adds)};
+  for (int i = 0; i < 3; ++i) {
+    cudaFuncAttributes fa;
+    int blocks = 0;
+    cudaError_t rc = cudaFuncGetAttributes(&fa, kernels[i]);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[i], kG4Threads, 0);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    int* o = out + 2 + 5 * i;
+    o[0] = fa.numRegs;
+    o[1] = static_cast<int>(fa.localSizeBytes);
+    o[2] = static_cast<int>(fa.sharedSizeBytes);
+    o[3] = kG4Threads;
+    o[4] = blocks;
+  }
+  return 0;
+}
+
 // K30. prim: (n, k1) uint8; sg: (n, k2) uint8, sv: (n, k2) int8; ci, cv:
-// (kc,) batch-flat corrections; out: (n, m) int32. Returns
-// cudaGetLastError().
+// (kc,) batch-flat corrections; out: (n, m) int32, every cell written;
+// scratch: at least gap4_scratch_bytes(n, tiles of k1 (at least 1), tiles
+// of k2) bytes, 8-byte aligned. Returns cudaGetLastError().
 extern "C" int picha_coef_gap4_restore(const void* prim, const void* sg, const void* sv,
                                        int64_t n, int64_t k1, int64_t k2, int64_t m,
                                        const void* ci, const void* cv, int64_t kc, void* out,
-                                       void* stream) {
-  if (!sizes_ok(n, m) || k1 < 0 || k2 < 0 || kc < 0)
+                                       void* scratch, int64_t scratch_bytes, void* stream) {
+  if (!sizes_ok(n, m) || k1 < 0 || k2 < 0 || kc < 0 || n > 65535 ||
+      (k1 + kG4Tile - 1) / kG4Tile > 0x7fffffffLL / 2 || (k2 + kG4Tile - 1) / kG4Tile > 0x7fffffffLL / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = clear(out, n * m, st);
-  if (rc != 0 || n == 0) return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
-  gap4_restore<<<static_cast<unsigned>(n), kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(prim), static_cast<const uint8_t*>(sg),
-      static_cast<const int8_t*>(sv), k1, k2, m, static_cast<int*>(out));
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const int tp = k1 > 0 ? g4_tiles(k1) : 1, ts = g4_tiles(k2);
+  if (scratch_bytes < gap4_scratch_bytes(n, tp, ts) || reinterpret_cast<uintptr_t>(scratch) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* spill_cell = static_cast<int64_t*>(scratch);
+  auto* psum = reinterpret_cast<int*>(spill_cell + n * tp);
+  int* spill_val = psum + n * tp;
+  int* ssum = spill_val + n * tp;
+  const auto* p = static_cast<const uint8_t*>(prim);
+  const auto* g = static_cast<const uint8_t*>(sg);
+  const int vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const unsigned ny = static_cast<unsigned>(n);
+  gap4_tile_sums<<<dim3(static_cast<unsigned>(tp + ts), ny), kG4Threads, 0, st>>>(
+      p, g, k1, k2, tp, ts, psum, ssum);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  gap4_write<<<dim3(static_cast<unsigned>(tp), ny), kG4Threads, 0, st>>>(
+      p, k1, m, tp, psum, vec, static_cast<int*>(out), spill_cell, spill_val);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  return add_corrections(ci, cv, kc, n * m, out, st);
+  const int64_t side_blocks = n * ts, nsp = n * tp;
+  gap4_adds<<<static_cast<unsigned>(side_blocks + grid_for(nsp + kc)), kG4Threads, 0, st>>>(
+      g, static_cast<const int8_t*>(sv), k2, m, n, ts, ssum, spill_cell, spill_val, nsp,
+      static_cast<const int*>(ci), static_cast<const int16_t*>(cv), kc, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -71,7 +71,8 @@ SIGNATURES = {
     "picha_vit_attention_info": [I, I, I, P],
     "picha_moe_route_dispatch": [P, P, L, I, I, I, P, P, P, P, P, P, P],
     "picha_moe_combine": [P, P, P, P, L, I, I, I, P, P],
-    "picha_vit_layernorm_bwd": [P, P, P, L, I, P, P, P, P, P],
+    "picha_vit_layernorm_bwd": [P, P, P, L, I, P, P, L, P, P, P],
+    "picha_vit_layernorm_bwd_info": [L, I, P],
     "picha_vit_attention_bwd": [P, P, I, I, I, I, F, I, P, P, P, P],
     "picha_vit_attention_bwd_info": [I, I, I, P],
     "picha_moe_dispatch_bwd": [P, P, P, P, P, L, I, I, I, P, P, P],
@@ -84,7 +85,8 @@ SIGNATURES = {
     "picha_coef_densify": [P, P, L, L, L, P, P],
     "picha_coef_int8_restore": [P, L, P, P, L, P, P],
     "picha_coef_gap8_restore": [P, P, L, L, L, P, P, L, P, P],
-    "picha_coef_gap4_restore": [P, P, P, L, L, L, L, P, P, L, P, P],
+    "picha_coef_gap4_restore": [P, P, P, L, L, L, L, P, P, L, P, P, L, P],
+    "picha_coef_gap4_info": [P],
     "picha_host_entropy_segments": [P, P, I, L, L, L, I, *[P] * 11, I, I, P],
     "picha_host_gap8_pack": [P, Z, P, P, P, P, P, P],
     "picha_host_gap4_batch_begin": [P, I, Z, P, P, P, P],

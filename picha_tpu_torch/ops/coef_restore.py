@@ -13,7 +13,9 @@ Counterparts of `picha_tpu/pipeline/jpeg_batch.py`'s device side of
                    then the corrections
   `gap4_restore`   K30, `gap4_restore_flat` (:119-142): a nibble primary
                    stream (gap << 4 | code; 7 adds zero, 15 escapes), the
-                   escapes' values in a gap8 side stream, the corrections
+                   escapes' values in a gap8 side stream, the corrections;
+                   the whole batch in tiles (`kernel_info` reads the tile
+                   and the three kernels' builds from the card)
   `unpack_gap8`, `unpack_gap4_wire`  the one coalesced wire upload ->
                    views per section (`_jit_batch_graph.unpack_gap8`,
                    :284-315; `unpack_gap4_wire`, :145-180), then the
@@ -26,6 +28,8 @@ runs its `*_plain` twin only for CPU tensors; both give the reference's
 integer scatter-adds exactly.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -143,6 +147,42 @@ def gap8_restore(g, v, ci, cv, bh: int, bw: int):
     return out
 
 
+_GAP4_INFO = []
+
+
+def _gap4_info() -> list:
+    """`picha_coef_gap4_info`: entries a tile, cells a block stages, then
+    the registers, local bytes, shared bytes, threads and blocks a
+    multiprocessor of K30's three kernels."""
+    from ..kernels._build import library
+
+    if not _GAP4_INFO:
+        out = (ctypes.c_int * 17)()
+        rc = library().picha_coef_gap4_info(out)
+        if rc != 0:
+            raise RuntimeError(f"picha_coef_gap4_info: CUDA error {rc}")
+        _GAP4_INFO.extend(out)
+    return _GAP4_INFO
+
+
+def kernel_info() -> dict:
+    """K30's tiles and the builds of its kernels, from the card."""
+    info = _gap4_info()
+    keys = ("registers", "local_bytes", "shared_bytes", "threads",
+            "blocks_an_sm")
+    return dict(tile_entries=info[0], staged_cells=info[1], **{
+        name: dict(zip(keys, info[2 + 5 * i:7 + 5 * i])) for i, name in
+        enumerate(("gap4_tile_sums", "gap4_write", "gap4_adds"))})
+
+
+def _gap4_scratch_bytes(n: int, k1: int, k2: int) -> int:
+    """K30's scratch: a spill (int64 cell, int32 value) and a sum a primary
+    tile, a sum a side tile."""
+    tile = _gap4_info()[0]
+    tp, ts = max(1, -(-k1 // tile)), -(-k2 // tile)
+    return n * tp * 16 + n * ts * 4
+
+
 def gap4_restore(prim, sg, sv, ci, cv, bh: int, bw: int):
     """K30 (see the module doc); the plain version for CPU tensors."""
     if prim.device.type == "cpu":
@@ -155,10 +195,15 @@ def gap4_restore(prim, sg, sv, ci, cv, bh: int, bw: int):
                          "and (kc,) corrections")
     prim, sg, sv, ci, cv = (t.contiguous() for t in (prim, sg, sv, ci, cv))
     n, k1 = prim.shape
+    k2 = sg.shape[1]
     out = torch.empty((n, bh, bw, 64), dtype=torch.int32, device=prim.device)
-    KERNELS["coef_gap4_restore"](ptr(prim), ptr(sg), ptr(sv), n, k1,
-                                 sg.shape[1], bh * bw * 64, ptr(ci), ptr(cv),
-                                 ci.numel(), ptr(out), stream_of(prim))
+    nbytes = _gap4_scratch_bytes(n, k1, k2)
+    scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64,
+                          device=prim.device)
+    KERNELS["coef_gap4_restore"](ptr(prim), ptr(sg), ptr(sv), n, k1, k2,
+                                 bh * bw * 64, ptr(ci), ptr(cv), ci.numel(),
+                                 ptr(out), ptr(scratch), nbytes,
+                                 stream_of(prim))
     return out
 
 
@@ -207,19 +252,27 @@ def unpack_gap8(buf, gap8_ks, ncomp: int):
 def unpack_gap4(buf, gap4_ks, ncomp: int):
     """The gap4 wire (`stack_gap4_wire`'s, on its device) -> ([per
     component (prim (nb, k1) u8, sg (nb, k2) u8, sv (nb, k2) i8, ci (kc,)
-    i32, cv (kc,) i16)], qtabs): views of the one upload."""
+    i32, cv (kc,) i16)], qtabs): views of the one upload, cut by one
+    `split` (each view a tensor op costs the host microseconds), the
+    qtables widened in one pass."""
     nb, ks = gap4_ks
-    w = _Sections(buf)
+    sizes = []
+    for k1, k2, kc in ks[:ncomp]:
+        sizes += [nb * k1, nb * k2, nb * k2, 4 * kc, 2 * kc]
+    sizes.append(2 * 64 * nb * ncomp)
+    if sum(sizes) != buf.numel():
+        raise ValueError(f"wire holds {buf.numel()} bytes, layout "
+                         f"{sum(sizes)}")
+    sec = buf.split(sizes)
     parts = []
-    for i in range(ncomp):
-        k1, k2, kc = ks[i]
-        parts.append((w.take(nb * k1, torch.uint8).view(nb, k1),
-                      w.take(nb * k2, torch.uint8).view(nb, k2),
-                      w.take(nb * k2, torch.int8).view(nb, k2),
-                      w.take(kc, torch.int32), w.take(kc, torch.int16)))
-    qtabs = w.qtabs(nb, ncomp)
-    w.done()
-    return parts, qtabs
+    for i, (k1, k2, _kc) in enumerate(ks[:ncomp]):
+        prim, sg, sv, ci, cv = sec[5 * i:5 * i + 5]
+        parts.append((prim.view(nb, k1), sg.view(nb, k2),
+                      sv.view(torch.int8).view(nb, k2), ci.view(torch.int32),
+                      cv.view(torch.int16)))
+    q = (sec[-1].view(torch.int16).to(torch.int32) & 0xFFFF).view(
+        ncomp, nb, 1, 1, 64)
+    return parts, q.unbind(0)
 
 
 def unpack_gap4_wire(buf, gap4_ks, comp_sig):

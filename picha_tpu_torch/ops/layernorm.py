@@ -13,8 +13,11 @@ once to x's dtype, dscale / dbias the f32 sums over the rows.
   `layer_norm`  differentiable (`torch.autograd.Function`): K17 forward
                 and K21 (`csrc/vit_layernorm_bwd.cu`) backward for CUDA
                 tensors, the plain versions for CPU tensors
+  `kernel_info` K21's launch plan and build at a shape, from the card
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,7 +27,6 @@ EPS = 1e-6
 MAX_DIM = 1024        # K17 / K21's tuned kernels keep a row in registers
                       # (16 bf16 pairs a lane, even widths); any other
                       # width takes their block-a-row kernels
-BWD_ROWS = 256        # K21's rows per block (its dscale / dbias partials)
 
 
 def tuned(d: int) -> bool:
@@ -102,11 +104,48 @@ def layer_norm_k17(x, scale, bias):
     return out
 
 
+_PLANS = {}
+
+
+def _plan(rows: int, d: int, device) -> list:
+    """K21's launch plan at (rows, d) on `device`'s card, as
+    `picha_vit_layernorm_bwd_info` reports it (cached: the plan depends
+    only on the shape and the card)."""
+    from ..kernels._build import library
+
+    key = (rows, d, device.index)
+    if key not in _PLANS:
+        out = (ctypes.c_int * 11)()
+        with torch.cuda.device(device):
+            rc = library().picha_vit_layernorm_bwd_info(rows, d, out)
+        if rc != 0:
+            raise RuntimeError(f"picha_vit_layernorm_bwd_info: CUDA error "
+                               f"{rc}")
+        _PLANS[key] = list(out)
+    return _PLANS[key]
+
+
+def kernel_info(rows: int, d: int, device=None) -> dict:
+    """K21's plan and build at (rows, d) on the card: the path ("tuned",
+    a warp a row through a cp.async ring; or "block_a_row"), bf16 pairs a
+    lane, rows a block, blocks, blocks a multiprocessor, multiprocessors,
+    dynamic shared bytes, registers and local bytes of the row kernel,
+    and the columns kernel's blocks and threads."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    p = _plan(rows, d, device)
+    keys = ("pairs_a_lane", "rows_a_block", "blocks", "blocks_an_sm", "sms",
+            "shared_bytes", "registers", "local_bytes")
+    return dict(path="tuned" if p[0] else "block_a_row",
+                **dict(zip(keys, p[1:9])), column_blocks=p[9],
+                column_threads=p[10])
+
+
 def layer_norm_backward(x, scale, dy):
     """`layer_norm_backward_plain`'s result: K21 for CUDA tensors, the
     plain version only for CPU tensors. K21 sums dscale / dbias in a
-    fixed order (per-block partials over 256 rows, then the blocks in
-    order), so two runs give the same bits."""
+    fixed order (a partial a block over the plan's run of rows, then the
+    blocks' partials in a fixed tree), so two runs give the same bits."""
     if x.device.type == "cpu":
         return layer_norm_backward_plain(x, scale, dy)
     _check(x, scale, "K21")
@@ -118,7 +157,7 @@ def layer_norm_backward(x, scale, dy):
     x, dy, scale = aligned(x, 4), aligned(dy, 4), aligned(scale, 8)
     rows = x.numel() // d if d else 0
     dx = torch.empty_like(x)
-    nblk = max(1, -(-rows // BWD_ROWS))
+    nblk = _plan(rows, d, x.device)[3] if rows else 1
     partial = torch.empty((nblk, 2, d), dtype=torch.float32, device=x.device)
     dsb = torch.empty((2, d), dtype=torch.float32, device=x.device)
     # the block-a-row path keeps each row's (mu, r) for its column sums
@@ -126,7 +165,8 @@ def layer_norm_backward(x, scale, dy):
                                               dtype=torch.float32,
                                               device=x.device)
     KERNELS["vit_layernorm_bwd"](ptr(x), ptr(scale), ptr(dy), rows, d,
-                                 ptr(dx), ptr(partial), ptr(dsb),
+                                 ptr(dx), ptr(partial), partial.numel(),
+                                 ptr(dsb),
                                  None if stats is None else ptr(stats),
                                  stream_of(x))
     return dx, dsb[0], dsb[1]

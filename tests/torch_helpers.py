@@ -543,6 +543,106 @@ def repeated_index_wires(seed: int, n: int = 3, bh: int = 2, bw: int = 3):
     }
 
 
+def gap4_indices(gaps):
+    """(N, k) gaps -> (N, k) int64 indices, cumsum - 1 clamped at 0."""
+    return np.maximum(np.cumsum(gaps.astype(np.int64), 1) - 1, 0)
+
+
+def gap4_within(prim, sg, sv, m: int):
+    """The gap4 wire with every entry at an index past the plane (m)
+    turned into a no-op (gap 0, value 0): K30 drops such entries, and the
+    plain version then gives what K30 gives (it would add them into the
+    next image's plane, or past the batch)."""
+    prim, sg, sv = prim.copy(), sg.copy(), sv.copy()
+    past = gap4_indices(prim >> 4) >= m
+    prim[past] = 0x07
+    past = gap4_indices(sg) >= m
+    sg[past] = 0
+    sv[past] = 0
+    return prim, sg, sv
+
+
+def gap4_packed_wire(seed, n: int, bh: int, bw: int):
+    """n sparse int16 planes (mostly zeros, escapes past 7 and past int8)
+    through the numpy packer: (prim, sg, sv, ci, cv) as the upload holds
+    them. `seed`: an int or a numpy Generator."""
+    rng = np.random.default_rng(seed)
+    m = bh * bw * 64
+    planes = np.zeros((n, m), np.int16)
+    for i in range(n):
+        nz = rng.random(m) < rng.uniform(0.05, 0.3)
+        planes[i, nz] = rng.integers(-6, 7, int(nz.sum()))
+        big = rng.random(m) < 0.01
+        planes[i, big] = rng.integers(-400, 400, int(big.sum()))
+    from picha_tpu_torch.ops.coef_host import gap4_pack_batch
+
+    _k1, _k2, _kc, prim, sg, sv, ci, cv = gap4_pack_batch(
+        [p.reshape(bh, bw, 64) for p in planes])
+    return prim, sg, sv, ci, cv
+
+
+def gap4_tile_wires(seed: int, tile: int):
+    """Gap4 wires (K30's upload) that cross many tiles of `tile` entries:
+    {name: (prim, sg, sv, ci, cv, bh, bw)} as numpy arrays, of 3 images
+    each. "packed": the numpy packer's wire of sparse planes; "zero_runs":
+    runs of zero gaps with nonzero values across every tile boundary;
+    "empty_image": one image all padding; "short_image": one that ends
+    before its plane does; "past_m": indices past the plane (dropped);
+    "boundary_escapes": side-stream values and corrections at the cells
+    where tiles begin; "no_primary": an empty primary stream (k1 = 0)."""
+    rng = np.random.default_rng(seed)
+    n = 3
+    bw = 5
+    bh = max(1, -(-40 * tile // (64 * bw)))
+    m = bh * bw * 64
+    out = {"packed": gap4_packed_wire(rng, n, bh, bw) + (bh, bw)}
+    prim, sg, sv, ci, cv = gap4_packed_wire(rng, n, bh, bw)
+    k1 = prim.shape[1]
+
+    def codes(shape):
+        return rng.integers(0, 16, shape).astype(np.uint8)
+
+    z = prim.copy()
+    for t in range(tile, k1, tile):
+        lo, hi = max(t - 3, 0), min(t + 3, k1)
+        z[:, lo:hi] = codes((n, hi - lo)) & 15        # gap 0
+    z = gap4_within(z, sg, sv, m)[0]
+    out["zero_runs"] = (z, sg, sv, ci, cv, bh, bw)
+    e = prim.copy()
+    e[1] = 0x07
+    out["empty_image"] = (e, sg, sv, ci, cv, bh, bw)
+    sh = prim.copy()
+    run = np.cumsum(sh[2] >> 4)
+    sh[2, run >= m // 2] = 0x07
+    out["short_image"] = (sh, sg, sv, ci, cv, bh, bw)
+    pm = prim.copy()
+    pm[0, k1 // 3:] = (15 << 4) | codes(k1 - k1 // 3)
+    sg_pm = sg.copy()
+    sg_pm[0] = np.maximum(sg_pm[0], 200)
+    out["past_m"] = (pm, sg_pm, sv, ci, cv, bh, bw)
+    # side entries at the first cell of each primary tile
+    firsts = gap4_indices(prim >> 4)[:, ::tile]
+    k2 = firsts.shape[1]
+    bsg = np.zeros((n, k2), np.uint8)
+    bsv = rng.integers(-128, 128, (n, k2)).astype(np.int8)
+    for i in range(n):
+        prev = 0
+        for j, c in enumerate(firsts[i]):
+            step = int(c) + 1 - prev
+            if 0 <= step <= 255:
+                bsg[i, j], prev = step, int(c) + 1
+            else:
+                bsv[i, j] = 0
+    bci = (np.arange(n)[:, None] * m + firsts).reshape(-1).astype(np.int32)
+    bcv = rng.integers(-900, 900, bci.size).astype(np.int16)
+    esc = prim.copy()
+    esc[:, ::tile] = (esc[:, ::tile] & 0xF0) | 15
+    out["boundary_escapes"] = (esc, bsg, bsv, np.concatenate([ci, bci]),
+                               np.concatenate([cv, bcv]), bh, bw)
+    out["no_primary"] = (np.zeros((n, 0), np.uint8), sg, sv, ci, cv, bh, bw)
+    return out
+
+
 # --- K25 / K26: numpy models of the kernels' arithmetic -----------------------
 # (csrc/resnet_norm.cuh, resnet_norm.cu, resnet_norm_bwd.cu): the same cut of
 # each plane into clusters, rows and chunks, the same f32 and float64
