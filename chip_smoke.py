@@ -19,7 +19,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      gitignored csrc/build/;
   2. each kernel against its plain torch version on the card, at the
      main path's shapes (16 x 1920x1088 -> 960x544 q85): K1-K3 on the
-     restart-8 corpus, the chunked decoder K4 and its DC scan K5 on the
+     restart-8 corpus (K1 also on 16 of its sources re-encoded with
+     optimize=True, each with its own tables, and its longest lane
+     alone: the chain's floor in ns a symbol; its build and plan), the
+     chunked decoder K4 and its DC scan K5 on the
      same pixels encoded without restart markers, where K4 must also
      give K1's coefficients exactly; the staged decode's K6 (dequant +
      IDCT; off by one only at near-.5 ties) and K7 (upsample + colour,
@@ -216,8 +219,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      q = 100 (a non-empty correction list; gap4 escapes on the corpus),
      the C++ packers' wires byte for byte the numpy packers'; timed, with
      their bounds (K27's yardstick one index_add_ per component), each
-     call's device time by kernel (torch.profiler) and K30's tile and
-     builds (`ops.coef_restore.kernel_info`);
+     call's device time by kernel (torch.profiler) and K29's and K30's
+     tile and builds (`ops.coef_restore.kernel_info`);
  21. JpegBatchPipeline(width=960, height=544, encode_quality=85,
      encode_backend="device", fused=True|False, upload=u) for u in dense,
      sparse, int8, gap8, gap4 on both corpora: every output byte for byte
@@ -483,6 +486,91 @@ def k4_own_tables(dev, phase, timed, srcs_nr):
           note="ms: K4 + K5 with the tables read from global memory")
 
 
+def k1_chain(hd, args, ks, comp_of, timed):
+    """K1's chain at this batch: each lane's symbols (the plain step in
+    lockstep on the card), the longest lane alone (its arrays, its blocks
+    at the start of a one-image output) timed by its kernel's device
+    time, and ns a symbol on it."""
+    import torch
+
+    t = hd._plain_tables(args, comp_of)
+    lanes = torch.arange(ks[1], device=args.words.device)
+    pos = args.lane_word_base.to(torch.int64) * 32
+    end = pos + args.lane_bits.to(torch.int64)
+    slot, z, cnt = (torch.zeros_like(pos) for _ in range(3))
+    for _ in range(ks[2]):
+        active = pos < end
+        if not bool(active.any()):
+            break
+        pos, slot, z, *_ = hd._symbol(t, lanes, pos, slot, z, active, ks[3])
+        cnt += active.to(torch.int64)
+    lane = int(cnt.argmax())
+    sl = slice(lane, lane + 1)
+    b0 = args.lane_blk_base[sl]
+    nblk = int(args.lane_blk_limit[lane] - args.lane_blk_base[lane])
+    one = hd.DecoderArgs(
+        args.words, args.lane_word_base[sl].contiguous(),
+        args.lane_bits[sl].contiguous(), args.lane_pinned[sl].contiguous(),
+        torch.zeros_like(b0), (args.lane_blk_base[sl] - b0).contiguous(),
+        (args.lane_blk_limit[sl] - b0).contiguous(), args.limit, args.delta,
+        args.hv, args.lane_uid6[sl].contiguous(), args.ri_blk[:1])
+    ks1 = list(ks)
+    ks1[1], ks1[5], ks1[6] = 1, -(-nblk // ks[3]), 1
+    ks1 = tuple(ks1)
+    kernels = device_ms_by_kernel(lambda: hd.decode_scan(one, ks1, comp_of),
+                                  20)
+    decode = [v["ms"] for k, v in kernels.items()
+              if isinstance(v, dict) and "decode" in k] \
+        if isinstance(kernels, dict) else []
+    symbols = int(cnt.max())
+    return dict(longest_lane_symbols=symbols,
+                mean_lane_symbols=float(cnt[args.lane_bits > 0]
+                                        .float().mean()),
+                longest_lane_ms=timed(lambda: hd.decode_scan(one, ks1,
+                                                             comp_of), 20),
+                longest_lane_kernels=kernels,
+                ns_a_symbol=(decode[0] * 1e6 / symbols if decode
+                             else "not measured"),
+                call_kernels=device_ms_by_kernel(
+                    lambda: hd.decode_scan(args, ks, comp_of)))
+
+
+def k1_own_tables(dev, timed, srcs):
+    """K1 at shape (c): 16 of the sources re-encoded by Pillow with
+    optimize=True and restart markers every 8 MCUs at qualities 80-95
+    (each image its own Huffman tables), against the plain version."""
+    import torch
+    from PIL import Image
+
+    from picha_tpu_torch.ops import jpeg_huffman_decode as hd
+    from picha_tpu_torch.ops.jpeg_scan import mcu_slot_tables, parse_baseline
+
+    bufs = []
+    for i in range(N_IMG):
+        b = io.BytesIO()
+        Image.open(io.BytesIO(srcs[i % 3])).save(
+            b, "JPEG", quality=80 + i, optimize=True, restart_marker_blocks=8)
+        bufs.append(b.getvalue())
+    infos = [parse_baseline(b) for b in bufs]
+    ks, wire = hd.scan_wire(infos)
+    comp_of = torch.as_tensor(mcu_slot_tables(infos[0].comp_sig)).to(
+        dev, torch.int32)
+    args, _q = hd.wire_unpack(torch.from_numpy(wire).to(dev), ks,
+                              infos[0].ncomp)
+    if not ks[9]:
+        raise AssertionError("shape (c) is not a restart single-pass batch")
+    got, ok = hd.decode_scan(args, ks, comp_of)
+    want, ok_p = hd.decode_scan_plain(args, ks, comp_of)
+    torch.cuda.synchronize()
+    if not (bool(ok) and bool(ok_p)) or not torch.equal(got, want):
+        raise AssertionError("K1 at shape (c) disagrees with its plain "
+                             "version")
+    return dict(images=len(bufs), unique_table_rows=ks[7], equal=True,
+                ms=timed(lambda: hd.decode_scan(args, ks, comp_of), 5),
+                **k1_chain(hd, args, ks, comp_of, timed),
+                build=hd.restart_kernel_info(ks[7], ks[1]))
+
+
 def mean_abs(a_bufs, b_bufs):
     return [float(abs(decode_rgb(a) - decode_rgb(b)).mean())
             for a, b in zip(a_bufs, b_bufs)]
@@ -609,9 +697,17 @@ def main():
         max_abs_err=err,
         ms=timed(lambda: decode_scan(dargs, ks, consts.comp_of), 5),
         plain_ms=timed(lambda: decode_scan_plain(dargs, ks, consts.comp_of),
-                       1))
+                       1),
+        **k1_chain(hd_mod, dargs, ks, consts.comp_of, timed),
+        build=hd_mod.restart_kernel_info(ks[7], ks[1]),
+        own_tables=k1_own_tables(dev, timed, srcs))
     phase("K1", equal=True, ok=True, shape=list(coefs_k.shape),
-          **results["huffman_decode_restart"])
+          note="ms: the call (table build + decode); longest_lane_*: the "
+               "lane with the most symbols alone, one launch of one lane "
+               "(the chain's floor), ns_a_symbol its kernel's device time "
+               "over its symbols; own_tables: shape (c), each image its own "
+               "Huffman tables (K1 reads them from global memory), equal "
+               "to the plain version", **results["huffman_decode_restart"])
 
     planes = split_planes(coefs_k, sig[3], consts.split_idx)
     f255 = fused_decode_resize(sig[3], sig[2], planes, qtabs,
@@ -4132,7 +4228,7 @@ def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
             library_ms=library_ms, launches_per_batch=len(sig[3]),
             by_kernel=device_ms_by_kernel(run),
             **bound(entry["restart_wire_bytes"] + out_bytes), **entry)
-        if upload == "gap4":
+        if upload in ("gap8", "gap4"):
             results[name]["build"] = coef_restore.kernel_info()
         checks[name] = results[name]
         del dargs, got
@@ -4142,8 +4238,8 @@ def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
                "batch (corrections past int8); the C++ packers' wire equal "
                "to the numpy packers'; ms: the batch's 3 launches (one per "
                "component) and the wire's unpack; by_kernel: the call's "
-               "device time by kernel (torch.profiler); build: K30's tile "
-               "and kernels; library_ms: K27's one index_add_ per component "
+               "device time by kernel (torch.profiler); build: K29's and "
+               "K30's tile and kernels; library_ms: K27's one index_add_ per component "
                "on a zeroed tensor; K28-K30 have no one-call PyTorch "
                "counterpart", **checks)
 

@@ -21,36 +21,30 @@
 // 1920x1088 4:2:0 sources, q85) they read a few MB of wire and write the
 // dense planes, 16 x 3.13 M int32 = 200 MB: ~0.06 ms at HBM peak. The
 // designs:
-//   - K29, one block of 1024 threads per image (a row of the wire), the
-//     output cleared first with one memset: the row is walked in tiles of
-//     8192 entries, each thread summing 8 consecutive gaps, a block-wide
-//     inclusive scan of the thread sums written here (warp shuffles, then
-//     the 32 warp totals) plus the carry of the earlier tiles gives every
-//     entry its index. Each nonzero cell is written once (a plain store):
-//     of the entries at one index (zero-valued gap extensions, the tail
-//     pin, padding) only the first stores, and a later nonzero one, which
-//     a well-formed wire does not hold, is added after a barrier;
-//   - K30, the whole batch in tiles of kG4Tile entries, no memset:
-//     gap4_tile_sums sums every tile's gaps (primary and side stream) in
-//     one grid of (tile, image) blocks, 8 entries a thread by one 8-byte
-//     load; gap4_write gives each primary tile its base (the sum of its
-//     image's earlier tiles), its entries their indices by a block scan,
-//     and writes the cells the tile owns, zeros included, once: indices
-//     within an image never decrease, so tile t owns [its first entry's
-//     index, the next tile's first index) (tile 0 from cell 0, the last
-//     tile up to m), staged kG4Cells at a time in shared memory where the
-//     tile's values are summed, then stored by 16-byte stores. A tile's
-//     entries at the next tile's first index (a run of equal indices
-//     across the boundary) are summed into one spill a tile; then
-//     gap4_adds adds the side stream's values (its tiles indexed the same
-//     way), the spills and the corrections with integer atomicAdd into
-//     the written cells;
+//   - K29 and K30, the whole batch in tiles of kTileEntries entries, no
+//     memset, one code for both wires (templates over how an entry gives
+//     its gap and value: gap4's primary byte b gap b >> 4 and value
+//     (b & 15) - 7, 0 at the escape 15; gap8's pair g[j], v[j]). Three
+//     launches: *_tile_sums sums every tile's gaps (K30: primary and side
+//     stream) in one grid of (tile, image) blocks, 8 entries a thread by
+//     one 8-byte load; *_write gives each primary tile its base (the sum
+//     of its image's earlier tiles), its entries their indices by a block
+//     scan, and writes the cells the tile owns, zeros included, once:
+//     indices within an image never decrease, so tile t owns [its first
+//     entry's index, the next tile's first index) (tile 0 from cell 0,
+//     the last tile up to m), staged kStagedCells at a time in shared
+//     memory where the tile's values are summed, then stored by 16-byte
+//     stores. A tile's entries at the next tile's first index (a run of
+//     equal indices across the boundary) are summed into one spill a
+//     tile; then *_adds adds K30's side stream (its tiles indexed the
+//     same way; K29 has none), the spills and the corrections with
+//     integer atomicAdd into the written cells;
 //   - K27: one thread per entry (no prefix sum: the entries carry their
 //     index), first-of-index entries storing, the others added after;
 //   - K28: one thread per cell widens the int8 body (every cell written
-//     once, no memset);
-//   - then a second launch adds the corrections (K28, K29) and K27's
-//     repeated indices with integer atomicAdd, one thread an entry.
+//     once, no memset), then a second launch adds the corrections with
+//     integer atomicAdd, one thread an entry; K27's second launch adds
+//     its repeated indices the same way.
 // Integer sums are exact in any order, so the result is bit for bit the
 // plain version's (picha_tpu_torch/ops/coef_restore.py) and the
 // reference's scatter-adds. The reference's sorted-scatter hints (a TPU
@@ -61,9 +55,10 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
 constexpr int kItems = 8;                      // entries a thread takes per tile
-constexpr int kTile = kThreads * kItems;
+constexpr int kTileThreads = 256;
+constexpr int kTileEntries = kTileThreads * kItems;   // entries a tile
+constexpr int kStagedCells = 8192;             // cells a block stages at once
 
 // inclusive scan of v over the block; *total = the block's sum. warp_tot:
 // 32 ints of shared memory
@@ -92,68 +87,6 @@ __device__ __forceinline__ int block_scan(int v, int* warp_tot, int* total) {
   return out;
 }
 
-// walk one image's gap stream of k entries: gap_of(j) and val_of(j) give
-// entry j's gap and value; the entry lands at idx = max(running sum - 1,
-// 0). The first entry at an index stores its nonzero value and a later
-// nonzero one at the same index is added after a barrier.
-template <typename G, typename V>
-__device__ __forceinline__ void walk(int64_t k, int64_t m, int* out, G gap_of, V val_of) {
-  __shared__ int warp_tot[32];
-  int64_t carry = 0;
-  for (int64_t base = 0; base < k; base += kTile) {
-    const int64_t j0 = base + static_cast<int64_t>(threadIdx.x) * kItems;
-    int g[kItems], s = 0;
-#pragma unroll
-    for (int it = 0; it < kItems; ++it) {
-      g[it] = j0 + it < k ? gap_of(j0 + it) : 0;
-      s += g[it];
-    }
-    int total = 0;
-    const int incl = block_scan(s, warp_tot, &total);
-    int64_t run = carry + incl - s;                 // the sum before entry j0
-    int64_t prev = j0 > 0 ? (run - 1 > 0 ? run - 1 : 0) : -1;
-    int64_t later[kItems];
-#pragma unroll
-    for (int it = 0; it < kItems; ++it) {
-      later[it] = -1;
-      run += g[it];
-      const int64_t idx = run - 1 > 0 ? run - 1 : 0;
-      if (j0 + it < k) {
-        const int v = val_of(j0 + it);
-        if (v != 0 && idx < m) {
-          if (idx != prev)
-            out[idx] = v;
-          else
-            later[it] = idx;
-        }
-      }
-      prev = idx;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < kItems; ++it)
-      if (later[it] >= 0) atomicAdd(out + later[it], val_of(j0 + it));
-    carry += total;
-  }
-}
-
-// K29: one block per image
-__global__ void __launch_bounds__(kThreads) gap8_restore(const uint8_t* __restrict__ g,
-                                                         const int8_t* __restrict__ v, int64_t k,
-                                                         int64_t m, int* __restrict__ out) {
-  const int64_t img = blockIdx.x;
-  const uint8_t* gi = g + img * k;
-  const int8_t* vi = v + img * k;
-  walk(k, m, out + img * m, [&](int64_t j) { return static_cast<int>(gi[j]); },
-              [&](int64_t j) { return static_cast<int>(vi[j]); });
-}
-
-// --- K30 ------------------------------------------------------------------
-
-constexpr int kG4Threads = 256;
-constexpr int kG4Tile = kG4Threads * kItems;   // entries a tile
-constexpr int kG4Cells = 8192;                 // cells a block stages at once
-
 // the entries j0 .. j0 + 7 of a row of k bytes (0 past k): one 8-byte load
 // where they lie whole and aligned
 __device__ __forceinline__ void load8(const uint8_t* row, int64_t k, int64_t j0,
@@ -171,6 +104,19 @@ __device__ __forceinline__ void load8(const uint8_t* row, int64_t k, int64_t j0,
     for (int i = 0; i < kItems; ++i) b[i] = j0 + i < k ? p[i] : 0;
   }
 }
+
+// How a primary entry gives its gap and its value: K30's byte g (gap
+// g >> 4, value (g & 15) - 7, 0 at the escape 15: that value is in the
+// side stream) or K29's pair (g, v).
+template <bool kGap8>
+struct Entry {
+  static __device__ __forceinline__ int gap(uint8_t g) { return kGap8 ? g : g >> 4; }
+  static __device__ __forceinline__ int value(uint8_t g, uint8_t v) {
+    if (kGap8) return static_cast<int8_t>(v);
+    const int nib = g & 15;
+    return nib != 15 ? nib - 7 : 0;
+  }
+};
 
 // the block's sum of v, in every thread (red: 32 int64 of shared memory)
 __device__ __forceinline__ int64_t block_sum64(int64_t v, int64_t* red) {
@@ -195,48 +141,57 @@ __device__ __forceinline__ int64_t tile_base(const int* sums, int t, int64_t* re
 __device__ __forceinline__ int64_t index_at(int64_t run) { return run - 1 > 0 ? run - 1 : 0; }
 
 // block (x, image): x < tp sums primary tile x's gaps into psum[image][x],
-// else side tile x - tp's into ssum[image][x - tp]
-__global__ void __launch_bounds__(kG4Threads) gap4_tile_sums(
-    const uint8_t* __restrict__ prim, const uint8_t* __restrict__ sg, int64_t k1, int64_t k2,
-    int tp, int ts, int* __restrict__ psum, int* __restrict__ ssum) {
+// else side tile x - tp's into ssum[image][x - tp] (K30 only: K29 has
+// ts = 0)
+template <bool kGap8>
+__device__ __forceinline__ void tile_sums(const uint8_t* __restrict__ prim,
+                                          const uint8_t* __restrict__ sg, int64_t k1,
+                                          int64_t k2, int tp, int ts, int* __restrict__ psum,
+                                          int* __restrict__ ssum) {
   __shared__ int64_t red[32];
   const int64_t img = blockIdx.y;
   const bool side = static_cast<int>(blockIdx.x) >= tp;
   const int t = side ? blockIdx.x - tp : blockIdx.x;
   const int64_t k = side ? k2 : k1;
-  const int64_t j0 = static_cast<int64_t>(t) * kG4Tile + threadIdx.x * kItems;
+  const int64_t j0 = static_cast<int64_t>(t) * kTileEntries + threadIdx.x * kItems;
   uint8_t b[kItems];
   load8((side ? sg : prim) + img * k, k, j0, b);
   int s = 0;
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) s += side ? b[i] : b[i] >> 4;
+  for (int i = 0; i < kItems; ++i) s += side ? b[i] : Entry<kGap8>::gap(b[i]);
   const int64_t total = block_sum64(s, red);
   if (threadIdx.x == 0) (side ? ssum + img * ts : psum + img * tp)[t] = static_cast<int>(total);
 }
 
 // block (t, image): primary tile t writes the cells it owns (see the file's
 // doc) and its spill: spill_val[image][t] summed at cell spill_cell (-1:
-// none). vec: out and m allow 16-byte stores
-__global__ void __launch_bounds__(kG4Threads) gap4_write(
-    const uint8_t* __restrict__ prim, int64_t k1, int64_t m, int tp, const int* __restrict__ psum,
-    int vec, int* __restrict__ out, int64_t* __restrict__ spill_cell,
-    int* __restrict__ spill_val) {
-  __shared__ __align__(16) int buf[kG4Cells + 4];
+// none). vals: K29's values (null for K30). vec: out and m allow 16-byte
+// stores
+template <bool kGap8>
+__device__ __forceinline__ void tile_write(const uint8_t* __restrict__ prim,
+                                           const int8_t* __restrict__ vals, int64_t k1,
+                                           int64_t m, int tp, const int* __restrict__ psum,
+                                           int vec, int* __restrict__ out,
+                                           int64_t* __restrict__ spill_cell,
+                                           int* __restrict__ spill_val) {
+  __shared__ __align__(16) int buf[kStagedCells + 4];
   __shared__ int warp_tot[32];
   __shared__ int64_t red[32];
+  using E = Entry<kGap8>;
   const int64_t img = blockIdx.y;
   const int t = blockIdx.x;
   const uint8_t* row = prim + img * k1;
   int* o = out + img * m;
-  const int64_t first = static_cast<int64_t>(t) * kG4Tile;
+  const int64_t first = static_cast<int64_t>(t) * kTileEntries;
   const int64_t base = tile_base(psum + img * tp, t, red);
 
-  uint8_t b[kItems];
+  uint8_t b[kItems], bv[kItems] = {};
   const int64_t j0 = first + threadIdx.x * kItems;
   load8(row, k1, j0, b);
+  if (kGap8) load8(reinterpret_cast<const uint8_t*>(vals) + img * k1, k1, j0, bv);
   int s = 0;
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) s += b[i] >> 4;
+  for (int i = 0; i < kItems; ++i) s += E::gap(b[i]);
   int total = 0;
   const int incl = block_scan(s, warp_tot, &total);
   int64_t idx[kItems];
@@ -244,20 +199,19 @@ __global__ void __launch_bounds__(kG4Threads) gap4_write(
   int64_t run = base + incl - s;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    run += b[i] >> 4;
+    run += E::gap(b[i]);
     idx[i] = index_at(run);
-    const int nib = b[i] & 15;
-    val[i] = j0 + i < k1 && nib != 15 ? nib - 7 : 0;
+    val[i] = j0 + i < k1 ? E::value(b[i], bv[i]) : 0;
   }
   // the owned cells [lo, hi)
   int64_t lo = 0, hi = m;
-  if (t > 0) lo = index_at(base + (row[first] >> 4));
-  if (t + 1 < tp) hi = index_at(base + total + (row[first + kG4Tile] >> 4));
+  if (t > 0) lo = index_at(base + E::gap(row[first]));
+  if (t + 1 < tp) hi = index_at(base + total + E::gap(row[first + kTileEntries]));
   lo = lo < m ? lo : m;
   hi = hi < m ? hi : m;
 
-  for (int64_t c0 = lo; c0 < hi; c0 += kG4Cells) {
-    const int64_t c1 = c0 + kG4Cells < hi ? c0 + kG4Cells : hi;
+  for (int64_t c0 = lo; c0 < hi; c0 += kStagedCells) {
+    const int64_t c1 = c0 + kStagedCells < hi ? c0 + kStagedCells : hi;
     const int64_t cb = c0 & ~static_cast<int64_t>(3);   // buf[0] is cell cb
     const int quads = static_cast<int>((c1 - cb + 3) / 4);
     for (int q = threadIdx.x; q < quads; q += blockDim.x)
@@ -291,9 +245,10 @@ __global__ void __launch_bounds__(kG4Threads) gap4_write(
   }
 }
 
-// blocks [0, n * ts): side tile (b % ts) of image b / ts adds its values;
-// the others add the spills and the corrections, a thread an entry
-__global__ void __launch_bounds__(kG4Threads) gap4_adds(
+// blocks [0, n * ts): side tile (b % ts) of image b / ts adds its values
+// (K30 only); the others add the spills and the corrections, a thread an
+// entry
+__device__ __forceinline__ void tile_adds(
     const uint8_t* __restrict__ sg, const int8_t* __restrict__ sv, int64_t k2, int64_t m,
     int64_t n, int ts, const int* __restrict__ ssum, const int64_t* __restrict__ spill_cell,
     const int* __restrict__ spill_val, int64_t nsp, const int* __restrict__ ci,
@@ -305,7 +260,7 @@ __global__ void __launch_bounds__(kG4Threads) gap4_adds(
     const int64_t img = blockIdx.x / ts;
     const int t = static_cast<int>(blockIdx.x % ts);
     const int64_t base = tile_base(ssum + img * ts, t, red);
-    const int64_t j0 = static_cast<int64_t>(t) * kG4Tile + threadIdx.x * kItems;
+    const int64_t j0 = static_cast<int64_t>(t) * kTileEntries + threadIdx.x * kItems;
     uint8_t g[kItems], v[kItems];
     load8(sg + img * k2, k2, j0, g);
     load8(reinterpret_cast<const uint8_t*>(sv) + img * k2, k2, j0, v);
@@ -335,7 +290,51 @@ __global__ void __launch_bounds__(kG4Threads) gap4_adds(
   }
 }
 
-int g4_tiles(int64_t k) { return static_cast<int>(k > 0 ? (k + kG4Tile - 1) / kG4Tile : 0); }
+// The kernels, by name: K30 gap4_*, K29 gap8_*
+__global__ void __launch_bounds__(kTileThreads) gap4_tile_sums(
+    const uint8_t* __restrict__ prim, const uint8_t* __restrict__ sg, int64_t k1, int64_t k2,
+    int tp, int ts, int* __restrict__ psum, int* __restrict__ ssum) {
+  tile_sums<false>(prim, sg, k1, k2, tp, ts, psum, ssum);
+}
+
+__global__ void __launch_bounds__(kTileThreads) gap4_write(
+    const uint8_t* __restrict__ prim, int64_t k1, int64_t m, int tp, const int* __restrict__ psum,
+    int vec, int* __restrict__ out, int64_t* __restrict__ spill_cell,
+    int* __restrict__ spill_val) {
+  tile_write<false>(prim, nullptr, k1, m, tp, psum, vec, out, spill_cell, spill_val);
+}
+
+__global__ void __launch_bounds__(kTileThreads) gap4_adds(
+    const uint8_t* __restrict__ sg, const int8_t* __restrict__ sv, int64_t k2, int64_t m,
+    int64_t n, int ts, const int* __restrict__ ssum, const int64_t* __restrict__ spill_cell,
+    const int* __restrict__ spill_val, int64_t nsp, const int* __restrict__ ci,
+    const int16_t* __restrict__ cv, int64_t kc, int* __restrict__ out) {
+  tile_adds(sg, sv, k2, m, n, ts, ssum, spill_cell, spill_val, nsp, ci, cv, kc, out);
+}
+
+__global__ void __launch_bounds__(kTileThreads) gap8_tile_sums(const uint8_t* __restrict__ g,
+                                                              int64_t k, int tp,
+                                                              int* __restrict__ psum) {
+  tile_sums<true>(g, nullptr, k, 0, tp, 0, psum, nullptr);
+}
+
+__global__ void __launch_bounds__(kTileThreads) gap8_write(
+    const uint8_t* __restrict__ g, const int8_t* __restrict__ v, int64_t k, int64_t m, int tp,
+    const int* __restrict__ psum, int vec, int* __restrict__ out,
+    int64_t* __restrict__ spill_cell, int* __restrict__ spill_val) {
+  tile_write<true>(g, v, k, m, tp, psum, vec, out, spill_cell, spill_val);
+}
+
+__global__ void __launch_bounds__(kTileThreads) gap8_adds(
+    int64_t m, int64_t n, const int64_t* __restrict__ spill_cell,
+    const int* __restrict__ spill_val, int64_t nsp, const int* __restrict__ ci,
+    const int16_t* __restrict__ cv, int64_t kc, int* __restrict__ out) {
+  tile_adds(nullptr, nullptr, 0, m, n, 0, nullptr, spill_cell, spill_val, nsp, ci, cv, kc, out);
+}
+
+int tiles_of(int64_t k) {
+  return static_cast<int>(k > 0 ? (k + kTileEntries - 1) / kTileEntries : 0);
+}
 
 // K27: one thread an entry; the first entry at an index of its row stores
 __global__ void __launch_bounds__(256) densify_first(const int* __restrict__ idx,
@@ -442,71 +441,100 @@ extern "C" int picha_coef_int8_restore(const void* c8, int64_t cells, const void
   return add_corrections(ci, cv, kc, cells, out, st);
 }
 
-// K29. g: (n, k) uint8, v: (n, k) int8; ci, cv: (kc,) batch-flat
-// corrections; out: (n, m) int32. Returns cudaGetLastError().
-extern "C" int picha_coef_gap8_restore(const void* g, const void* v, int64_t n, int64_t k,
-                                       int64_t m, const void* ci, const void* cv, int64_t kc,
-                                       void* out, void* stream) {
-  if (!sizes_ok(n, m) || k < 0 || kc < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = clear(out, n * m, st);
-  if (rc != 0 || n == 0) return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
-  gap8_restore<<<static_cast<unsigned>(n), kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(g), static_cast<const int8_t*>(v), k, m, static_cast<int*>(out));
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  return add_corrections(ci, cv, kc, n * m, out, st);
-}
-
-// K30's scratch for (n, k1, k2): the spill cells (int64), then the primary
-// tiles' sums, the spills' values and the side tiles' sums (int32)
-static int64_t gap4_scratch_bytes(int64_t n, int tp, int ts) {
+// K29's and K30's scratch for (n, k1, k2): the spill cells (int64), then
+// the primary tiles' sums, the spills' values and the side tiles' sums
+// (int32)
+static int64_t tile_scratch_bytes(int64_t n, int tp, int ts) {
   return n * tp * 8 + n * tp * 4 * 2 + n * ts * 4;
 }
 
-// K30's tiles and builds: out[0] entries a tile, out[1] cells a block
-// stages at once, then for gap4_tile_sums, gap4_write and gap4_adds:
+// The tiles and builds of K30's and K29's kernels: out[0] entries a tile,
+// out[1] cells a block stages at once, then for gap4_tile_sums,
+// gap4_write, gap4_adds, gap8_tile_sums, gap8_write and gap8_adds:
 // registers, local bytes, shared bytes, threads, blocks a multiprocessor
-// (out[2..16]). Returns a CUDA error code.
-extern "C" int picha_coef_gap4_info(int* out) {
-  out[0] = kG4Tile;
-  out[1] = kG4Cells;
-  const void* kernels[3] = {reinterpret_cast<const void*>(gap4_tile_sums),
-                            reinterpret_cast<const void*>(gap4_write),
-                            reinterpret_cast<const void*>(gap4_adds)};
-  for (int i = 0; i < 3; ++i) {
+// (out[2..31]). Returns a CUDA error code.
+extern "C" int picha_coef_tiles_info(int* out) {
+  out[0] = kTileEntries;
+  out[1] = kStagedCells;
+  const void* kernels[6] = {
+      reinterpret_cast<const void*>(gap4_tile_sums), reinterpret_cast<const void*>(gap4_write),
+      reinterpret_cast<const void*>(gap4_adds),      reinterpret_cast<const void*>(gap8_tile_sums),
+      reinterpret_cast<const void*>(gap8_write),     reinterpret_cast<const void*>(gap8_adds)};
+  for (int i = 0; i < 6; ++i) {
     cudaFuncAttributes fa;
     int blocks = 0;
     cudaError_t rc = cudaFuncGetAttributes(&fa, kernels[i]);
     if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[i], kG4Threads, 0);
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[i], kTileThreads, 0);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     int* o = out + 2 + 5 * i;
     o[0] = fa.numRegs;
     o[1] = static_cast<int>(fa.localSizeBytes);
     o[2] = static_cast<int>(fa.sharedSizeBytes);
-    o[3] = kG4Threads;
+    o[3] = kTileThreads;
     o[4] = blocks;
   }
   return 0;
 }
 
+// The checks K29 and K30 share: sizes, tiles a grid row, the scratch.
+static bool tiles_ok(int64_t n, int64_t k1, int64_t k2, int64_t m, int64_t kc, int tp, int ts,
+                     const void* scratch, int64_t scratch_bytes) {
+  return sizes_ok(n, m) && k1 >= 0 && k2 >= 0 && kc >= 0 && n <= 65535 &&
+         (k1 + kTileEntries - 1) / kTileEntries <= 0x7fffffffLL / 2 &&
+         (k2 + kTileEntries - 1) / kTileEntries <= 0x7fffffffLL / 2 &&
+         scratch_bytes >= tile_scratch_bytes(n, tp, ts) &&
+         reinterpret_cast<uintptr_t>(scratch) % 8 == 0;
+}
+
+// K29. g: (n, k) uint8, v: (n, k) int8; ci, cv: (kc,) batch-flat
+// corrections; out: (n, m) int32, every cell written; scratch: at least
+// tile_scratch_bytes(n, tiles of k (at least 1), 0) bytes, 8-byte
+// aligned. Returns cudaGetLastError().
+extern "C" int picha_coef_gap8_restore(const void* g, const void* v, int64_t n, int64_t k,
+                                       int64_t m, const void* ci, const void* cv, int64_t kc,
+                                       void* out, void* scratch, int64_t scratch_bytes,
+                                       void* stream) {
+  const int tp = k > 0 && k < (int64_t{1} << 40) ? tiles_of(k) : 1;
+  if (!tiles_ok(n, k, 0, m, kc, tp, 0, scratch, scratch_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  auto* spill_cell = static_cast<int64_t*>(scratch);
+  auto* psum = reinterpret_cast<int*>(spill_cell + n * tp);
+  int* spill_val = psum + n * tp;
+  const auto* gb = static_cast<const uint8_t*>(g);
+  const int vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const unsigned ny = static_cast<unsigned>(n);
+  gap8_tile_sums<<<dim3(static_cast<unsigned>(tp), ny), kTileThreads, 0, st>>>(gb, k, tp, psum);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  gap8_write<<<dim3(static_cast<unsigned>(tp), ny), kTileThreads, 0, st>>>(
+      gb, static_cast<const int8_t*>(v), k, m, tp, psum, vec, static_cast<int*>(out), spill_cell,
+      spill_val);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const int64_t nsp = n * tp;
+  gap8_adds<<<static_cast<unsigned>(grid_for(nsp + kc)), kTileThreads, 0, st>>>(
+      m, n, spill_cell, spill_val, nsp, static_cast<const int*>(ci),
+      static_cast<const int16_t*>(cv), kc, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K30. prim: (n, k1) uint8; sg: (n, k2) uint8, sv: (n, k2) int8; ci, cv:
 // (kc,) batch-flat corrections; out: (n, m) int32, every cell written;
-// scratch: at least gap4_scratch_bytes(n, tiles of k1 (at least 1), tiles
+// scratch: at least tile_scratch_bytes(n, tiles of k1 (at least 1), tiles
 // of k2) bytes, 8-byte aligned. Returns cudaGetLastError().
 extern "C" int picha_coef_gap4_restore(const void* prim, const void* sg, const void* sv,
                                        int64_t n, int64_t k1, int64_t k2, int64_t m,
                                        const void* ci, const void* cv, int64_t kc, void* out,
                                        void* scratch, int64_t scratch_bytes, void* stream) {
-  if (!sizes_ok(n, m) || k1 < 0 || k2 < 0 || kc < 0 || n > 65535 ||
-      (k1 + kG4Tile - 1) / kG4Tile > 0x7fffffffLL / 2 || (k2 + kG4Tile - 1) / kG4Tile > 0x7fffffffLL / 2)
+  const bool small = k1 < (int64_t{1} << 40) && k2 < (int64_t{1} << 40);
+  const int tp = k1 > 0 && small ? tiles_of(k1) : 1, ts = small ? tiles_of(k2) : 0;
+  if (!small || !tiles_ok(n, k1, k2, m, kc, tp, ts, scratch, scratch_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  const int tp = k1 > 0 ? g4_tiles(k1) : 1, ts = g4_tiles(k2);
-  if (scratch_bytes < gap4_scratch_bytes(n, tp, ts) || reinterpret_cast<uintptr_t>(scratch) % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
   auto* spill_cell = static_cast<int64_t*>(scratch);
   auto* psum = reinterpret_cast<int*>(spill_cell + n * tp);
   int* spill_val = psum + n * tp;
@@ -515,16 +543,16 @@ extern "C" int picha_coef_gap4_restore(const void* prim, const void* sg, const v
   const auto* g = static_cast<const uint8_t*>(sg);
   const int vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const unsigned ny = static_cast<unsigned>(n);
-  gap4_tile_sums<<<dim3(static_cast<unsigned>(tp + ts), ny), kG4Threads, 0, st>>>(
+  gap4_tile_sums<<<dim3(static_cast<unsigned>(tp + ts), ny), kTileThreads, 0, st>>>(
       p, g, k1, k2, tp, ts, psum, ssum);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  gap4_write<<<dim3(static_cast<unsigned>(tp), ny), kG4Threads, 0, st>>>(
+  gap4_write<<<dim3(static_cast<unsigned>(tp), ny), kTileThreads, 0, st>>>(
       p, k1, m, tp, psum, vec, static_cast<int*>(out), spill_cell, spill_val);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   const int64_t side_blocks = n * ts, nsp = n * tp;
-  gap4_adds<<<static_cast<unsigned>(side_blocks + grid_for(nsp + kc)), kG4Threads, 0, st>>>(
+  gap4_adds<<<static_cast<unsigned>(side_blocks + grid_for(nsp + kc)), kTileThreads, 0, st>>>(
       g, static_cast<const int8_t*>(sv), k2, m, n, ts, ssum, spill_cell, spill_val, nsp,
       static_cast<const int*>(ci), static_cast<const int16_t*>(cv), kc, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -25,7 +25,8 @@
 //
 // What the design does about it:
 //  * a symbol is one shared-memory load of a 2^10-entry table per unique
-//    Huffman table row, built on the card: the bits it takes, its code
+//    Huffman table row, built on the card (huffman_lut.cuh, the lookup
+//    and step K1 shares): the bits it takes, its code
 //    length, its AC index step and its byte, for every 10-bit prefix the
 //    exact rule gives one length <= 10; the longer codes of a prefix
 //    through a second 64-entry table of the next 6 bits (up to 16 such
@@ -68,15 +69,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "huffman_symbol.cuh"
+#include "huffman_lut.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-using picha::kRowInts;
-using picha::kZigzag;
-using picha::table_symbol;
+using picha::kRowLut;
+using picha::lut_build_kernel;
+using picha::Run;
+using picha::symbol_value;
+using picha::table_smem;
+using picha::Tabs;
 
 constexpr int kMaxB = 64;                   // blocks per MCU handled here
 constexpr int kPackedB = 16;                // slot -> component in a register
@@ -85,12 +89,6 @@ constexpr int kThreads = 256;               // K4's blocks
 constexpr int kMaxGrid = 2048;              // block sums of the lane scan
 constexpr int kWindowBits = 3;              // checkpoints a lane (emission
 constexpr int kWindows = 1 << kWindowBits;  // threads a lane): 8
-constexpr int kLutBits = 10;                // first bits a table entry
-constexpr int kLutSize = 1 << kLutBits;
-constexpr int kSubBits = 6;                 // the next bits, long codes
-constexpr int kSubTables = 16;              // long-code prefixes a row
-constexpr int kSubSize = kSubTables << kSubBits;
-constexpr int kRowLut = kLutSize + kSubSize;  // entries a row
 constexpr int kSmemTableLimit = 96 * 1024;  // tables in shared memory
 constexpr int kScanThreads = 256;           // K5
 constexpr int kDcPerThread = 8;             // K5: blocks a thread
@@ -115,15 +113,18 @@ struct Wire {
   unsigned comp2;  // slot s -> component in bits 2s..2s+1 (B <= kPackedB)
 };
 
-// Carved from the caller's int32 workspace (no zeroing needed: the
-// kernel clears chg and flags itself):
+// Carved from the caller's int32 workspace (16-byte aligned; no zeroing
+// needed: the kernel clears chg and flags itself):
+//   lut   the lookup tables (n_uniq * kRowLut), 16-byte aligned for
+//         load_tables' copy
 //   path  (L, kWindows) int4  the lane's last decode where it first
 //                       reached bit offset t * C / kWindows: pos - start,
 //                       slot | z << 8, symbols and blocks before it;
 //                       [L * kWindows] the end of the decode
 //   12 lane arrays, max_passes change flags, 2 flags, kMaxGrid block
-//   sums, then the lookup tables (n_uniq * kRowLut).
+//   sums.
 struct Work {
+  unsigned* lut;
   int4* path;
   int* ent[3];     // the entry (off, slot, z) of each lane's last decode
   int* ex[2][3];   // exits by pass parity
@@ -133,11 +134,12 @@ struct Work {
   int* chg;        // chg[p] = 1: propagating pass p's exits changed an entry
   int* flags;      // [0]: some lane's last decode overflowed, [1]: converged
   int* csum;       // per-block sums of the lane scan
-  unsigned* lut;
 };
 
-Work carve(int* w, int n_lanes, int max_passes) {
+Work carve(int* w, int n_lanes, int max_passes, int n_uniq) {
   Work k;
+  k.lut = reinterpret_cast<unsigned*>(w);
+  w += n_uniq * kRowLut;
   k.path = reinterpret_cast<int4*>(w);
   w += 4 * (kWindows + 1) * n_lanes;
   for (int i = 0; i < 3; ++i, w += n_lanes) k.ent[i] = w;
@@ -154,132 +156,18 @@ Work carve(int* w, int n_lanes, int max_passes) {
   k.flags = w;
   w += 2;
   k.csum = w;
-  w += kMaxGrid;
-  k.lut = reinterpret_cast<unsigned*>(w);
   return k;
 }
 
-// A symbol as a table entry: bits 0-4 the bits it takes (code + value),
-// 5-9 the code length, 10-16 the coefficient-index step it makes in an
-// AC position (run + 1; 16 for ZRL; 64 for EOB, which ends the block),
-// 24-31 the symbol byte. Never 0 in bits 0-4 (a code is >= 1 bit). An
-// entry with bits 0-4 zero sends the lookup on: to sub-table i (bit 5
-// set, i in bits 6-9) of the next kSubBits bits, or (0) to the exact
-// rule.
-__device__ __forceinline__ unsigned pack_entry(int clen, int sym) {
-  const int size = sym & 15, run = sym >> 4;
-  const int zadd = size ? run + 1 : (run == 15 ? 16 : 64);
-  return static_cast<unsigned>(clen + size) | (static_cast<unsigned>(clen) << 5) |
-         (static_cast<unsigned>(zadd) << 10) | (static_cast<unsigned>(sym) << 24);
-}
-
-// The exact rule's symbol at the 16-bit window P as a table entry.
-__device__ __forceinline__ unsigned exact_entry(int P, const int* lim,
-                                                const int* dlt, const int* hv) {
-  int clen;
-  const int sym = table_symbol(static_cast<uint32_t>(P) << 16, lim, dlt, hv, clen);
-  return pack_entry(clen, sym & 255);
-}
-
-// One block per unique table row: entry q of the first kLutBits bits is
-// the symbol wherever the exact rule gives every 16-bit P with these
-// first bits the same length <= kLutBits (#(P >= lim[k]) is monotone in
-// P, so the ends of the range decide); the first kSubTables other
-// prefixes, in order, get a sub-table of the exact rule at each of the
-// next kSubBits bits; the rest 0.
-__global__ void lut_build_kernel(const int* __restrict__ limit,
-                                 const int* __restrict__ delta,
-                                 const int* __restrict__ hv,
-                                 unsigned* __restrict__ lut) {
-  __shared__ int red[32];
-  const int u = blockIdx.x;
-  const int* lim = limit + u * 16;
-  const int* dlt = delta + u * 17;
-  const int* h = hv + u * 256;
-  unsigned* row = lut + static_cast<size_t>(u) * kRowLut;
-  int before = 0;  // long prefixes in the chunks before
-  for (int q0 = 0; q0 < kLutSize; q0 += blockDim.x) {
-    const int q = q0 + threadIdx.x;
-    const int lo = q << (16 - kLutBits);
-    const int hi = lo | ((1 << (16 - kLutBits)) - 1);
-    int c_lo = 0, c_hi = 0;
-    for (int k = 0; k < 16; ++k) {
-      c_lo += lo >= lim[k] ? 1 : 0;
-      c_hi += hi >= lim[k] ? 1 : 0;
-    }
-    const int clen = min(1 + c_lo, 16);
-    const int idx = min(max((lo >> (16 - clen)) + dlt[clen], 0), 255);
-    const int sym = h[idx];
-    const bool fast = q < kLutSize && c_lo == c_hi && clen <= kLutBits &&
-                      sym >= 0 && sym < 256;
-    const bool longp = q < kLutSize && !fast;
-    // rank of this long prefix among the row's long prefixes
-    const unsigned bal = __ballot_sync(kFull, longp);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) red[warp] = __popc(bal);
-    __syncthreads();
-    int rank = before + __popc(bal & ((1u << lane) - 1u));
-    for (int w = 0; w < warp; ++w) rank += red[w];
-    int total = 0;
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) total += red[w];
-    __syncthreads();
-    before += total;
-    if (q < kLutSize) {
-      unsigned e = 0;
-      if (fast) {
-        e = pack_entry(clen, sym);
-      } else if (rank < kSubTables) {
-        e = (1u << 5) | (static_cast<unsigned>(rank) << 6);
-        for (int j = 0; j < (1 << kSubBits); ++j)
-          row[kLutSize + (rank << kSubBits) + j] = exact_entry(lo | j, lim, dlt, h);
-      }
-      row[q] = e;
-    }
-  }
-}
-
-struct Tabs {
-  const unsigned* lut;  // n_uniq rows of kRowLut entries
-  const int* lim;
-  const int* dlt;
-  const int* hv;
-};
-
-// The table entry of the 32 stream bits w32 under table row u.
-__device__ __forceinline__ unsigned lookup(const Tabs& tb, int u, uint32_t w32) {
-  const unsigned* row = tb.lut + u * kRowLut;
-  unsigned e = row[w32 >> (32 - kLutBits)];
-  if ((e & 31u) == 0) {
-    if (e) {
-      e = row[kLutSize + (((e >> 6) & 15u) << kSubBits) +
-              ((w32 >> (32 - kLutBits - kSubBits)) & ((1u << kSubBits) - 1u))];
-    } else {
-      e = exact_entry(static_cast<int>(w32 >> 16), tb.lim + u * 16, tb.dlt + u * 17,
-                      tb.hv + u * 256);
-    }
-  }
-  return e;
-}
-
 // Loads comp_of, the zigzag order and (kSmem) the lookup tables and
-// table rows into shared memory at `smem`; the caller synchronises. With
-// the tables' address space fixed at compile time, their loads are
-// shared-memory loads with 32-bit addresses, not generic ones.
+// table rows into shared memory at `smem` (huffman_lut.cuh); the caller
+// synchronises.
 template <bool kSmem>
 __device__ __forceinline__ Tabs load_tables(const Wire& wr, const unsigned* lut,
                                             unsigned char* smem, int* comp_s,
                                             int* zz_s) {
-  for (int i = threadIdx.x; i < wr.B; i += blockDim.x) comp_s[i] = wr.comp_of[i];
-  for (int i = threadIdx.x; i < 64; i += blockDim.x) zz_s[i] = kZigzag[i];
-  if (!kSmem) return Tabs{lut, wr.limit, wr.delta, wr.hv};
-  const int n = wr.n_uniq;
-  unsigned* lut_s = reinterpret_cast<unsigned*>(smem);
-  int* rows = reinterpret_cast<int*>(lut_s + n * kRowLut);
-  for (int i = threadIdx.x; i < n * kRowLut; i += blockDim.x) lut_s[i] = lut[i];
-  for (int i = threadIdx.x; i < n * 16; i += blockDim.x) rows[i] = wr.limit[i];
-  for (int i = threadIdx.x; i < n * 17; i += blockDim.x) rows[n * 16 + i] = wr.delta[i];
-  for (int i = threadIdx.x; i < n * 256; i += blockDim.x) rows[n * 33 + i] = wr.hv[i];
-  return Tabs{lut_s, rows, rows + n * 16, rows + n * 33};
+  return picha::load_tables<kSmem>(lut, wr.limit, wr.delta, wr.hv, wr.n_uniq, wr.comp_of,
+                                   wr.B, smem, comp_s, zz_s);
 }
 
 struct Lane {
@@ -301,13 +189,6 @@ __device__ __forceinline__ Lane lane_of(const Wire& wr, int lane) {
 
 struct St {
   int pos, slot, z;
-};
-
-// A decode from state s: the table rows of the current block's
-// component, the stream words around pos, the symbols and blocks so far.
-struct Run {
-  int pos, slot, z, cnt, blocks, wl, dc, ac;
-  uint32_t w0, w1, w2;
 };
 
 __device__ __forceinline__ uint32_t stream_word(const Wire& wr, const Lane& ln, int i) {
@@ -339,46 +220,14 @@ __device__ __forceinline__ Run run_from(const Wire& wr, const int* comp_s,
   return r;
 }
 
-// One symbol: returns its table entry (the caller reads the value from
-// w32 when it needs it) and moves r past it.
+// One symbol of lane ln (huffman_lut.cuh's step): its table entry, r
+// moved past it.
 __device__ __forceinline__ unsigned step(const Wire& wr, const Tabs& tb,
                                          const int* comp_s, const Lane& ln, Run& r,
                                          uint32_t& w32) {
-  w32 = __funnelshift_l(r.w1, r.w0, r.pos);  // the 32 bits from pos
-  const unsigned e = lookup(tb, r.z ? r.ac : r.dc, w32);
-  r.pos += static_cast<int>(e & 31u);
-  ++r.cnt;
-  if ((r.pos >> 5) != r.wl) {  // at most one word on (a symbol < 32 bits)
-    ++r.wl;
-    r.w0 = r.w1;
-    r.w1 = r.w2;
-    r.w2 = stream_word(wr, ln, r.wl + 2);
-  }
-  const int zn = r.z ? r.z + static_cast<int>((e >> 10) & 127u) : 1;
-  if (zn >= 64) {
-    r.z = 0;
-    r.slot = (r.slot + 1 == wr.B) ? 0 : r.slot + 1;
-    ++r.blocks;
-    set_rows(wr, comp_s, ln, r);
-  } else {
-    r.z = zn;
-  }
-  return e;
-}
-
-// The value a symbol carries: (has, zigzag position, value).
-__device__ __forceinline__ bool symbol_value(unsigned e, int z, uint32_t w32,
-                                             int& zc, int& v) {
-  const int clen = static_cast<int>((e >> 5) & 31u);
-  const int sym = static_cast<int>(e >> 24);
-  const int size = sym & 15;
-  zc = z ? z + (sym >> 4) : 0;
-  v = 0;
-  if (size) {
-    v = static_cast<int>((w32 << clen) >> (32 - size));
-    if (v < (1 << (size - 1))) v += 1 - (1 << size);
-  }
-  return (z == 0 || size) && zc < 64;
+  return picha::step(
+      tb, wr.B, r, w32, [&](int i) { return stream_word(wr, ln, i); },
+      [&](Run& x) { set_rows(wr, comp_s, ln, x); });
 }
 
 __device__ __forceinline__ int4 pack_state(const Run& r, int start) {
@@ -865,10 +714,6 @@ __global__ void __launch_bounds__(kScanThreads) dc_apply_kernel(
   dc_walk(d, B, comp_s, first_s, loc, carry);
 }
 
-size_t table_smem(int n_uniq) {
-  return static_cast<size_t>(n_uniq) * (kRowLut + kRowInts) * sizeof(int);
-}
-
 int set_smem(const void* fn, size_t smem) {
   if (smem > 48 * 1024)
     return static_cast<int>(cudaFuncSetAttribute(
@@ -911,8 +756,8 @@ Shape shape_of(int n_uniq, int n_lanes) {
 
 }  // namespace
 
-// work: int32, 4*(kWindows+1)*n_lanes + 12*n_lanes + max_passes + 2 +
-// 2048 + n_uniq*2048 (no zeroing needed); out: (out_rows, 64) int32, the
+// work: int32, n_uniq*2048 + 4*(kWindows+1)*n_lanes + 12*n_lanes +
+// max_passes + 2 + 2048, 16-byte aligned (no zeroing needed); out: (out_rows, 64) int32, the
 // batch's blocks (no zeroing needed), DC left as diffs (K5 integrates
 // it); info: 3 int32 (ok, passes run, overflow). comp2: comp_of packed 2
 // bits a slot (read when B <= 16). Launches the table build, the
@@ -928,7 +773,8 @@ extern "C" int picha_huffman_decode_chunked(
     int64_t out_rows, void* info, void* stream) {
   const int W = C / 32 + 2;
   if (B < 1 || B > kMaxB || n_uniq < 1 || n_lanes < 1 || max_passes < 1 ||
-      C < 32 || C % 32 != 0 || nw < W || out_rows < 0)
+      C < 32 || C % 32 != 0 || nw < W || out_rows < 0 ||
+      reinterpret_cast<uintptr_t>(work) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Wire wr{static_cast<const uint32_t*>(words),
           static_cast<const int*>(lane_word_base),
@@ -943,7 +789,7 @@ extern "C" int picha_huffman_decode_chunked(
           static_cast<const int*>(hv),
           static_cast<const int*>(comp_of),
           n_uniq, B, n_lanes, C, W, steps, static_cast<unsigned>(comp2)};
-  Work wk = carve(static_cast<int*>(work), n_lanes, max_passes);
+  Work wk = carve(static_cast<int*>(work), n_lanes, max_passes, n_uniq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   lut_build_kernel<<<n_uniq, 256, 0, st>>>(wr.limit, wr.delta, wr.hv, wk.lut);
   cudaError_t err = cudaGetLastError();

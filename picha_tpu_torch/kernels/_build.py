@@ -37,7 +37,8 @@ Z = ctypes.c_size_t
 # picha_host_* functions are host code and take none)
 SIGNATURES = {
     "picha_huffman_decode_restart": [
-        P, P, P, P, P, P, P, P, I, P, P, I, I, I, P, P, P],
+        P, P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, P, P, I, P, P],
+    "picha_huffman_decode_restart_info": [I, I, P],
     "picha_jpeg_encode_front": [
         P, I, I, I, I, P, P, P, P, P, P, I, I, I, I, P],
     "picha_huffman_encode_scan": [
@@ -84,9 +85,9 @@ SIGNATURES = {
     "picha_resnet_norm_bwd_info": [L, I, I, P],
     "picha_coef_densify": [P, P, L, L, L, P, P],
     "picha_coef_int8_restore": [P, L, P, P, L, P, P],
-    "picha_coef_gap8_restore": [P, P, L, L, L, P, P, L, P, P],
+    "picha_coef_gap8_restore": [P, P, L, L, L, P, P, L, P, P, L, P],
     "picha_coef_gap4_restore": [P, P, P, L, L, L, L, P, P, L, P, P, L, P],
-    "picha_coef_gap4_info": [P],
+    "picha_coef_tiles_info": [P],
     "picha_host_entropy_segments": [P, P, I, L, L, L, I, *[P] * 11, I, I, P],
     "picha_host_gap8_pack": [P, Z, P, P, P, P, P, P],
     "picha_host_gap4_batch_begin": [P, I, Z, P, P, P, P],

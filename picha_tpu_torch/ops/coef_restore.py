@@ -13,13 +13,13 @@ Counterparts of `picha_tpu/pipeline/jpeg_batch.py`'s device side of
                    then the corrections
   `gap4_restore`   K30, `gap4_restore_flat` (:119-142): a nibble primary
                    stream (gap << 4 | code; 7 adds zero, 15 escapes), the
-                   escapes' values in a gap8 side stream, the corrections;
-                   the whole batch in tiles (`kernel_info` reads the tile
-                   and the three kernels' builds from the card)
+                   escapes' values in a gap8 side stream, the corrections
+  K29 and K30 run one tiled code over the whole batch (`kernel_info`
+  reads the tile and their six kernels' builds from the card).
   `unpack_gap8`, `unpack_gap4_wire`  the one coalesced wire upload ->
                    views per section (`_jit_batch_graph.unpack_gap8`,
-                   :284-315; `unpack_gap4_wire`, :145-180), then the
-                   restores
+                   :284-315; `unpack_gap4_wire`, :145-180), cut by one
+                   `split`, then the restores
 
 Every restore returns (N, bh, bw, 64) int32 planes, the dtype and layout
 `split_planes` hands K6 and the fused product on the scan path. Each
@@ -130,6 +130,47 @@ def int8_restore(c8, idx, val):
     return out
 
 
+_TILES_INFO = []
+_TILE_KERNELS = ("gap4_tile_sums", "gap4_write", "gap4_adds",
+                 "gap8_tile_sums", "gap8_write", "gap8_adds")
+
+
+def _tiles_info() -> list:
+    """`picha_coef_tiles_info`: entries a tile, cells a block stages, then
+    the registers, local bytes, shared bytes, threads and blocks a
+    multiprocessor of K30's and K29's kernels."""
+    from ..kernels._build import library
+
+    if not _TILES_INFO:
+        out = (ctypes.c_int * (2 + 5 * len(_TILE_KERNELS)))()
+        rc = library().picha_coef_tiles_info(out)
+        if rc != 0:
+            raise RuntimeError(f"picha_coef_tiles_info: CUDA error {rc}")
+        _TILES_INFO.extend(out)
+    return _TILES_INFO
+
+
+def kernel_info() -> dict:
+    """K29's and K30's tile and the builds of their kernels, from the
+    card."""
+    info = _tiles_info()
+    keys = ("registers", "local_bytes", "shared_bytes", "threads",
+            "blocks_an_sm")
+    return dict(tile_entries=info[0], staged_cells=info[1], **{
+        name: dict(zip(keys, info[2 + 5 * i:7 + 5 * i]))
+        for i, name in enumerate(_TILE_KERNELS)})
+
+
+def _tile_scratch(n: int, k1: int, k2: int, device):
+    """K29's and K30's scratch: a spill (int64 cell, int32 value) and a
+    sum a primary tile, a sum a side tile -> (tensor, its bytes)."""
+    tile = _tiles_info()[0]
+    tp, ts = max(1, -(-k1 // tile)), -(-k2 // tile)
+    nbytes = n * tp * 16 + n * ts * 4
+    return torch.empty(-(-nbytes // 8), dtype=torch.int64,
+                       device=device), nbytes
+
+
 def gap8_restore(g, v, ci, cv, bh: int, bw: int):
     """K29 (see the module doc); the plain version for CPU tensors."""
     if g.device.type == "cpu":
@@ -142,45 +183,11 @@ def gap8_restore(g, v, ci, cv, bh: int, bw: int):
     g, v, ci, cv = (t.contiguous() for t in (g, v, ci, cv))
     n, k = g.shape
     out = torch.empty((n, bh, bw, 64), dtype=torch.int32, device=g.device)
+    scratch, nbytes = _tile_scratch(n, k, 0, g.device)
     KERNELS["coef_gap8_restore"](ptr(g), ptr(v), n, k, bh * bw * 64, ptr(ci),
-                                 ptr(cv), ci.numel(), ptr(out), stream_of(g))
+                                 ptr(cv), ci.numel(), ptr(out), ptr(scratch),
+                                 nbytes, stream_of(g))
     return out
-
-
-_GAP4_INFO = []
-
-
-def _gap4_info() -> list:
-    """`picha_coef_gap4_info`: entries a tile, cells a block stages, then
-    the registers, local bytes, shared bytes, threads and blocks a
-    multiprocessor of K30's three kernels."""
-    from ..kernels._build import library
-
-    if not _GAP4_INFO:
-        out = (ctypes.c_int * 17)()
-        rc = library().picha_coef_gap4_info(out)
-        if rc != 0:
-            raise RuntimeError(f"picha_coef_gap4_info: CUDA error {rc}")
-        _GAP4_INFO.extend(out)
-    return _GAP4_INFO
-
-
-def kernel_info() -> dict:
-    """K30's tiles and the builds of its kernels, from the card."""
-    info = _gap4_info()
-    keys = ("registers", "local_bytes", "shared_bytes", "threads",
-            "blocks_an_sm")
-    return dict(tile_entries=info[0], staged_cells=info[1], **{
-        name: dict(zip(keys, info[2 + 5 * i:7 + 5 * i])) for i, name in
-        enumerate(("gap4_tile_sums", "gap4_write", "gap4_adds"))})
-
-
-def _gap4_scratch_bytes(n: int, k1: int, k2: int) -> int:
-    """K30's scratch: a spill (int64 cell, int32 value) and a sum a primary
-    tile, a sum a side tile."""
-    tile = _gap4_info()[0]
-    tp, ts = max(1, -(-k1 // tile)), -(-k2 // tile)
-    return n * tp * 16 + n * ts * 4
 
 
 def gap4_restore(prim, sg, sv, ci, cv, bh: int, bw: int):
@@ -197,9 +204,7 @@ def gap4_restore(prim, sg, sv, ci, cv, bh: int, bw: int):
     n, k1 = prim.shape
     k2 = sg.shape[1]
     out = torch.empty((n, bh, bw, 64), dtype=torch.int32, device=prim.device)
-    nbytes = _gap4_scratch_bytes(n, k1, k2)
-    scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64,
-                          device=prim.device)
+    scratch, nbytes = _tile_scratch(n, k1, k2, prim.device)
     KERNELS["coef_gap4_restore"](ptr(prim), ptr(sg), ptr(sv), n, k1, k2,
                                  bh * bw * 64, ptr(ci), ptr(cv), ci.numel(),
                                  ptr(out), ptr(scratch), nbytes,
@@ -209,44 +214,38 @@ def gap4_restore(prim, sg, sv, ci, cv, bh: int, bw: int):
 
 # -- the coalesced wires ---------------------------------------------------------
 
-class _Sections:
-    """Consecutive typed views of a 1-D uint8 wire tensor."""
+def _qtabs(sec, nb: int, ncomp: int):
+    """The wire's uint16 qtables section -> per component (nb, 1, 1, 64)
+    int32, widened in one pass."""
+    q = (sec.view(torch.int16).to(torch.int32) & 0xFFFF).view(
+        ncomp, nb, 1, 1, 64)
+    return q.unbind(0)
 
-    def __init__(self, buf):
-        self.buf, self.off = buf, 0
 
-    def take(self, count: int, dtype):
-        width = torch.empty((), dtype=dtype).element_size()
-        raw = self.buf[self.off:self.off + count * width]
-        self.off += count * width
-        return raw if dtype == torch.uint8 else raw.view(dtype)
-
-    def qtabs(self, nb: int, ncomp: int):
-        """The wire's uint16 qtables -> (nb, 1, 1, 64) int32 each."""
-        return tuple((self.take(nb * 64, torch.int16).to(torch.int32)
-                      & 0xFFFF).view(nb, 1, 1, 64) for _ in range(ncomp))
-
-    def done(self):
-        if self.off != self.buf.numel():
-            raise ValueError(f"wire holds {self.buf.numel()} bytes, layout "
-                             f"{self.off}")
+def _split(buf, sizes):
+    if sum(sizes) != buf.numel():
+        raise ValueError(f"wire holds {buf.numel()} bytes, layout "
+                         f"{sum(sizes)}")
+    return buf.split(sizes)
 
 
 def unpack_gap8(buf, gap8_ks, ncomp: int):
     """The gap8 wire (`stack_bucket`'s, on its device) -> ([per component
     (g (nb, k) u8, v (nb, k) i8, ci (kc,) i32, cv (kc,) i16)], qtabs):
-    views of the one upload."""
+    views of the one upload, cut by one `split` (each view a tensor op
+    costs the host microseconds), the qtables widened in one pass."""
     nb, ks = gap8_ks
-    w = _Sections(buf)
+    sizes = []
+    for k, kc in ks[:ncomp]:
+        sizes += [nb * k, nb * k, 4 * kc, 2 * kc]
+    sizes.append(2 * 64 * nb * ncomp)
+    sec = _split(buf, sizes)
     parts = []
-    for i in range(ncomp):
-        k, kc = ks[i]
-        parts.append((w.take(nb * k, torch.uint8).view(nb, k),
-                      w.take(nb * k, torch.int8).view(nb, k),
-                      w.take(kc, torch.int32), w.take(kc, torch.int16)))
-    qtabs = w.qtabs(nb, ncomp)
-    w.done()
-    return parts, qtabs
+    for i, (k, _kc) in enumerate(ks[:ncomp]):
+        g, v, ci, cv = sec[4 * i:4 * i + 4]
+        parts.append((g.view(nb, k), v.view(torch.int8).view(nb, k),
+                      ci.view(torch.int32), cv.view(torch.int16)))
+    return parts, _qtabs(sec[-1], nb, ncomp)
 
 
 def unpack_gap4(buf, gap4_ks, ncomp: int):
@@ -260,19 +259,14 @@ def unpack_gap4(buf, gap4_ks, ncomp: int):
     for k1, k2, kc in ks[:ncomp]:
         sizes += [nb * k1, nb * k2, nb * k2, 4 * kc, 2 * kc]
     sizes.append(2 * 64 * nb * ncomp)
-    if sum(sizes) != buf.numel():
-        raise ValueError(f"wire holds {buf.numel()} bytes, layout "
-                         f"{sum(sizes)}")
-    sec = buf.split(sizes)
+    sec = _split(buf, sizes)
     parts = []
     for i, (k1, k2, _kc) in enumerate(ks[:ncomp]):
         prim, sg, sv, ci, cv = sec[5 * i:5 * i + 5]
         parts.append((prim.view(nb, k1), sg.view(nb, k2),
                       sv.view(torch.int8).view(nb, k2), ci.view(torch.int32),
                       cv.view(torch.int16)))
-    q = (sec[-1].view(torch.int16).to(torch.int32) & 0xFFFF).view(
-        ncomp, nb, 1, 1, 64)
-    return parts, q.unbind(0)
+    return parts, _qtabs(sec[-1], nb, ncomp)
 
 
 def unpack_gap4_wire(buf, gap4_ks, comp_sig):

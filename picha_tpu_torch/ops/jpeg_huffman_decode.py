@@ -8,8 +8,10 @@ wire) is the port's copy in `ops/scan_batch.py`, behind `scan_wire`.
 
 `decode_scan` dispatches on the batch's mode (`ScanBatch.single_pass`):
 - restart single-pass (one lane per restart segment, exact entries):
-  kernel K1 (`csrc/huffman_decode_restart.cu`) for CUDA tensors,
-  `decode_scan_plain` for CPU tensors;
+  kernel K1 (`csrc/huffman_decode_restart.cu`: the lookup tables built
+  on the card, then a thread a lane storing whole blocks, every row of
+  the output written once) for CUDA tensors, `decode_scan_plain` for
+  CPU tensors;
 - chunked speculative decode (scans without restart markers, or with
   segments no lane can hold whole): kernel K4
   (`csrc/huffman_decode_chunked.cu`: a thread a lane for the Jacobi
@@ -112,17 +114,22 @@ def decode_scan(args: DecoderArgs, scan_ks, comp_of: torch.Tensor,
 
 
 def _decode_scan_kernel(a: DecoderArgs, scan_ks, comp_of):
-    (_C, n_lanes, steps, B, _comp_sig_of, mcus, n_img, n_uniq, _nblkmax,
+    """K1: the table build, then a thread a lane storing whole blocks
+    (every row of the output written once: nothing zeroed first)."""
+    (_C, n_lanes, steps, B, comp_sig_of, mcus, n_img, n_uniq, _nblkmax,
      _single, _nw) = scan_ks
     _check_kernel_args(a, scan_ks, comp_of, "K1")
     dev = a.words.device
-    out = torch.zeros((n_img * mcus * B, 64), dtype=torch.int32, device=dev)
+    rows = n_img * mcus * B
+    out = torch.empty((rows, 64), dtype=torch.int32, device=dev)
+    lut = torch.empty(LUT_INTS * n_uniq, dtype=torch.int32, device=dev)
     ok = torch.ones(1, dtype=torch.int32, device=dev)
     KERNELS["huffman_decode_restart"](
         ptr(a.words), ptr(a.lane_word_base), ptr(a.lane_bits),
         ptr(a.lane_blk_base), ptr(a.lane_blk_limit), ptr(a.limit),
         ptr(a.delta), ptr(a.hv), n_uniq, ptr(a.lane_uid6), ptr(comp_of),
-        B, n_lanes, steps, ptr(out), ptr(ok), stream_of(out))
+        _comp2(comp_sig_of), B, n_lanes, steps, a.words.numel(), ptr(lut),
+        ptr(out), rows, ptr(ok), stream_of(out))
     return out.view(n_img, mcus * B, 64), ok[0] != 0
 
 
@@ -331,16 +338,18 @@ def decode_scan_chunked(a: DecoderArgs, scan_ks, comp_of: torch.Tensor,
     return dc_integrate(out, comp_of, a.ri_blk, scan_ks[5]), ok, passes
 
 
+# K1's and K4's lookup tables (csrc/huffman_lut.cuh): LUT_INTS a unique
+# table row
+LUT_INTS = 2048
 # K4's int32 workspace (csrc/huffman_decode_chunked.cu, `carve`): the
-# checkpoints, 4 ints each, K4_WINDOWS + 1 a lane (the passes record the
-# decode's state at kWindows = 8 equal bit offsets of each lane, and the
-# emission runs a thread a window from them); K4_LANE_ARRAYS arrays of
-# n_lanes; max_passes change flags; 2 flags; K4_MAX_GRID block sums; the
-# lookup tables, K4_LUT_INTS a unique table row
+# lookup tables (first, 16-byte aligned); the checkpoints, 4 ints each,
+# K4_WINDOWS + 1 a lane (the passes record the decode's state at kWindows
+# = 8 equal bit offsets of each lane, and the emission runs a thread a
+# window from them); K4_LANE_ARRAYS arrays of n_lanes; max_passes change
+# flags; 2 flags; K4_MAX_GRID block sums
 K4_WINDOWS = 8
 K4_LANE_ARRAYS = 12
 K4_MAX_GRID = 2048
-K4_LUT_INTS = 2048
 # K5's int32 scratch: 2 ints (sum, reset flag) a component of 4 a tile of
 # K5_TILE_BLOCKS blocks, then the DC diffs packed, an int a block
 K5_TILE_BLOCKS = 2048
@@ -348,13 +357,13 @@ K5_TILE_BLOCKS = 2048
 
 def k4_work_ints(n_lanes: int, max_passes: int, n_uniq: int) -> int:
     """Length of K4's int32 workspace (`carve` in its source)."""
-    return ((4 * (K4_WINDOWS + 1) + K4_LANE_ARRAYS) * n_lanes + max_passes + 2
-            + K4_MAX_GRID + K4_LUT_INTS * n_uniq)
+    return (LUT_INTS * n_uniq + (4 * (K4_WINDOWS + 1) + K4_LANE_ARRAYS) * n_lanes
+            + max_passes + 2 + K4_MAX_GRID)
 
 
 def _comp2(comp_sig_of) -> int:
-    """comp_of packed 2 bits a slot, as a signed 32-bit int (K4 reads it
-    for 16 slots or fewer)."""
+    """comp_of packed 2 bits a slot, as a signed 32-bit int (K1 and K4
+    read it for 16 slots or fewer)."""
     if len(comp_sig_of) > 16:
         return 0
     v = sum((c & 3) << (2 * s) for s, c in enumerate(comp_sig_of))
@@ -506,6 +515,27 @@ def kernel_info(n_uniq: int = 4, n_lanes: int = 10240) -> dict:
     return {"K4_passes": dict(zip(keys, vals[:7])),
             "K4_emit": dict(zip(keys, vals[7:])),
             "tables_in_shared": vals[3] > 0}
+
+
+def restart_kernel_info(n_uniq: int = 4, n_lanes: int = 16320) -> dict:
+    """K1's build and launch plan as the card reports them, at `n_uniq`
+    unique table rows and `n_lanes` lanes (a restart batch's shape, as
+    the plan picks it in a launch): registers and local (spill) bytes a
+    thread, static and dynamic shared bytes a block, resident blocks a
+    multiprocessor, threads a block and the grid, and whether the tables
+    sit in shared memory. Launches nothing."""
+    import ctypes
+
+    from ..kernels._build import library
+
+    vals = (ctypes.c_int * 8)()
+    rc = library().picha_huffman_decode_restart_info(n_uniq, n_lanes, vals)
+    if rc != 0:
+        raise RuntimeError(f"picha_huffman_decode_restart_info: CUDA error "
+                           f"{rc}")
+    keys = ("registers", "local_bytes", "static_shared_bytes",
+            "dynamic_shared_bytes", "blocks_per_sm", "threads", "grid")
+    return dict(zip(keys, vals[:7]), tables_in_shared=vals[7] > 0)
 
 
 def split_planes(out: torch.Tensor, comp_sig, split_idx):

@@ -24,83 +24,20 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from torch_helpers import gap4_indices, gap4_tile_wires, gap4_within
+from torch_helpers import (gap4_indices, gap4_tile_wires, gap4_within,
+                           tiled_restore_model)
 
 from picha_tpu_torch.ops.coef_restore import gap4_restore_plain
-
-SENTINEL = -(2 ** 40)
 
 
 def k30_model(prim, sg, sv, ci, cv, m, tile, cells, vec=True):
     """K30's three kernels on numpy arrays -> ((n, m) int64 planes, (n,
-    m) count of the owned-range writes of each cell)."""
-    n, k1 = prim.shape
-    k2 = sg.shape[1]
-    tp, ts = max(1, -(-k1 // tile)), -(-k2 // tile)
-    out = np.full((n, m), SENTINEL, np.int64)
-    writes = np.zeros((n, m), np.int64)
-    # gap4_tile_sums
-    pg = (prim >> 4).astype(np.int64)
-    psum = np.zeros((n, tp), np.int64)
-    ssum = np.zeros((n, max(ts, 1)), np.int64)
-    for t in range(tp):
-        psum[:, t] = pg[:, t * tile:(t + 1) * tile].sum(1)
-    for t in range(ts):
-        ssum[:, t] = sg[:, t * tile:(t + 1) * tile].astype(np.int64).sum(1)
-    # gap4_write
-    spills = []
-    for img in range(n):
-        for t in range(tp):
-            base = int(psum[img, :t].sum())
-            j = np.arange(t * tile, min((t + 1) * tile, k1))
-            g = pg[img, j]
-            nib = (prim[img, j] & 15).astype(np.int64)
-            val = np.where(nib == 15, 0, nib - 7)
-            idx = np.maximum(base + np.cumsum(g) - 1, 0)
-            total = int(g.sum())
-            lo = 0 if t == 0 else max(base + int(pg[img, t * tile]) - 1, 0)
-            hi = m if t + 1 == tp else max(
-                base + total + int(pg[img, (t + 1) * tile]) - 1, 0)
-            lo, hi = min(lo, m), min(hi, m)
-            assert not (idx < lo).any(), "an entry before its tile's cells"
-            for c0 in range(lo, hi, cells):
-                c1 = min(c0 + cells, hi)
-                cb = c0 & ~3
-                buf = np.zeros(-(-(c1 - cb) // 4) * 4, np.int64)
-                inside = (val != 0) & (idx >= c0) & (idx < c1)
-                np.add.at(buf, idx[inside] - cb, val[inside])
-                a = (c0 + 3) & ~3 if vec else c1
-                e = c1 & ~3 if vec else c1
-                if a >= e:
-                    a = e = c1
-                assert a % 4 == 0 or a == c1
-                for c in list(range(c0, a)) + list(range(e, c1)):
-                    out[img, c] = buf[c - cb]
-                    writes[img, c] += 1
-                for q in range(a, e, 4):       # one 16-byte store
-                    out[img, q:q + 4] = buf[q - cb:q - cb + 4]
-                    writes[img, q:q + 4] += 1
-            past = (idx >= hi) & (idx < m)
-            assert (idx[past] == hi).all()
-            spills.append((img * m + hi if hi < m else -1,
-                           int(val[past].sum())))
-    flat = out.reshape(-1)
-    # gap4_adds: side tiles, spills, corrections
-    for img in range(n):
-        for t in range(ts):
-            base = int(ssum[img, :t].sum())
-            j = np.arange(t * tile, min((t + 1) * tile, k2))
-            idx = np.maximum(base + np.cumsum(sg[img, j].astype(np.int64))
-                             - 1, 0)
-            v = sv[img, j].astype(np.int64)
-            keep = (v != 0) & (idx < m)
-            np.add.at(flat, img * m + idx[keep], v[keep])
-    for cell, v in spills:
-        if v and cell >= 0:
-            flat[cell] += v
-    keep = (cv != 0) & (ci >= 0) & (ci < n * m)
-    np.add.at(flat, ci[keep].astype(np.int64), cv[keep].astype(np.int64))
-    return out, writes
+    m) count of the owned-range writes of each cell): the tiled model
+    with the primary byte's gap (b >> 4) and value ((b & 15) - 7, 0 at
+    the escape 15)."""
+    nib = (prim & 15).astype(np.int64)
+    return tiled_restore_model(prim >> 4, np.where(nib == 15, 0, nib - 7),
+                               sg, sv, ci, cv, m, tile, cells, vec)
 
 
 def plain(prim, sg, sv, ci, cv, bh, bw):

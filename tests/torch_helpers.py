@@ -643,6 +643,172 @@ def gap4_tile_wires(seed: int, tile: int):
     return out
 
 
+def gap8_within(g, v, m: int):
+    """The gap8 wire with every entry at an index past the plane (m)
+    turned into a no-op (gap 0, value 0): K29 drops such entries (the
+    plain version would add them into the next image's plane)."""
+    g, v = g.copy(), v.copy()
+    past = gap4_indices(g) >= m
+    g[past] = 0
+    v[past] = 0
+    return g, v
+
+
+def gap8_packed_wire(seed, n: int, bh: int, bw: int, density=(0.05, 0.3)):
+    """n sparse int16 planes (values past int8 among them) through the
+    numpy packer, padded and stacked as `stack_bucket` stacks them: (g
+    (n, k) u8, v (n, k) i8, ci (kc,) i32 batch-flat, cv (kc,) i16).
+    `seed`: an int or a numpy Generator."""
+    rng = np.random.default_rng(seed)
+    m = bh * bw * 64
+    from picha_tpu_torch.ops.coef_host import gap8_pack_plain
+
+    packed = []
+    for _ in range(n):
+        plane = np.zeros(m, np.int16)
+        nz = rng.random(m) < rng.uniform(*density)
+        plane[nz] = rng.integers(-6, 7, int(nz.sum()))
+        big = rng.random(m) < density[0] / 5
+        plane[big] = rng.integers(-400, 400, int(big.sum()))
+        packed.append(gap8_pack_plain(plane))
+    k = max(p[0].size for p in packed)
+    g = np.zeros((n, k), np.uint8)
+    v = np.zeros((n, k), np.int8)
+    for j, (gj, vj, _ci, _cv) in enumerate(packed):
+        g[j, :gj.size], v[j, :vj.size] = gj, vj
+    ci = np.concatenate([p[2].astype(np.int64) + j * m
+                         for j, p in enumerate(packed)]).astype(np.int32)
+    cv = np.concatenate([p[3] for p in packed]).astype(np.int16)
+    return g, v, ci, cv
+
+
+def gap8_tile_wires(seed: int, tile: int):
+    """Gap8 wires (K29's upload) that cross many tiles of `tile` entries:
+    {name: (g, v, ci, cv, bh, bw)} as numpy arrays, of 3 images each.
+    "packed": the numpy packer's wire of sparse planes; "zero_runs": runs
+    of zero gaps with nonzero values across every tile boundary (repeated
+    indices); "gap255": a plane so sparse that chains of gap-255 entries
+    (value 0) cross several tiles; "empty_image": one image all padding;
+    "short_image": one that ends before its plane does; "past_m":
+    indices past the plane (dropped); "boundary_corrections": corrections
+    at the cells where tiles begin."""
+    rng = np.random.default_rng(seed)
+    n, bw = 3, 5
+    bh = max(1, -(-40 * tile // (64 * bw)))
+    m = bh * bw * 64
+    g, v, ci, cv = gap8_packed_wire(rng, n, bh, bw)
+    k = g.shape[1]
+    out = {"packed": (g, v, ci, cv, bh, bw)}
+    z, zv = g.copy(), v.copy()
+    for t in range(tile, k, tile):
+        lo, hi = max(t - 3, 0), min(t + 3, k)
+        z[:, lo:hi] = 0
+        zv[:, lo:hi] = rng.integers(1, 100, (n, hi - lo))
+    out["zero_runs"] = gap8_within(z, zv, m) + (ci, cv, bh, bw)
+    sbh = max(1, -(-8 * tile * 255 // (64 * bw)))
+    sg, sv, sci, scv = gap8_packed_wire(rng, n, sbh, bw, (0.0001, 0.0003))
+    out["gap255"] = (sg, sv, sci, scv, sbh, bw)
+    e, ev = g.copy(), v.copy()
+    e[1], ev[1] = 0, 0
+    keep = (ci < m) | (ci >= 2 * m)
+    out["empty_image"] = (e, ev, ci[keep], cv[keep], bh, bw)
+    sh, shv = g.copy(), v.copy()
+    run = np.cumsum(sh[2].astype(np.int64))
+    sh[2, run >= m // 2], shv[2, run >= m // 2] = 0, 0
+    out["short_image"] = (sh, shv, ci, cv, bh, bw)
+    pm = g.copy()
+    pm[0, k // 3:] = np.maximum(pm[0, k // 3:], 200)
+    out["past_m"] = (pm, v, ci, cv, bh, bw)
+    firsts = gap4_indices(g)[:, ::tile]
+    bci = (np.arange(n)[:, None] * m + np.minimum(firsts, m - 1)).reshape(
+        -1).astype(np.int32)
+    bcv = rng.integers(-900, 900, bci.size).astype(np.int16)
+    out["boundary_corrections"] = (g, v, np.concatenate([ci, bci]),
+                                   np.concatenate([cv, bcv]), bh, bw)
+    return out
+
+
+RESTORE_SENTINEL = -(2 ** 40)
+
+
+def tiled_restore_model(pg, pval, sg, sv, ci, cv, m, tile, cells,
+                        vec=True):
+    """The tiled restore of K29 and K30 (`csrc/coef_restore.cu`: the
+    *_tile_sums, *_write and *_adds kernels) on numpy arrays: the primary
+    stream's gaps `pg` and values `pval` ((n, k1) each), a gap8 side
+    stream (sg, sv) ((n, k2); K29 has none: k2 = 0) and the batch-flat
+    corrections -> ((n, m) int64 planes, (n, m) count of the owned-range
+    writes of each cell). The output starts as a sentinel: every cell
+    the owned ranges miss keeps it."""
+    n, k1 = pg.shape
+    k2 = sg.shape[1]
+    tp, ts = max(1, -(-k1 // tile)), -(-k2 // tile)
+    out = np.full((n, m), RESTORE_SENTINEL, np.int64)
+    writes = np.zeros((n, m), np.int64)
+    # gap4_tile_sums
+    pg = pg.astype(np.int64)
+    pval = pval.astype(np.int64)
+    psum = np.zeros((n, tp), np.int64)
+    ssum = np.zeros((n, max(ts, 1)), np.int64)
+    for t in range(tp):
+        psum[:, t] = pg[:, t * tile:(t + 1) * tile].sum(1)
+    for t in range(ts):
+        ssum[:, t] = sg[:, t * tile:(t + 1) * tile].astype(np.int64).sum(1)
+    # gap4_write
+    spills = []
+    for img in range(n):
+        for t in range(tp):
+            base = int(psum[img, :t].sum())
+            j = np.arange(t * tile, min((t + 1) * tile, k1))
+            g = pg[img, j]
+            val = pval[img, j]
+            idx = np.maximum(base + np.cumsum(g) - 1, 0)
+            total = int(g.sum())
+            lo = 0 if t == 0 else max(base + int(pg[img, t * tile]) - 1, 0)
+            hi = m if t + 1 == tp else max(
+                base + total + int(pg[img, (t + 1) * tile]) - 1, 0)
+            lo, hi = min(lo, m), min(hi, m)
+            assert not (idx < lo).any(), "an entry before its tile's cells"
+            for c0 in range(lo, hi, cells):
+                c1 = min(c0 + cells, hi)
+                cb = c0 & ~3
+                buf = np.zeros(-(-(c1 - cb) // 4) * 4, np.int64)
+                inside = (val != 0) & (idx >= c0) & (idx < c1)
+                np.add.at(buf, idx[inside] - cb, val[inside])
+                a = (c0 + 3) & ~3 if vec else c1
+                e = c1 & ~3 if vec else c1
+                if a >= e:
+                    a = e = c1
+                assert a % 4 == 0 or a == c1
+                for c in list(range(c0, a)) + list(range(e, c1)):
+                    out[img, c] = buf[c - cb]
+                    writes[img, c] += 1
+                for q in range(a, e, 4):       # one 16-byte store
+                    out[img, q:q + 4] = buf[q - cb:q - cb + 4]
+                    writes[img, q:q + 4] += 1
+            past = (idx >= hi) & (idx < m)
+            assert (idx[past] == hi).all()
+            spills.append((img * m + hi if hi < m else -1,
+                           int(val[past].sum())))
+    flat = out.reshape(-1)
+    # gap4_adds: side tiles, spills, corrections
+    for img in range(n):
+        for t in range(ts):
+            base = int(ssum[img, :t].sum())
+            j = np.arange(t * tile, min((t + 1) * tile, k2))
+            idx = np.maximum(base + np.cumsum(sg[img, j].astype(np.int64))
+                             - 1, 0)
+            v = sv[img, j].astype(np.int64)
+            keep = (v != 0) & (idx < m)
+            np.add.at(flat, img * m + idx[keep], v[keep])
+    for cell, v in spills:
+        if v and cell >= 0:
+            flat[cell] += v
+    keep = (cv != 0) & (ci >= 0) & (ci < n * m)
+    np.add.at(flat, ci[keep].astype(np.int64), cv[keep].astype(np.int64))
+    return out, writes
+
+
 # --- K25 / K26: numpy models of the kernels' arithmetic -----------------------
 # (csrc/resnet_norm.cuh, resnet_norm.cu, resnet_norm_bwd.cu): the same cut of
 # each plane into clusters, rows and chunks, the same f32 and float64

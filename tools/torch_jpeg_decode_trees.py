@@ -3,7 +3,8 @@
 decode and DC scan, `split_planes`, K6 dequant + IDCT per component, K7
 upsample + colour) of several checkouts in turns on one CUDA card.
 
-    python3 tools/torch_jpeg_decode_trees.py [--json OUT] LABEL=PATH ...
+    python3 tools/torch_jpeg_decode_trees.py [--json OUT] [--k1-only]
+        LABEL=PATH ...
 
 Each LABEL=PATH is a checkout of this repository (its root directory);
 list them in the order to run, e.g. `old=a new=. new=. old=a` for a
@@ -34,8 +35,24 @@ then K7 alone on 16 seeded random 1920x1088 planes of its other
 compiled-in signatures (4:2:2, 4:4:4, grey, grey to rgb: the checkout's
 `ops.jpeg.K7_SIGNATURES`; "not available" for a checkout without
 them), through this script's own `chip_smoke.k7_signature_buckets`.
-Then the builds: `nvcc -Xptxas -v` of the checkout's three
+Then the builds: `nvcc -Xptxas -v` of the checkout's four
 sources, and `kernel_info()` at each shape where the checkout has it.
+
+Then the restart decode K1 at three shapes of the same images with
+restart markers every 8 MCUs: (ra) the slice's 16 and (rb) 256 of the
+three `tests/fixtures/port/src_*.jpg` tiled, (rc) 16 of them re-encoded
+by Pillow with optimize=True and restart markers every 8 MCUs at
+qualities 80-95 (each image its own tables: K1 reads them from global
+memory). For each: a digest of the coefficients (equal across
+checkouts), ok, CUDA-event medians of the call (`decode_scan`), the
+call's device time by kernel name (the decode kernel alone, apart from
+the parent's zeroing and the new table build), the symbols of every
+lane (the plain step on the card) and the longest, that lane alone (one
+lane's launch: the chain's floor) and ns a symbol (this script's own
+`chip_smoke.k1_chain`), the bound, at (ra)
+and (rc) equality with `decode_scan_plain`, and `restart_kernel_info`
+where the checkout has it. --k1-only runs these alone (with the
+ptxas of the restart source).
 Prints the card's name and power limit, then one JSON line a run; with
 --json, also writes them all to OUT.
 """
@@ -56,7 +73,8 @@ SHAPES = {"a": 16, "b": 256, "c": 16}
 OWN_TABLES = "c"      # the shape whose images carry their own tables
 HBM, FP32 = 3.35e12, 67e12
 SOURCES = ("huffman_decode_chunked.cu", "jpeg_idct_plane.cu",
-           "jpeg_upsample_color.cu")
+           "jpeg_upsample_color.cu", "huffman_decode_restart.cu")
+RESTART_SHAPES = {"ra": 16, "rb": 256, "rc": 16}
 TOOL_ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -113,13 +131,13 @@ def bound(nbytes, flops=0):
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
-def ptxas(root):
+def ptxas(root, sources=SOURCES):
     """Registers, stack, spill and shared bytes of every kernel of the
-    checkout's two sources (`nvcc -Xptxas -v`)."""
+    checkout's sources (`nvcc -Xptxas -v`)."""
     from picha_tpu_torch.kernels import _build
 
     out = {}
-    for src in SOURCES:
+    for src in sources:
         p = subprocess.run(
             [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o", os.devnull,
@@ -150,17 +168,70 @@ def corpus(shape):
     """The shape's JPEG files (see the module's docstring)."""
     from PIL import Image
 
-    srcs = [(FIXTURES / f"src_nr_{i}.jpg").read_bytes() for i in range(3)]
-    n = SHAPES[shape]
-    if shape != OWN_TABLES:
+    restart = shape in RESTART_SHAPES
+    stem = "src_" if restart else "src_nr_"
+    srcs = [(FIXTURES / f"{stem}{i}.jpg").read_bytes() for i in range(3)]
+    n = (RESTART_SHAPES if restart else SHAPES)[shape]
+    if shape not in (OWN_TABLES, "rc"):
         return [srcs[i % 3] for i in range(n)]
+    kw = {"restart_marker_blocks": 8} if restart else {}
     out = []
     for i in range(n):
         b = io.BytesIO()
         Image.open(io.BytesIO(srcs[i % 3])).save(b, "JPEG", quality=80 + i,
-                                                 optimize=True)
+                                                 optimize=True, **kw)
         out.append(b.getvalue())
     return out
+
+
+def own_chip_smoke():
+    """This script's own checkout's chip_smoke.py as a module (its helpers
+    take the checkout's modules as arguments, so every checkout is
+    measured by the same code)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_own", TOOL_ROOT / "chip_smoke.py")
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    return own
+
+
+def restart_run(shape, dev):
+    """K1 at one restart shape (see the module's docstring)."""
+    import torch
+
+    from picha_tpu_torch.ops import jpeg_huffman_decode as hd
+    from picha_tpu_torch.ops.jpeg_scan import mcu_slot_tables, parse_baseline
+
+    infos = [parse_baseline(b) for b in corpus(shape)]
+    ks, wire = hd.scan_wire(infos)
+    comp_of = torch.as_tensor(mcu_slot_tables(infos[0].comp_sig)).to(
+        dev, torch.int32)
+    args, _q = hd.wire_unpack(torch.from_numpy(wire).to(dev), ks,
+                              infos[0].ncomp)
+    assert ks[9], "not a restart single-pass batch"
+    r = {"images": len(infos), "lanes": ks[1], "steps": ks[2],
+         "unique_table_rows": ks[7], "wire_bytes": int(wire.nbytes)}
+    if hasattr(hd, "restart_kernel_info"):
+        r["kernel_info"] = hd.restart_kernel_info(ks[7], ks[1])
+
+    def call():
+        return hd.decode_scan(args, ks, comp_of)
+
+    coefs, ok = call()
+    r.update(ok=bool(ok), coefs_bits=digest(coefs))
+    if shape in ("ra", "rc"):
+        want, ok_p = hd.decode_scan_plain(args, ks, comp_of)
+        r["equal_to_plain"] = bool(torch.equal(coefs, want)
+                                   and bool(ok_p) == bool(ok))
+        del want
+    r["call_ms"] = timed(call, reps=5)
+    r.update(bound(wire.nbytes + coefs.numel() * 4))
+    del coefs
+    # the call's kernels, every lane's symbols, the longest lane alone
+    r.update(own_chip_smoke().k1_chain(
+        hd, args, ks, comp_of, lambda fn, reps: timed(fn, reps=reps)))
+    torch.cuda.empty_cache()
+    return r
 
 
 def shape_run(shape, dev):
@@ -279,7 +350,7 @@ def k7_record(planes, comp_sig, cs, width, height, force_rgb):
     return rec
 
 
-def run(label):
+def run(label, k1_only=False):
     """One checkout, imported from the working directory."""
     import torch
 
@@ -291,17 +362,19 @@ def run(label):
     dev = torch.device("cuda", 0)
     res = {"label": label, "build_s": time.perf_counter() - t0,
            "device": torch.cuda.get_device_name(0)}
+    for name in RESTART_SHAPES:
+        res[name] = restart_run(name, dev)
+    if k1_only:
+        res["ptxas"] = ptxas(pathlib.Path.cwd(), SOURCES[-1:])
+        print("RESULT " + json.dumps(res), flush=True)
+        return
     for name in SHAPES:
         res[name] = shape_run(name, dev)
     # K7's other compiled-in signatures, through this script's own
     # chip_smoke.k7_signature_buckets (the same planes for every checkout)
     res["k7_signatures"] = "not available"
     if hasattr(jp, "K7_SIGNATURES"):
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke_buckets", TOOL_ROOT / "chip_smoke.py")
-        own = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(own)
-        res["k7_signatures"] = own.k7_signature_buckets(
+        res["k7_signatures"] = own_chip_smoke().k7_signature_buckets(
             dev, timed, {k[3:]: v for k, v in jp.kernel_info().items()
                          if k.startswith("K7_")})
     res["ptxas"] = ptxas(pathlib.Path.cwd())
@@ -311,11 +384,14 @@ def run(label):
 
 
 def main(argv):
-    if len(argv) == 3 and argv[1] == "--run":
-        return run(argv[2])
+    if len(argv) >= 3 and argv[1] == "--run":
+        return run(argv[2], "--k1-only" in argv[3:])
     out = None
     if len(argv) > 2 and argv[1] == "--json":
         out, argv = pathlib.Path(argv[2]).resolve(), argv[2:]
+    extra = []
+    if len(argv) > 1 and argv[1] == "--k1-only":
+        extra, argv = ["--k1-only"], argv[1:]
     trees = [a.split("=", 1) for a in argv[1:]]
     if not trees or any(len(t) != 2 for t in trees):
         print(__doc__, file=sys.stderr)
@@ -329,7 +405,8 @@ def main(argv):
         root = pathlib.Path(path).resolve()
         p = subprocess.run(
             [sys.executable, str(pathlib.Path(__file__).resolve()), "--run",
-             label], cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+             label, *extra], cwd=root,
+            env=dict(os.environ, PYTHONPATH=str(root)),
             capture_output=True, text=True, timeout=1200)
         line = [x for x in p.stdout.splitlines() if x.startswith("RESULT ")]
         if p.returncode or not line:

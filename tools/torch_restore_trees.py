@@ -16,8 +16,9 @@ gap8 (K29) and gap4 (K30): a digest of the planes and their equality
 with the restore's plain version; CUDA-event medians of
 `restore_planes` (the batch's call: the unpack and the three components'
 restores), of the restores alone and of the unpack alone (gap8, gap4);
-the call's device time split by kernel name (torch.profiler: the
-memsets, the walks, the corrections); the bound (wire and planes over
+the call's device time split by kernel name (torch.profiler: K29's and
+K30's tile sums, writes and adds, or a parent's memsets, walks and
+corrections), the restores' alone likewise; the bound (wire and planes over
 3.35 TB/s); `kernel_info` of the restores where the checkout has it, and
 `nvcc -Xptxas -v` of its `coef_restore.cu`; then the whole
 `JpegBatchPipeline(upload="gap4")` and `upload="gap8"` call on the
