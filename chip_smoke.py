@@ -28,9 +28,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      IDCT; off by one only at near-.5 ties) and K7 (upsample + colour,
      exact; its build, and its other compiled-in signatures, 4:2:2,
      4:4:4, grey and grey to rgb, on 16 random 1080p planes) on K1's
-     coefficients, and K8 (one resize axis) on K7's
-     output, exactly its windowed twin and within 1e-6 of the
-     reference's banded plan;
+     coefficients, and K8 on K7's output: its per-axis kernels (the
+     width and the height pass) exactly their windowed twins and within
+     1e-6 of the reference's banded plan, and its one-launch kernel
+     (both axes, the staged path's) exactly the two twins, timed beside
+     the two passes, with its route, tile and builds;
   3. the slice end to end through JpegBatchPipeline(width=960,
      height=544, encode_quality=85, encode_backend="device", fused=True,
      upload="scan") on the restart corpus: every output decodes, sits
@@ -42,7 +44,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      then the same on the corpus without restart markers, whose outputs
      must equal the restart corpus's byte for byte, through K4 and K5
      and not K1;
-     then the staged slice (fused=False: K6 -> K7 -> K8 width, height
+     then the staged slice (fused=False: K6 -> K7 -> K8 in one launch
      -> K2 -> K3) on both corpora, with the same checks (its restart and
      no-restart outputs byte-identical), and the staged decode-only
      output (encode_quality=None) against Pillow's decode of the sources;
@@ -75,17 +77,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
   9. BASELINE config 4 through ImageBatchPipeline(crop=(16, 16, 352,
      224), resize=(176, 112)): 256 RGBA 384x256 sources (bench.py's
      recipe, seed 9, 8 images tiled) TIFF-LZW encoded with Pillow,
-     decoded on pool threads, K11 -> K8 W -> K8 H -> K11 on the card,
+     decoded on pool threads, K11 -> K8 (one launch) -> K11 on the card,
      encoded as TIFF LZW and as WebP q85: every output decodes to
      176x112 RGBA, the TIFFs to exactly the pixels of the same call on
      CPU tensors (the plain path), the WebPs within 8 LSB mean (the
-     reference's lossy oracle), K11 and K8 launched twice each, no jax
+     reference's lossy oracle), K11 twice and K8 once, no jax
      or picha_tpu module loaded; resize_batch (16 x 1920x1088 rgb ->
      960x544 lanczos) and convert_batch (rgb -> grey) bit for bit their
      plain paths on the card; encode_filtered on the 256 outputs: three
      K12 launches, every file decoding to its input;
  10. where a config-4 call's time goes (host decode, upload, K11 head,
-     K8 W, K8 H, K11 tail, readback, host TIFF encode), Mpix/s of source
+     K8, K11 tail, readback, host TIFF encode), Mpix/s of source
      and images/s (TIFF and WebP legs), the idle share, and the PNG
      encode's K12 launches against its readback and host deflate;
  11. the decode kernels against their plain versions, bit for bit, on
@@ -123,7 +125,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      ViT(ViTConfig()) (ViT-S/16: 224^2, patch 16, dim 384, 12 blocks of 6
      heads, MLP 1536, 1000 classes; random weights from seed 0) and to
      ViT(ViTConfig(moe_experts=4)) (every second block a switch MoE of 4
-     experts, capacity 1.5; seed 1). K17 (LayerNorm) and K18 (attention)
+     experts, capacity 1.5; seed 1). K17 (LayerNorm; also bit for bit
+     its lane-order model, with its plan and build) and K18 (attention)
      within 1 bf16 ulp of their plain versions (K18: plus 1 ulp of the
      row's largest |o|), K19 (route + dispatch) and K20 (combine) bit for
      bit, each on the arguments of its first call in a forward, K19 also
@@ -613,9 +616,11 @@ def main():
         dc_integrate, dc_integrate_plain, decode_scan, decode_scan_chunked,
         decode_scan_chunked_plain, decode_scan_plain, scan_wire,
         split_planes, wire_unpack)
+    from picha_tpu_torch.ops import resize as resize_mod
     from picha_tpu_torch.ops.resize import (INV255, resize_axis,
                                             resize_axis_windowed_plain,
-                                            resize_f32_plain)
+                                            resize_f32_plain,
+                                            resize_windowed, windowed_plan)
     from picha_tpu_torch.ops.resize_weights import resize_weights
     from picha_tpu_torch.pipeline import JpegBatchPipeline
     from picha_tpu_torch.pipeline.jpeg_batch import device_graph, signature
@@ -873,6 +878,15 @@ def main():
     xh_p = resize_axis_windowed_plain(xw_k, sh, th, -3, 255.0)
     if not (torch.equal(xw_k, xw_p) and torch.equal(xh_k, xh_p)):
         raise AssertionError("K8 disagrees with its windowed plain version")
+    # the one-launch resize (resize_2d), the staged path's: both axes
+    # equal to the two windowed twins
+    plan8 = windowed_plan(rgb_k, consts_s.windows)
+    if plan8["route"] != "one_launch":
+        raise AssertionError(f"K8 at the transcode's shape: {plan8}")
+    x2_k = resize_windowed(rgb_k, consts_s.windows, 255.0)
+    if not torch.equal(x2_k, xh_p):
+        raise AssertionError("K8's one-launch resize differs from the two "
+                             "windowed twins")
     x01 = rgb_k.to(torch.float32) * INV255
     banded = resize_f32_plain(x01, OUT_W, OUT_H, pipe_s._filter,
                               pipe_s._fscale)
@@ -893,10 +907,22 @@ def main():
                         float((xh_k - xh_p).abs().max())),
         ms=k8["width_ms"] + k8["height_ms"],
         plain_ms=k8["width_plain_ms"] + k8["height_plain_ms"])
+    k8_builds = resize_mod.kernel_info(rgb_k, consts_s.windows)
+    results["resize_2d"] = dict(
+        max_abs_err=float((x2_k - xh_p).abs().max()),
+        ms=timed(lambda: resize_windowed(rgb_k, consts_s.windows, 255.0), 10),
+        plain_ms=results["resize_axis"]["plain_ms"], build=k8_builds)
     phase("K8", equal_to_windowed=True, max_abs_vs_banded=vs_banded,
           banded_limit=RESIZE_TOL, taps=[tw.shape[1], th.shape[1]],
           width_out=list(xw_k.shape), height_out=list(xh_k.shape),
-          note="ms: width + height pass, plain_ms: their windowed twins",
+          note="per-axis kernels (resize_rows, resize_cols): ms = width + "
+               "height pass, plain_ms = their windowed twins; one_launch: "
+               "resize_2d, the staged path's resize, equal to the two "
+               "twins, route and tile from ops.resize.resize_plan, build "
+               "from ops.resize.kernel_info",
+          one_launch=dict(route=plan8["route"], equal_to_twins=True,
+                          ms=results["resize_2d"]["ms"], plan=plan8,
+                          builds=k8_builds),
           **k8, **results["resize_axis"])
     # bounds (this run's shapes) and the one-call PyTorch yardsticks: the
     # (..., 64) @ kron product for K2's fDCT and K6's IDCT, dense
@@ -947,6 +973,11 @@ def main():
         bound(rgb_k.numel() + xw_k.numel() * 8 + xh_k.numel() * 4,
               2 * (tw.shape[1] * xw_k.numel() + th.shape[1] * xh_k.numel())),
         library_ms=k8_lib)
+    # the one launch moves the input once and the output once
+    results["resize_2d"].update(
+        bound(rgb_k.numel() + xh_k.numel() * 4,
+              2 * (tw.shape[1] * xw_k.numel() + th.shape[1] * xh_k.numel())),
+        library_ms=k8_lib)
     phase("bounds", card=card, note="bound_ms: max(bytes / 3.35 TB/s, "
           "FP32 FLOPs / 67 TFLOP/s); library_ms: one PyTorch call for the "
           "same function (K2, K6: the (..., 64) @ kron product; K8: dense "
@@ -974,6 +1005,7 @@ def main():
                                             consts.split_idx), 10),
               **bound(coefs_k.numel() * 4 * 2)))
     del ys_p, rgb_p, xw_p, xh_p, x01, banded, samples, deq, x01_rows, xw_cols
+    del x2_k
     after = launch_counts()
     if any(after[k] <= before[k] for k in results):
         raise AssertionError(f"launch counts did not move: {after}")
@@ -1047,7 +1079,7 @@ def main():
           fallbacks=fallbacks())
 
     # the staged slice (fused=False) on both corpora
-    staged_path = ("idct_plane", "upsample_color", "resize_axis",
+    staged_path = ("idct_plane", "upsample_color", "resize_2d",
                    "jpeg_encode_front", "huffman_encode_scan")
     reset_launch_counts()
     jpegs_s = pipe_s(corpus)
@@ -1204,7 +1236,7 @@ def main():
         buf = torch.from_numpy(wire1).pin_memory().to(dev, non_blocking=True)
         torch.cuda.synchronize()
         host["upload"] = (time.perf_counter() - t) * 1e3
-        pixel = (["K6_idct", "K7_upsample_color", "K8_width", "K8_height"]
+        pixel = (["K6_idct", "K7_upsample_color", "K8_resize"]
                  if staged else ["fused_matmuls"])
         names = [decode_name, "split", *pixel, "K2_front", "K3_scan"]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(
@@ -1221,9 +1253,7 @@ def main():
             ev[3].record()
             rgb1 = upsample_color(ys1, *color)
             ev[4].record()
-            xw1 = resize_axis(rgb1, sw, tw, -2)
-            ev[5].record()
-            f1 = resize_axis(xw1, sh, th, -3, 255.0)
+            f1 = resize_windowed(rgb1, consts_s.windows, 255.0)
         else:
             f1 = fused_decode_resize(sig[3], sig[2], planes1, qt1,
                                      consts.weights)
@@ -1302,8 +1332,9 @@ def main():
     if bad:
         raise AssertionError(f"the port imported the reference: {bad}")
     # launches: each kernel's count in the run of the path it serves
-    # (K1-K3: the restart slice; K4, K5: the no-restart slice; K6-K8:
-    # the staged restart slice; K9, K10: an ingest step; K11: the
+    # (K1-K3: the restart slice; K4, K5: the no-restart slice; K6, K7
+    # and K8's one launch: the staged restart slice; K9, K10 and K8's
+    # per-axis kernel (the height pass): an ingest step; K11: the
     # config-4 call; K12: the batched PNG encode; K13-K16: the full-size
     # PNG and TIFF decode calls; K17, K18: the dense ViT forward; K19,
     # K20: the MoE one; K21, K22: the dense train step; K23, K24: the MoE
@@ -1313,7 +1344,8 @@ def main():
                      **{k: nr_launches[k] for k in chunked_path[:2]},
                      **{k: s_launches[k] for k in staged_path[:3]},
                      **{k: ingest_launches[k]
-                        for k in ("crop_flip_resize_w", "augment")},
+                        for k in ("crop_flip_resize_w", "augment",
+                                  "resize_axis")},
                      **pixel_launches, **decode_launches, **vit_launches,
                      **train_launches, **resnet_launches, **upload_launches,
                      **raw420_launches}
@@ -1910,7 +1942,8 @@ def pixel_phases(dev, card, results, phase, timed, wall):
                                                 filter_batch_plain)
     from picha_tpu_torch.ops.resize import (resize_axis,
                                             resize_axis_windowed_plain,
-                                            resize_batch, window_tensors)
+                                            resize_batch, resize_windowed,
+                                            window_tensors)
     from picha_tpu_torch.pipeline import ImageBatchPipeline, encode_filtered
     from picha_tpu_torch.pipeline.png_batch import assemble, filter_candidates
     from picha_tpu_torch.runtime import to_device
@@ -2020,7 +2053,7 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     reset_launch_counts()
     outs = pipe(bufs, mimetype="image/tiff")
     torch.cuda.synchronize()
-    c4 = only(launch_counts(), {"pixel_map": 2, "resize_axis": 2},
+    c4 = only(launch_counts(), {"pixel_map": 2, "resize_2d": 1},
               "config-4 call")
     px = pipe.transform(batch)
     px_cpu = ImageBatchPipeline(device="cpu", **kw).transform(batch)
@@ -2042,7 +2075,7 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     reset_launch_counts()
     outs_w = pipe_w(bufs, mimetype="image/tiff")
     torch.cuda.synchronize()
-    only(launch_counts(), {"pixel_map": 2, "resize_axis": 2}, "WebP leg")
+    only(launch_counts(), {"pixel_map": 2, "resize_2d": 1}, "WebP leg")
     webp_lsb = np.abs(decode_all(outs_w).astype(np.int32)
                       - px_cpu.numpy()).reshape(IMG_N, -1).mean(1)
     if webp_lsb.max() >= WEBP_LSB:
@@ -2064,7 +2097,7 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     reset_launch_counts()
     small = resize_batch(rgb, 960, 544, "lanczos", 1.0)
     torch.cuda.synchronize()
-    rc = only(launch_counts(), {"pixel_map": 2, "resize_axis": 2},
+    rc = only(launch_counts(), {"pixel_map": 2, "resize_2d": 1},
               "resize_batch")
     (rsw, rtw), (rsh, rth) = (window_tensors(960, 1920, "lanczos", 1.0, dev),
                               window_tensors(544, 1088, "lanczos", 1.0, dev))
@@ -2116,17 +2149,15 @@ def pixel_phases(dev, card, results, phase, timed, wall):
         xs = to_device(b, dev)
         torch.cuda.synchronize()
         host["upload"] = (time.perf_counter() - t) * 1e3
-        names = ["K11_head", "K8_width", "K8_height", "K11_tail"]
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        names = ["K11_head", "K8_resize", "K11_tail"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         f = pixel_map(xs, 4, torch.float32, crop=IMG_CROP)
         ev[1].record()
-        f = resize_axis(f, sw, tw, -2)
+        f = resize_windowed(f, ((sw, tw), (sh, th)))
         ev[2].record()
-        f = resize_axis(f, sh, th, -3)
-        ev[3].record()
         out = pixel_map(f, 4, torch.uint8)
-        ev[4].record()
+        ev[3].record()
         torch.cuda.synchronize()
         device = {n: ev[i].elapsed_time(ev[i + 1])
                   for i, n in enumerate(names)}
@@ -2616,6 +2647,7 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
     from picha_tpu_torch.models.vit import ViT, ViTConfig
     from picha_tpu_torch.ops import attention as att_mod
     from picha_tpu_torch.ops.attention import attention, attention_plain
+    from picha_tpu_torch.ops import layernorm as ln_mod
     from picha_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
     from picha_tpu_torch.ops.moe import (capacity, combine, combine_plain,
                                          route_dispatch, route_dispatch_plain)
@@ -2699,8 +2731,12 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
     ulps17 = float((d17 / ulp(torch.maximum(got.abs(), want.abs()))).max())
     if ulps17 > 1.0:
         raise AssertionError(f"K17: {ulps17} bf16 ulp from its plain version")
+    # the kernel's own order of operations, in torch ops on the card
+    if not torch.equal(got, ln_mod.layer_norm_lanes(*a17)):
+        raise AssertionError("K17 differs from its lane-order model")
     results["vit_layernorm"] = dict(
-        max_abs_err=float(d17.max()), max_ulps=ulps17,
+        max_abs_err=float(d17.max()), max_ulps=ulps17, equal_to_lanes=True,
+        build=ln_mod.kernel_info(x17.numel() // cfg.dim, cfg.dim)["k17"],
         ms=timed(lambda: layer_norm(*a17), 20),
         plain_ms=timed(lambda: layer_norm_plain(*a17), 5),
         library_ms=timed(lambda: F.layer_norm(
@@ -2776,7 +2812,8 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
           note="each kernel on the arguments of its first call in the "
                "forward (K19's buckets: a skewed router, and its last "
                "call); K17 and K18 within 1 bf16 ulp (K18: plus 1 ulp of "
-               "the row's largest |o|), K19 (expert, slot, keep, gate and "
+               "the row's largest |o|), K17 bit for bit its lane-order "
+               "model (build: its plan and registers), K19 (expert, slot, keep, gate and "
                "buffer) and K20 bit for bit; library_ms: F.layer_norm, "
                "F.scaled_dot_product_attention",
           K17=results["vit_layernorm"], K18=results["vit_attention"],
@@ -4248,7 +4285,7 @@ def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
                encode_backend="device", device=dev)
     slice_launches, runs = {}, {}
     pixel_kernels = {True: ("jpeg_encode_front", "huffman_encode_scan"),
-                     False: ("idct_plane", "upsample_color", "resize_axis",
+                     False: ("idct_plane", "upsample_color", "resize_2d",
                              "jpeg_encode_front", "huffman_encode_scan")}
     for fused in (True, False):
         for upload in UPLOADS:
@@ -5186,7 +5223,7 @@ def raw420_phases(dev, card, results, phase, timed, wall, corpus, strict,
                       else ("jpeg_encode_front",)) + (
                 ("huffman_decode_restart",) if fused else
                 ("huffman_decode_restart", "idct_plane", "upsample_color",
-                 "resize_axis"))
+                 "resize_2d"))
             gone = ("huffman_encode_scan",) + (
                 ("jpeg_encode_front",) if backend == "raw420"
                 else ("yuv420_pack",))

@@ -53,7 +53,10 @@ SIGNATURES = {
     "picha_upsample_color": [P, P, P, P, *[I] * 16, I, I, I, I, I, P, P],
     "picha_upsample_color_build": [I] * 10,
     "picha_upsample_color_info": [I, P],
-    "picha_resize_axis": [P, I, L, I, I, L, P, P, I, F, F, P, P],
+    "picha_resize_axis": [P, I, L, I, I, L, P, P, I, F, F, P, I, I, P],
+    "picha_resize_2d": [P, I, L, I, I, I, I, I, P, P, I, P, P, I, F, F, P,
+                        I, I, I, I, I, P],
+    "picha_resize_info": [I, I, I, I, I, P],
     "picha_crop_flip_resize_w": [P, I, I, I, I, P, P, P, I, P, P, I, I, F,
                                  P, P],
     "picha_augment": [P, I, I, I, P, P, P, P, P, P, I, F, I, F, F, F, P, P],
@@ -68,6 +71,7 @@ SIGNATURES = {
     "picha_tiff_transform": [P, I, I, I, L, I, I, I, I, I, I, I, P, P, P],
     "picha_tiff_transform_info": [I, I, I, I, I, I, P],
     "picha_vit_layernorm": [P, P, P, L, I, P, P],
+    "picha_vit_layernorm_info": [L, I, P],
     "picha_vit_attention": [P, I, I, I, I, F, I, P, P],
     "picha_vit_attention_info": [I, I, I, P],
     "picha_moe_route_dispatch": [P, P, L, I, I, I, P, P, P, P, P, P, P],
@@ -222,6 +226,10 @@ KERNELS = {
         Kernel("resize_axis", "picha_resize_axis",
                "picha_tpu_torch/csrc/resize_axis.cu",
                "picha_tpu/ops/resize.py:296 (and resize_f32 :330)"),
+        Kernel("resize_2d", "picha_resize_2d",
+               "picha_tpu_torch/csrc/resize_axis.cu",
+               "picha_tpu/ops/resize.py:330 (resize_f32: _apply_axis :296 "
+               "on the width, then on the height, in one launch)"),
         Kernel("crop_flip_resize_w", "picha_crop_flip_resize_w",
                "picha_tpu_torch/csrc/crop_resize.cu",
                "picha_tpu/pipeline/training.py:64 (crop, flip, unpack and "

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +58,9 @@ class ViTConfig:
     moe_experts: int = 0
     moe_every: int = 2
     capacity_factor: float = 1.5
+    # the reference's field (`picha_tpu/models/vit.py:42`), taken and
+    # never read, as there: the port computes in bf16 with f32 sums
+    dtype: Any = None
 
     def is_moe_block(self, i: int) -> bool:
         # every moe_every-th block, counting from the moe_every-th

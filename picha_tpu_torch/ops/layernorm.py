@@ -10,10 +10,13 @@ rounding points: everything in f32 from the bf16 cotangent, dx rounded
 once to x's dtype, dscale / dbias the f32 sums over the rows.
 
   `layer_norm_plain`, `layer_norm_backward_plain`  the torch versions
+  `layer_norm_lanes`  K17's exact order of operations in torch ops: the
+                kernel's bits on either device
   `layer_norm`  differentiable (`torch.autograd.Function`): K17 forward
                 and K21 (`csrc/vit_layernorm_bwd.cu`) backward for CUDA
                 tensors, the plain versions for CPU tensors
-  `kernel_info` K21's launch plan and build at a shape, from the card
+  `kernel_info` K21's and K17's launch plans and builds at a shape,
+                from the card
 """
 from __future__ import annotations
 
@@ -51,6 +54,48 @@ def layer_norm_plain(x, scale, bias):
     var = true_div((dev * dev).sum(-1, keepdim=True), d)
     out = dev / torch.sqrt(var + EPS)
     return (out * scale + bias).to(x.dtype)
+
+
+def layer_norm_lanes(x, scale, bias):
+    """K17's tuned kernel (even d <= 1024) in torch ops, in its exact
+    order, on x's device: lane L of a row's warp holds pairs L, L + 32,
+    ... and sums them in that order (x, then y); the 32 lanes' sums meet
+    in the xor-shuffle tree (strides 16, 8, 4, 2, 1); then true
+    divisions, an IEEE square root and `* scale + bias` as separate
+    float32 steps. Its bits are the kernel's, where the plain version's
+    sums run in torch's order (within 1 bf16 ulp)."""
+    d = x.shape[-1]
+    if not tuned(d):
+        raise ValueError(f"K17's tuned kernel takes even widths up to "
+                         f"{MAX_DIM}, not {d}")
+    rows, pairs, f32 = x.numel() // d, d // 2, torch.float32
+    slots = (pairs + 31) // 32
+    v = torch.zeros((rows, slots * 32, 2), dtype=f32, device=x.device)
+    v[:, :pairs] = x.reshape(rows, pairs, 2).to(f32)
+    v = v.view(rows, slots, 32, 2)
+    live = (torch.arange(slots * 32, device=x.device) < pairs).view(
+        slots, 32, 1)
+    lane = torch.arange(32, device=x.device)
+
+    def lane_sums(t):
+        s = torch.zeros((rows, 32), dtype=f32, device=x.device)
+        for i in range(slots):
+            s = (s + t[:, i, :, 0]) + t[:, i, :, 1]
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[:, lane ^ o]
+        return s[:, :1, None, None]
+
+    n = torch.tensor(float(d), dtype=f32, device=x.device)
+    dev = torch.where(live, v - lane_sums(v) / n, 0.0)
+    # the IEEE square root: float64's, rounded once to float32 (exact for
+    # a square root; torch's float32 sqrt on the CPU is not always the
+    # nearest float)
+    den = torch.sqrt((lane_sums(dev * dev) / n + torch.tensor(
+        EPS, dtype=f32, device=x.device)).double()).to(f32)
+    sc = scale.to(f32).reshape(pairs, 2)
+    bi = bias.to(f32).reshape(pairs, 2)
+    y = (dev / den).view(rows, slots * 32, 2)[:, :pairs]
+    return ((y * sc) + bi).to(x.dtype).reshape(x.shape)
 
 
 def layer_norm_backward_plain(x, scale, dy):
@@ -107,22 +152,27 @@ def layer_norm_k17(x, scale, bias):
 _PLANS = {}
 
 
-def _plan(rows: int, d: int, device) -> list:
-    """K21's launch plan at (rows, d) on `device`'s card, as
-    `picha_vit_layernorm_bwd_info` reports it (cached: the plan depends
-    only on the shape and the card)."""
+def _plan(rows: int, d: int, device, symbol="picha_vit_layernorm_bwd_info",
+          n=11) -> list:
+    """K21's (or, with `symbol` picha_vit_layernorm_info and n = 9,
+    K17's) launch plan at (rows, d) on `device`'s card, as the C info
+    function reports it (cached: the plan depends only on the shape and
+    the card)."""
     from ..kernels._build import library
 
-    key = (rows, d, device.index)
+    key = (symbol, rows, d, device.index)
     if key not in _PLANS:
-        out = (ctypes.c_int * 11)()
+        out = (ctypes.c_int * n)()
         with torch.cuda.device(device):
-            rc = library().picha_vit_layernorm_bwd_info(rows, d, out)
+            rc = getattr(library(), symbol)(rows, d, out)
         if rc != 0:
-            raise RuntimeError(f"picha_vit_layernorm_bwd_info: CUDA error "
-                               f"{rc}")
+            raise RuntimeError(f"{symbol}: CUDA error {rc}")
         _PLANS[key] = list(out)
     return _PLANS[key]
+
+
+_PLAN_KEYS = ("pairs_a_lane", "rows_a_block", "blocks", "blocks_an_sm",
+              "sms", "shared_bytes", "registers", "local_bytes")
 
 
 def kernel_info(rows: int, d: int, device=None) -> dict:
@@ -130,15 +180,18 @@ def kernel_info(rows: int, d: int, device=None) -> dict:
     a warp a row through a cp.async ring; or "block_a_row"), bf16 pairs a
     lane, rows a block, blocks, blocks a multiprocessor, multiprocessors,
     dynamic shared bytes, registers and local bytes of the row kernel,
-    and the columns kernel's blocks and threads."""
+    and the columns kernel's blocks and threads; under "k17" the same
+    plan keys of K17's row kernel (its block-a-row path: one row a
+    block)."""
     device = torch.device("cuda", torch.cuda.current_device()) \
         if device is None else torch.device(device)
     p = _plan(rows, d, device)
-    keys = ("pairs_a_lane", "rows_a_block", "blocks", "blocks_an_sm", "sms",
-            "shared_bytes", "registers", "local_bytes")
+    f = _plan(rows, d, device, "picha_vit_layernorm_info", 9)
     return dict(path="tuned" if p[0] else "block_a_row",
-                **dict(zip(keys, p[1:9])), column_blocks=p[9],
-                column_threads=p[10])
+                **dict(zip(_PLAN_KEYS, p[1:9])), column_blocks=p[9],
+                column_threads=p[10],
+                k17=dict(path="tuned" if f[0] else "block_a_row",
+                         **dict(zip(_PLAN_KEYS, f[1:9]))))
 
 
 def layer_norm_backward(x, scale, dy):

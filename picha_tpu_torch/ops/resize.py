@@ -12,16 +12,27 @@ the caller uploads them once per configuration.
   `resize_axis_windowed_plain`  the plain twin of kernel K8: the same
                                 taps, accumulated per output in window
                                 order
-  `resize_axis`                 one axis: K8 (`csrc/resize_axis.cu`) for
-                                CUDA tensors, the windowed twin for CPU
-                                tensors
-  `resize_windowed`             width pass, then height pass, through
-                                `resize_axis`
+  `resize_axis`                 one axis: K8's per-axis kernels
+                                (`csrc/resize_axis.cu`: resize_rows for
+                                the width pass, resize_cols for the
+                                height pass) for CUDA tensors, the
+                                windowed twin for CPU tensors
+  `resize_windowed`             width pass, then height pass: K8's
+                                one-launch kernel (resize_2d) for CUDA
+                                tensors where `resize_plan` fits a tile
+                                in shared memory, else `resize_axis`
+                                twice; the twin twice for CPU tensors
+  `resize_plan`, `axis_plan`    the tiles of those kernels, planned on
+                                the host from the windows and the card
+                                (from `starts_host`: the starts' host
+                                copy `window_tensors` records)
+  `kernel_info`                 K8's plan and builds at a call's shapes
   `resize_f32`                  the same with the windows built here
   `crop_resize_map`             the pixel-array chain: K11 (unpack
-                                v / MAX, crop window) -> K8 width -> K8
-                                height -> K11 (channel map, pack or
-                                clip); one K11 launch without a resize
+                                v / MAX, crop window) -> K8 (both axes,
+                                `resize_windowed`) -> K11 (channel map,
+                                pack or clip); one K11 launch without a
+                                resize
   `resize_batch`                the reference's `_jit_resize` through
                                 that chain, uint8 or uint16 in and out
   `resize_array`, `resize_image` the single-image API on the device (the
@@ -40,6 +51,9 @@ any tap (the decode paths' rule); `resize_batch` unpacks with K11's IEEE
 division first, as the reference's `junpack_f32` does.
 """
 from __future__ import annotations
+
+import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -108,38 +122,215 @@ def resize_axis_windowed_plain(x, starts, taps, axis, out_scale=1.0):
     return acc.movedim(-2, axis)
 
 
+# -- K8's plans ------------------------------------------------------------
+# The kernels' constants (csrc/resize_axis.cu): threads a block, rows a
+# block of resize_rows takes.
+THREADS = 256
+ROWS = 4
+STATIC_SMEM = 64   # bytes a block the plans leave for static shared memory
+
+
+def tile_2d(c: int) -> int:
+    """resize_2d's output columns a tile at c channels: tx * c at most a
+    block's threads (one width-pass column a thread) and a multiple of 4
+    (the height pass's float4 quads)."""
+    return THREADS // c // 4 * 4
+
+
+def tile_rows(c: int) -> int:
+    """resize_rows's outputs a tile at c channels: 4 outputs a thread."""
+    return 4 * THREADS // c // 4 * 4
+
+
+def tile_spans(starts, k: int, tile: int):
+    """Per tile of `tile` consecutive outputs: (lo, hi), the source
+    span [lo, hi) its windows read, from the min and the max of its
+    starts (no monotone windows assumed), as the kernels take it."""
+    st = np.asarray(starts, np.int64)
+    pad = -len(st) % tile
+    lo = np.concatenate([st, np.full(pad, st.max())]).reshape(-1, tile)
+    hi = np.concatenate([st, np.full(pad, st.min())]).reshape(-1, tile)
+    return lo.min(1), hi.max(1) + k
+
+
+def _chunks(elems: int, elem_bytes: int) -> int:
+    # 16-byte words that cover a span of `elems` elements at any alignment
+    return (15 + elems * elem_bytes + 15) // 16
+
+
+def _blocks_an_sm(smem: int, card: dict) -> int:
+    by_smem = card["smem_sm"] // (smem + STATIC_SMEM + card["reserved"])
+    by_regs = 65536 // (max(card["registers"], 1) * THREADS)
+    return min(2048 // THREADS, by_smem, by_regs)
+
+
+def axis_plan(starts, k: int, inner: int, card: dict,
+              elem_bytes: int = 1) -> dict:
+    """resize_rows's plan (one axis, inner <= 4): `tile` outputs a
+    block of ROWS rows, `span_chunks` 16-byte words of staged source span
+    a row (0: the spans and the taps do not fit `card`'s shared memory a
+    block, and the kernel reads global memory), `smem` bytes."""
+    tile = tile_rows(inner)
+    lo, hi = tile_spans(starts, k, tile)
+    chunks = _chunks(int((hi - lo).max()) * inner, elem_bytes)
+    smem = ROWS * chunks * 16 + tile * (k + 1) * 4
+    if smem + STATIC_SMEM > card["smem_block"]:
+        chunks = smem = 0
+    return dict(tile=tile, span_chunks=chunks, smem=smem)
+
+
+def resize_plan(sw, kw: int, sh, kh: int, c: int, card: dict,
+                elem_bytes: int = 1) -> dict:
+    """K8's route for both axes of an (N, H, W, c) resize with width
+    starts `sw` (kw taps) and height starts `sh` (kh taps), host arrays.
+    `card`: smem_block (opt-in shared bytes a block), smem_sm (a
+    multiprocessor's), reserved (the runtime's a block), registers
+    (resize_2d's a thread); elem_bytes: the input's (1 uint8, 4 f32).
+
+    One launch (resize_2d) takes tiles of tx = `tile_2d(c)` output
+    columns (fewer where the width is narrower) by ty output rows; a
+    tile's shared memory holds its f32 intermediate (rows_max source
+    rows x tx * c), its rows_max source rows staged as span_chunks
+    16-byte words of raw input each, and its taps, starts and shifts. Of
+    ty in 32, 16, ..., 1 whose tile fits a block, the plan takes the one
+    with the most min(blocks an SM, 3) x ty / rows_max (resident warps,
+    to 24 an SM, times output rows a staged source row), the larger ty
+    on a tie: on an H100 the best of ty 2-32 at the transcode's and at
+    config 4's shapes (PERF.md §6).
+    Where no ty fits (a large downscale with a long window), or c > 4,
+    the route is "per_axis": resize_rows for the width, resize_cols for
+    the height. The choice depends only on the shapes, the windows and
+    the card's shared memory."""
+    plan = dict(route="per_axis", tx=0, ty=0, rows_max=0, span_chunks=0,
+                smem=0, blocks_an_sm=0)
+    if not 1 <= c <= 4:
+        return plan
+    tx = min(tile_2d(c), -(-len(sw) // 4) * 4)
+    xlo, xhi = tile_spans(sw, kw, tx)
+    chunks = _chunks(int((xhi - xlo).max()) * c, elem_bytes)
+    best = None
+    for ty in (32, 16, 8, 4, 2, 1):
+        if ty > 1 and ty // 2 >= len(sh):
+            continue   # the same single tile as a smaller ty
+        ylo, yhi = tile_spans(sh, kh, ty)
+        rows = int((yhi - ylo).max())
+        smem = rows * chunks * 16 + 4 * (rows * tx * c + tx * kw + ty * kh
+                                         + tx + ty + rows)
+        if smem + STATIC_SMEM > card["smem_block"]:
+            continue
+        bps = _blocks_an_sm(smem, card)
+        if bps < 1:
+            continue
+        score = min(bps, 3) * ty / rows
+        if best is None or score > best[0]:
+            best = (score, dict(route="one_launch", tx=tx, ty=ty,
+                                rows_max=rows, span_chunks=chunks,
+                                smem=smem, blocks_an_sm=bps))
+    return plan if best is None else best[1]
+
+
+# The starts' host copies by tensor: `window_tensors` records the numpy
+# starts it uploads, so a plan never reads them back from the card. An
+# entry goes when its tensor is freed (weakref.finalize runs before the
+# tensor's id can be reused); starts from elsewhere, or changed in place
+# since (their _version), are read back once and recorded.
+_HOSTS = {}
+
+
+def _record(starts, host) -> None:
+    host = np.ascontiguousarray(host, dtype=np.int32)
+    _HOSTS[id(starts)] = (starts._version, host, host.tobytes())
+    weakref.finalize(starts, _HOSTS.pop, id(starts), None)
+
+
+def starts_host(starts):
+    """(host copy, its bytes) of a starts tensor: the copy recorded by
+    `window_tensors`, else the tensor read back (a sync)."""
+    entry = _HOSTS.get(id(starts))
+    if entry is None or entry[0] != starts._version:
+        _record(starts, starts.cpu().numpy())
+        entry = _HOSTS[id(starts)]
+    return entry[1], entry[2]
+
+
+_CARDS = {}
+
+
+def card_info(device, which: int, elem_bytes: int, c: int, k: int,
+              smem: int = 0) -> dict:
+    """`picha_resize_info` of K8's kernel `which` (0 resize_2d, 1
+    resize_rows, 2 resize_cols) on `device`, the build that serves c
+    channels and windows of k taps: registers, local bytes, blocks an SM
+    at `smem` dynamic bytes, SMs and the shared-memory limits (cached)."""
+    from ..kernels._build import library
+
+    key = (device.index, which, elem_bytes, c, k, smem)
+    if key not in _CARDS:
+        out = (ctypes.c_int * 7)()
+        with torch.cuda.device(device):
+            rc = library().picha_resize_info(which, elem_bytes, c, k, smem,
+                                             out)
+        if rc != 0:
+            raise RuntimeError(f"picha_resize_info: CUDA error {rc}")
+        _CARDS[key] = dict(zip(("registers", "local_bytes", "blocks_an_sm",
+                                "sms", "smem_block", "smem_sm", "reserved"),
+                               out))
+    return _CARDS[key]
+
+
+def _check_windows(x, starts, taps, src, kernel):
+    dst, k = taps.shape
+    if starts.dtype != torch.int32 or taps.dtype != torch.float32 \
+            or starts.device != x.device or taps.device != x.device \
+            or tuple(starts.shape) != (dst,):
+        raise TypeError(f"{kernel} takes (dst,) int32 starts and (dst, k) "
+                        f"float32 taps on the input's device")
+    if k > src:
+        raise ValueError(f"{kernel}: window {k} longer than the axis "
+                         f"({src})")
+
+
+def _check_input(x, kernel):
+    require_cuda(x, kernel)
+    if x.dtype not in (torch.uint8, torch.float32) or x.dim() != 4:
+        raise TypeError(f"{kernel} takes an (N, H, W, C) uint8 or float32 "
+                        f"tensor")
+
+
 def resize_axis(x, starts, taps, axis, out_scale=1.0):
     """Resize one axis (-2 width, -3 height) of an (N, H, W, C) uint8 or
     float32 tensor with per-output windows (`resize_windows` as device
-    tensors) -> float32. Launches K8 for CUDA tensors; the plain twin
-    runs only for CPU tensors."""
+    tensors) -> float32. Launches K8's per-axis kernel for CUDA tensors
+    (resize_rows where the axis's inner stride is at most 4 elements,
+    planned by `axis_plan`; resize_cols otherwise); the plain twin runs
+    only for CPU tensors."""
     if x.device.type == "cpu":
         return resize_axis_windowed_plain(x, starts, taps, axis, out_scale)
-    require_cuda(x, "K8")
-    dev = x.device
-    if x.dtype not in (torch.uint8, torch.float32) or x.dim() != 4:
-        raise TypeError("K8 takes an (N, H, W, C) uint8 or float32 tensor")
+    _check_input(x, "K8")
     if axis not in (-2, -3):
         raise ValueError(f"K8 resizes axis -2 (width) or -3 (height), "
                          f"not {axis}")
     dst, k = taps.shape
-    if starts.dtype != torch.int32 or taps.dtype != torch.float32 \
-            or starts.device != dev or taps.device != dev \
-            or tuple(starts.shape) != (dst,):
-        raise TypeError("K8 takes (dst,) int32 starts and (dst, k) float32 "
-                        "taps on the input's device")
-    x, starts, taps = x.contiguous(), starts.contiguous(), taps.contiguous()
+    _check_windows(x, starts, taps, x.shape[axis], "K8")
+    x, st, taps = x.contiguous(), starts.contiguous(), taps.contiguous()
     n, h, w, c = x.shape
     src = x.shape[axis]
-    if k > src:
-        raise ValueError(f"K8: window {k} longer than the axis ({src})")
     outer, inner = (n * h, c) if axis == -2 else (n, w * c)
     shape = (n, h, dst, c) if axis == -2 else (n, dst, w, c)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
     in_scale = INV255 if x.dtype == torch.uint8 else 1.0
+    tile, chunks = tile_rows(min(inner, 4)), 0
+    if inner <= 4 and out.numel():
+        host, key = starts_host(starts)
+        p = _cached(("axis", key, k, inner, x.dtype, x.device.index),
+                    lambda: axis_plan(host, k, inner,
+                                      card_info(x.device, 1, x.element_size(),
+                                                inner, k),
+                                      x.element_size()))
+        tile, chunks = p["tile"], p["span_chunks"]
     KERNELS["resize_axis"](ptr(x), x.element_size(), outer, src, dst, inner,
-                           ptr(starts), ptr(taps), k, in_scale, out_scale,
-                           ptr(out), stream_of(x))
+                           ptr(st), ptr(taps), k, in_scale, out_scale,
+                           ptr(out), tile, chunks, stream_of(x))
     return out
 
 
@@ -214,16 +405,94 @@ def window_tensors(dst_size, src_size, filter_name, fscale, device):
     """The reference's `resize_windows` as device tensors (starts int32,
     taps float32)."""
     starts, taps = resize_windows(dst_size, src_size, filter_name, fscale)
-    return (torch.as_tensor(starts, device=device),
-            torch.as_tensor(taps, device=device))
+    dev_starts = torch.as_tensor(starts, device=device)
+    _record(dev_starts, starts)
+    return dev_starts, torch.as_tensor(taps, device=device)
+
+
+# Plans by the content of the windows' starts and the call's shape (a plan
+# costs ~0.1 ms of numpy, more than the kernel): the same starts always
+# give the same plan, so a cached plan holds every tile it is used for.
+_PLAN_CACHE = {}
+
+
+def _cached(key, make):
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        if len(_PLAN_CACHE) >= 256:
+            _PLAN_CACHE.clear()
+        plan = _PLAN_CACHE[key] = make()
+    return plan
+
+
+def windowed_plan(x, windows) -> dict:
+    """`resize_plan` of `resize_windowed(x, windows)` on x's card."""
+    (sw, tw), (sh, th) = windows
+    c = x.shape[-1]
+    hw, bw = starts_host(sw)
+    hh, bh = starts_host(sh)
+
+    def make():
+        card = card_info(x.device, 0, x.element_size(), min(max(c, 1), 4),
+                         max(tw.shape[1], th.shape[1]))
+        return resize_plan(hw, tw.shape[1], hh, th.shape[1], c, card,
+                           x.element_size())
+
+    return _cached(("2d", bw, tw.shape[1], bh, th.shape[1], c, x.dtype,
+                    x.device.index), make)
 
 
 def resize_windowed(x, windows, out_scale=1.0):
-    """The width pass, then the height pass, each through `resize_axis`
-    (K8 twice for CUDA tensors). `windows`: ((starts, taps) of the
-    width axis, (starts, taps) of the height axis) on x's device."""
+    """The width pass, then the height pass (`resize_axis`'s arithmetic,
+    out_scale on the second). `windows`: ((starts, taps) of the width
+    axis, (starts, taps) of the height axis) on x's device. For CUDA
+    tensors K8 in one launch (resize_2d) where `resize_plan` fits a tile
+    in shared memory, else its per-axis kernels twice (`windowed_plan`
+    says which); both give the twin's bits. For CPU tensors the plain
+    twin twice."""
     (sw, tw), (sh, th) = windows
-    return resize_axis(resize_axis(x, sw, tw, -2), sh, th, -3, out_scale)
+    if x.device.type == "cpu":
+        return resize_axis(resize_axis(x, sw, tw, -2), sh, th, -3, out_scale)
+    _check_input(x, "K8")
+    n, h, w, c = x.shape
+    _check_windows(x, sw, tw, w, "K8")
+    _check_windows(x, sh, th, h, "K8")
+    plan = windowed_plan(x, windows)
+    if plan["route"] == "per_axis":
+        return resize_axis(resize_axis(x, sw, tw, -2), sh, th, -3, out_scale)
+    x, sw, tw, sh, th = (t.contiguous() for t in (x, sw, tw, sh, th))
+    dst_w, kw = tw.shape
+    dst_h, kh = th.shape
+    out = torch.empty((n, dst_h, dst_w, c), dtype=torch.float32,
+                      device=x.device)
+    in_scale = INV255 if x.dtype == torch.uint8 else 1.0
+    KERNELS["resize_2d"](
+        ptr(x), x.element_size(), n, h, w, c, dst_h, dst_w, ptr(sw), ptr(tw),
+        kw, ptr(sh), ptr(th), kh, in_scale, out_scale, ptr(out), plan["tx"],
+        plan["ty"], plan["rows_max"], plan["span_chunks"], plan["smem"],
+        stream_of(x))
+    return out
+
+
+def kernel_info(x, windows) -> dict:
+    """K8's plans and builds for `resize_windowed(x, windows)` on x's
+    card: the route and tile of `resize_plan`, the width pass's
+    `axis_plan`, and each kernel's registers, local bytes and blocks an
+    SM (resize_2d at the plan's shared bytes)."""
+    (sw, tw), (_, th) = windows
+    c, eb = x.shape[-1], x.element_size()
+    kw, k = tw.shape[1], max(tw.shape[1], th.shape[1])
+    plan = windowed_plan(x, windows)
+    cc = min(max(c, 1), 4)
+    out = dict(plan=plan, resize_2d=card_info(x.device, 0, eb, cc, k,
+                                              plan["smem"]))
+    if c <= 4:
+        wp = axis_plan(starts_host(sw)[0], kw, c,
+                       card_info(x.device, 1, eb, c, kw), eb)
+        out["width_pass"] = dict(wp, **card_info(x.device, 1, eb, c, kw,
+                                                 wp["smem"]))
+    out["height_pass"] = card_info(x.device, 2, 4, 4, th.shape[1])
+    return out
 
 
 def resize_f32(x, dst_w, dst_h, filter_name, fscale, out_scale=1.0):
@@ -242,8 +511,8 @@ def crop_resize_map(x, windows, dst_channels, out_dtype, crop=None,
     """(N, H, W, C) uint8 / uint16 pixels -> the crop window `crop` (x0,
     y0, w, h), resized with `windows` (as `resize_windowed` takes them;
     None: no resize), mapped to `dst_channels` and packed to `out_dtype`
-    (or float32 clipped to [0, 1] with `clip`): K11 -> K8 W -> K8 H ->
-    K11, or one K11 without a resize. The reference composes the same
+    (or float32 clipped to [0, 1] with `clip`): K11 -> K8 (both axes,
+    `resize_windowed`) -> K11, or one K11 without a resize. The reference composes the same
     stages in `image_batch._jit_transform` and `_jit_resize`."""
     if windows is None:
         return pixel_map(x, dst_channels, out_dtype, crop=crop, clip=clip)

@@ -13,10 +13,15 @@
   (K14) on one device.
   TiffBatchPipeline — host IFD parse and strips -> LZW (K15) -> sample
   transforms and orientation (K16) on one device.
+  entropy_decode, signature — the JPEG host entropy decode and the
+  batch signature, as the reference's.
+  augment — the training ingest's colour jitter, cutout and mixup.
 """
 
 from .image_batch import ImageBatchPipeline  # noqa: F401
-from .jpeg_batch import JpegBatchPipeline, device_constants  # noqa: F401
+from .jpeg_batch import (JpegBatchPipeline, device_constants,  # noqa: F401
+                         entropy_decode, signature)
 from .png_batch import PngBatchPipeline, encode_filtered  # noqa: F401
 from .tiff_batch import TiffBatchPipeline  # noqa: F401
 from .training import TrainingInput  # noqa: F401
+from . import augment  # noqa: F401

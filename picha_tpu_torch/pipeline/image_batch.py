@@ -10,8 +10,9 @@ K12, before their host deflate).
 
 The device graph is the reference's `_jit_transform` (unpack -> crop ->
 resize -> channel map -> pack, or clip with `normalize`): with a resize,
-K11 (unpack + crop window, float32 out) -> K8 width pass -> K8 height
-pass -> K11 (map + pack, or clip); without one, a single K11 launch. On
+K11 (unpack + crop window, float32 out) -> K8 (width and height pass,
+one launch where the tile fits) -> K11 (map + pack, or clip); without
+one, a single K11 launch. On
 the CPU every stage runs its plain version.
 
 Not ported: the reference's `backend="host"` route (crop view + the
@@ -133,8 +134,8 @@ class ImageBatchPipeline:
 
     def transform(self, batch) -> torch.Tensor:
         """(N, H, W, C) uint8 / uint16 pixels (numpy, or a tensor) -> the
-        op chain's output on the device: K11 -> K8 W -> K8 H -> K11 with
-        a resize, one K11 without."""
+        op chain's output on the device: K11 -> K8 -> K11 with a resize,
+        one K11 without."""
         self._check_crop(batch.shape[1], batch.shape[2])
         x = to_device(batch, self.device)
         if x.dim() != 4 or x.dtype not in (torch.uint8, torch.uint16):

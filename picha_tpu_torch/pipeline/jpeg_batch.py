@@ -32,7 +32,8 @@ stages are the reference's `pixel_stages`: with `fused=True` the folded
 dequant+IDCT+upsample+resize matmuls; with `fused=False` (the default)
 the staged, libjpeg-exact decode (dequant+IDCT, kernel K6; fancy upsample
 + colour, kernel K7) and then the separable resize (kernel K8, width pass
-then height pass). Then the encode backend:
+then height pass, in one launch where its tile fits shared memory). Then
+the encode backend:
   "tpu" (the default)  encoder front (kernel K2: u8 pack, YCbCr, 4:2:0,
                        fDCT, quantisation); the int16 planes are read
                        back and the host writes the scan
@@ -113,6 +114,33 @@ HOST = "host"   # the colour-space slot of a HostPixels signature
 def host_decode(bufs):
     """JPEG bytes -> HostPixels through Pillow's libjpeg."""
     return [HostPixels(jpeg_host.decode_rgb(b), bytes(b)) for b in bufs]
+
+
+def entropy_decode(bufs: Sequence[bytes],
+                   pool: Optional[ThreadPoolExecutor] = None,
+                   max_threads: Optional[int] = None,
+                   force_libjpeg: bool = False):
+    """The reference's host entropy decode (`pipeline/jpeg_batch.py::
+    entropy_decode`): JPEG bytes -> `coef_host.JpegCoefficients`, with
+    its thread policy (`coef_host.entropy_decode`: segment-parallel when
+    the batch is narrower than `max_threads`, image-parallel on `pool`
+    otherwise). The decoder is the port's own: the host C++ one where
+    the machine has a card (it is built with the kernels), its numpy
+    plain version otherwise. It takes baseline Huffman scans; libjpeg's
+    route (`force_libjpeg`, and the files only libjpeg takes) is ROADMAP
+    queue 1 item 5."""
+    if force_libjpeg:
+        raise NotImplementedError(
+            "entropy_decode: force_libjpeg (libjpeg's decoder) is not "
+            "ported yet (ROADMAP queue 1 item 5)")
+    infos = [parse_baseline(bytes(b)) for b in bufs]
+    if any(i is None for i in infos):
+        raise NotImplementedError(
+            "entropy_decode: a file the port's host decoder does not take "
+            "(progressive, arithmetic or CMYK) needs libjpeg's decoder, "
+            "not ported yet (ROADMAP queue 1 item 5)")
+    return coef_host.entropy_decode(infos, torch.cuda.is_available(), pool,
+                                    max_threads)
 
 
 # -- batching helpers ------------------------------------------------------
@@ -234,7 +262,7 @@ def device_constants(sig, out_w, out_h, filter, fscale, quality, device,
 
 def resized_pixels(rgb, windows, normalize: bool = False):
     """Decoded uint8 (N, H, W, C) images -> the resize (K8, width then
-    height pass) when `windows` is set: float32 on the 0-1 scale
+    height pass, `resize_windowed`) when `windows` is set: float32 on the 0-1 scale
     clipped to [0, 1] (`normalize`), else on the 0-255 scale for the
     pack or the encoder front. Without a resize: the uint8 images, or
     v * f32(1/255) (`normalize`)."""

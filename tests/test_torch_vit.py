@@ -116,6 +116,65 @@ def test_layer_norm_plain_matches_ln(shape, offset, spread):
                                   torch.from_numpy(bias)), got)
 
 
+# K17's lane order: `torch_helpers.k17_lane_model` (numpy) is the card
+# tests' oracle for the kernel's bits; here it is held to the port's torch
+# transcription of the same order (`layer_norm_lanes`, chip_smoke's
+# oracle) bit for bit, and to the plain version and `_ln` within 1 bf16
+# ulp (the sums' order is the only difference), at TINY (128) and ViT-S
+# (384) widths and at the card tests' edge widths.
+K17_LANE_CASES = [((7, 13, 384), 0.0, 1.0), ((2, 9, 128), -40.0, 25.0),
+                  ((37, 128), 1.5, 3.0), ((5, 1024), 0.5, 4.0),
+                  ((3, 2), 1.5, 3.0), ((9, 6), 1.5, 3.0),
+                  ((4, 196, 384), 0.5, 2.0), ((3, 130), 0.0, 1e-3)]
+
+
+@pytest.mark.parametrize("shape,offset,spread", K17_LANE_CASES)
+def test_k17_lane_model_is_layer_norm_lanes(shape, offset, spread):
+    from picha_tpu_torch.ops.layernorm import layer_norm_lanes
+    from torch_helpers import k17_lane_model
+
+    x, scale, bias = _ln_inputs(shape, offset, spread)
+    got = k17_lane_model(_torch_bf16(x), torch.from_numpy(scale),
+                         torch.from_numpy(bias))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    assert torch.equal(got, layer_norm_lanes(
+        _torch_bf16(x), torch.from_numpy(scale), torch.from_numpy(bias)))
+
+
+@pytest.mark.parametrize("shape,offset,spread", K17_LANE_CASES)
+def test_k17_lane_model_within_ulp_of_plain_and_ln(shape, offset, spread):
+    from torch_helpers import k17_lane_model
+
+    x, scale, bias = _ln_inputs(shape, offset, spread)
+    got = k17_lane_model(_torch_bf16(x), torch.from_numpy(scale),
+                         torch.from_numpy(bias)).float().numpy()
+    plain = layer_norm_plain(_torch_bf16(x), torch.from_numpy(scale),
+                             torch.from_numpy(bias)).float().numpy()
+    ref = np.asarray(ref_vit._ln(jnp.asarray(x, jnp.bfloat16),
+                                 {"scale": scale, "bias": bias})
+                     .astype(jnp.float32))
+    assert _within_ulps(got, plain, 1).all()
+    assert _within_ulps(got, ref, 1).all()
+
+
+def test_k17_lane_model_takes_only_the_tuned_widths():
+    from picha_tpu_torch.ops.layernorm import layer_norm_lanes
+
+    w = torch.ones(7)
+    with pytest.raises(ValueError, match="even widths"):
+        layer_norm_lanes(torch.ones((2, 7), dtype=torch.bfloat16), w, w)
+
+
+def _ln_inputs(shape, offset, spread):
+    rng = np.random.default_rng(sum(shape) + 17)
+    d = shape[-1]
+    x = _bf16_np(offset + spread * rng.standard_normal(shape)
+                 .astype(np.float32))
+    scale = (1.0 + 0.3 * rng.standard_normal(d)).astype(np.float32)
+    bias = (0.2 * rng.standard_normal(d)).astype(np.float32)
+    return x, scale, bias
+
+
 # --- K18: attention ---------------------------------------------------------
 
 def _ref_attention(qkv, scale):

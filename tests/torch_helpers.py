@@ -989,3 +989,107 @@ def k26_model(x, dy, scale, mu, sigma, vector_width: int = 8):
     for i in range(n):
         dscale = dscale + terms[i]
     return dx.reshape(x.shape), dscale.astype(np.float32)
+
+
+def k17_lane_model(x, scale, bias):
+    """K17's tuned kernel (even d <= 1024) in numpy float32, in its exact
+    order: lane L of a row's warp sums its pairs p = L + 32 i in i order
+    (x, then y), the 32 lane sums meet in the xor-shuffle tree (lane L
+    adds lane L ^ o's sum, o = 16, 8, 4, 2, 1), mu and var are true
+    divisions by d, den an IEEE square root of var + 1e-6, then (v / den)
+    * scale + bias, each step rounded to float32, and one rounding to
+    bf16 (nearest even) at the end. x: (..., d) bf16 torch tensor;
+    scale, bias (d,) float32. Returns a bf16 torch tensor on the CPU."""
+    import torch
+
+    d = x.shape[-1]
+    pairs = d // 2
+    assert d % 2 == 0 and d <= 1024
+    xs = x.detach().cpu().to(torch.float32).numpy().reshape(-1, pairs, 2)
+    rows = xs.shape[0]
+    slots = -(-pairs // 32)
+    f32 = np.float32
+
+    def lane_sums(t):
+        # t: (rows, pairs, 2) float32 -> the tree's result, per row
+        s = np.zeros((rows, 32), f32)
+        for i in range(slots):
+            for lane in range(32):
+                p = lane + 32 * i
+                if p < pairs:
+                    s[:, lane] = (s[:, lane] + t[:, p, 0]) + t[:, p, 1]
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[:, np.arange(32) ^ o]
+        assert (s == s[:, :1]).all() or np.isnan(s).any()
+        return s[:, 0, None, None]
+
+    n = f32(d)
+    v = xs - lane_sums(xs) / n
+    den = np.sqrt(lane_sums(v * v) / n + f32(1e-6))
+    sc = np.asarray(scale.detach().cpu(), f32).reshape(pairs, 2)
+    bi = np.asarray(bias.detach().cpu(), f32).reshape(pairs, 2)
+    out = (v / den) * sc + bi
+    assert out.dtype == np.float32
+    return torch.from_numpy(out.reshape(x.shape)).to(torch.bfloat16)
+
+
+def k8_tile_model(x, base, windows, plan, in_scale, out_scale):
+    """K8's one-launch kernel (`csrc/resize_axis.cu::resize_2d`) as numpy
+    float32 steps over its tiles, for a plan of `ops.resize.resize_plan`:
+    each tile's source spans from the min / max of its starts, every
+    source row of the tile staged as the 16-byte words that cover its
+    column span (the row's first element lands at its address's offset
+    in the word, `base` being x's offset in elements from a 16-byte
+    aligned address), the width pass of each staged row read from the
+    stage (v * in_scale per tap), the f32 intermediate in a (rows_max,
+    tx * c) array whose unused cells are NaN, the height pass in float4
+    quads, stores of the valid outputs only. Words past the tensor are
+    NaN, and the output starts as NaN, so a wrong index or a missed store
+    shows. x: (n, h, w, c) uint8 or float32 numpy; windows: ((sw, tw),
+    (sh, th)) numpy. Returns float32 (n, dst_h, dst_w, c)."""
+    f32 = np.float32
+    (sw, tw), (sh, th) = windows
+    n, h, w, c = x.shape
+    eb = x.dtype.itemsize
+    dst_w, kw = tw.shape
+    dst_h, kh = th.shape
+    tx, ty, rows_max, chunks = (plan[k] for k in ("tx", "ty", "rows_max",
+                                                  "span_chunks"))
+    per_word = 16 // eb
+    flat = x.reshape(-1).astype(f32) * f32(in_scale)
+    out = np.full((n, dst_h, dst_w, c), np.nan, f32)
+    for ni in range(n):
+        for oy0 in range(0, dst_h, ty):
+            for ox0 in range(0, dst_w, tx):
+                nx, ny = min(tx, dst_w - ox0), min(ty, dst_h - oy0)
+                xlo = int(sw[ox0:ox0 + nx].min())
+                xcnt = (int(sw[ox0:ox0 + nx].max()) + kw - xlo) * c
+                ylo = int(sh[oy0:oy0 + ny].min())
+                rows = int(sh[oy0:oy0 + ny].max()) + kh - ylo
+                assert rows <= rows_max and 15 + xcnt * eb <= 16 * chunks
+                mid = np.full((rows_max, tx * c), np.nan, f32)
+                col = np.arange(nx * c)
+                ox, ch = col // c, col % c
+                base_col = (sw[ox0 + ox] - xlo) * c + ch
+                wts = tw[ox0 + ox]                          # (nx * c, kw)
+                for r in range(rows):
+                    e0 = ((ni * h + ylo + r) * w + xlo) * c
+                    shift = ((base + e0) * eb % 16) // eb
+                    nc = (shift * eb + xcnt * eb + 15) // 16
+                    stage = np.full(chunks * per_word, np.nan, f32)
+                    lo = e0 - shift
+                    a, b = max(lo, 0), min(lo + nc * per_word, flat.size)
+                    stage[a - lo:b - lo] = flat[a:b]
+                    acc = np.zeros(nx * c, f32)
+                    for j in range(kw):
+                        acc = acc + wts[:, j] * stage[shift + base_col + j * c]
+                    mid[r, :nx * c] = acc
+                for oy in range(ny):
+                    rel = int(sh[oy0 + oy]) - ylo
+                    acc = np.zeros(tx * c, f32)
+                    for j in range(kh):
+                        acc = acc + th[oy0 + oy, j] * mid[rel + j]
+                    acc = acc * f32(out_scale)
+                    out[ni, oy0 + oy, ox0:ox0 + nx] = \
+                        acc[:nx * c].reshape(nx, c)
+    return out

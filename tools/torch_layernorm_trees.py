@@ -16,6 +16,10 @@ its row's largest |dx|, dscale / dbias against the sum of their terms'
 magnitudes); CUDA-event medians of K21 and K17; K21's device time split
 by kernel name (torch.profiler); the bound (x, dy and dx over 3.35
 TB/s); `F.layer_norm`'s autograd backward as the one-call yardstick;
+K17's output digest (with a seeded bias), its device time by kernel
+name (torch.profiler: the call's CUDA-event time includes the wrapper's
+host time at these sizes), its bound (x and its output) and
+`F.layer_norm`'s forward as its yardstick;
 `ops.layernorm.kernel_info` where the checkout has it, and `nvcc -Xptxas
 -v` of the checkout's `vit_layernorm_bwd.cu`; then the dense and MoE
 `make_train_step` at N = 256 (medians of 5). The main process compares
@@ -90,7 +94,10 @@ def by_kernel(fn, reps=10):
         if us:
             name = e.key.replace("(anonymous namespace)::", "")
             name = re.split(r"[(<]", name)[0].split()[-1].split("::")[-1]
-            rows[name] = {"ms": us / 1e3 / reps, "launches": e.count / reps}
+            # builds of one kernel (template arguments) add up
+            row = rows.setdefault(name, {"ms": 0.0, "launches": 0.0})
+            row["ms"] += us / 1e3 / reps
+            row["launches"] += e.count / reps
     return rows
 
 
@@ -197,6 +204,15 @@ def run(label, save):
             lambda: ln.layer_norm_backward(x, scale, dy))
         r["k17_ms"] = timed(lambda: ln.layer_norm_k17(
             x, scale, torch.zeros_like(scale)))
+        bias = 0.2 * torch.randn(d, generator=torch.Generator().manual_seed(
+            d)).to(dev)
+        r["k17_bits"] = digest(ln.layer_norm_k17(x, scale, bias))
+        r["k17_by_kernel"] = by_kernel(lambda: ln.layer_norm_k17(x, scale,
+                                                                 bias))
+        r["k17_bound_ms"] = (2 * rows * d * 2 + 2 * d * 4) / HBM * 1e3
+        wb, bb = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        r["k17_library_ms"] = timed(lambda: F.layer_norm(x, (d,), wb, bb,
+                                                         ln.EPS))
         r["k21_bound_ms"] = (3 * rows * d * 2 + 3 * d * 4) / HBM * 1e3
         xl = x.detach().clone().requires_grad_()
         wl = scale.to(torch.bfloat16).requires_grad_()
