@@ -21,8 +21,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      main path's shapes (16 x 1920x1088 -> 960x544 q85): K1-K3 on the
      restart-8 corpus (K1 also on 16 of its sources re-encoded with
      optimize=True, each with its own tables, and its longest lane
-     alone: the chain's floor in ns a symbol; its build and plan), the
-     chunked decoder K4 and its DC scan K5 on the
+     alone: the chain's floor in ns a symbol; its build and plan; K2's
+     and K3's builds and plans, K3's device time by kernel beside its
+     call), the chunked decoder K4 and its DC scan K5 on the
      same pixels encoded without restart markers, where K4 must also
      give K1's coefficients exactly; the staged decode's K6 (dequant +
      IDCT; off by one only at near-.5 ties) and K7 (upsample + colour,
@@ -610,7 +611,8 @@ def main():
         encode_blocks_plain, front_samples, full_fp32, idct_samples,
         k7_build, plane_geometry, upsample_color, upsample_color_plain)
     from picha_tpu_torch.ops.jpeg_fused import fused_decode_resize
-    from picha_tpu_torch.ops.jpeg_huffman import (scan_encode,
+    from picha_tpu_torch.ops.jpeg_huffman import (kernel_info as k3_info,
+                                                  scan_encode,
                                                   scan_encode_plain)
     from picha_tpu_torch.ops.jpeg_huffman_decode import (
         dc_integrate, dc_integrate_plain, decode_scan, decode_scan_chunked,
@@ -732,7 +734,8 @@ def main():
         max_abs_err=err, ms=timed(lambda: encode_blocks(*front), 10),
         plain_ms=timed(lambda: encode_blocks_plain(*front), 3))
     phase("K2", off_by_one=k2_off, coefficients=n_all,
-          limit=K2_MAX_OFF_BY_ONE, **results["jpeg_encode_front"])
+          limit=K2_MAX_OFF_BY_ONE, build=jpeg_mod.encode_kernel_info(f255),
+          **results["jpeg_encode_front"])
 
     scan_k, nb_k = scan_encode(blocks_k, consts.layout, consts.tab, cap)
     scan_p, nb_p = scan_encode_plain(blocks_k, consts.layout, consts.tab, cap)
@@ -749,7 +752,11 @@ def main():
         plain_ms=timed(lambda: scan_encode_plain(
             blocks_k, consts.layout, consts.tab, cap), 3))
     phase("K3", identical=True, nbytes_max=int(nb_k.max()), byte_cap=cap,
-          **results["huffman_encode_scan"])
+          kernels=device_ms_by_kernel(lambda: scan_encode(
+              blocks_k, consts.layout, consts.tab, cap)),
+          build=k3_info(blocks_k, consts.layout, cap),
+          note="ms: the call (CUDA events); kernels: its device time by "
+               "kernel (torch.profiler)", **results["huffman_encode_scan"])
 
     # K4 + K5: the same pixels without restart markers (chunked mode)
     infos_nr = pipe.entropy_decode(corpus_nr)

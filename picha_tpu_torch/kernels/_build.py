@@ -41,8 +41,10 @@ SIGNATURES = {
     "picha_huffman_decode_restart_info": [I, I, P],
     "picha_jpeg_encode_front": [
         P, I, I, I, I, P, P, P, P, P, P, I, I, I, I, P],
+    "picha_jpeg_encode_front_info": [I, P],
     "picha_huffman_encode_scan": [
-        P, I, I, I, P, P, P, P, P, P, P, P, I, P, P, I, P, P],
+        P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, I, P, L, P, I, P, P],
+    "picha_huffman_encode_scan_info": [P],
     "picha_huffman_decode_chunked": [
         P, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, I, P, P, L,
         P, P],

@@ -27,6 +27,7 @@ of the port in IEEE float32.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import math
 
@@ -308,6 +309,7 @@ def encode_blocks(f255, qluma, qchroma, kron):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise TypeError("K2 tables must be contiguous int32 qtables "
                             "and a float32 kron on the image's device")
+    kron = aligned(kron)
     f255 = f255.contiguous()
     n, h, w, c = f255.shape
     ybh, ybw = _cdiv(h, 8), _cdiv(w, 8)
@@ -324,6 +326,31 @@ def encode_blocks(f255, qluma, qchroma, kron):
         ptr(kron), ptr(out_y), ptr(out_cb), ptr(out_cr), ybh, ybw, cbh,
         cbw, stream_of(f255))
     return (out_y,) if c == 1 else (out_y, out_cb, out_cr)
+
+
+_K2_INFO_KEYS = ("registers", "local_bytes", "static_shared_bytes",
+                 "dynamic_shared_bytes", "blocks_an_sm", "sms", "threads",
+                 "mcus_a_tile")
+
+
+def encode_kernel_info(f255) -> dict:
+    """K2's build and launch plan for the (N, H, W, C) CUDA image
+    `f255`: registers, local bytes a thread, static and dynamic shared
+    bytes, blocks an SM, SMs, threads a block, MCUs a tile (8x8 blocks
+    for grey), tiles and the grid the launch uses."""
+    from ..kernels._build import library
+
+    n, h, w, c = f255.shape
+    out = (ctypes.c_int * len(_K2_INFO_KEYS))()
+    with torch.cuda.device(f255.device):
+        rc = library().picha_jpeg_encode_front_info(c, out)
+    if rc != 0:
+        raise RuntimeError(f"picha_jpeg_encode_front_info: CUDA error {rc}")
+    info = dict(zip(_K2_INFO_KEYS, out))
+    side = 16 if c == 3 else 8
+    tiles = _cdiv(n * _cdiv(h, side) * _cdiv(w, side), info["mcus_a_tile"])
+    return dict(info, tiles=tiles,
+                grid=min(tiles, info["sms"] * info["blocks_an_sm"]))
 
 
 # -- staged decode ----------------------------------------------------------

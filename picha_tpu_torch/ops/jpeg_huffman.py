@@ -17,13 +17,14 @@ the libjpeg-derived tables.
 """
 from __future__ import annotations
 
+import ctypes
 import struct
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
+from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 from .jpeg import quality_tables
 from .jpeg_scan import ZIGZAG
 
@@ -274,39 +275,92 @@ def scan_encode_plain(coefs, layout: ScanLayout, tab, byte_cap: int):
     return out[:, :byte_cap].to(torch.uint8), nbytes.to(torch.int32)
 
 
+# K3's tile and chunk (csrc/huffman_encode_scan.cu: kTile, kChunk, kMaxPlanes)
+TILE_BLOCKS, CHUNK_BYTES, MAX_PLANES = 256, 4096, 3
+
+
+def scan_sizes(n_img: int, nblk: int, byte_cap: int):
+    """K3's scratch for a call: (nwords, sync_len): the words a raw scan
+    holds (a multiple of 4, covering byte_cap), and the int64 tickets,
+    look-back descriptors and boundary words (three a tile of
+    TILE_BLOCKS scan blocks, one a chunk of CHUNK_BYTES raw bytes, two
+    tickets in one), rounded up to an even count so that the words after
+    them start 16-byte aligned."""
+    nwords = _cdiv(_cdiv(byte_cap, 4), 4) * 4
+    tiles = n_img * _cdiv(nblk, TILE_BLOCKS)
+    chunks = n_img * _cdiv(byte_cap, CHUNK_BYTES)
+    return nwords, _cdiv(2 + 3 * tiles + chunks, 2) * 2
+
+
 def scan_encode(coefs, layout: ScanLayout, tab, byte_cap: int):
     """Quantised planes (tuple of (N, bh, bw, 64) int, natural order)
     -> (scan (N, byte_cap) uint8, nbytes (N,) int32); nbytes > byte_cap
-    signals overflow (the bytes are then invalid). `layout` and `tab`
-    (the (4, 256) int32 `code_table()`) live on the planes' device.
-    Launches K3 for CUDA tensors; the plain version runs only for CPU
-    tensors."""
+    signals overflow (the bytes are then invalid), and every byte past
+    nbytes is 0. `layout` and `tab` (the (4, 256) int32 `code_table()`)
+    live on the planes' device. Launches K3 for CUDA tensors; the plain
+    version runs only for CPU tensors."""
     if coefs[0].device.type == "cpu":
         return scan_encode_plain(coefs, layout, tab, byte_cap)
     require_cuda(coefs[0], "K3")
     dev = coefs[0].device
     n_img = coefs[0].shape[0]
-    flat = torch.cat([c.reshape(n_img, -1, 64) for c in coefs], 1)
-    flat = flat.to(torch.int16).contiguous()
+    if not 1 <= len(coefs) <= MAX_PLANES or byte_cap < 1:
+        raise ValueError(f"K3 takes 1-{MAX_PLANES} planes and a byte cap "
+                         f">= 1")
+    planes = [aligned(c.to(torch.int16)) for c in coefs]
     nblk = layout.gidx.numel()
     for t in (*layout, tab):
         if t.device != dev or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise TypeError("K3 layout and table must be contiguous int32 "
                             "tensors on the planes' device")
-    if any(t.numel() != nblk for t in layout) or tab.numel() != 4 * 256:
-        raise ValueError("K3 layout arrays must all be (nblk,)")
-    nwords = _cdiv(byte_cap, 4)
-    i32 = torch.int32
-    bits = torch.empty(n_img * nblk, dtype=i32, device=dev)
-    offs = torch.empty(n_img * nblk, dtype=i32, device=dev)
-    words = torch.zeros(n_img * nwords, dtype=i32, device=dev)
-    nraw = torch.empty(n_img, dtype=i32, device=dev)
-    out = torch.zeros((n_img, byte_cap), dtype=torch.uint8, device=dev)
-    nbytes = torch.empty(n_img, dtype=i32, device=dev)
+    if nblk < 1 or any(t.numel() != nblk for t in layout) \
+            or tab.numel() != 4 * 256:
+        raise ValueError("K3 layout arrays must all be (nblk,), nblk >= 1")
+    if any(p.device != dev or p.dim() != 4 or p.shape[0] != n_img
+           or p.shape[3] != 64 for p in planes):
+        raise ValueError("K3 takes (N, bh, bw, 64) planes of one batch on "
+                         "one device")
+    nwords, sync_len = scan_sizes(n_img, nblk, byte_cap)
+    # the kernels' tickets and descriptors (zeroed by K3), then the raw
+    # scan words and byte counts
+    work = torch.empty(sync_len + _cdiv(n_img * (nwords + 1), 2),
+                       dtype=torch.int64, device=dev)
+    out = torch.empty((n_img, byte_cap), dtype=torch.uint8, device=dev)
+    nbytes = torch.empty(n_img, dtype=torch.int32, device=dev)
+    unused = MAX_PLANES - len(planes)
+    ptrs = [ptr(p) for p in planes] + [ptr(planes[0])] * unused
+    sizes = [p.shape[1] * p.shape[2] for p in planes] + [0] * unused
     KERNELS["huffman_encode_scan"](
-        ptr(flat), n_img, flat.shape[1], nblk, ptr(layout.gidx),
+        *ptrs, *sizes, len(planes), n_img, nblk, ptr(layout.gidx),
         ptr(layout.dummy), ptr(layout.tid), ptr(layout.prev), ptr(tab),
-        ptr(bits), ptr(offs), ptr(words), nwords, ptr(nraw), ptr(out),
-        byte_cap, ptr(nbytes), stream_of(flat))
+        ptr(work) + 8 * sync_len, nwords, ptr(work), sync_len, ptr(out),
+        byte_cap, ptr(nbytes), stream_of(planes[0]))
     return out, nbytes
+
+
+_K3_INFO_KEYS = ("bits_registers", "bits_local_bytes",
+                 "bits_static_shared_bytes", "bits_dynamic_shared_bytes",
+                 "bits_blocks_an_sm", "stuff_registers", "stuff_local_bytes",
+                 "stuff_static_shared_bytes", "stuff_blocks_an_sm", "sms",
+                 "tile_blocks", "chunk_bytes")
+
+
+def kernel_info(coefs, layout: ScanLayout, byte_cap: int) -> dict:
+    """K3's builds (scan_bits_kernel, stuff_kernel: registers, local
+    bytes, shared bytes, blocks an SM) and its plan for a call on the
+    CUDA planes `coefs`: tiles of scan blocks, the persistent grid,
+    chunks of raw bytes."""
+    from ..kernels._build import library
+
+    out = (ctypes.c_int * len(_K3_INFO_KEYS))()
+    with torch.cuda.device(coefs[0].device):
+        rc = library().picha_huffman_encode_scan_info(out)
+    if rc != 0:
+        raise RuntimeError(f"picha_huffman_encode_scan_info: CUDA error {rc}")
+    info = dict(zip(_K3_INFO_KEYS, out))
+    n_img, nblk = coefs[0].shape[0], layout.gidx.numel()
+    tiles = n_img * _cdiv(nblk, info["tile_blocks"])
+    return dict(info, tiles=tiles,
+                grid=min(tiles, info["sms"] * info["bits_blocks_an_sm"]),
+                chunks=n_img * _cdiv(byte_cap, info["chunk_bytes"]))

@@ -1093,3 +1093,247 @@ def k8_tile_model(x, base, windows, plan, in_scale, out_scale):
                     out[ni, oy0 + oy, ox0:ox0 + nx] = \
                         acc[:nx * c].reshape(nx, c)
     return out
+
+
+def k3_synthetic_blocks(kind: str, n: int, h: int, w: int, c: int,
+                        seed: int):
+    """(N, bh, bw, 64) int16 natural-order planes of the 4:2:0 (or grey)
+    encode of an h x w image, as numpy: `zeros` all zero (EOB only);
+    `zrl` sparse AC with runs of 15-48 zeros (ZRLs) and the last
+    position set in some blocks; `size11` +-2047 and +-1024 among small
+    values (DC diffs past 2047 capped like the reference's); `ff` dense
+    positive 2^s - 1 values (codes and value bits of ones: many 0xFF
+    bytes)."""
+    from picha_tpu_torch.ops.jpeg_scan import ZIGZAG
+    from picha_tpu_torch.ops.jpeg_write import resized_comp_sig
+
+    rng = np.random.default_rng(seed)
+    zz = np.asarray(ZIGZAG)
+    out = []
+    for bh, bw, _hs, _vs in resized_comp_sig(h, w, c):
+        z = np.zeros((n, bh, bw, 64), np.int64)   # zigzag order
+        if kind == "zrl":
+            z[..., 0] = rng.integers(-300, 300, (n, bh, bw))
+            for k in (1, 17, 18, 34, 51, 63):
+                z[..., k] = rng.choice([0, 0, 3, -5, 1], (n, bh, bw))
+            z[..., 33] = rng.choice([0, 7], (n, bh, bw))
+        elif kind == "size11":
+            z[...] = rng.choice([0, 0, 0, 0, 1, -1, 2047, -2047, 1024, -1024,
+                                 3], (n, bh, bw, 64))
+            z[..., 0] = rng.choice([2047, -2047, 0, 5], (n, bh, bw))
+        elif kind == "ff":
+            vals = np.array([(1 << s) - 1 for s in range(1, 11)] + [0] * 6)
+            z[...] = rng.choice(vals, (n, bh, bw, 64))
+        elif kind != "zeros":
+            raise ValueError(kind)
+        nat = np.zeros_like(z)
+        nat[..., zz] = z
+        out.append(nat.astype(np.int16))
+    return tuple(out)
+
+
+def k2_samples_model(f255: np.ndarray):
+    """K2's load and convert (csrc/jpeg_encode_front.cu) in numpy: units
+    (MCUs of 16x16 pixels at 4:2:0, 8x8 blocks for grey) in raster order
+    over the batch, in tiles of 16 (96) units; each unit's rows loaded
+    with the row clamped to the image and the columns past it left
+    unloaded (NaN, so that a read of one fails); Y from each pixel with
+    its column clamped to the unit's last loaded one, Cb and Cr from each
+    2x2 quad with the chroma row and column clamped to the plane's
+    last, then the pixels' columns. Returns the per-component (N, bh,
+    bw, 64) int sample blocks (before the -128), every block written
+    once (-1: none)."""
+    from picha_tpu_torch.ops.jpeg import FIX
+
+    n, h, w, c = f255.shape
+    colour = c == 3
+    side = 16 if colour else 8
+    per_tile = 16 if colour else 96
+    uh, uw = -(-h // side), -(-w // side)
+    ybh, ybw = -(-h // 8), -(-w // 8)
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    out = [np.full((n, ybh, ybw, 64), -1, np.int64)]
+    if colour:
+        out += [np.full((n, uh, uw, 64), -1, np.int64) for _ in range(2)]
+    total = n * uh * uw
+    tiles = -(-total // per_tile)
+    for q in range(tiles * per_tile):
+        if q >= total:
+            continue
+        ni, rem = divmod(q, uh * uw)
+        uy, ux = divmod(rem, uw)
+        vy, vx = min(side, h - side * uy), min(side, w - side * ux)
+        raw = np.full((side, side, c), np.nan, np.float32)
+        for r in range(side):
+            y = side * uy + min(r, vy - 1)
+            raw[r, :vx] = f255[ni, y, side * ux:side * ux + vx]
+
+        def px(r, col):
+            v = raw[r, col]
+            assert not np.isnan(v).any(), "read of an unloaded column"
+            return np.floor(np.clip(v + np.float32(0.5), 0, 255)).astype(
+                np.int64)
+
+        if not colour:
+            blk = [int(px(r, min(x, vx - 1))[0]) for r in range(8)
+                   for x in range(8)]
+            assert (out[0][ni, uy, ux] == -1).all()
+            out[0][ni, uy, ux] = blk
+            continue
+        for r in range(16):
+            for x in range(16):
+                rr, gg, bb = px(r, min(x, vx - 1))
+                yv = (FIX(0.29900) * rr + FIX(0.58700) * gg
+                      + FIX(0.11400) * bb + 32768) >> 16
+                by, bx = 2 * uy + (r >> 3), 2 * ux + (x >> 3)
+                if by < ybh and bx < ybw:
+                    out[0][ni, by, bx, (r & 7) * 8 + (x & 7)] = yv
+        bias = (128 << 16) + 32768 - 1
+        for cr in range(8):
+            for cc in range(8):
+                r0 = 2 * min(cr, ch - 8 * uy - 1)
+                c0 = 2 * min(cc, cw - 8 * ux - 1)
+                sb = sr = 0
+                for dy in range(2):
+                    for dx in range(2):
+                        rr, gg, bb = px(r0 + dy, min(c0 + dx, vx - 1))
+                        sb += (-FIX(0.16874) * rr - FIX(0.33126) * gg
+                               + FIX(0.50000) * bb + bias) >> 16
+                        sr += (FIX(0.50000) * rr - FIX(0.41869) * gg
+                               - FIX(0.08131) * bb + bias) >> 16
+                out[1][ni, uy, ux, cr * 8 + cc] = (sb + 2) >> 2
+                out[2][ni, uy, ux, cr * 8 + cc] = (sr + 2) >> 2
+    return tuple(out)
+
+
+def _bitsize(x: int) -> int:
+    return min(abs(x).bit_length(), 11)
+
+
+def _low_bits(x: int, s: int) -> int:
+    return (x - 1 if x < 0 else x) & ((1 << s) - 1)
+
+
+def k3_block_packets(blk, prev_dc: int, dummy: bool, t: int, tab):
+    """One scan block's packets as K3 walks them: the DC diff's, then for
+    each set bit of the zigzag nonzero mask its ZRLs and its own, then
+    the EOB unless position 63 is set. blk: (64,) natural order."""
+    from picha_tpu_torch.ops.jpeg_scan import ZIGZAG
+
+    zz = [int(blk[ZIGZAG[k]]) for k in range(64)]
+    diff = 0 if dummy else zz[0] - prev_dc
+    s = _bitsize(diff)
+    cl = int(tab[t, s])
+    out = [(((cl & 0xFFFF) << s) | _low_bits(diff, s), (cl >> 16) + s)]
+    ac = tab[2 + t]
+    zrl, eob = int(ac[0xF0]), int(ac[0])
+    pk = 0
+    for k in ([] if dummy else [k for k in range(1, 64) if zz[k]]):
+        run, v = k - pk - 1, zz[k]
+        sz = _bitsize(v)
+        out += [(zrl & 0xFFFF, zrl >> 16)] * (run >> 4)
+        c2 = int(ac[((run & 15) << 4) | sz])
+        out.append((((c2 & 0xFFFF) << sz) | _low_bits(v, sz),
+                    (c2 >> 16) + sz))
+        pk = k
+    if pk != 63:
+        out.append((eob & 0xFFFF, eob >> 16))
+    return out
+
+
+def k3_scan_model(planes, gidx, dummy, tid, prev, tab, byte_cap: int,
+                  tile: int = 256, chunk: int = 4096):
+    """K3's two phases (csrc/huffman_encode_scan.cu) in numpy, image by
+    image. Bits: tiles of `tile` scan blocks, each block's offset in its
+    tile by an exclusive scan, each tile's offset in the image by the sum
+    of the earlier tiles (what the look-back returns); the tile's words
+    assembled at that alignment (a block's first and last word ORed, the
+    words between stored into zeros), stored into a buffer of
+    ceil(byte_cap / 4) words rounded up to 4 (past it dropped), a word
+    shared by two tiles formed from both tiles' halves; the last tile
+    pads with 1-bits. Stuffing: chunks of `chunk` raw bytes covering
+    byte_cap, each counting its 0xFF among the first min(nraw, byte_cap)
+    bytes, laid out with a 0x00 after each, and its output range (data,
+    then zeros up to the next chunk's) written into `out`. Asserts that
+    every word and byte is written as the kernels write it (each word
+    once, a boundary word from exactly two halves; every byte of out
+    once). Returns (out (N, byte_cap) uint8, nbytes
+    (N,) int64)."""
+    n_img = planes[0].shape[0]
+    flat = np.concatenate([p.reshape(n_img, -1, 64) for p in planes], 1)
+    nblk = len(gidx)
+    nwords = -(-(-(-byte_cap // 4)) // 4) * 4
+    out = np.zeros((n_img, byte_cap), np.uint8)
+    nbytes = np.zeros(n_img, np.int64)
+    for ni in range(n_img):
+        pk = [k3_block_packets(flat[ni, gidx[j]],
+                               0 if prev[j] < 0 else
+                               int(flat[ni, gidx[prev[j]], 0]),
+                               bool(dummy[j]), int(tid[j]), tab)
+              for j in range(nblk)]
+        lens = [sum(ln for _p, ln in b) for b in pk]
+        words = [None] * nwords       # None: never written
+        halves = {}                   # word -> the two tiles' parts
+        base = 0
+        tiles = -(-nblk // tile)
+        for u in range(tiles):
+            blocks = range(u * tile, min(nblk, (u + 1) * tile))
+            total = sum(lens[j] for j in blocks)
+            pad = (-(base + total)) % 8 if u == tiles - 1 else 0
+            sh = base % 32
+            seg = [0] * ((sh + total + pad + 31) // 32)
+            stored = [False] * len(seg)
+            off = sh
+            for j in blocks:
+                packets = pk[j] + ([((1 << pad) - 1, pad)]
+                                   if j == nblk - 1 else [])
+                acc, nb, wi, first = 0, off % 32, off // 32, True
+                for p, ln in packets:
+                    assert 0 <= p < (1 << ln) or (p == 0 and ln == 0)
+                    acc, nb = (acc << ln) | p, nb + ln
+                    if nb >= 32:
+                        word = (acc >> (nb - 32)) & 0xFFFFFFFF
+                        if first:
+                            seg[wi] |= word
+                        else:
+                            assert seg[wi] == 0 and not stored[wi]
+                            seg[wi], stored[wi] = word, True
+                        first, wi, nb = False, wi + 1, nb - 32
+                        acc &= (1 << nb) - 1
+                if nb:
+                    seg[wi] |= (acc << (32 - nb)) & 0xFFFFFFFF
+                off += lens[j] + (pad if j == nblk - 1 else 0)
+            w0 = base // 32
+            tail = u < tiles - 1 and (base + total) % 32 != 0
+            for i, word in enumerate(seg):
+                if (i == 0 and sh) or (i == len(seg) - 1 and tail):
+                    halves.setdefault(w0 + i, []).append(word)
+                elif w0 + i < nwords:
+                    assert words[w0 + i] is None
+                    words[w0 + i] = word
+            base += total + pad
+        for w, parts in halves.items():
+            assert len(parts) == 2
+            if w < nwords:
+                assert words[w] is None
+                words[w] = parts[0] | parts[1]
+        nraw = base // 8
+        lim = min(nraw, byte_cap)
+        assert all(wd is not None for wd in words[:-(-lim // 4)])
+        raw = np.array([((wd or 0) >> s) & 0xFF for wd in words
+                        for s in (24, 16, 8, 0)], np.uint8)
+        written = np.zeros(byte_cap, np.int64)
+        shift = 0
+        for u in range(-(-byte_cap // chunk)):
+            data = raw[u * chunk:max(u * chunk, min(lim, (u + 1) * chunk))]
+            ff = np.flatnonzero(data == 0xFF)
+            ob = np.zeros(chunk + len(ff), np.uint8)
+            ob[:len(data) + len(ff)] = np.insert(data, ff + 1, 0)
+            start = u * chunk + shift
+            keep = np.arange(start, start + ob.size) < byte_cap
+            out[ni, start:start + ob.size][:int(keep.sum())] = ob[keep]
+            np.add.at(written, np.arange(start, start + ob.size)[keep], 1)
+            shift += len(ff)
+        assert (written == 1).all()
+        nbytes[ni] = nraw + shift
+    return out, nbytes
