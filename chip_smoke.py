@@ -56,18 +56,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      goes, stage by stage;
   6. the training ingest, TrainingInput(batch=256, crop=192, size=224,
      augment=brightness/contrast/saturation .2 + 32-px cutout) over 256
-     1920x1088 q85 JPEGs without restart markers: K9 (crop + flip +
-     width pass; bitwise its plain twin) and K10 (clip + augment; within
-     1e-6 of its twin) at that shape; three steps, each checked for
-     shape, range, zero fallbacks, the launches of K4, K5, K6, K7, K9, K8
-     and K10, and against the same draws through the plain chain; the
-     second step resumed from state() bit for bit; a fourth step without
-     augment held to a host anchor (Pillow decode, the host-drawn window,
-     the port's flip, the CPU windowed resize) within 1/255 mean; one
-     pre_crop=False step on 16 images;
+     1920x1088 q85 JPEGs without restart markers: K9 (crop + flip + both
+     resize passes in one launch, resize_2d's crop mode; bitwise the
+     plain chain and its per-axis route, K9's width pass then K8's
+     height pass; with its plan and build, timed beside that route) and
+     K10 (clip + augment; within 1e-6 of its twin) at that shape; three
+     steps, each checked for shape, range, zero fallbacks, the launches
+     of K4, K5, K6, K7, K9 and K10 (and none of the per-axis route), and
+     against the same draws through the plain chain; the second step
+     resumed from state() bit for bit; a fourth step without augment
+     held to a host anchor (Pillow decode, the host-drawn window, the
+     port's flip, the CPU windowed resize) within 1/255 mean; one
+     pre_crop=False step on 16 images; one step of 16 on the per-axis
+     route (crop 1024 -> 64, windows no tile holds), where K9's width
+     pass and K8's per-axis kernel run;
   7. the ingest's timing: ms per step by stage (host parse and draws,
-     wire, upload; K4, K5, split, K6 a component, K7, K9, K8-H, K10, a
-     CUDA event each), images/s, peak device memory;
+     wire, upload; K4, K5, split, K6 a component, K7, K9, K10, a CUDA
+     event each), images/s, peak device memory;
   8. the pixel-array kernels against their plain versions at the path's
      shapes, bit for bit: K11 (unpack, crop window, channel map, pack)
      as the config-4 call's head ((256, 256, 384, 4) uint8, crop
@@ -132,7 +137,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      row's largest |o|), K19 (route + dispatch) and K20 (combine) bit for
      bit, each on the arguments of its first call in a forward, K19 also
      on a skewed router (every token on expert 0) that drops tokens and on
-     its last call in the forward; both forwards' logits (256,
+     its last call in the forward, with its build and plan
+     (`ops.moe.kernel_info`); both forwards' logits (256,
      1000) float32, finite, within 0.03 plus one bf16 ulp of the logit
      (its own rounding) of the same forward through the plain versions on
      the card (the MoE's also on the kernel path's routes, as phase 15's
@@ -296,6 +302,7 @@ RESIZE_TOL = 1e-6          # K8 vs the reference's banded plan, 0-1 scale
 PARITY_LSB = 1.0           # mean |diff| vs the strict host path
 DECODE_LSB = 1.0           # staged decode-only, mean |diff| vs Pillow
 TRAIN_N, CROP, SIZE = 256, 192, 224
+AXIS_CROP, AXIS_SIZE = 1024, 64   # K9's per-axis route: no tile holds it
 AUGMENT = {"brightness_s": .2, "contrast_s": .2, "saturation_s": .2,
            "cutout_size": 32}
 K10_TOL = 1e-6             # K10 vs its twin: the contrast mean's sum order
@@ -1340,8 +1347,9 @@ def main():
         raise AssertionError(f"the port imported the reference: {bad}")
     # launches: each kernel's count in the run of the path it serves
     # (K1-K3: the restart slice; K4, K5: the no-restart slice; K6, K7
-    # and K8's one launch: the staged restart slice; K9, K10 and K8's
-    # per-axis kernel (the height pass): an ingest step; K11: the
+    # and K8's one launch: the staged restart slice; K9 and K10: an
+    # ingest step; K9's width pass and K8's per-axis kernels: an ingest
+    # step on K9's per-axis route (crop 1024 -> 64); K11: the
     # config-4 call; K12: the batched PNG encode; K13-K16: the full-size
     # PNG and TIFF decode calls; K17, K18: the dense ViT forward; K19,
     # K20: the MoE one; K21, K22: the dense train step; K23, K24: the MoE
@@ -1351,8 +1359,8 @@ def main():
                      **{k: nr_launches[k] for k in chunked_path[:2]},
                      **{k: s_launches[k] for k in staged_path[:3]},
                      **{k: ingest_launches[k]
-                        for k in ("crop_flip_resize_w", "augment",
-                                  "resize_axis")},
+                        for k in ("crop_flip_resize", "crop_flip_resize_w",
+                                  "augment", "resize_axis")},
                      **pixel_launches, **decode_launches, **vit_launches,
                      **train_launches, **resnet_launches, **upload_launches,
                      **raw420_launches}
@@ -1389,7 +1397,8 @@ def training_phases(dev, card, results, phase, timed, wall):
         wire_unpack)
     from picha_tpu_torch.ops.jpeg_scan import mcu_slot_tables
     from picha_tpu_torch.ops.resize import (
-        crop_flip_resize_w, crop_flip_resize_w_plain, resize_axis,
+        crop_flip_resize, crop_flip_resize_plain, crop_flip_resize_w,
+        crop_flip_resize_w_plain, crop_kernel_info, resize_axis,
         resize_axis_windowed_plain)
     from picha_tpu_torch.ops.resize_weights import resize_weights
     from picha_tpu_torch.ops.scan_batch import MAX_PASSES, split_indices
@@ -1402,8 +1411,10 @@ def training_phases(dev, card, results, phase, timed, wall):
     srcs_nr = [(FIXTURES / f"src_nr_{i}.jpg").read_bytes() for i in range(3)]
     corpus = [srcs_nr[i % 3] for i in range(TRAIN_N)]
     ingest_path = ("huffman_decode_chunked", "dc_integrate", "idct_plane",
-                   "upsample_color", "crop_flip_resize_w", "resize_axis",
-                   "augment")
+                   "upsample_color", "crop_flip_resize", "augment")
+    # K9's per-axis route (windows no tile holds): its width pass, then
+    # K8's height pass
+    per_axis = ("crop_flip_resize_w", "resize_axis")
 
     def make(augment=AUGMENT, **kw):
         kw = {"batch": TRAIN_N, "crop": CROP, "size": SIZE, "seed": 0,
@@ -1417,8 +1428,8 @@ def training_phases(dev, card, results, phase, timed, wall):
         return st["epoch"], pos, [ti.items[i] for i in
                                   ti._perm[pos:pos + ti.batch]]
 
-    def check_out(out, label, n=TRAIN_N):
-        if (tuple(out.shape) != (n, SIZE, SIZE, 3)
+    def check_out(out, label, n=TRAIN_N, size=SIZE):
+        if (tuple(out.shape) != (n, size, size, 3)
                 or out.dtype != torch.float32 or out.device != dev):
             raise AssertionError(f"{label}: {tuple(out.shape)} {out.dtype} "
                                  f"{out.device}")
@@ -1430,7 +1441,10 @@ def training_phases(dev, card, results, phase, timed, wall):
     def chains(ti, epoch, pos, bufs):
         """The step's decoded frames and draws, through the kernel chain
         and through the plain chain: (k9, k9_plain, out, out_plain,
-        inputs)."""
+        inputs); k9 is K9's output (both resize passes), checked here
+        against the plain chain and against K9's per-axis route (its
+        width pass, then K8's height pass), the width pass against its
+        plain version."""
         groups, windows = ti.plan(epoch, pos, bufs)
         if len(groups) != 1:
             raise AssertionError(f"{len(groups)} signatures in the corpus")
@@ -1444,20 +1458,28 @@ def training_phases(dev, card, results, phase, timed, wall):
         flip = draws.flip.to(dev)
         aug = None if draws.aug is None else draws.aug.to(dev)
         (sw, tw), (sh, th) = ti._windows
-        k9 = crop_flip_resize_w(rgb, xs, ys, flip, CROP, sw, tw)
-        k9p = crop_flip_resize_w_plain(rgb, xs, ys, flip, CROP, sw, tw)
-        hk = resize_axis(k9, sh, th, -3)
-        hp = resize_axis_windowed_plain(k9p, sh, th, -3)
+        k9 = crop_flip_resize(rgb, xs, ys, flip, ti.crop, ti._windows)
+        k9p = crop_flip_resize_plain(rgb, xs, ys, flip, ti.crop,
+                                     ti._windows)
+        width = crop_flip_resize_w(rgb, xs, ys, flip, ti.crop, sw, tw)
+        if not torch.equal(width, crop_flip_resize_w_plain(
+                rgb, xs, ys, flip, ti.crop, sw, tw)):
+            raise AssertionError("K9's width pass differs from its plain "
+                                 "version")
+        if not (torch.equal(k9, k9p) and torch.equal(
+                k9, resize_axis(width, sh, th, -3))):
+            raise AssertionError("K9 differs from the plain chain or from "
+                                 "its per-axis route")
+        del width
         if aug is None:
-            outk, outp = hk.clamp(0.0, 1.0), hp.clamp(0.0, 1.0)
+            outk, outp = k9.clamp(0.0, 1.0), k9p.clamp(0.0, 1.0)
         else:
-            outk = augment_fused(hk, aug, ti.augment)
-            outp = augment_fused_plain(hp, aug, ti.augment)
+            outk = augment_fused(k9, aug, ti.augment)
+            outp = augment_fused_plain(k9p, aug, ti.augment)
         torch.cuda.synchronize()
         if not bool(ok):
             raise AssertionError("the decoder flagged the ingest corpus")
-        return k9, k9p, hk, outk, outp, (rgb, xs, ys, flip, aug, windows,
-                                         draws)
+        return k9, k9p, outk, outp, (rgb, xs, ys, flip, aug, windows, draws)
 
     # the main ingest run: three steps with augment
     ti = make()
@@ -1473,15 +1495,14 @@ def training_phases(dev, card, results, phase, timed, wall):
         if k == 0:
             main_launches = counts
         if any(counts[name] == 0 for name in ingest_path) \
-                or counts["huffman_decode_restart"]:
+                or counts["huffman_decode_restart"] \
+                or any(counts[name] for name in per_axis):
             raise AssertionError(f"ingest step {k} launches: {counts}")
         if ti.scan_fallbacks:
             raise AssertionError(f"ingest fallbacks: {ti.scan_fallbacks}")
         lo, hi = check_out(out, f"ingest step {k}")
         epoch, pos, bufs = step_of(ti)
-        k9, k9p, hk, outk, outp, inputs = chains(ti, epoch, pos, bufs)
-        if not torch.equal(k9, k9p):
-            raise AssertionError(f"step {k}: K9 differs from its plain twin")
+        k9, k9p, outk, outp, inputs = chains(ti, epoch, pos, bufs)
         err10 = float((outk - outp).abs().max())
         if err10 > K10_TOL:
             raise AssertionError(f"step {k}: K10 {err10} from its twin")
@@ -1498,51 +1519,73 @@ def training_phases(dev, card, results, phase, timed, wall):
                           k10_max_abs_vs_plain=err10,
                           resume_bit_equal=resumed, launches=counts))
         if k == 0:
-            first = (k9, k9p, hk, outk, outp, inputs)
-        del out, k9, k9p, hk, outk, outp, inputs
+            first = (k9, k9p, outk, outp, inputs)
+        del out, k9, k9p, outk, outp, inputs
     phase("training", card=card, images=TRAIN_N, crop=CROP, size=SIZE,
           augment=AUGMENT, steps=steps, step_ms=step_ms,
           scan_fallbacks=ti.scan_fallbacks)
 
     # K9 and K10 against their plain versions at the slice's shape
-    k9, k9p, hk, outk, outp, (rgb, xs, ys, flip, aug, _w, _d) = first
-    (sw, tw), (sh, th) = ti._windows
-    results["crop_flip_resize_w"] = dict(
+    k9, k9p, outk, outp, (rgb, xs, ys, flip, aug, _w, _d) = first
+    windows = ti._windows
+    (sw, tw), (sh, th) = windows
+    crops = TRAIN_N * CROP * CROP * 3
+    width = crop_flip_resize_w(rgb, xs, ys, flip, CROP, sw, tw)
+    results["crop_flip_resize"] = dict(
         max_abs_err=float((k9 - k9p).abs().max()),
+        ms=timed(lambda: crop_flip_resize(rgb, xs, ys, flip, CROP, windows),
+                 10),
+        plain_ms=timed(lambda: crop_flip_resize_plain(
+            rgb, xs, ys, flip, CROP, windows), 3),
+        library_ms=None,
+        per_axis_ms=timed(lambda: resize_axis(crop_flip_resize_w(
+            rgb, xs, ys, flip, CROP, sw, tw), sh, th, -3), 10),
+        build=crop_kernel_info(rgb, CROP, windows),
+        **bound(crops + k9.numel() * 4,
+                2 * tw.shape[1] * width.numel()
+                + 2 * th.shape[1] * k9.numel()))
+    results["crop_flip_resize_w"] = dict(
+        max_abs_err=0,
         ms=timed(lambda: crop_flip_resize_w(rgb, xs, ys, flip, CROP, sw,
                                             tw), 10),
         plain_ms=timed(lambda: crop_flip_resize_w_plain(
             rgb, xs, ys, flip, CROP, sw, tw), 3),
         library_ms=None,
-        **bound(TRAIN_N * CROP * CROP * 3 + k9.numel() * 4,
-                2 * tw.shape[1] * k9.numel()))
-    phase("K9", card=card, equal=True, shape=list(k9.shape),
-          source_frames=list(rgb.shape), taps=tw.shape[1],
-          **results["crop_flip_resize_w"])
+        **bound(crops + width.numel() * 4, 2 * tw.shape[1] * width.numel()))
+    phase("K9", card=card, equal_plain_chain=True, equal_per_axis=True,
+          shape=list(k9.shape), source_frames=list(rgb.shape),
+          taps=tw.shape[1],
+          note="one launch (resize_2d's crop mode); per_axis_ms: K9's "
+               "width pass then K8's height pass, the route of windows no "
+               "tile holds (width_pass: that pass alone, at this shape)",
+          width_pass=results["crop_flip_resize_w"],
+          **results["crop_flip_resize"])
     results["augment"] = dict(
         max_abs_err=float((outk - outp).abs().max()),
-        ms=timed(lambda: augment_fused(hk, aug, AUGMENT), 10),
-        plain_ms=timed(lambda: augment_fused_plain(hk, aug, AUGMENT), 3),
-        library_ms=None, **bound(hk.numel() * 4 * 2, hk.numel() * 12))
+        ms=timed(lambda: augment_fused(k9, aug, AUGMENT), 10),
+        plain_ms=timed(lambda: augment_fused_plain(k9, aug, AUGMENT), 3),
+        library_ms=None, **bound(k9.numel() * 4 * 2, k9.numel() * 12))
     phase("K10", card=card, limit=K10_TOL, shape=list(outk.shape),
-          deterministic=torch.equal(outk, augment_fused(hk, aug, AUGMENT)),
+          deterministic=torch.equal(outk, augment_fused(k9, aug, AUGMENT)),
           note="bound: one read and one write of the batch; the kernel "
                "reads it twice (the contrast mean, then the chain)",
           **results["augment"])
     h_dense = torch.as_tensor(resize_weights(SIZE, CROP, ti.filter,
                                              ti.fscale), device=dev)
-    k9_cols = k9.view(TRAIN_N, CROP, SIZE * 3)
+    k9_cols = width.view(TRAIN_N, CROP, SIZE * 3)
     with full_fp32():
         k8h_lib = timed(lambda: torch.matmul(h_dense, k9_cols), 10)
-    k8h = dict(ms=timed(lambda: resize_axis(k9, sh, th, -3), 10),
+    k8h = dict(ms=timed(lambda: resize_axis(width, sh, th, -3), 10),
                plain_ms=timed(lambda: resize_axis_windowed_plain(
-                   k9, sh, th, -3), 3),
+                   width, sh, th, -3), 3),
                library_ms=k8h_lib,
-               **bound(k9.numel() * 4 + hk.numel() * 4,
-                       2 * th.shape[1] * hk.numel()))
-    phase("K8_height_ingest", card=card, shape=list(hk.shape),
-          note="library_ms: dense torch.matmul (224 x 192 weights)", **k8h)
-    del first, k9, k9p, hk, outk, outp, rgb, k9_cols
+               **bound(width.numel() * 4 + k9.numel() * 4,
+                       2 * th.shape[1] * k9.numel()))
+    phase("K8_height_ingest", card=card, shape=list(k9.shape),
+          note="K9's per-axis route's height pass on its width pass at the "
+               "ingest's shape (the ingest itself takes K9's one launch); "
+               "library_ms: dense torch.matmul (224 x 192 weights)", **k8h)
+    del first, k9, k9p, outk, outp, rgb, k9_cols, width
 
     # a step without augment, held to a host anchor
     ti_a = make(augment=None, seed=1)
@@ -1584,7 +1627,7 @@ def training_phases(dev, card, results, phase, timed, wall):
     out = ti_p.__next__()
     check_out(out, "pre_crop=False", n=16)
     epoch, pos, bufs = step_of(ti_p)
-    _k9, _k9p, _hk, outk, outp, _in = chains(ti_p, epoch, pos, bufs)
+    _k9, _k9p, outk, outp, _in = chains(ti_p, epoch, pos, bufs)
     err_p = float((outk - outp).abs().max())
     if not torch.equal(outk, out) or err_p > K10_TOL \
             or ti_p.scan_fallbacks:
@@ -1593,7 +1636,32 @@ def training_phases(dev, card, results, phase, timed, wall):
     phase("training_no_pre_crop", card=card, images=16,
           max_abs_vs_plain=err_p,
           scan_fallbacks=ti_p.scan_fallbacks)
-    del out, _k9, _k9p, _hk, outk, outp, _in
+    del out, _k9, _k9p, outk, outp, _in
+
+    # K9's per-axis route: a crop no tile holds (1024 -> 64), 16 images;
+    # its launches are those of K9's width pass and K8's per-axis kernel
+    ti_x = make(items=corpus[:16], batch=16, crop=AXIS_CROP, size=AXIS_SIZE)
+    reset_launch_counts()
+    out = ti_x.__next__()
+    torch.cuda.synchronize()
+    x_counts = launch_counts()
+    if x_counts["crop_flip_resize"] or any(x_counts[name] == 0
+                                           for name in per_axis):
+        raise AssertionError(f"per-axis route launches: {x_counts}")
+    check_out(out, "per-axis route", n=16, size=AXIS_SIZE)
+    epoch, pos, bufs = step_of(ti_x)
+    _k9, _k9p, outk, outp, _in = chains(ti_x, epoch, pos, bufs)
+    err_x = float((outk - outp).abs().max())
+    if not torch.equal(outk, out) or err_x > K10_TOL \
+            or ti_x.scan_fallbacks:
+        raise AssertionError(f"per-axis route: {err_x}, fallbacks "
+                             f"{ti_x.scan_fallbacks}")
+    phase("training_per_axis_route", card=card, images=16, crop=AXIS_CROP,
+          size=AXIS_SIZE,
+          plan=crop_kernel_info(_in[0], AXIS_CROP, ti_x._windows)["plan"],
+          max_abs_vs_plain=err_x, launches={k: x_counts[k]
+                                            for k in per_axis})
+    del out, _k9, _k9p, outk, outp, _in
 
     # 7. where one ingest step's time goes
     kron = torch.as_tensor(_idct_kron()).to(dev)
@@ -1632,7 +1700,7 @@ def training_phases(dev, card, results, phase, timed, wall):
         # component, K7), a CUDA event after each kernel
         names = (["K4", "K5", "split"]
                  + [f"K6_{c}" for c in range(len(geom))]
-                 + ["K7", "K9", "K8_height", "K10"])
+                 + ["K7", "K9", "K10"])
         ev = [torch.cuda.Event(enable_timing=True)
               for _ in range(len(names) + 1)]
         at = iter(ev)
@@ -1654,9 +1722,7 @@ def training_phases(dev, card, results, phase, timed, wall):
         rgb = upsample_color(ys, sig[3], sig[2], sig[0], sig[1],
                              force_rgb=True)
         next(at).record()
-        f = crop_flip_resize_w(rgb, xs, ys_win, flip, CROP, sw, tw)
-        next(at).record()
-        f = resize_axis(f, sh, th, -3)
+        f = crop_flip_resize(rgb, xs, ys_win, flip, CROP, ti._windows)
         next(at).record()
         f = augment_fused(f, aug, AUGMENT)
         next(at).record()
@@ -1718,7 +1784,8 @@ def training_phases(dev, card, results, phase, timed, wall):
           device_sum_ms=sum(device_ms.values()), chain_equals_entry=True,
           idle_share=1.0 - sum(device_ms.values()) / step,
           peak_device_bytes=peak, peak_device_gb=peak / 1e9)
-    return main_launches, sum(device_ms.values())
+    return (dict(main_launches, **{k: x_counts[k] for k in per_axis}),
+            sum(device_ms.values()))
 
 
 class Marks:
@@ -2656,6 +2723,7 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
     from picha_tpu_torch.ops.attention import attention, attention_plain
     from picha_tpu_torch.ops import layernorm as ln_mod
     from picha_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
+    from picha_tpu_torch.ops import moe as moe_mod
     from picha_tpu_torch.ops.moe import (capacity, combine, combine_plain,
                                          route_dispatch, route_dispatch_plain)
     from picha_tpu_torch.pipeline import TrainingInput
@@ -2788,9 +2856,12 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
         return dict(
             tokens=t, experts=e, cap=cap, kept=int((eidx < e).sum()),
             per_expert=torch.bincount(eidx.long(), minlength=e + 1).tolist(),
-            max_abs_err=0, ms=timed(lambda: route_dispatch(*args), 10),
+            max_abs_err=0,
+            ms=timed(lambda: moe_mod.route_dispatch_k19(*args), 10),
+            autograd_call_ms=timed(lambda: route_dispatch(*args), 10),
             plain_ms=timed(lambda: route_dispatch_plain(*args), 3),
-            library_ms=None,
+            library_ms=None, build=moe_mod.kernel_info(t, e, yt.shape[1],
+                                                       dev),
             **bound(logits.numel() * 4 + yt.numel() * 2 + xe.numel() * 2
                     + t * 12, t * e * 8))
 
@@ -2804,6 +2875,28 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
         dict(bucket="every token routed to expert 0 (drops past capacity)",
              **sk),
         dict(bucket="the last MoE block's call", **k19_case(a19_last))]
+    # every MoE block's call of the forward, bit for bit
+    calls = []
+
+    def record(*a):
+        calls.append(a)
+        return real19(*a)
+
+    real19 = vit_mod.route_dispatch
+    with torch.no_grad(), mock.patch.object(vit_mod, "route_dispatch",
+                                            record):
+        moe(images)
+    if not calls:
+        raise AssertionError("the MoE forward called no K19")
+    for i, args in enumerate(calls):
+        with torch.no_grad():
+            got, want = moe_mod.route_dispatch_k19(*args), \
+                route_dispatch_plain(*args)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
+            raise AssertionError(f"K19 differs from its plain version at "
+                                 f"the forward's call {i}")
+    results["moe_route_dispatch"]["calls_equal_plain"] = len(calls)
+    del calls, got, want
     ye20, e20, s20, g20 = a20
     got = combine(*a20)
     if not torch.equal(bits(got), bits(combine_plain(*a20))):
@@ -2818,7 +2911,12 @@ def vit_phases(dev, card, results, phase, timed, wall, ingest_device_ms):
     phase("K17_K20", card=card, tokens=TRAIN_N * cfg.seq_len, dim=cfg.dim,
           note="each kernel on the arguments of its first call in the "
                "forward (K19's buckets: a skewed router, and its last "
-               "call); K17 and K18 within 1 bf16 ulp (K18: plus 1 ulp of "
+               "call; K19's ms: its wrapper route_dispatch_k19, "
+               "autograd_call_ms: the autograd Function the forward calls, "
+               "host time included; its build: ops.moe.kernel_info; "
+               "calls_equal_plain: the forward's calls of K19 checked bit "
+               "for bit against its plain version); K17 "
+               "and K18 within 1 bf16 ulp (K18: plus 1 ulp of "
                "the row's largest |o|), K17 bit for bit its lane-order "
                "model (build: its plan and registers), K19 (expert, slot, keep, gate and "
                "buffer) and K20 bit for bit; library_ms: F.layer_norm, "

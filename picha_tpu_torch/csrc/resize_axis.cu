@@ -160,23 +160,47 @@ __device__ __forceinline__ void store4(float* p, const float (&r)[4], int valid,
 }
 
 // ---- resize_2d ------------------------------------------------------------
+// The crop mode's per-image source: x holds (n, h, w, C) frames, and image
+// n's src_h x src_w source is the crop at (xs[n], ys[n]) (clamped into the
+// frame, as lax.dynamic_slice clamps), mirrored left-right where flip[n].
+struct Crop {
+  const int* xs;
+  const int* ys;
+  const uint8_t* flip;
+  int h, w;
+};
+
 // grid: x = image * col_tiles + column tile, y = row tile. Dynamic smem:
 // mid (rows_max x tx*C f32), the staged source rows (rows_max x
 // span_chunks 16-byte words of raw input), the tile's width taps (tx x
 // kw) and height taps (ty x kh), its relative starts (tx + ty ints) and
 // the staged rows' element shifts (rows_max ints). KM > 0: kw, kh <= KM
-// (the tap loops unrolled, a thread's width taps in registers).
-template <typename T, int C, int KM>
+// (the tap loops unrolled, a thread's width taps in registers). kCrop:
+// the source is a crop of a frame (`Crop`): a tile stages frame rows y0 +
+// its row span and the frame columns its column span maps to (mirrored,
+// x0 + crop - 1 - hi ... x0 + crop - 1 - lo), by the same covering words
+// at any byte offset, and reads a mirrored row backwards, so the taps
+// still run in window order over crop columns.
+template <typename T, int C, int KM, bool kCrop>
 __global__ void __launch_bounds__(kThreads) resize_2d(
     const T* __restrict__ x, int src_h, int src_w, int dst_h, int dst_w,
     const int* __restrict__ sw, const float* __restrict__ tw, int kw,
     const int* __restrict__ sh, const float* __restrict__ th, int kh, float in_scale,
     float out_scale, float* __restrict__ out, int tx, int ty, int col_tiles, int rows_max,
-    int span_chunks, int vec_out) {
+    int span_chunks, int vec_out, Crop crop) {
   extern __shared__ __align__(16) float sm[];
   __shared__ int span[4];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t n = blockIdx.x / col_tiles;
+  int fh = src_h, fw = src_w, x0 = 0, y0 = 0;
+  bool fl = false;
+  if constexpr (kCrop) {
+    fh = crop.h;
+    fw = crop.w;
+    x0 = min(max(__ldg(crop.xs + n), 0), fw - src_w);
+    y0 = min(max(__ldg(crop.ys + n), 0), fh - src_h);
+    fl = crop.flip[n] != 0;
+  }
   const int ox0 = (blockIdx.x - static_cast<int>(n) * col_tiles) * tx;
   const int oy0 = blockIdx.y * ty;
   const int nx = min(tx, dst_w - ox0), ny = min(ty, dst_h - oy0);
@@ -194,9 +218,11 @@ __global__ void __launch_bounds__(kThreads) resize_2d(
   }
   __syncthreads();
   const int xlo = span[0], ylo = span[2];
-  const int xcnt = (span[1] + kw - xlo) * C;   // elements of a staged row
+  const int xspan = span[1] + kw - xlo;        // source columns of a staged row
+  const int xcnt = xspan * C;                  // its elements
   const int rows = span[3] + kh - ylo;         // source rows of the tile
-  const T* img = x + n * src_h * src_w * C;
+  const T* img = x + n * fh * fw * C + (static_cast<int64_t>(y0) * fw +
+                                        (fl ? x0 + src_w - xlo - xspan : x0 + xlo)) * C;
   float* oimg = out + n * dst_h * dst_w * C;
 
   // The plan holds every tile's spans (it is made from these starts):
@@ -220,7 +246,7 @@ __global__ void __launch_bounds__(kThreads) resize_2d(
   for (int p = 0; p < 2; ++p) {
     const int r1 = min(rows, (p + 1) * per);
     for (int r = p * per + warp; r < r1; r += kThreads / 32) {
-      const int sft = stage_raw(img + (static_cast<int64_t>(ylo + r) * src_w + xlo) * C, xcnt,
+      const int sft = stage_raw(img + static_cast<int64_t>(ylo + r) * fw * C, xcnt,
                                 raw + static_cast<size_t>(r) * rb, lane, 32);
       if (lane == 0) shs[r] = sft;
     }
@@ -228,11 +254,15 @@ __global__ void __launch_bounds__(kThreads) resize_2d(
   }
   for (int i = tid; i < nx * kw; i += kThreads) wxs[i] = __ldg(tw + static_cast<int64_t>(ox0) * kw + i);
   for (int i = tid; i < ny * kh; i += kThreads) wys[i] = __ldg(th + static_cast<int64_t>(oy0) * kh + i);
-  for (int i = tid; i < nx; i += kThreads) sxs[i] = (__ldg(sw + ox0 + i) - xlo) * C;
+  for (int i = tid; i < nx; i += kThreads) {
+    const int rel = __ldg(sw + ox0 + i) - xlo;
+    sxs[i] = (fl ? xspan - 1 - rel : rel) * C;   // a mirrored row: its tap 0, read backwards
+  }
   for (int i = tid; i < ny; i += kThreads) sys[i] = __ldg(sh + oy0 + i) - ylo;
 
   // the width pass: thread t < nx * C computes column t of each row
   const int ox = tid / C, c = tid - (tid / C) * C;
+  const int step = fl ? -C : C;
   float wr[KM > 0 ? KM : 1];
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
@@ -254,8 +284,8 @@ __global__ void __launch_bounds__(kThreads) resize_2d(
       for (int r = p * per; r < r1; ++r) {
         const T* v = reinterpret_cast<const T*>(raw + static_cast<size_t>(r) * rb) + shs[r] + base;
         mid[static_cast<size_t>(r) * txc + tid] =
-            KM > 0 ? tap_sum<KM>(wr, v, kw, C, in_scale)
-                   : tap_sum<0>(wxs + ox * kw, v, kw, C, in_scale);
+            KM > 0 ? tap_sum<KM>(wr, v, kw, step, in_scale)
+                   : tap_sum<0>(wxs + ox * kw, v, kw, step, in_scale);
       }
     }
   }
@@ -469,6 +499,7 @@ struct Args2d {
   float* out;
   int tx, ty, rows_max, span_chunks;
   size_t smem;
+  Crop crop;   // kCrop builds only
 };
 
 struct ArgsAxis {
@@ -488,20 +519,20 @@ struct ArgsAxis {
 // by 4): 5, the defaults' 2x downscale (cubic at filterScale 0.7), exact
 constexpr int km_of(int k) { return k == 5 ? 5 : 0; }
 
-template <typename T, int C, int KM>
+template <typename T, int C, int KM, bool kCrop>
 int launch_2d(const Args2d& a, cudaStream_t st) {
   const int col_tiles = (a.dst_w + a.tx - 1) / a.tx;
   const int row_tiles = (a.dst_h + a.ty - 1) / a.ty;
   if (a.n * col_tiles > 0x7fffffffLL || row_tiles > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = allow_smem(reinterpret_cast<const void*>(resize_2d<T, C, KM>));
+  const int rc = allow_smem(reinterpret_cast<const void*>(resize_2d<T, C, KM, kCrop>));
   if (rc != 0) return rc;
   const int vec_out = reinterpret_cast<uintptr_t>(a.out) % 16 == 0 && (a.dst_w * C) % 4 == 0;
-  resize_2d<T, C, KM><<<dim3(static_cast<unsigned>(a.n * col_tiles), row_tiles), kThreads, a.smem,
-                        st>>>(
+  resize_2d<T, C, KM, kCrop><<<dim3(static_cast<unsigned>(a.n * col_tiles), row_tiles), kThreads,
+                               a.smem, st>>>(
       static_cast<const T*>(a.x), a.src_h, a.src_w, a.dst_h, a.dst_w, a.sw, a.tw, a.kw, a.sh, a.th,
       a.kh, a.in_scale, a.out_scale, a.out, a.tx, a.ty, col_tiles, a.rows_max, a.span_chunks,
-      vec_out);
+      vec_out, a.crop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -562,31 +593,39 @@ int axis_typed(const ArgsAxis& a, cudaStream_t st) {
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, bool kCrop>
 int two_d_k(const Args2d& a, cudaStream_t st) {
-  return km_of(a.kw > a.kh ? a.kw : a.kh) == 5 ? launch_2d<T, C, 5>(a, st)
-                                               : launch_2d<T, C, 0>(a, st);
+  return km_of(a.kw > a.kh ? a.kw : a.kh) == 5 ? launch_2d<T, C, 5, kCrop>(a, st)
+                                               : launch_2d<T, C, 0, kCrop>(a, st);
 }
 
-template <typename T>
+template <typename T, bool kCrop = false>
 int two_d_typed(int c, const Args2d& a, cudaStream_t st) {
   switch (c) {
-    case 1: return two_d_k<T, 1>(a, st);
-    case 2: return two_d_k<T, 2>(a, st);
-    case 3: return two_d_k<T, 3>(a, st);
-    case 4: return two_d_k<T, 4>(a, st);
+    case 1: return two_d_k<T, 1, kCrop>(a, st);
+    case 2: return two_d_k<T, 2, kCrop>(a, st);
+    case 3: return two_d_k<T, 3, kCrop>(a, st);
+    case 4: return two_d_k<T, 4, kCrop>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <typename T, int C, bool kCrop>
+const void* two_d_fn(int k) {
+  return km_of(k) == 5 ? reinterpret_cast<const void*>(resize_2d<T, C, 5, kCrop>)
+                       : reinterpret_cast<const void*>(resize_2d<T, C, 0, kCrop>);
+}
+
 // the build that serves kernel `which` (0 resize_2d, 1 resize_rows, 2
-// resize_cols at V = 4) for element type T, channels C and k taps
+// resize_cols at V = 4, 3 resize_2d's crop mode, uint8 only) for element
+// type T, channels C and k taps
 template <typename T, int C>
 const void* kernel_c(int which, int k) {
   if (which == 1) return reinterpret_cast<const void*>(resize_rows<T, C>);
   if (which == 2) return reinterpret_cast<const void*>(resize_cols<T, 4>);
-  return km_of(k) == 5 ? reinterpret_cast<const void*>(resize_2d<T, C, 5>)
-                       : reinterpret_cast<const void*>(resize_2d<T, C, 0>);
+  if constexpr (sizeof(T) == 1)
+    if (which == 3) return two_d_fn<T, C, true>(k);
+  return two_d_fn<T, C, false>(k);
 }
 
 template <typename T>
@@ -606,10 +645,12 @@ const void* kernel_t(int which, int c, int k) {
 // shared bytes (0 if it does not fit), multiprocessors, the opt-in shared
 // bytes a block, shared bytes a multiprocessor, shared bytes the runtime
 // reserves a block; of the build of kernel `which` (0 resize_2d, 1
-// resize_rows, 2 resize_cols at V = 4) for element bytes eb, c channels
+// resize_rows, 2 resize_cols at V = 4, 3 resize_2d's crop mode at eb 1)
+// for element bytes eb, c channels
 // and windows of k taps. Returns a CUDA error code.
 extern "C" int picha_resize_info(int which, int eb, int c, int k, int smem, int* out) {
-  if (which < 0 || which > 2 || (eb != 1 && eb != 4) || smem < 0 || k < 1)
+  if (which < 0 || which > 3 || (eb != 1 && eb != 4) || (which == 3 && eb != 1) || smem < 0 ||
+      k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = eb == 1 ? kernel_t<uint8_t>(which, c, k) : kernel_t<float>(which, c, k);
   int dev = 0;
@@ -665,6 +706,24 @@ extern "C" int picha_resize_axis(const void* x, int elem_bytes, int64_t outer, i
   return elem_bytes == 1 ? axis_typed<uint8_t>(a, s) : axis_typed<float>(a, s);
 }
 
+namespace {
+
+// resize_2d's arguments, checked: the tile's shared memory against `smem`
+int check_2d(int c, int src_h, int src_w, int dst_h, int dst_w, int kw, int kh, int tx, int ty,
+             int rows_max, int span_chunks, int smem) {
+  if (c < 1 || c > 4 || kw < 1 || kw > src_w || kh < 1 || kh > src_h || dst_h < 0 || dst_w < 0 ||
+      tx < 1 || ty < 1 || (tx * c) % 4 != 0 || tx * c > kThreads || rows_max < kh ||
+      span_chunks < 1 || smem < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t need = static_cast<size_t>(rows_max) * span_chunks * 16 +
+                      (static_cast<size_t>(rows_max) * tx * c + static_cast<size_t>(tx) * kw +
+                       static_cast<size_t>(ty) * kh + tx + ty + rows_max) *
+                          4;
+  return static_cast<size_t>(smem) < need ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
+}  // namespace
+
 // Both axes in one launch. x: (n, src_h, src_w, c) uint8 or float32, c
 // 1-4; (sw, tw, kw) the width windows, (sh, th, kh) the height windows
 // (as picha_resize_axis takes them); out: (n, dst_h, dst_w, c) float32 =
@@ -678,21 +737,47 @@ extern "C" int picha_resize_2d(const void* x, int elem_bytes, int64_t n, int src
                                const void* sh, const void* th, int kh, float in_scale,
                                float out_scale, void* out, int tx, int ty, int rows_max,
                                int span_chunks, int smem, void* stream) {
-  if ((elem_bytes != 1 && elem_bytes != 4) || c < 1 || c > 4 || kw < 1 || kw > src_w || kh < 1 ||
-      kh > src_h || n < 0 || dst_h < 0 || dst_w < 0 || tx < 1 || ty < 1 ||
-      (tx * c) % 4 != 0 || tx * c > kThreads || rows_max < kh || span_chunks < 1 || smem < 0)
+  if ((elem_bytes != 1 && elem_bytes != 4) || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int rc =
+      check_2d(c, src_h, src_w, dst_h, dst_w, kw, kh, tx, ty, rows_max, span_chunks, smem);
+  if (rc != 0) return rc;
   if (n == 0 || dst_h == 0 || dst_w == 0) return static_cast<int>(cudaGetLastError());
-  const size_t need = static_cast<size_t>(rows_max) * span_chunks * 16 +
-                      (static_cast<size_t>(rows_max) * tx * c + static_cast<size_t>(tx) * kw +
-                       static_cast<size_t>(ty) * kh + tx + ty + rows_max) *
-                          4;
-  if (static_cast<size_t>(smem) < need) return static_cast<int>(cudaErrorInvalidValue);
   const Args2d a{x, n, src_h, src_w, dst_h, dst_w, static_cast<const int*>(sw),
                  static_cast<const int*>(sh), static_cast<const float*>(tw),
                  static_cast<const float*>(th), kw, kh, in_scale, out_scale,
                  static_cast<float*>(out), tx, ty, rows_max, span_chunks,
-                 static_cast<size_t>(smem)};
+                 static_cast<size_t>(smem), Crop{}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return elem_bytes == 1 ? two_d_typed<uint8_t>(c, a, s) : two_d_typed<float>(c, a, s);
+}
+
+// K9: the training ingest's crop, flip and both resize passes in one
+// launch (resize_2d's crop mode). rgb: (n, h, w, c) uint8 frames, c 1-4;
+// xs, ys: (n,) int32 crop corners (clamped to [0, w - crop] and [0, h -
+// crop]); flip: (n,) uint8 (0 or 1); the windows resize a crop x crop
+// source as picha_resize_2d's do; out: (n, dst_h, dst_w, c) float32 =
+// the height pass (in_scale 1, out_scale 1) of the width pass (in_scale)
+// of the flipped crop, bit for bit the per-axis route (K9's width pass,
+// then resize_cols). The tile as picha_resize_2d's, planned for the
+// crop's windows. Returns cudaGetLastError().
+extern "C" int picha_crop_flip_resize(const void* rgb, int n, int h, int w, int c, const void* xs,
+                                      const void* ys, const void* flip, int crop, int dst_h,
+                                      int dst_w, const void* sw, const void* tw, int kw,
+                                      const void* sh, const void* th, int kh, float in_scale,
+                                      void* out, int tx, int ty, int rows_max, int span_chunks,
+                                      int smem, void* stream) {
+  if (n < 0 || crop < 1 || crop > h || crop > w) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc =
+      check_2d(c, crop, crop, dst_h, dst_w, kw, kh, tx, ty, rows_max, span_chunks, smem);
+  if (rc != 0) return rc;
+  if (n == 0 || dst_h == 0 || dst_w == 0) return static_cast<int>(cudaGetLastError());
+  const Args2d a{rgb, n, crop, crop, dst_h, dst_w, static_cast<const int*>(sw),
+                 static_cast<const int*>(sh), static_cast<const float*>(tw),
+                 static_cast<const float*>(th), kw, kh, in_scale, 1.0f,
+                 static_cast<float*>(out), tx, ty, rows_max, span_chunks,
+                 static_cast<size_t>(smem),
+                 Crop{static_cast<const int*>(xs), static_cast<const int*>(ys),
+                      static_cast<const uint8_t*>(flip), h, w}};
+  return two_d_typed<uint8_t, true>(c, a, static_cast<cudaStream_t>(stream));
 }

@@ -61,6 +61,8 @@ SIGNATURES = {
     "picha_resize_info": [I, I, I, I, I, P],
     "picha_crop_flip_resize_w": [P, I, I, I, I, P, P, P, I, P, P, I, I, F,
                                  P, P],
+    "picha_crop_flip_resize": [P, I, I, I, I, P, P, P, I, I, I, P, P, I, P,
+                               P, I, F, P, I, I, I, I, I, P],
     "picha_augment": [P, I, I, I, P, P, P, P, P, P, I, F, I, F, F, F, P, P],
     "picha_pixel_map": [P, I, L, I, I, I, I, I, I, I, I, I, F, F, F, P, P],
     "picha_png_filter": [P, I, I, I, I, I, P, P],
@@ -76,7 +78,8 @@ SIGNATURES = {
     "picha_vit_layernorm_info": [L, I, P],
     "picha_vit_attention": [P, I, I, I, I, F, I, P, P],
     "picha_vit_attention_info": [I, I, I, P],
-    "picha_moe_route_dispatch": [P, P, L, I, I, I, P, P, P, P, P, P, P],
+    "picha_moe_route_dispatch": [P, P, L, I, I, I, P, L, P, P, P, P, P, P],
+    "picha_moe_route_dispatch_info": [P],
     "picha_moe_combine": [P, P, P, P, L, I, I, I, P, P],
     "picha_vit_layernorm_bwd": [P, P, P, L, I, P, P, L, P, P, P],
     "picha_vit_layernorm_bwd_info": [L, I, P],
@@ -232,10 +235,16 @@ KERNELS = {
                "picha_tpu_torch/csrc/resize_axis.cu",
                "picha_tpu/ops/resize.py:330 (resize_f32: _apply_axis :296 "
                "on the width, then on the height, in one launch)"),
+        Kernel("crop_flip_resize", "picha_crop_flip_resize",
+               "picha_tpu_torch/csrc/resize_axis.cu",
+               "picha_tpu/pipeline/training.py:64 (crop, flip, unpack and "
+               "resize_f32's width and height passes, :64-70, in one "
+               "launch)"),
         Kernel("crop_flip_resize_w", "picha_crop_flip_resize_w",
                "picha_tpu_torch/csrc/crop_resize.cu",
                "picha_tpu/pipeline/training.py:64 (crop, flip, unpack and "
-               "the width pass of resize_f32, :64-70)"),
+               "the width pass of resize_f32, :64-70; the per-axis route "
+               "of windows no tile holds)"),
         Kernel("augment", "picha_augment", "picha_tpu_torch/csrc/augment.cu",
                "picha_tpu/pipeline/augment.py:105 (with :42-89, and the "
                "clip of training.py:70)"),

@@ -33,12 +33,14 @@ carry no gradient (`argmax`, `keep`); the gate does:
   `combine_backward_plain`  the torch versions
   `route_dispatch`  K19 forward, K23 backward (`csrc/vit_moe.cu`,
                     `csrc/vit_moe_bwd.cu`) for CUDA tensors
+  `kernel_info`     the tuned K19's build and plan on the card
   `combine`         K20 forward, K24 backward (the same files)
 Both are `torch.autograd.Function`s and run their plain versions for CPU
 tensors.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -46,7 +48,8 @@ import torch
 from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 
 MAX_EXPERTS = 64                 # the tuned K19's count table in shared memory
-TOKENS_PER_BLOCK = 256           # K19's block of tokens (its count table)
+TILE_TOKENS = 64                 # the tuned K19's tokens a tile
+TOKENS_PER_BLOCK = 256           # K19's block of tokens past the envelope
 
 
 def tuned(experts: int, d: int) -> bool:
@@ -177,6 +180,15 @@ def _check_route(logits, y, cap, kernel):
                          f"least 1 and cap >= 1; got {experts}, {d}, {cap}")
 
 
+def scratch_bytes(t: int, experts: int, d: int) -> int:
+    """K19's scratch: the tuned kernel's ticket (16 bytes) and a 64-bit
+    descriptor a tile and expert; past the envelope, each block's count
+    of each expert and the totals."""
+    if tuned(experts, d) and t < 2 ** 31:
+        return 16 + -(-t // TILE_TOKENS) * experts * 8
+    return (-(-t // TOKENS_PER_BLOCK) + 1) * experts * 4
+
+
 def route_dispatch_k19(logits, y, cap: int):
     """K19 on the card (see the module doc)."""
     _check_route(logits, y, cap, "K19")
@@ -184,8 +196,8 @@ def route_dispatch_k19(logits, y, cap: int):
     d = y.shape[1]
     logits, y = logits.contiguous(), aligned(y)
     dev = y.device
-    nblk = -(-t // TOKENS_PER_BLOCK)
-    counts = torch.empty((nblk + 1, experts), dtype=torch.int32, device=dev)
+    nbytes = scratch_bytes(t, experts, d)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     # the kernels past the tuned envelope keep each token's rank in its block
     rank = None if tuned(experts, d) else torch.empty(
         max(t, 1), dtype=torch.int32, device=dev)
@@ -194,11 +206,36 @@ def route_dispatch_k19(logits, y, cap: int):
     gk = torch.empty(t, dtype=torch.float32, device=dev)
     xe = torch.empty((experts, cap, d), dtype=torch.bfloat16, device=dev)
     KERNELS["moe_route_dispatch"](ptr(logits), ptr(y), t, experts, d, cap,
-                                  ptr(counts),
+                                  ptr(scratch), nbytes,
                                   None if rank is None else ptr(rank),
                                   ptr(eidx), ptr(sidx), ptr(gk), ptr(xe),
                                   stream_of(y))
     return xe, eidx, sidx, gk
+
+
+_K19_INFO_KEYS = ("registers", "local_bytes", "static_shared_bytes",
+                  "blocks_an_sm", "sms", "tile_tokens", "threads",
+                  "prefetch_words")
+
+
+def kernel_info(t: int, experts: int, d: int, device) -> dict:
+    """The tuned K19's build on `device` (moe_route_dispatch_tiles:
+    registers, local bytes, shared bytes, blocks an SM, asked of the card
+    once a device) and its plan for t tokens of E experts at width d:
+    tiles, the persistent grid, scratch bytes; `tuned` False where the
+    shape takes the kernels past the envelope."""
+    from ..kernels._build import library
+
+    out = (ctypes.c_int * len(_K19_INFO_KEYS))()
+    with torch.cuda.device(device):
+        rc = library().picha_moe_route_dispatch_info(out)
+    if rc != 0:
+        raise RuntimeError(f"picha_moe_route_dispatch_info: CUDA error {rc}")
+    info = dict(zip(_K19_INFO_KEYS, out))
+    tiles = -(-t // info["tile_tokens"])
+    return dict(info, tuned=tuned(experts, d), tiles=tiles,
+                grid=min(tiles, info["sms"] * info["blocks_an_sm"]),
+                scratch_bytes=scratch_bytes(t, experts, d))
 
 
 def _check_slots(ye, eidx, sidx, gk, kernel):

@@ -38,12 +38,21 @@ the caller uploads them once per configuration.
   `resize_array`, `resize_image` the single-image API on the device (the
                                 reference's native host resize has no
                                 counterpart here)
-  `crop_flip_resize_w`          the training ingest's per-image crop,
-                                horizontal flip and width pass: K9
-                                (`csrc/crop_resize.cu`) for CUDA
-                                tensors, `crop_flip_resize_w_plain` (the
-                                flipped crop gathered, then K8's twin)
-                                for CPU tensors
+  `crop_flip_resize`            the training ingest's per-image crop,
+                                horizontal flip and both resize passes:
+                                K9, resize_2d's crop mode in one launch
+                                (`csrc/resize_axis.cu`), for CUDA tensors
+                                where `resize_plan` fits a tile, else
+                                the per-axis route below;
+                                `crop_flip_resize_plain` (the flipped
+                                crops, then K8's twin on each axis) for
+                                CPU tensors
+  `crop_flip_resize_w`          the per-axis route's crop, flip and width
+                                pass (`csrc/crop_resize.cu`), then
+                                `resize_axis` for the height;
+                                `crop_flip_resize_w_plain` for CPU
+                                tensors
+  `crop_kernel_info`            K9's plan and build at a call's shapes
 
 Tensors are (N, H, W, C); the width axis is -2 and the height axis -3,
 as in the reference. K8 unpacks a uint8 input as v * f32(1/255) before
@@ -259,9 +268,10 @@ _CARDS = {}
 def card_info(device, which: int, elem_bytes: int, c: int, k: int,
               smem: int = 0) -> dict:
     """`picha_resize_info` of K8's kernel `which` (0 resize_2d, 1
-    resize_rows, 2 resize_cols) on `device`, the build that serves c
-    channels and windows of k taps: registers, local bytes, blocks an SM
-    at `smem` dynamic bytes, SMs and the shared-memory limits (cached)."""
+    resize_rows, 2 resize_cols, 3 resize_2d's crop mode: K9) on `device`,
+    the build that serves c channels and windows of k taps: registers,
+    local bytes, blocks an SM at `smem` dynamic bytes, SMs and the
+    shared-memory limits (cached)."""
     from ..kernels._build import library
 
     key = (device.index, which, elem_bytes, c, k, smem)
@@ -401,6 +411,78 @@ def crop_flip_resize_w(rgb, xs, ys, flip, crop, starts, taps):
     return out
 
 
+def crop_flip_resize_plain(rgb, xs, ys, flip, crop, windows):
+    """Plain torch version of `crop_flip_resize`: the flipped crops
+    (`flipped_crops`), then K8's windowed twin on the width axis and on
+    the height axis -> (N, dst_h, dst_w, C) float32."""
+    (sw, tw), (sh, th) = windows
+    return resize_axis_windowed_plain(resize_axis_windowed_plain(
+        flipped_crops(rgb, xs, ys, flip, crop), sw, tw, -2), sh, th, -3)
+
+
+def crop_flip_resize(rgb, xs, ys, flip, crop, windows):
+    """The training ingest's crop + flip + resize: per-image crop at (xs,
+    ys) (clamped into the frame), optional left-right flip, and both
+    passes of the resize with per-output windows (`windows`: ((starts,
+    taps) of the width axis, then of the height axis) for a crop x crop
+    source, on rgb's device): (N, H, W, C) uint8 -> (N, dst_h, dst_w, C)
+    float32 on the 0-1 scale. xs, ys (N,) int32, flip (N,) bool. For
+    CUDA tensors K9 in one launch (resize_2d's crop mode) where
+    `resize_plan` fits a tile in shared memory, else the per-axis route
+    (`crop_flip_resize_w`, then `resize_axis` on the height); both give
+    the plain version's bits. The plain version runs only for CPU
+    tensors."""
+    if rgb.device.type == "cpu":
+        return crop_flip_resize_plain(rgb, xs, ys, flip, crop, windows)
+    (sw, tw), (sh, th) = windows
+    require_cuda(rgb, "K9")
+    if rgb.dtype != torch.uint8 or rgb.dim() != 4:
+        raise TypeError("K9 takes an (N, H, W, C) uint8 tensor")
+    n, h, w, c = rgb.shape
+    if not 0 < crop <= min(h, w):
+        raise ValueError(f"K9: crop {crop} outside the {h}x{w} frame")
+    _check_windows(rgb, sw, tw, crop, "K9")
+    _check_windows(rgb, sh, th, crop, "K9")
+    for t, dt in ((xs, torch.int32), (ys, torch.int32), (flip, torch.bool)):
+        if t.device != rgb.device or t.dtype != dt or tuple(t.shape) != (n,):
+            raise TypeError("K9 takes one int32 xs, int32 ys and bool flip "
+                            "per image on the image's device")
+    plan = windowed_plan(rgb, windows, crop=True)
+    if plan["route"] == "per_axis":
+        return resize_axis(crop_flip_resize_w(rgb, xs, ys, flip, crop, sw,
+                                              tw), sh, th, -3)
+    rgb, xs, ys, flip = (t.contiguous() for t in (rgb, xs, ys, flip))
+    sw, tw, sh, th = (t.contiguous() for t in (sw, tw, sh, th))
+    dst_w, kw = tw.shape
+    dst_h, kh = th.shape
+    out = torch.empty((n, dst_h, dst_w, c), dtype=torch.float32,
+                      device=rgb.device)
+    KERNELS["crop_flip_resize"](
+        ptr(rgb), n, h, w, c, ptr(xs), ptr(ys), ptr(flip), crop, dst_h,
+        dst_w, ptr(sw), ptr(tw), kw, ptr(sh), ptr(th), kh, INV255, ptr(out),
+        plan["tx"], plan["ty"], plan["rows_max"], plan["span_chunks"],
+        plan["smem"], stream_of(rgb))
+    return out
+
+
+def crop_kernel_info(rgb, crop: int, windows) -> dict:
+    """K9's plan for `crop_flip_resize(rgb, ..., crop, windows)` on rgb's
+    card (`resize_plan`'s route and tile) and its builds: resize_2d's
+    crop mode at the plan's shared bytes (registers, local bytes, blocks
+    an SM); on the per-axis route, K8's height pass (resize_cols)."""
+    (_, tw), (_, th) = windows
+    c = rgb.shape[-1]
+    plan = windowed_plan(rgb, windows, crop=True)
+    k = max(tw.shape[1], th.shape[1])
+    out = dict(plan=plan, crop=crop)
+    if plan["route"] == "one_launch":
+        out["crop_resize_2d"] = card_info(rgb.device, 3, 1, c, k,
+                                          plan["smem"])
+    else:
+        out["height_pass"] = card_info(rgb.device, 2, 4, 4, th.shape[1])
+    return out
+
+
 def window_tensors(dst_size, src_size, filter_name, fscale, device):
     """The reference's `resize_windows` as device tensors (starts int32,
     taps float32)."""
@@ -425,21 +507,23 @@ def _cached(key, make):
     return plan
 
 
-def windowed_plan(x, windows) -> dict:
-    """`resize_plan` of `resize_windowed(x, windows)` on x's card."""
+def windowed_plan(x, windows, crop: bool = False) -> dict:
+    """`resize_plan` of `resize_windowed(x, windows)` on x's card; with
+    `crop`, of `crop_flip_resize` on the frames x (resize_2d's crop
+    build: the same tiles, windows of the crop)."""
     (sw, tw), (sh, th) = windows
     c = x.shape[-1]
     hw, bw = starts_host(sw)
     hh, bh = starts_host(sh)
 
     def make():
-        card = card_info(x.device, 0, x.element_size(), min(max(c, 1), 4),
-                         max(tw.shape[1], th.shape[1]))
+        card = card_info(x.device, 3 if crop else 0, x.element_size(),
+                         min(max(c, 1), 4), max(tw.shape[1], th.shape[1]))
         return resize_plan(hw, tw.shape[1], hh, th.shape[1], c, card,
                            x.element_size())
 
-    return _cached(("2d", bw, tw.shape[1], bh, th.shape[1], c, x.dtype,
-                    x.device.index), make)
+    return _cached(("crop" if crop else "2d", bw, tw.shape[1], bh,
+                    th.shape[1], c, x.dtype, x.device.index), make)
 
 
 def resize_windowed(x, windows, out_scale=1.0):

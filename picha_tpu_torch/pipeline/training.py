@@ -14,8 +14,10 @@ Per step (one group per shape signature):
            K5 without) -> `split_planes` -> staged decode with
            force_rgb (K6 dequant + IDCT, K7 upsample + colour) -> the
            full frames, (N, H, W, 3) uint8
-           -> K9 crop + flip + width pass -> K8 height pass -> K10 clip +
-           augment (or a plain clamp when augment is off)
+           -> K9 crop + flip + both resize passes in one launch (the
+           per-axis route, K9's width pass then K8's height pass, where
+           no tile holds the windows) -> K10 clip + augment (or a plain
+           clamp when augment is off)
            -> (N, size, size, 3) float32 in [0, 1]
 
 Windows. With `pre_crop=True` the host draws each crop window from
@@ -37,7 +39,7 @@ reproduce `jax.random`'s bits.
 Fallback. Files `parse_baseline` refuses (progressive, CMYK, ...), a
 group past `ScanBatch`'s capacity gates and a decoder `ok` that is false
 go through Pillow's decode on the host (`codecs/jpeg_host.py`), a uint8
-upload and the same K9 -> K8 -> K10 stages; each such group is counted in
+upload and the same K9 -> K10 stages; each such group is counted in
 `scan_fallbacks`.
 """
 from __future__ import annotations
@@ -53,7 +55,7 @@ from ..ops.jpeg import _idct_kron, build_decode_stage
 from ..ops.jpeg_huffman_decode import (decode_scan, scan_wire, split_planes,
                                        wire_unpack)
 from ..ops.jpeg_scan import mcu_slot_tables, parse_baseline
-from ..ops.resize import crop_flip_resize_w, resize_axis, window_tensors
+from ..ops.resize import crop_flip_resize, window_tensors
 from ..ops.scan_batch import split_indices
 from ..runtime.device import resolve_device, upload
 from .augment import AugmentDraws, augment_config, augment_fused, draw_augment
@@ -87,13 +89,11 @@ def crop_resize_normalize(rgb_u8, xs, ys, flip, windows, augment_draws=None,
                           *, crop: int, augment_cfg: Optional[dict] = None):
     """Decoded frames (N, H, W, 3) uint8 -> (N, S, S, 3) float32 in [0,
     1]: crop at (xs, ys), flip where `flip`, unpack by 1/255 and resize
-    (K9: crop + flip + width pass; K8: height pass), then clip, with the
-    augment chain when `augment_draws` is given (K10), else a plain
-    clamp. `windows`: ((starts, taps) of the width axis, then of the
-    height axis) for a crop x crop source, on rgb's device."""
-    (sw, tw), (sh, th) = windows
-    f = crop_flip_resize_w(rgb_u8, xs, ys, flip, crop, sw, tw)
-    f = resize_axis(f, sh, th, -3)
+    (K9: `crop_flip_resize`, both axes), then clip, with the augment
+    chain when `augment_draws` is given (K10), else a plain clamp.
+    `windows`: ((starts, taps) of the width axis, then of the height
+    axis) for a crop x crop source, on rgb's device."""
+    f = crop_flip_resize(rgb_u8, xs, ys, flip, crop, windows)
     if augment_draws is None:
         return f.clamp_(0.0, 1.0)
     return augment_fused(f, augment_draws, augment_cfg)

@@ -270,3 +270,64 @@ def test_k8_plan_follows_the_windows_content(monkeypatch):
                               th.shape[1], 3, H100, 1)
         assert rs.windowed_plan(x, windows) == want, src
         del windows, sw, tw, sh, th
+
+
+# name -> (frame h, frame w, crop, size, filter): an upscale (the ingest's
+# direction), a downscale with a long window, a crop that is the frame
+K9_TILE_CASES = {"up": (40, 75, 24, 29, "cubic"),
+                 "down": (52, 90, 40, 17, "lanczos"),
+                 "whole_frame": (33, 33, 33, 20, "triangle")}
+
+
+@pytest.mark.parametrize("case", list(K9_TILE_CASES))
+def test_k9_crop_tile_model_is_the_plain_chain(case):
+    """resize_2d's crop mode as numpy steps (`torch_helpers.k8_tile_model`
+    with `crop`): mirrored spans read backwards, staged words at frame
+    column offsets x0 * 3 of every remainder mod 16, corners on and past
+    the frame's edges (clamped), flips on and off; bit for bit the plain
+    chain (`crop_flip_resize_plain`: the flipped crops, then the twin on
+    each axis), at the plan the card would take."""
+    from picha_tpu_torch.ops.resize import (crop_flip_resize,
+                                            crop_flip_resize_plain,
+                                            resize_plan)
+    from picha_tpu_torch.ops.resize_weights import resize_windows
+    from torch_helpers import k8_tile_model
+
+    h, w, crop, size, filt = K9_TILE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    n = 20
+    frames = rng.integers(0, 256, (n, h, w, 3)).astype(np.uint8)
+    xs = np.concatenate([np.arange(16), [-7, w - crop, w, 2 * w]])
+    xs = np.minimum(xs, w + 5).astype(np.int32)
+    ys = rng.integers(-3, h - crop + 4, n).astype(np.int32)
+    ys[:2] = [0, h - crop]
+    flip = np.arange(n) % 3 != 1
+    windows = (resize_windows(size, crop, filt, 1.0),) * 2
+    (sw, tw), (sh, th) = windows
+    plan = resize_plan(sw, tw.shape[1], sh, th.shape[1], 3, H100, 1)
+    assert plan["route"] == "one_launch"
+    got = k8_tile_model(frames, 0, windows, plan, INV255, 1.0,
+                        crop=(xs, ys, flip, crop))
+    args = (torch.as_tensor(frames), torch.as_tensor(xs),
+            torch.as_tensor(ys), torch.as_tensor(flip), crop,
+            tuple((torch.as_tensor(a), torch.as_tensor(b))
+                  for a, b in windows))
+    want = crop_flip_resize_plain(*args)
+    assert np.array_equal(got, want.numpy())
+    assert torch.equal(crop_flip_resize(*args), want)     # CPU: the plain
+
+
+def test_k9_route_for_the_ingest_windows():
+    """The ingest's windows (crop 192 -> 224, cubic 1.0, 3 channels of
+    uint8) take resize_2d's crop mode in one launch; a window too long
+    for any tile (crop 1024 -> 64) the per-axis route."""
+    from picha_tpu_torch.ops.resize import resize_plan
+    from picha_tpu_torch.ops.resize_weights import resize_windows
+
+    sw, tw = resize_windows(224, 192, "cubic", 1.0)
+    plan = resize_plan(sw, tw.shape[1], sw, tw.shape[1], 3, H100, 1)
+    assert plan["route"] == "one_launch" and plan["tx"] == 84
+    assert plan["smem"] + 64 <= H100["smem_block"]
+    sw, tw = resize_windows(64, 1024, "cubic", 1.0)
+    assert resize_plan(sw, tw.shape[1], sw, tw.shape[1], 3, H100,
+                       1)["route"] == "per_axis"

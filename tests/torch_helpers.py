@@ -1033,7 +1033,7 @@ def k17_lane_model(x, scale, bias):
     return torch.from_numpy(out.reshape(x.shape)).to(torch.bfloat16)
 
 
-def k8_tile_model(x, base, windows, plan, in_scale, out_scale):
+def k8_tile_model(x, base, windows, plan, in_scale, out_scale, crop=None):
     """K8's one-launch kernel (`csrc/resize_axis.cu::resize_2d`) as numpy
     float32 steps over its tiles, for a plan of `ops.resize.resize_plan`:
     each tile's source spans from the min / max of its starts, every
@@ -1046,7 +1046,12 @@ def k8_tile_model(x, base, windows, plan, in_scale, out_scale):
     quads, stores of the valid outputs only. Words past the tensor are
     NaN, and the output starts as NaN, so a wrong index or a missed store
     shows. x: (n, h, w, c) uint8 or float32 numpy; windows: ((sw, tw),
-    (sh, th)) numpy. Returns float32 (n, dst_h, dst_w, c)."""
+    (sh, th)) numpy. With `crop` = (xs, ys, flip, size), resize_2d's crop
+    mode (K9): x holds frames and image i's source is the size x size
+    crop at (xs[i], ys[i]) clamped into the frame, mirrored where
+    flip[i]: a tile stages the frame columns its column span maps to
+    and reads a mirrored row backwards. Returns float32 (n, dst_h,
+    dst_w, c)."""
     f32 = np.float32
     (sw, tw), (sh, th) = windows
     n, h, w, c = x.shape
@@ -1059,21 +1064,32 @@ def k8_tile_model(x, base, windows, plan, in_scale, out_scale):
     flat = x.reshape(-1).astype(f32) * f32(in_scale)
     out = np.full((n, dst_h, dst_w, c), np.nan, f32)
     for ni in range(n):
+        x0 = y0 = 0
+        fl, src_w = False, w
+        if crop is not None:
+            xs, ys, flips, src_w = crop
+            x0 = min(max(int(xs[ni]), 0), w - src_w)
+            y0 = min(max(int(ys[ni]), 0), h - src_w)
+            fl = bool(flips[ni])
+        step = -c if fl else c
         for oy0 in range(0, dst_h, ty):
             for ox0 in range(0, dst_w, tx):
                 nx, ny = min(tx, dst_w - ox0), min(ty, dst_h - oy0)
                 xlo = int(sw[ox0:ox0 + nx].min())
-                xcnt = (int(sw[ox0:ox0 + nx].max()) + kw - xlo) * c
+                xspan = int(sw[ox0:ox0 + nx].max()) + kw - xlo
+                xcnt = xspan * c
+                col0 = x0 + src_w - xlo - xspan if fl else x0 + xlo
                 ylo = int(sh[oy0:oy0 + ny].min())
                 rows = int(sh[oy0:oy0 + ny].max()) + kh - ylo
                 assert rows <= rows_max and 15 + xcnt * eb <= 16 * chunks
                 mid = np.full((rows_max, tx * c), np.nan, f32)
                 col = np.arange(nx * c)
                 ox, ch = col // c, col % c
-                base_col = (sw[ox0 + ox] - xlo) * c + ch
+                rel = sw[ox0 + ox] - xlo
+                base_col = (xspan - 1 - rel if fl else rel) * c + ch
                 wts = tw[ox0 + ox]                          # (nx * c, kw)
                 for r in range(rows):
-                    e0 = ((ni * h + ylo + r) * w + xlo) * c
+                    e0 = ((ni * h + y0 + ylo + r) * w + col0) * c
                     shift = ((base + e0) * eb % 16) // eb
                     nc = (shift * eb + xcnt * eb + 15) // 16
                     stage = np.full(chunks * per_word, np.nan, f32)
@@ -1082,7 +1098,9 @@ def k8_tile_model(x, base, windows, plan, in_scale, out_scale):
                     stage[a - lo:b - lo] = flat[a:b]
                     acc = np.zeros(nx * c, f32)
                     for j in range(kw):
-                        acc = acc + wts[:, j] * stage[shift + base_col + j * c]
+                        at = shift + base_col + j * step
+                        assert at.min() >= shift   # inside the staged span
+                        acc = acc + wts[:, j] * stage[at]
                     mid[r, :nx * c] = acc
                 for oy in range(ny):
                     rel = int(sh[oy0 + oy]) - ylo

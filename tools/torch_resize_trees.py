@@ -17,7 +17,12 @@ seeded inputs at three shapes of the main paths:
   config4    256 x 224 x 352 x 4 float32 -> 112 x 176, cubic 0.7
              (BASELINE config 4's crop_resize_map; 5 taps);
 
-and at three of `resize_batch`'s (float32 after K11's unpack) with other
+at the training ingest's crop (`ingest_crop`: 256 x 1088 x 1920 x 3
+uint8 frames with seeded corners, some past the frame's edges, and
+flips -> crops of 192 -> 224 x 224, cubic 1.0: K9 + K8's height pass,
+and the checkout's `crop_flip_resize` where it has one, also launched at
+each tile height ty of 64-2), and at three of
+`resize_batch`'s (float32 after K11's unpack) with other
 window lengths than 5: up_k4 (16 x 272 x 480 x 3 -> 544 x 960, cubic, 4
 taps), down_k7 (16 x 1088 x 1920 x 3 -> 544 x 960, cubic, 7 taps) and
 down_k9 (the same, lanczos, 9 taps),
@@ -57,6 +62,8 @@ SHAPES = {
     "down_k9": (16, 1088, 1920, 3, "float32", 544, 960, "lanczos", 1.0,
                 1.0),
 }
+# the ingest's crop: frames (n, h, w, 3) uint8, crop, size, filter, fscale
+INGEST_CROP = (256, 1088, 1920, 192, 224, "cubic", 1.0)
 
 
 def timed(fn, reps=20, rounds=3):
@@ -99,6 +106,8 @@ def by_kernel(fn, reps=10):
             row = rows.setdefault(name, {"ms": 0.0, "launches": 0.0})
             row["ms"] += us / 1e3 / reps
             row["launches"] += e.count / reps
+            # the profiler may miss a launch of the window: ms a launch
+            row["ms_a_launch"] = row["ms"] / row["launches"]
     return rows
 
 
@@ -147,6 +156,104 @@ def inputs(n, h, w, c, dtype, dev):
     else:
         x = torch.rand((n, h, w, c), generator=g)
     return x.to(dev)
+
+
+def ty_sweep(rs, x, xs, ys, flip, crop, windows, want):
+    """K9's one launch at each tile height ty (the plan's tx; its source
+    rows and shared bytes recomputed for that ty as `resize_plan` makes
+    them): CUDA-event ms, blocks an SM, and the output's equality with
+    `want`."""
+    import torch
+
+    from picha_tpu_torch.kernels._build import KERNELS, ptr, stream_of
+
+    (sw, tw), (sh, th) = windows
+    hw, hh = rs.starts_host(sw)[0], rs.starts_host(sh)[0]
+    kw, kh = tw.shape[1], th.shape[1]
+    base = rs.windowed_plan(x, windows, crop=True)
+    n, h, w, c = x.shape
+    tx, chunks = base["tx"], base["span_chunks"]
+    out = torch.empty_like(want)
+    res = {}
+    for ty in (64, 48, 32, 16, 8, 4, 2):
+        ylo, yhi = rs.tile_spans(hh, kh, ty)
+        rows = int((yhi - ylo).max())
+        smem = rows * chunks * 16 + 4 * (rows * tx * c + tx * kw + ty * kh
+                                         + tx + ty + rows)
+
+        def call():
+            KERNELS["crop_flip_resize"](
+                ptr(x), n, h, w, c, ptr(xs), ptr(ys), ptr(flip), crop,
+                th.shape[0], tw.shape[0], ptr(sw), ptr(tw), kw, ptr(sh),
+                ptr(th), kh, rs.INV255, ptr(out), tx, ty, rows, chunks, smem,
+                stream_of(x))
+
+        call()
+        res[ty] = dict(rows=rows, smem=smem, equal=bool(torch.equal(out,
+                                                                    want)),
+                       ms=timed(call),
+                       blocks_an_sm=rs.card_info(x.device, 3, 1, c, max(kw, kh),
+                                                 smem)["blocks_an_sm"])
+    return res
+
+
+def ingest_crop(rs, dev):
+    """The training ingest's crop + flip + resize on seeded frames,
+    corners and flips: K9 then K8's height pass (`crop_flip_resize_w`,
+    `resize_axis`), and the one-launch `crop_flip_resize` where the
+    checkout has it; both held to the plain chain (`flipped_crops`, then
+    the windowed twin on each axis)."""
+    import torch
+
+    n, h, w, crop, size, filt, fs = INGEST_CROP
+    x = inputs(n, h, w, 3, "uint8", dev)
+    g = torch.Generator().manual_seed(23)
+    xs = torch.randint(-8, w - crop + 9, (n,), generator=g,
+                       dtype=torch.int32)
+    ys = torch.randint(-8, h - crop + 9, (n,), generator=g,
+                       dtype=torch.int32)
+    flip = torch.rand(n, generator=g) < 0.5
+    xs, ys, flip = xs.to(dev), ys.to(dev), flip.to(dev)
+    win = rs.window_tensors(size, crop, filt, fs, dev)
+    windows = (win, win)
+    (sw, tw), (sh, th) = windows
+
+    def chain():
+        return rs.resize_axis(rs.crop_flip_resize_w(x, xs, ys, flip, crop,
+                                                    sw, tw), sh, th, -3)
+
+    got = chain()
+    want = rs.resize_axis_windowed_plain(rs.resize_axis_windowed_plain(
+        rs.flipped_crops(x, xs, ys, flip, crop), sw, tw, -2), sh, th, -3)
+    r = dict(shape=[n, h, w, 3], crop=crop, size=size, taps=tw.shape[1],
+             flips=int(flip.sum()), out=list(got.shape), bits=digest(got),
+             equal_to_twins=bool(torch.equal(got, want)))
+    r["per_axis_ms"] = timed(chain)
+    r["per_axis_by_kernel"] = by_kernel(chain)
+    r["width_ms"] = timed(lambda: rs.crop_flip_resize_w(x, xs, ys, flip,
+                                                        crop, sw, tw))
+    mid = rs.crop_flip_resize_w(x, xs, ys, flip, crop, sw, tw)
+    r["height_ms"] = timed(lambda: rs.resize_axis(mid, sh, th, -3))
+    crops_bytes = n * crop * crop * 3
+    r["bound_ms"] = (crops_bytes + got.numel() * 4) / HBM * 1e3
+    r["per_axis_bound_ms"] = (crops_bytes + 2 * mid.numel() * 4
+                              + got.numel() * 4) / HBM * 1e3
+    if hasattr(rs, "crop_flip_resize"):
+        def fused():
+            return rs.crop_flip_resize(x, xs, ys, flip, crop, windows)
+
+        one = fused()
+        r["fused_bits"] = digest(one)
+        r["fused_equal_to_twins"] = bool(torch.equal(one, want))
+        r["fused_ms"] = timed(fused)
+        r["fused_by_kernel"] = by_kernel(fused)
+        r["fused_info"] = rs.crop_kernel_info(x, crop, windows)
+        r["fused_ty_sweep"] = ty_sweep(rs, x, xs, ys, flip, crop, windows,
+                                       one)
+        del one
+    del x, got, want, mid
+    torch.cuda.empty_cache()
+    return r
 
 
 def run(label):
@@ -205,6 +312,7 @@ def run(label):
         res["shapes"][name] = r
         del x, got, want
         torch.cuda.empty_cache()
+    res["shapes"]["ingest_crop"] = ingest_crop(rs, dev)
     res["ptxas"] = ptxas(pathlib.Path.cwd(), "resize_axis.cu")
     print("RESULT " + json.dumps(res), flush=True)
 
@@ -240,10 +348,17 @@ def main(argv):
             continue
         runs.append(json.loads(line[0][7:]))
         bits = {k: v["bits"] for k, v in runs[-1]["shapes"].items()}
+        if "fused_bits" in runs[-1]["shapes"]["ingest_crop"]:
+            bits["ingest_crop_fused"] = \
+                runs[-1]["shapes"]["ingest_crop"]["fused_bits"]
         first = first or dict(label=label, bits=bits)
-        runs[-1]["same_bits_as_first_run"] = dict(
-            label=first["label"],
-            **{k: bits[k] == first["bits"].get(k) for k in bits})
+        # the fused crop must give the per-axis chain's bits
+        same = {k: v == first["bits"].get(
+            "ingest_crop" if k == "ingest_crop_fused" else k)
+            for k, v in bits.items()}
+        runs[-1]["same_bits_as_first_run"] = dict(label=first["label"],
+                                                  **same)
+        failed |= not all(same.values())
         print(json.dumps(runs[-1]), flush=True)
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
