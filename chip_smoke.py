@@ -60,8 +60,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      resize passes in one launch, resize_2d's crop mode; bitwise the
      plain chain and its per-axis route, K9's width pass then K8's
      height pass; with its plan and build, timed beside that route) and
-     K10 (clip + augment; within 1e-6 of its twin) at that shape; three
-     steps, each checked for shape, range, zero fallbacks, the launches
+     K10 (clip + augment; within 1e-6 of its twin and bit for bit the
+     twin on its lane-order model's contrast mean, with its plan and
+     builds, and timed with contrast off) at that shape;
+     three steps, each checked for shape, range, zero fallbacks, the launches
      of K4, K5, K6, K7, K9 and K10 (and none of the per-axis route), and
      against the same draws through the plain chain; the second step
      resumed from state() bit for bit; a fourth step without augment
@@ -79,7 +81,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (16, 16, 352, 224) -> float32) and tail ((256, 112, 176, 4) float32
      -> uint8, and clipped for normalize), and as convert_batch on 16 x
      1920x1088 (rgba -> greya, r16g16b16a16 -> r16); K12 (PNG encode
-     filters) on (256, 112, 704) rows, bpp 4, strategies -1, 1, 2;
+     filters) on (256, 112, 704) rows, bpp 4: the probe's streams 2, 1,
+     -1 in one launch, and strategies -1, 1, 2 alone, with its plan and
+     build;
   9. BASELINE config 4 through ImageBatchPipeline(crop=(16, 16, 352,
      224), resize=(176, 112)): 256 RGBA 384x256 sources (bench.py's
      recipe, seed 9, 8 images tiled) TIFF-LZW encoded with Pillow,
@@ -90,12 +94,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      reference's lossy oracle), K11 twice and K8 once, no jax
      or picha_tpu module loaded; resize_batch (16 x 1920x1088 rgb ->
      960x544 lanczos) and convert_batch (rgb -> grey) bit for bit their
-     plain paths on the card; encode_filtered on the 256 outputs: three
-     K12 launches, every file decoding to its input;
+     plain paths on the card; encode_filtered on the 256 outputs: one
+     K12 launch, every file decoding to its input;
  10. where a config-4 call's time goes (host decode, upload, K11 head,
      K8, K11 tail, readback, host TIFF encode), Mpix/s of source
      and images/s (TIFF and WebP legs), the idle share, and the PNG
-     encode's K12 launches against its readback and host deflate;
+     encode's K12 launch against its readback and host deflate;
  11. the decode kernels against their plain versions, bit for bit, on
      config 4's 256 sources: K15 (LZW strips) on their TIFF-LZW files
      (Pillow's writer, 7 strips each; the pure-Python twin on the 8
@@ -1405,7 +1409,10 @@ def training_phases(dev, card, results, phase, timed, wall):
     from picha_tpu_torch.ops.jpeg import full_fp32
     from picha_tpu_torch.pipeline import TrainingInput
     from picha_tpu_torch.pipeline.augment import (augment_fused,
-                                                  augment_fused_plain)
+                                                  augment_fused_lanes,
+                                                  augment_fused_plain,
+                                                  draw_augment)
+    from picha_tpu_torch.pipeline.augment import kernel_info as k10_info
     from picha_tpu_torch.pipeline.jpeg_batch import signature
 
     srcs_nr = [(FIXTURES / f"src_nr_{i}.jpg").read_bytes() for i in range(3)]
@@ -1560,16 +1567,37 @@ def training_phases(dev, card, results, phase, timed, wall):
                "tile holds (width_pass: that pass alone, at this shape)",
           width_pass=results["crop_flip_resize_w"],
           **results["crop_flip_resize"])
+    k10_build = k10_info(tuple(k9.shape), AUGMENT, dev)
+    if not torch.equal(outk.cpu(), augment_fused_lanes(
+            k9.cpu(), aug.to("cpu"), AUGMENT, k10_build["plan"])):
+        raise AssertionError("K10 differs from the plain chain on its "
+                             "lane-order model's mean")
+    no_contrast = {k: v for k, v in AUGMENT.items() if k != "contrast_s"}
+    aug_nc = draw_augment(torch.Generator().manual_seed(10), TRAIN_N, SIZE,
+                          SIZE, no_contrast).to(dev)
+    out_nc = augment_fused(k9, aug_nc, no_contrast)
+    if not torch.equal(out_nc, augment_fused_plain(k9, aug_nc, no_contrast)):
+        raise AssertionError("K10 with contrast off differs from its plain "
+                             "version")
+    del out_nc
     results["augment"] = dict(
         max_abs_err=float((outk - outp).abs().max()),
         ms=timed(lambda: augment_fused(k9, aug, AUGMENT), 10),
         plain_ms=timed(lambda: augment_fused_plain(k9, aug, AUGMENT), 3),
-        library_ms=None, **bound(k9.numel() * 4 * 2, k9.numel() * 12))
+        library_ms=None, build=k10_build,
+        contrast_off=dict(
+            ms=timed(lambda: augment_fused(k9, aug_nc, no_contrast), 10),
+            build=k10_info(tuple(k9.shape), no_contrast, dev),
+            **bound(k9.numel() * 4 * 2, k9.numel() * 10)),
+        **bound(k9.numel() * 4 * 2, k9.numel() * 12))
     phase("K10", card=card, limit=K10_TOL, shape=list(outk.shape),
           deterministic=torch.equal(outk, augment_fused(k9, aug, AUGMENT)),
-          note="bound: one read and one write of the batch; the kernel "
-               "reads it twice (the contrast mean, then the chain)",
-          **results["augment"])
+          equal_lanes_model=True,
+          note="bound: one read and one write of the batch (the kernel "
+               "reads it twice: the per-image sum, then the chain); "
+               "equal_lanes_model: bit for bit the plain chain on "
+               "augment_sum_lanes' contrast mean; contrast_off: the chain "
+               "alone, bit for bit the plain version", **results["augment"])
     h_dense = torch.as_tensor(resize_weights(SIZE, CROP, ti.filter,
                                              ti.fscale), device=dev)
     k9_cols = width.view(TRAIN_N, CROP, SIZE * 3)
@@ -2013,7 +2041,9 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     from picha_tpu_torch.ops.colorconvert import (convert_batch, pixel_map,
                                                   pixel_map_plain)
     from picha_tpu_torch.ops.png_filter import (filter_batch,
-                                                filter_batch_plain)
+                                                filter_batch_plain,
+                                                filter_streams)
+    from picha_tpu_torch.ops.png_filter import kernel_info as k12_info
     from picha_tpu_torch.ops.resize import (resize_axis,
                                             resize_axis_windowed_plain,
                                             resize_batch, resize_windowed,
@@ -2101,27 +2131,38 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     del norm, greya, r16, deep
 
     rows = tail.reshape(IMG_N, IMG_OUT[1], IMG_OUT[0] * 4)
-    k12_ms = {}
+    k12_ms, want = {}, {}
     for s in (-1, 1, 2):
         got = filter_batch(rows, 4, s)
-        want = filter_batch_plain(rows, 4, s)
+        want[s] = filter_batch_plain(rows, 4, s)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if not torch.equal(got, want[s]):
             raise AssertionError(f"K12 strategy {s} differs from its plain "
                                  f"version")
         k12_ms[s] = dict(
             ms=timed(lambda s=s: filter_batch(rows, 4, s), 20),
             plain_ms=timed(lambda s=s: filter_batch_plain(rows, 4, s), 3),
+            build=k12_info(tuple(rows.shape), 4, (s,), dev),
             **bound(rows.numel() + got.numel()))
+    probe = (2, 1, -1)
+    streams = filter_streams(rows, 4, probe)
+    torch.cuda.synchronize()
+    if not torch.equal(streams, torch.stack([want[s] for s in probe])):
+        raise AssertionError("K12's probe streams differ from the plain "
+                             "version's")
     results["png_filter"] = dict(
-        max_abs_err=0, ms=sum(v["ms"] for v in k12_ms.values()),
-        plain_ms=sum(v["plain_ms"] for v in k12_ms.values()),
-        library_ms=None, **bound(rows.numel() + 3 * got.numel()))
+        max_abs_err=0, ms=timed(lambda: filter_streams(rows, 4, probe), 20),
+        plain_ms=timed(lambda: torch.stack(
+            [filter_batch_plain(rows, 4, s) for s in probe]), 3),
+        library_ms=None, build=k12_info(tuple(rows.shape), 4, probe, dev),
+        **bound(rows.numel() + streams.numel()))
+    del streams, want
     phase("K12", card=card, equal=True, rows=list(rows.shape), bpp=4,
           strategies={str(s): v for s, v in k12_ms.items()},
-          note="ms, plain_ms: strategies -1, 1 and 2 (the default probe's "
-               "three launches); bound: the rows read once, three "
-               "candidate streams written", **results["png_filter"])
+          note="ms, plain_ms, build: the default probe's streams 2, 1, -1 "
+               "in one launch (strategies: each alone); bound: the rows "
+               "read once, the three candidate streams written once",
+          **results["png_filter"])
 
     # 9. the config-4 call, the single-image ops, the batched PNG encode ---
     reset_launch_counts()
@@ -2205,7 +2246,7 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     reset_launch_counts()
     pngs = encode_filtered(px, 4, None, device=dev)
     torch.cuda.synchronize()
-    pe = only(launch_counts(), {"png_filter": 3}, "encode_filtered")
+    pe = only(launch_counts(), {"png_filter": 1}, "encode_filtered")
     back = np.stack([np.asarray(PILImage.open(io.BytesIO(b))) for b in pngs])
     if len(pngs) != IMG_N or not np.array_equal(back, px_cpu.numpy()):
         raise AssertionError("encode_filtered: a file does not decode to its "
@@ -2279,7 +2320,7 @@ def pixel_phases(dev, card, results, phase, timed, wall):
           host_sum_ms=sum(host_ms.values()),
           device_sum_ms=sum(device_ms.values()),
           idle_share_tiff=1.0 - sum(device_ms.values()) / e2e,
-          png_encode=dict(K12_3_launches_ms=png[0], readback_ms=png[1],
+          png_encode=dict(K12_probe_ms=png[0], readback_ms=png[1],
                           host_probe_deflate_ms=png[2], e2e_ms=png_e2e,
                           images_s=IMG_N / png_e2e * 1e3),
           note="stage rows: medians of 3 runs; e2e: median of 3 calls")

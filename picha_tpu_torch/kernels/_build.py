@@ -64,8 +64,10 @@ SIGNATURES = {
     "picha_crop_flip_resize": [P, I, I, I, I, P, P, P, I, I, I, P, P, I, P,
                                P, I, F, P, I, I, I, I, I, P],
     "picha_augment": [P, I, I, I, P, P, P, P, P, P, I, F, I, F, F, F, P, P],
+    "picha_augment_info": [I, I, P],
     "picha_pixel_map": [P, I, L, I, I, I, I, I, I, I, I, I, F, F, F, P, P],
-    "picha_png_filter": [P, I, I, I, I, I, P, P],
+    "picha_png_filter": [P, I, I, I, I, I, I, P, L, P],
+    "picha_png_filter_info": [L, I, I, I, P],
     "picha_png_unfilter": [P, L, I, I, I, I, P, P, P],
     "picha_png_unfilter_info": [I, I, I, I, P],
     "picha_png_transform": [P, I, I, I, I, I, P, P, I, I, I, P, P],

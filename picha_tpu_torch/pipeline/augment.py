@@ -23,18 +23,24 @@ stream, which does not reproduce `jax.random`'s bits):
                               `augment`: kernel K10 (`csrc/augment.cu`)
                               for CUDA tensors, `augment_fused_plain`
                               for CPU tensors
+  `augment_sum_lanes(x, fb)`  the per-image sums of contrast's grey
+                              mean in K10's order (its lane-order
+                              model); `augment_fused_lanes` the plain
+                              chain on that mean: K10's bits
+  `kernel_info(shape, cfg, device)`  K10's plan and builds
 
 Batches are (N, H, W, 3) float32 on the 0-1 scale. The grey weights are
 the reference's renormalized luma weights (r .299, g .587, b .114).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..kernels._build import KERNELS, ptr, require_cuda, stream_of
+from ..kernels._build import KERNELS, aligned, ptr, require_cuda, stream_of
 
 LUMA = np.array([0.299, 0.587, 0.114], np.float32)
 LUMA = (LUMA / LUMA.sum()).astype(np.float32)
@@ -42,6 +48,9 @@ _L = tuple(float(v) for v in LUMA)
 
 # K10's flags (csrc/augment.cu)
 BRIGHTNESS, CONTRAST, SATURATION, CUTOUT = 1, 2, 4, 8
+K10_THREADS = 512                      # the sum's threads (csrc/augment.cu)
+_BUILD_KEYS = ("registers", "local_bytes", "shared_bytes", "threads",
+               "blocks_an_sm")
 
 
 class AugmentDraws(NamedTuple):
@@ -112,9 +121,11 @@ def brightness(x, f):
     return (x * _col(f)).clamp(0.0, 1.0)
 
 
-def contrast(x, f):
-    """Blend with the per-image grey mean m: clip((x - m) * f + m)."""
-    m = grey(x).mean(dim=(1, 2))[:, None, None, None]
+def contrast(x, f, mean=None):
+    """Blend with the per-image grey mean m: clip((x - m) * f + m). `mean`
+    (N,), when given, is m (K10's sum order), else torch's mean."""
+    m = grey(x).mean(dim=(1, 2)) if mean is None else mean.to(torch.float32)
+    m = m[:, None, None, None]
     return ((x - m) * _col(f) + m).clamp(0.0, 1.0)
 
 
@@ -124,13 +135,13 @@ def saturation(x, f):
     return (g + (x - g) * _col(f)).clamp(0.0, 1.0)
 
 
-def color_jitter(x, fb=None, fc=None, fs=None):
+def color_jitter(x, fb=None, fc=None, fs=None, mean=None):
     """brightness -> contrast -> saturation, each skipped when its factors
-    are None."""
+    are None; `mean` is contrast's."""
     if fb is not None:
         x = brightness(x, fb)
     if fc is not None:
-        x = contrast(x, fc)
+        x = contrast(x, fc, mean)
     if fs is not None:
         x = saturation(x, fs)
     return x
@@ -151,10 +162,10 @@ def cutout(x, ty, tx, size: int, fill: float = 0.0):
                        torch.tensor(fill, dtype=x.dtype, device=dev), x)
 
 
-def augment(x, draws: AugmentDraws, cfg: dict):
+def augment(x, draws: AugmentDraws, cfg: dict, mean=None):
     """color_jitter, then cutout when `cfg` has a cutout size."""
     cfg = augment_config(cfg)
-    x = color_jitter(x, draws.fb, draws.fc, draws.fs)
+    x = color_jitter(x, draws.fb, draws.fc, draws.fs, mean)
     if cfg["cutout_size"]:
         x = cutout(x, draws.ty, draws.tx, int(cfg["cutout_size"]),
                    float(cfg["cutout_fill"]))
@@ -185,17 +196,75 @@ def _flags(cfg, draws: AugmentDraws) -> int:
     return flags
 
 
-def augment_fused_plain(x, draws: AugmentDraws, cfg: dict):
-    """Plain torch version of K10: clip(x, 0, 1), then `augment`."""
-    return augment(x.clamp(0.0, 1.0), draws, cfg)
+def augment_fused_plain(x, draws: AugmentDraws, cfg: dict, mean=None):
+    """Plain torch version of K10: clip(x, 0, 1), then `augment` (with
+    contrast's per-image mean `mean` when given)."""
+    return augment(x.clamp(0.0, 1.0), draws, cfg, mean)
+
+
+def augment_sum_lanes(x, fb, threads: int = K10_THREADS):
+    """(N, H, W, 3) float32 -> (N,) float32: each image's sum of
+    grey(clip(clip(x) * fb)) (fb None: grey(clip(x))) in K10's order, bit
+    for bit: `threads` sums, sum t adding pixels t, t + threads, ... of
+    the whole image to 0.0 in turn, then a halving tree (sum t += sum t +
+    s for s = threads / 2 .. 1). Runs on x's device (elementwise float32
+    operations, each rounded)."""
+    n, h, w = x.shape[:3]
+    hw = h * w
+    v = x.reshape(n, hw, 3).clamp(0.0, 1.0)
+    if fb is not None:
+        v = (v * _col(fb)[:, :, :, 0]).clamp(0.0, 1.0)
+    g = grey(v)                                              # (N, hw)
+    iters = -(-hw // threads)
+    g = torch.nn.functional.pad(g, (0, iters * threads - hw))
+    g = g.reshape(n, iters, threads)
+    acc = torch.zeros((n, threads), dtype=torch.float32, device=x.device)
+    for i in range(iters):                       # + 0.0 pads: exact
+        acc = acc + g[:, i]
+    s = threads // 2
+    while s > 0:
+        acc = acc[:, :s] + acc[:, s:2 * s]
+        s //= 2
+    return acc[:, 0]
+
+
+def augment_fused_lanes(x, draws: AugmentDraws, cfg: dict, plan: dict):
+    """The plain chain on the contrast mean of `augment_sum_lanes` at
+    K10's `plan` (`kernel_info(...)["plan"]`): K10's output bits."""
+    mean = None
+    if draws.fc is not None:
+        hw = x.shape[1] * x.shape[2]
+        mean = augment_sum_lanes(x, draws.fb, plan["threads"]) / hw
+    return augment_fused_plain(x, draws, cfg, mean)
+
+
+def kernel_info(shape, cfg: dict, device) -> dict:
+    """K10's plan for (N, H, W, 3) batches under `cfg` (the chain's CTAs
+    an image and threads; with contrast on, the per-image sum first:
+    `plan` holds the arguments of `augment_sum_lanes`) and the builds of
+    its two kernels (registers, local bytes, shared bytes, threads,
+    blocks an SM), asked of `device`'s card."""
+    from ..kernels._build import library
+
+    cfg = augment_config(cfg)
+    out = (ctypes.c_int * 12)()
+    with torch.cuda.device(device):
+        rc = library().picha_augment_info(int(shape[1]), int(shape[2]), out)
+    if rc != 0:
+        raise RuntimeError(f"picha_augment_info: CUDA error {rc}")
+    contrast = bool(cfg["contrast_s"])
+    return dict(ctas_an_image=out[0], threads=out[1], contrast_sum=contrast,
+                apply=dict(zip(_BUILD_KEYS, out[2:7])),
+                sum=dict(zip(_BUILD_KEYS, out[7:12])) if contrast else None,
+                plan=dict(threads=K10_THREADS))
 
 
 def augment_fused(x, draws: AugmentDraws, cfg: dict):
     """The ingest's clip after the resize, then the augment chain: (N, H,
     W, 3) float32 -> a new float32 tensor of the same shape. Draws on
-    x's device. Launches K10 for CUDA tensors (a per-image grey sum when
-    contrast is on, then one elementwise pass); the plain version runs
-    only for CPU tensors."""
+    x's device. Launches K10 for CUDA tensors (with contrast on, the
+    per-image grey sum in `augment_sum_lanes`' order first, then one
+    vectorised pass); the plain version runs only for CPU tensors."""
     cfg = augment_config(cfg)
     if x.device.type == "cpu":
         return augment_fused_plain(x, draws, cfg)
@@ -204,6 +273,9 @@ def augment_fused(x, draws: AugmentDraws, cfg: dict):
     if x.dtype != torch.float32 or x.dim() != 4 or x.shape[3] != 3:
         raise TypeError("K10 takes an (N, H, W, 3) float32 batch")
     n, h, w = x.shape[0], x.shape[1], x.shape[2]
+    if n > 65535 or h * w > (2**31 - 1) // 12:
+        raise ValueError("K10 takes at most 65,535 images of at most "
+                         "178,956,970 pixels")
     flags = _flags(cfg, draws)
     for t, dt in ((draws.fb, torch.float32), (draws.fc, torch.float32),
                   (draws.fs, torch.float32), (draws.ty, torch.int32),
@@ -215,7 +287,7 @@ def augment_fused(x, draws: AugmentDraws, cfg: dict):
                             "cutout corners on the batch's device")
     if flags & CUTOUT and (draws.ty is None or draws.tx is None):
         raise ValueError("K10: cutout is on but the draws carry no corners")
-    x = x.contiguous()
+    x = aligned(x)
     out = torch.empty_like(x)
     sums = torch.empty(n, dtype=torch.float32, device=dev)
 

@@ -10,9 +10,9 @@ of an (N, H, W, C) uint8 or uint16 batch come from kernel K12
 the probe's pick (`codecs/png_host.py::probe_pick`, the one selection
 rule the single-image encode shares), deflate (`deflateThreads` > 1:
 `png_host.deflate_parallel`) and chunk assembly per image on pool
-threads (zlib releases the GIL). With the default probe that is three
-K12 launches (up, sub, adaptive); with a fixed strategy, or an image too
-small to probe, one.
+threads (zlib releases the GIL). One K12 launch writes every candidate
+stream: three with the default probe (up, sub, adaptive), one with a
+fixed strategy or an image too small to probe.
 
 Decode (`PngBatchPipeline`): per image on pool threads, the host stage
 (`host_stage`: chunks, header, PLTE and tRNS, zlib inflate); then per
@@ -39,7 +39,7 @@ from ..codecs import png_decode as P
 from ..codecs.png_host import (COLOR_TYPE_OF, PROBE_ORDER, deflate_parallel,
                                png_file, probe_applies, probe_pick)
 from ..errors import CodecError
-from ..ops.png_filter import filter_batch
+from ..ops.png_filter import filter_streams
 from ..ops.png_transform import png_transform
 from ..ops.png_unfilter import check_status, png_unfilter
 from ..runtime.device import resolve_device, to_device, upload
@@ -93,11 +93,7 @@ def filter_candidates(x: torch.Tensor, strategy=None):
         strategies = PROBE_ORDER
     else:
         strategies = (-1 if strategy is None else int(strategy),)
-    out = torch.empty((len(strategies), n, h, rb + 1), dtype=torch.uint8,
-                      device=x.device)
-    for j, s in enumerate(strategies):
-        filter_batch(rows, ch * bps, s, out=out[j])
-    return strategies, out
+    return strategies, filter_streams(rows, ch * bps, strategies)
 
 
 def assemble(cands: np.ndarray, width: int, channels: int, level: int,
