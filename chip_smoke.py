@@ -79,8 +79,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      shapes, bit for bit: K11 (unpack, crop window, channel map, pack)
      as the config-4 call's head ((256, 256, 384, 4) uint8, crop
      (16, 16, 352, 224) -> float32) and tail ((256, 112, 176, 4) float32
-     -> uint8, and clipped for normalize), and as convert_batch on 16 x
-     1920x1088 (rgba -> greya, r16g16b16a16 -> r16); K12 (PNG encode
+     -> uint8, and clipped for normalize), as convert_batch on 16 x
+     1920x1088 (rgba -> greya, r16g16b16a16 -> r16) and as resize_batch's
+     head (16 x 1920x1088 rgb uint8 -> float32), with each variant's plan
+     and build (`ops.colorconvert.kernel_info`), the two heads also bit
+     for bit and timed against torch.div by a 255 on the card (their one
+     PyTorch call); K12 (PNG encode
      filters) on (256, 112, 704) rows, bpp 4: the probe's streams 2, 1,
      -1 in one launch, and strategies -1, 1, 2 alone, with its plan and
      build;
@@ -97,7 +101,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      plain paths on the card; encode_filtered on the 256 outputs: one
      K12 launch, every file decoding to its input;
  10. where a config-4 call's time goes (host decode, upload, K11 head,
-     K8, K11 tail, readback, host TIFF encode), Mpix/s of source
+     K8, K11 tail, readback, host TIFF encode; the head's wrapper time on
+     the host, which its events hold), Mpix/s of source
      and images/s (TIFF and WebP legs), the idle share, and the PNG
      encode's K12 launch against its readback and host deflate;
  11. the decode kernels against their plain versions, bit for bit, on
@@ -233,8 +238,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      q = 100 (a non-empty correction list; gap4 escapes on the corpus),
      the C++ packers' wires byte for byte the numpy packers'; timed, with
      their bounds (K27's yardstick one index_add_ per component), each
-     call's device time by kernel (torch.profiler) and K29's and K30's
-     tile and builds (`ops.coef_restore.kernel_info`);
+     call's device time by kernel (torch.profiler) and K27's, K29's and
+     K30's tile and builds (`ops.coef_restore.kernel_info`); K27 also
+     into output memory filled with -1 first (it writes every cell);
  21. JpegBatchPipeline(width=960, height=544, encode_quality=85,
      encode_backend="device", fused=True|False, upload=u) for u in dense,
      sparse, int8, gap8, gap4 on both corpora: every output byte for byte
@@ -262,7 +268,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
  25. the host C++ JPEG writer (csrc/jpeg_write_host.cu) byte for byte the
      numpy writer on 2 of the slice's K31 buffers and K2 coefficient sets,
      and libjpeg's bytes on the committed tests/fixtures/port/raw420_*
-     cases; its time per image on one thread and per batch on 8;
+     cases; its time per image on one thread and per batch on 8 (a failed
+     write names what it was given, and dumps it under jpeg_writer_dump/
+     unless PICHA_JPEG_WRITER_DUMP names another directory);
  26. JpegBatchPipeline(encode_backend="raw420" | "tpu", fused=True|False,
      upload="scan") on the restart corpus: <= 1 LSB (mean) of the strict
      host path, no fallback, K31 (raw420) or K2 (tpu) launched and K3
@@ -292,6 +300,7 @@ per-kernel results, the card line, and the final JSON status line.
 """
 import io
 import json
+import os
 import pathlib
 import sys
 import time
@@ -611,6 +620,8 @@ def main():
               "False)", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    os.environ.setdefault("PICHA_JPEG_WRITER_DUMP",
+                          str(ROOT / "jpeg_writer_dump"))
 
     from picha_tpu_torch.kernels import (KERNELS, _build, launch_counts,
                                          reset_launch_counts)
@@ -2040,6 +2051,7 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     from picha_tpu_torch.kernels import launch_counts, reset_launch_counts
     from picha_tpu_torch.ops.colorconvert import (convert_batch, pixel_map,
                                                   pixel_map_plain)
+    from picha_tpu_torch.ops.colorconvert import kernel_info as k11_info
     from picha_tpu_torch.ops.png_filter import (filter_batch,
                                                 filter_batch_plain,
                                                 filter_streams)
@@ -2089,6 +2101,16 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     r16 = convert_batch(deep, "r16g16b16a16", "r16", device=dev)
     same(r16, pixel_map_plain(deep, 1, torch.uint16),
          "r16g16b16a16 -> r16")
+    rgb_full = rgba[..., :3].contiguous()       # resize_batch's head
+    rhead = pixel_map(rgb_full, 3, torch.float32)
+    same(rhead, pixel_map_plain(rgb_full, 3, torch.float32), "resize head")
+    k11_builds = {
+        "head": k11_info(x, 4, torch.float32, crop=IMG_CROP),
+        "tail": k11_info(xh, 4, torch.uint8),
+        "normalize": k11_info(xh, 4, torch.float32, clip=True),
+        "rgba_greya": k11_info(rgba, 2, torch.uint8),
+        "r16g16b16a16_r16": k11_info(deep, 1, torch.uint16),
+        "resize_head": k11_info(rgb_full, 3, torch.float32)}
     k11 = {
         "head": (lambda: pixel_map(x, 4, torch.float32, crop=IMG_CROP),
                  lambda: pixel_map_plain(x, 4, torch.float32, crop=IMG_CROP),
@@ -2110,10 +2132,27 @@ def pixel_phases(dev, card, results, phase, timed, wall):
                              lambda: pixel_map_plain(deep, 1, torch.uint16),
                              bound(deep.numel() * 2 + r16.numel() * 2,
                                    deep.numel() + 8 * r16.numel())),
+        "resize_head": (lambda: pixel_map(rgb_full, 3, torch.float32),
+                        lambda: pixel_map_plain(rgb_full, 3, torch.float32),
+                        bound(rgb_full.numel() + rhead.numel() * 4,
+                              rhead.numel())),
     }
+    # the unpack heads are one PyTorch call: a division by a tensor on the
+    # card (IEEE v / 255, not the reciprocal torch takes for a scalar)
+    t255 = torch.tensor(255.0, device=dev)
+    k11_lib = {"head": lambda: torch.div(x[:, cy:cy + ch, cx:cx + cw], t255),
+               "resize_head": lambda: torch.div(rgb_full, t255)}
+    for name, fn in k11_lib.items():
+        got, lib = k11[name][0](), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, lib):
+            raise AssertionError(f"K11 {name} differs from torch.div")
+    del got, lib
     k11_ms = {}
     for name, (fn, plain, bnd) in k11.items():
         k11_ms[name] = dict(ms=timed(fn, 10), plain_ms=timed(plain, 3),
+                            library_ms=timed(k11_lib[name], 10)
+                            if name in k11_lib else None,
                             bound_ms=bnd["bound_ms"],
                             bound_bytes=bnd["bound_bytes"])
     results["pixel_map"] = dict(
@@ -2125,10 +2164,13 @@ def pixel_phases(dev, card, results, phase, timed, wall):
                 k11["head"][2]["bound_flops"] + k11["tail"][2]["bound_flops"]))
     phase("K11", card=card, equal=True, head_in=list(x.shape),
           head_out=list(head.shape), tail_in=list(xh.shape),
-          convert_shape=list(rgba.shape), variants=k11_ms,
+          convert_shape=list(rgba.shape), variants=k11_ms, builds=k11_builds,
           note="ms, plain_ms, bound: head + tail (the config-4 call's two "
-               "launches)", **results["pixel_map"])
-    del norm, greya, r16, deep
+               "launches; no one PyTorch call computes both, so library_ms "
+               "is null); variants: each variant's, library_ms the heads' "
+               "torch.div (equal bit for bit); builds: each variant's plan, "
+               "grid and build (kernel_info)", **results["pixel_map"])
+    del norm, greya, r16, deep, rgb_full, rhead
 
     rows = tail.reshape(IMG_N, IMG_OUT[1], IMG_OUT[0] * 4)
     k12_ms, want = {}, {}
@@ -2267,7 +2309,11 @@ def pixel_phases(dev, card, results, phase, timed, wall):
         names = ["K11_head", "K8_resize", "K11_tail"]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
+        t = time.perf_counter()
         f = pixel_map(xs, 4, torch.float32, crop=IMG_CROP)
+        # the head's wrapper on the host, up to its launch's return: the
+        # card is idle before it, so the head's events hold it too
+        host["K11_head_wrapper"] = (time.perf_counter() - t) * 1e3
         ev[1].record()
         f = resize_windowed(f, ((sw, tw), (sh, th)))
         ev[2].record()
@@ -2288,6 +2334,7 @@ def pixel_phases(dev, card, results, phase, timed, wall):
     runs = [stages_once() for _ in range(4)][1:]
     host_ms = {k: sorted(r[0][k] for r in runs)[1] for k in runs[0][0]}
     device_ms = {k: sorted(r[1][k] for r in runs)[1] for k in runs[0][1]}
+    head_wrapper_ms = host_ms.pop("K11_head_wrapper")
     e2e = wall(lambda: pipe(bufs, mimetype="image/tiff"), 3)
     e2e_w = wall(lambda: pipe_w(bufs, mimetype="image/tiff"), 3)
     mpix = IMG_N * IMG_W * IMG_H / 1e6
@@ -2317,13 +2364,16 @@ def pixel_phases(dev, card, results, phase, timed, wall):
           e2e_webp_ms=e2e_w, e2e_webp_mpix_s=mpix / e2e_w * 1e3,
           e2e_webp_images_s=IMG_N / e2e_w * 1e3,
           host_ms=host_ms, device_ms=device_ms,
+          K11_head_wrapper_ms=head_wrapper_ms,
           host_sum_ms=sum(host_ms.values()),
           device_sum_ms=sum(device_ms.values()),
           idle_share_tiff=1.0 - sum(device_ms.values()) / e2e,
           png_encode=dict(K12_probe_ms=png[0], readback_ms=png[1],
                           host_probe_deflate_ms=png[2], e2e_ms=png_e2e,
                           images_s=IMG_N / png_e2e * 1e3),
-          note="stage rows: medians of 3 runs; e2e: median of 3 calls")
+          note="stage rows: medians of 3 runs (K11_head's events also "
+               "hold its wrapper's host time, K11_head_wrapper_ms: the card "
+               "waits idle on it); e2e: median of 3 calls")
     return {"pixel_map": c4["pixel_map"], "png_filter": pe["png_filter"]}
 
 
@@ -4357,6 +4407,24 @@ def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
                         g.cpu().numpy(), c.astype(np.int32)):
                     raise AssertionError(f"{name} differs from its plain "
                                          f"version or the coefficients")
+            if upload == "sparse":
+                # K27 writes every cell (no memset): each component again
+                # into output memory filled with -1 first (a freed tensor
+                # of its size, which the caching allocator hands back)
+                for i, (bh, bw, _h, _v) in enumerate(sig[3]):
+                    poison = torch.full(want[i].shape, -1, dtype=torch.int32,
+                                        device=dev)
+                    ptr0 = poison.data_ptr()
+                    del poison
+                    again = coef_restore.densify(dargs[2 * i],
+                                                 dargs[2 * i + 1], bh, bw)
+                    torch.cuda.synchronize()
+                    if again.data_ptr() != ptr0 or not torch.equal(
+                            again, want[i]):
+                        raise AssertionError("K27 into poisoned memory "
+                                             "differs from its plain version")
+                    entry[label + "_poisoned_equal"] = True
+                    del again
             wire = sum(a.nbytes for a in args if a.dtype != np.uint16)
             ncorr = 0
             if upload == "int8":
@@ -4411,7 +4479,7 @@ def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
             library_ms=library_ms, launches_per_batch=len(sig[3]),
             by_kernel=device_ms_by_kernel(run),
             **bound(entry["restart_wire_bytes"] + out_bytes), **entry)
-        if upload in ("gap8", "gap4"):
+        if upload != "int8":
             results[name]["build"] = coef_restore.kernel_info()
         checks[name] = results[name]
         del dargs, got
@@ -4421,8 +4489,10 @@ def upload_phases(dev, card, results, phase, timed, wall, corpora, planes_k1,
                "batch (corrections past int8); the C++ packers' wire equal "
                "to the numpy packers'; ms: the batch's 3 launches (one per "
                "component) and the wire's unpack; by_kernel: the call's "
-               "device time by kernel (torch.profiler); build: K29's and "
-               "K30's tile and kernels; library_ms: K27's one index_add_ per component "
+               "device time by kernel (torch.profiler); build: K27's, "
+               "K29's and K30's tile and kernels; K27 also into output "
+               "memory filled with -1 (poisoned_equal); library_ms: K27's "
+               "one index_add_ per component "
                "on a zeroed tensor; K28-K30 have no one-call PyTorch "
                "counterpart", **checks)
 

@@ -39,19 +39,31 @@
 //     tile; then *_adds adds K30's side stream (its tiles indexed the
 //     same way; K29 has none), the spills and the corrections with
 //     integer atomicAdd into the written cells;
-//   - K27: one thread per entry (no prefix sum: the entries carry their
-//     index), first-of-index entries storing, the others added after;
+//   - K27 on the same tiled code with a third entry reading: the entry
+//     carries its int32 index, so there is no tile-sums launch. Two
+//     launches: densify_write (tile t owns [its first entry's index, the
+//     next tile's first index), clamped to [0, m), writes every owned
+//     cell once by the staged 16-byte stores, no memset; the equal-index
+//     run at the next tile's first index, such as the padding run at
+//     m - 1 across many tiles, goes to the tile's spill), then
+//     densify_adds adds the spills. The ownership needs indices that
+//     never decrease within a row (the reference's sorted scatter, the
+//     packers' np.flatnonzero order): each thread checks its entries and
+//     the next thread's first, the tile's last thread the next tile's
+//     first, and a decrease traps, so the call ends with a CUDA error
+//     and never gives a plane;
 //   - K28: one thread per cell widens the int8 body (every cell written
 //     once, no memset), then a second launch adds the corrections with
-//     integer atomicAdd, one thread an entry; K27's second launch adds
-//     its repeated indices the same way.
+//     integer atomicAdd, one thread an entry.
 // Integer sums are exact in any order, so the result is bit for bit the
 // plain version's (picha_tpu_torch/ops/coef_restore.py) and the
-// reference's scatter-adds. The reference's sorted-scatter hints (a TPU
-// workaround) are not carried over: no kernel relies on sorted input. An
-// index outside its image (or batch) is dropped.
+// reference's scatter-adds. An index outside its image (or batch) is
+// dropped. The grids of the grid-stride launches come from the card's
+// occupancy; a failed query is an error.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "occupancy.cuh"
 
 namespace {
 
@@ -163,6 +175,53 @@ __device__ __forceinline__ void tile_sums(const uint8_t* __restrict__ prim,
   if (threadIdx.x == 0) (side ? ssum + img * ts : psum + img * tp)[t] = static_cast<int>(total);
 }
 
+// The cells [lo, hi) of a plane o of m cells from a tile's entries (idx,
+// val; 0 values add nothing), staged kStagedCells at a time in buf where
+// the values are summed, each cell stored once (16-byte stores where vec);
+// then the entries at hi (the next tile's first index) summed into the
+// tile's spill: *spill_val at *spill_cell = cell0 + hi (-1: none). Idx:
+// int64_t for K29's and K30's running sums, int for K27's read indices
+template <typename Idx>
+__device__ __forceinline__ void write_owned(int* __restrict__ o, int64_t m, int64_t lo,
+                                            int64_t hi, const Idx (&idx)[kItems],
+                                            const int (&val)[kItems], int vec, int* buf,
+                                            int64_t* red, int64_t* spill_cell,
+                                            int* spill_val, int64_t cell0) {
+  for (int64_t c0 = lo; c0 < hi; c0 += kStagedCells) {
+    const int64_t c1 = c0 + kStagedCells < hi ? c0 + kStagedCells : hi;
+    const int64_t cb = c0 & ~static_cast<int64_t>(3);   // buf[0] is cell cb
+    const int quads = static_cast<int>((c1 - cb + 3) / 4);
+    for (int q = threadIdx.x; q < quads; q += blockDim.x)
+      reinterpret_cast<int4*>(buf)[q] = make_int4(0, 0, 0, 0);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (val[i] != 0 && idx[i] >= c0 && idx[i] < c1) atomicAdd(buf + (idx[i] - cb), val[i]);
+    __syncthreads();
+    // [a, e): the cells of whole 16-byte words, stored by words
+    int64_t a = vec ? (c0 + 3) & ~static_cast<int64_t>(3) : c1;
+    int64_t e = vec ? c1 & ~static_cast<int64_t>(3) : c1;
+    if (a >= e) a = e = c1;
+    for (int64_t c = c0 + threadIdx.x; c < a; c += blockDim.x) o[c] = buf[c - cb];
+    for (int64_t q = threadIdx.x; q < (e - a) / 4; q += blockDim.x)
+      *reinterpret_cast<int4*>(o + a + 4 * q) =
+          reinterpret_cast<const int4*>(buf)[(a - cb) / 4 + q];
+    for (int64_t c = e + threadIdx.x; c < c1; c += blockDim.x) o[c] = buf[c - cb];
+    __syncthreads();
+  }
+
+  // the entries past the owned cells lie at hi, the next tile's first cell
+  int64_t sp = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i)
+    if (idx[i] >= hi && idx[i] < m) sp += val[i];
+  sp = block_sum64(sp, red);
+  if (threadIdx.x == 0) {
+    *spill_cell = hi < m ? cell0 + hi : -1;
+    *spill_val = static_cast<int>(sp);
+  }
+}
+
 // block (t, image): primary tile t writes the cells it owns (see the file's
 // doc) and its spill: spill_val[image][t] summed at cell spill_cell (-1:
 // none). vals: K29's values (null for K30). vec: out and m allow 16-byte
@@ -209,40 +268,8 @@ __device__ __forceinline__ void tile_write(const uint8_t* __restrict__ prim,
   if (t + 1 < tp) hi = index_at(base + total + E::gap(row[first + kTileEntries]));
   lo = lo < m ? lo : m;
   hi = hi < m ? hi : m;
-
-  for (int64_t c0 = lo; c0 < hi; c0 += kStagedCells) {
-    const int64_t c1 = c0 + kStagedCells < hi ? c0 + kStagedCells : hi;
-    const int64_t cb = c0 & ~static_cast<int64_t>(3);   // buf[0] is cell cb
-    const int quads = static_cast<int>((c1 - cb + 3) / 4);
-    for (int q = threadIdx.x; q < quads; q += blockDim.x)
-      reinterpret_cast<int4*>(buf)[q] = make_int4(0, 0, 0, 0);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kItems; ++i)
-      if (val[i] != 0 && idx[i] >= c0 && idx[i] < c1) atomicAdd(buf + (idx[i] - cb), val[i]);
-    __syncthreads();
-    // [a, e): the cells of whole 16-byte words, stored by words
-    int64_t a = vec ? (c0 + 3) & ~static_cast<int64_t>(3) : c1;
-    int64_t e = vec ? c1 & ~static_cast<int64_t>(3) : c1;
-    if (a >= e) a = e = c1;
-    for (int64_t c = c0 + threadIdx.x; c < a; c += blockDim.x) o[c] = buf[c - cb];
-    for (int64_t q = threadIdx.x; q < (e - a) / 4; q += blockDim.x)
-      *reinterpret_cast<int4*>(o + a + 4 * q) =
-          reinterpret_cast<const int4*>(buf)[(a - cb) / 4 + q];
-    for (int64_t c = e + threadIdx.x; c < c1; c += blockDim.x) o[c] = buf[c - cb];
-    __syncthreads();
-  }
-
-  // the entries past the owned cells lie at hi, the next tile's first cell
-  int64_t sp = 0;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i)
-    if (idx[i] >= hi && idx[i] < m) sp += val[i];
-  sp = block_sum64(sp, red);
-  if (threadIdx.x == 0) {
-    spill_cell[img * tp + t] = hi < m ? img * m + hi : -1;
-    spill_val[img * tp + t] = static_cast<int>(sp);
-  }
+  write_owned(o, m, lo, hi, idx, val, vec, buf, red, spill_cell + img * tp + t,
+              spill_val + img * tp + t, img * m);
 }
 
 // blocks [0, n * ts): side tile (b % ts) of image b / ts adds its values
@@ -336,32 +363,83 @@ int tiles_of(int64_t k) {
   return static_cast<int>(k > 0 ? (k + kTileEntries - 1) / kTileEntries : 0);
 }
 
-// K27: one thread an entry; the first entry at an index of its row stores
-__global__ void __launch_bounds__(256) densify_first(const int* __restrict__ idx,
-                                                     const int16_t* __restrict__ val,
-                                                     int64_t rows, int64_t k, int64_t m,
-                                                     int* __restrict__ out) {
-  const int64_t total = rows * k;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
-       e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t r = e / k, j = e - r * k;
-    const int i = idx[e], v = val[e];
-    if (v != 0 && i >= 0 && i < m && (j == 0 || idx[e - 1] != i)) out[r * m + i] = v;
+// K27's entries j0 .. j0 + 7 of a row of k and the index of entry j0 + 8
+// (ix[8]; the order check's neighbour): 16-byte loads where they lie whole
+// and aligned. Entries past k read index 0 and value 0.
+__device__ __forceinline__ void load_sparse(const int* __restrict__ idx,
+                                            const int16_t* __restrict__ val, int64_t k,
+                                            int64_t j0, int (&ix)[kItems + 1],
+                                            int16_t (&v)[kItems]) {
+  const int* pi = idx + j0;
+  const int16_t* pv = val + j0;
+  if (j0 + kItems <= k && reinterpret_cast<uintptr_t>(pi) % 16 == 0) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(pi));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(pi) + 1);
+    ix[0] = a.x, ix[1] = a.y, ix[2] = a.z, ix[3] = a.w;
+    ix[4] = b.x, ix[5] = b.y, ix[6] = b.z, ix[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) ix[i] = j0 + i < k ? __ldg(pi + i) : 0;
+  }
+  ix[kItems] = j0 + kItems < k ? __ldg(pi + kItems) : 0;
+  if (j0 + kItems <= k && reinterpret_cast<uintptr_t>(pv) % 16 == 0) {
+    const int4 w = __ldg(reinterpret_cast<const int4*>(pv));
+    const int words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = static_cast<int16_t>(words[i] & 0xffff);
+      v[2 * i + 1] = static_cast<int16_t>(static_cast<uint32_t>(words[i]) >> 16);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) v[i] = j0 + i < k ? __ldg(pv + i) : 0;
   }
 }
 
-// K27's second launch: the entries at an index of their row after its first
-__global__ void __launch_bounds__(256) densify_later(const int* __restrict__ idx,
-                                                     const int16_t* __restrict__ val,
-                                                     int64_t rows, int64_t k, int64_t m,
-                                                     int* __restrict__ out) {
-  const int64_t total = rows * k;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
-       e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t r = e / k, j = e - r * k;
-    const int i = idx[e], v = val[e];
-    if (v != 0 && i >= 0 && i < m && j > 0 && idx[e - 1] == i) atomicAdd(out + r * m + i, v);
+// an entry's index clamped to the plane's cells [0, m]
+__device__ __forceinline__ int64_t clamp_cell(int i, int64_t m) {
+  return i < 0 ? 0 : (i < m ? i : m);
+}
+
+// K27, block (t, image): tile t of the row's sorted (index, value) entries
+// writes the cells it owns and its spill (see the file's doc); a decrease
+// of the index within the row traps
+__global__ void __launch_bounds__(kTileThreads) densify_write(
+    const int* __restrict__ idx, const int16_t* __restrict__ val, int64_t k, int64_t m, int tp,
+    int vec, int* __restrict__ out, int64_t* __restrict__ spill_cell,
+    int* __restrict__ spill_val) {
+  __shared__ __align__(16) int buf[kStagedCells + 4];
+  __shared__ int64_t red[32];
+  const int64_t img = blockIdx.y;
+  const int t = blockIdx.x;
+  const int* row = idx + img * k;
+  const int64_t first = static_cast<int64_t>(t) * kTileEntries;
+  const int64_t j0 = first + threadIdx.x * kItems;
+  int ix[kItems + 1];
+  int16_t v[kItems];
+  load_sparse(row, val + img * k, k, j0, ix, v);
+  bool down = false;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) down |= j0 + i + 1 < k && ix[i + 1] < ix[i];
+  if (down) __trap();
+  int cell[kItems], value[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    cell[i] = ix[i];
+    value[i] = j0 + i < k && ix[i] >= 0 && ix[i] < m ? v[i] : 0;
   }
+  const int64_t lo = t > 0 ? clamp_cell(__ldg(row + first), m) : 0;
+  const int64_t hi = t + 1 < tp ? clamp_cell(__ldg(row + first + kTileEntries), m) : m;
+  write_owned(out + img * m, m, lo, hi, cell, value, vec, buf, red,
+              spill_cell + img * tp + t, spill_val + img * tp + t, img * m);
+}
+
+// K27's second launch: the spills
+__global__ void __launch_bounds__(kTileThreads) densify_adds(
+    int64_t m, int64_t n, const int64_t* __restrict__ spill_cell,
+    const int* __restrict__ spill_val, int64_t nsp, int* __restrict__ out) {
+  tile_adds(nullptr, nullptr, 0, m, n, 0, nullptr, spill_cell, spill_val, nsp, nullptr, nullptr,
+            0, out);
 }
 
 // K28: the int8 body widened, every cell once
@@ -383,24 +461,27 @@ __global__ void __launch_bounds__(256) corrections(const int* __restrict__ ci,
   }
 }
 
-int grid_for(int64_t items) {
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t blocks = (items + 255) / 256, cap = static_cast<int64_t>(sms) * 16;
-  return static_cast<int>(blocks < 1 ? 1 : (blocks < cap ? blocks : cap));
-}
-
-int clear(void* out, int64_t cells, cudaStream_t st) {
-  return static_cast<int>(cudaMemsetAsync(out, 0, static_cast<size_t>(cells) * sizeof(int), st));
+// *grid: the blocks of 256 threads a grid-stride launch of `kernel` over
+// `items` takes: one a 256 items, at most the blocks the card holds at
+// once (its SMs times the kernel's blocks an SM, asked once a kernel and
+// device). Returns a CUDA error code: a failed query is an error.
+int grid_for(const void* kernel, int64_t items, unsigned* grid) {
+  int per_sm = 0, sms = 0;
+  const int rc = picha::occupancy(kernel, 256, &per_sm, &sms);
+  if (rc != 0) return rc;
+  const int64_t blocks = (items + 255) / 256, cap = static_cast<int64_t>(sms) * per_sm;
+  *grid = static_cast<unsigned>(blocks < 1 ? 1 : (blocks < cap ? blocks : cap));
+  return 0;
 }
 
 int add_corrections(const void* ci, const void* cv, int64_t kc, int64_t cells, void* out,
                     cudaStream_t st) {
   if (kc == 0) return static_cast<int>(cudaGetLastError());
-  corrections<<<grid_for(kc), 256, 0, st>>>(static_cast<const int*>(ci),
-                                            static_cast<const int16_t*>(cv), kc, cells,
-                                            static_cast<int*>(out));
+  unsigned grid = 0;
+  const int rc = grid_for(reinterpret_cast<const void*>(corrections), kc, &grid);
+  if (rc != 0) return rc;
+  corrections<<<grid, 256, 0, st>>>(static_cast<const int*>(ci), static_cast<const int16_t*>(cv),
+                                    kc, cells, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -410,23 +491,6 @@ bool sizes_ok(int64_t n, int64_t m) {
 
 }  // namespace
 
-// K27. idx: (n, k) int32, val: (n, k) int16; out: (n, m) int32. Returns
-// cudaGetLastError().
-extern "C" int picha_coef_densify(const void* idx, const void* val, int64_t n, int64_t k,
-                                  int64_t m, void* out, void* stream) {
-  if (!sizes_ok(n, m) || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = clear(out, n * m, st);
-  if (rc != 0 || n * k == 0) return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
-  const auto* i = static_cast<const int*>(idx);
-  const auto* v = static_cast<const int16_t*>(val);
-  densify_first<<<grid_for(n * k), 256, 0, st>>>(i, v, n, k, m, static_cast<int*>(out));
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  densify_later<<<grid_for(n * k), 256, 0, st>>>(i, v, n, k, m, static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K28. c8: (cells,) int8; ci: (kc,) int32 batch-flat, cv: (kc,) int16;
 // out: (cells,) int32. Returns cudaGetLastError().
 extern "C" int picha_coef_int8_restore(const void* c8, int64_t cells, const void* ci,
@@ -434,39 +498,43 @@ extern "C" int picha_coef_int8_restore(const void* c8, int64_t cells, const void
   if (!sizes_ok(cells, 1) || kc < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cells == 0) return static_cast<int>(cudaGetLastError());
-  widen<<<grid_for(cells), 256, 0, st>>>(static_cast<const int8_t*>(c8), cells,
-                                         static_cast<int*>(out));
-  const int rc = static_cast<int>(cudaGetLastError());
+  unsigned grid = 0;
+  int rc = grid_for(reinterpret_cast<const void*>(widen), cells, &grid);
+  if (rc != 0) return rc;
+  widen<<<grid, 256, 0, st>>>(static_cast<const int8_t*>(c8), cells, static_cast<int*>(out));
+  rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   return add_corrections(ci, cv, kc, cells, out, st);
 }
 
-// K29's and K30's scratch for (n, k1, k2): the spill cells (int64), then
-// the primary tiles' sums, the spills' values and the side tiles' sums
-// (int32)
+// K27's, K29's and K30's scratch for (n, k1, k2): the spill cells
+// (int64), then the primary tiles' sums (unused by K27), the spills'
+// values and the side tiles' sums (int32)
 static int64_t tile_scratch_bytes(int64_t n, int tp, int ts) {
   return n * tp * 8 + n * tp * 4 * 2 + n * ts * 4;
 }
 
-// The tiles and builds of K30's and K29's kernels: out[0] entries a tile,
-// out[1] cells a block stages at once, then for gap4_tile_sums,
-// gap4_write, gap4_adds, gap8_tile_sums, gap8_write and gap8_adds:
-// registers, local bytes, shared bytes, threads, blocks a multiprocessor
-// (out[2..31]). Returns a CUDA error code.
+// The tiles and builds of K30's, K29's and K27's kernels: out[0] entries
+// a tile, out[1] cells a block stages at once, then for gap4_tile_sums,
+// gap4_write, gap4_adds, gap8_tile_sums, gap8_write, gap8_adds,
+// densify_write and densify_adds: registers, local bytes, shared bytes,
+// threads, blocks a multiprocessor (out[2..41]). Returns a CUDA error
+// code.
 extern "C" int picha_coef_tiles_info(int* out) {
   out[0] = kTileEntries;
   out[1] = kStagedCells;
-  const void* kernels[6] = {
+  const void* kernels[8] = {
       reinterpret_cast<const void*>(gap4_tile_sums), reinterpret_cast<const void*>(gap4_write),
       reinterpret_cast<const void*>(gap4_adds),      reinterpret_cast<const void*>(gap8_tile_sums),
-      reinterpret_cast<const void*>(gap8_write),     reinterpret_cast<const void*>(gap8_adds)};
-  for (int i = 0; i < 6; ++i) {
+      reinterpret_cast<const void*>(gap8_write),     reinterpret_cast<const void*>(gap8_adds),
+      reinterpret_cast<const void*>(densify_write),  reinterpret_cast<const void*>(densify_adds)};
+  for (int i = 0; i < 8; ++i) {
     cudaFuncAttributes fa;
-    int blocks = 0;
-    cudaError_t rc = cudaFuncGetAttributes(&fa, kernels[i]);
-    if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[i], kTileThreads, 0);
+    int blocks = 0, sms = 0;
+    const cudaError_t rc = cudaFuncGetAttributes(&fa, kernels[i]);
     if (rc != cudaSuccess) return static_cast<int>(rc);
+    const int orc = picha::occupancy(kernels[i], kTileThreads, &blocks, &sms);
+    if (orc != 0) return orc;
     int* o = out + 2 + 5 * i;
     o[0] = fa.numRegs;
     o[1] = static_cast<int>(fa.localSizeBytes);
@@ -477,7 +545,7 @@ extern "C" int picha_coef_tiles_info(int* out) {
   return 0;
 }
 
-// The checks K29 and K30 share: sizes, tiles a grid row, the scratch.
+// The checks K27, K29 and K30 share: sizes, tiles a grid row, the scratch.
 static bool tiles_ok(int64_t n, int64_t k1, int64_t k2, int64_t m, int64_t kc, int tp, int ts,
                      const void* scratch, int64_t scratch_bytes) {
   return sizes_ok(n, m) && k1 >= 0 && k2 >= 0 && kc >= 0 && n <= 65535 &&
@@ -515,9 +583,41 @@ extern "C" int picha_coef_gap8_restore(const void* g, const void* v, int64_t n, 
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   const int64_t nsp = n * tp;
-  gap8_adds<<<static_cast<unsigned>(grid_for(nsp + kc)), kTileThreads, 0, st>>>(
-      m, n, spill_cell, spill_val, nsp, static_cast<const int*>(ci),
-      static_cast<const int16_t*>(cv), kc, static_cast<int*>(out));
+  unsigned grid = 0;
+  rc = grid_for(reinterpret_cast<const void*>(gap8_adds), nsp + kc, &grid);
+  if (rc != 0) return rc;
+  gap8_adds<<<grid, kTileThreads, 0, st>>>(m, n, spill_cell, spill_val, nsp,
+                                           static_cast<const int*>(ci),
+                                           static_cast<const int16_t*>(cv), kc,
+                                           static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K27. idx: (n, k) int32, val: (n, k) int16, each row's indices never
+// decreasing (a decrease traps); out: (n, m) int32, every cell written;
+// scratch as K29's for (n, k). Returns cudaGetLastError().
+extern "C" int picha_coef_densify(const void* idx, const void* val, int64_t n, int64_t k,
+                                  int64_t m, void* out, void* scratch, int64_t scratch_bytes,
+                                  void* stream) {
+  const int tp = k > 0 && k < (int64_t{1} << 40) ? tiles_of(k) : 1;
+  if (!tiles_ok(n, k, 0, m, 0, tp, 0, scratch, scratch_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  auto* spill_cell = static_cast<int64_t*>(scratch);
+  int* spill_val = reinterpret_cast<int*>(spill_cell + n * tp) + n * tp;
+  const int vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int64_t nsp = n * tp;
+  unsigned grid = 0;
+  int rc = grid_for(reinterpret_cast<const void*>(densify_adds), nsp, &grid);
+  if (rc != 0) return rc;
+  densify_write<<<dim3(static_cast<unsigned>(tp), static_cast<unsigned>(n)), kTileThreads, 0,
+                  st>>>(static_cast<const int*>(idx), static_cast<const int16_t*>(val), k, m, tp,
+                        vec, static_cast<int*>(out), spill_cell, spill_val);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  densify_adds<<<grid, kTileThreads, 0, st>>>(m, n, spill_cell, spill_val, nsp,
+                                              static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -552,7 +652,10 @@ extern "C" int picha_coef_gap4_restore(const void* prim, const void* sg, const v
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   const int64_t side_blocks = n * ts, nsp = n * tp;
-  gap4_adds<<<static_cast<unsigned>(side_blocks + grid_for(nsp + kc)), kTileThreads, 0, st>>>(
+  unsigned grid = 0;
+  rc = grid_for(reinterpret_cast<const void*>(gap4_adds), nsp + kc, &grid);
+  if (rc != 0) return rc;
+  gap4_adds<<<static_cast<unsigned>(side_blocks + grid), kTileThreads, 0, st>>>(
       g, static_cast<const int8_t*>(sv), k2, m, n, ts, ssum, spill_cell, spill_val, nsp,
       static_cast<const int*>(ci), static_cast<const int16_t*>(cv), kc, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -65,7 +65,9 @@ SIGNATURES = {
                                P, I, F, P, I, I, I, I, I, P],
     "picha_augment": [P, I, I, I, P, P, P, P, P, P, I, F, I, F, F, F, P, P],
     "picha_augment_info": [I, I, P],
-    "picha_pixel_map": [P, I, L, I, I, I, I, I, I, I, I, I, F, F, F, P, P],
+    "picha_pixel_map": [P, I, I, I, I, L, L, L, L, L, L, L, L, I, I, F, F, F,
+                        P, P],
+    "picha_pixel_map_info": [I, I, I, I, P],
     "picha_png_filter": [P, I, I, I, I, I, I, P, L, P],
     "picha_png_filter_info": [L, I, I, I, P],
     "picha_png_unfilter": [P, L, I, I, I, I, P, P, P],
@@ -94,7 +96,7 @@ SIGNATURES = {
     "picha_resnet_div_check": [P, P, L, P, P],
     "picha_resnet_norm_bwd": [P, P, P, P, P, I, L, I, P, P, P, P],
     "picha_resnet_norm_bwd_info": [L, I, I, P],
-    "picha_coef_densify": [P, P, L, L, L, P, P],
+    "picha_coef_densify": [P, P, L, L, L, P, P, L, P],
     "picha_coef_int8_restore": [P, L, P, P, L, P, P],
     "picha_coef_gap8_restore": [P, P, L, L, L, P, P, L, P, P, L, P],
     "picha_coef_gap4_restore": [P, P, P, L, L, L, L, P, P, L, P, P, L, P],

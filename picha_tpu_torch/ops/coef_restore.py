@@ -14,8 +14,11 @@ Counterparts of `picha_tpu/pipeline/jpeg_batch.py`'s device side of
   `gap4_restore`   K30, `gap4_restore_flat` (:119-142): a nibble primary
                    stream (gap << 4 | code; 7 adds zero, 15 escapes), the
                    escapes' values in a gap8 side stream, the corrections
-  K29 and K30 run one tiled code over the whole batch (`kernel_info`
-  reads the tile and their six kernels' builds from the card).
+  K27, K29 and K30 run one tiled code over the whole batch (`kernel_info`
+  reads the tile and their eight kernels' builds from the card); K27's
+  indices must never decrease within a row (the packers' np.flatnonzero
+  order): its kernel traps on a decrease, so the call ends with a CUDA
+  error instead of a plane.
   `unpack_gap8`, `unpack_gap4_wire`  the one coalesced wire upload ->
                    views per section (`_jit_batch_graph.unpack_gap8`,
                    :284-315; `unpack_gap4_wire`, :145-180), cut by one
@@ -110,8 +113,9 @@ def densify(idx, val, bh: int, bw: int):
     idx, val = idx.contiguous(), val.contiguous()
     n, k = idx.shape
     out = torch.empty((n, bh, bw, 64), dtype=torch.int32, device=idx.device)
+    scratch, nbytes = _tile_scratch(n, k, 0, idx.device)
     KERNELS["coef_densify"](ptr(idx), ptr(val), n, k, bh * bw * 64, ptr(out),
-                            stream_of(idx))
+                            ptr(scratch), nbytes, stream_of(idx))
     return out
 
 
@@ -132,13 +136,14 @@ def int8_restore(c8, idx, val):
 
 _TILES_INFO = []
 _TILE_KERNELS = ("gap4_tile_sums", "gap4_write", "gap4_adds",
-                 "gap8_tile_sums", "gap8_write", "gap8_adds")
+                 "gap8_tile_sums", "gap8_write", "gap8_adds",
+                 "densify_write", "densify_adds")
 
 
 def _tiles_info() -> list:
     """`picha_coef_tiles_info`: entries a tile, cells a block stages, then
     the registers, local bytes, shared bytes, threads and blocks a
-    multiprocessor of K30's and K29's kernels."""
+    multiprocessor of K30's, K29's and K27's kernels."""
     from ..kernels._build import library
 
     if not _TILES_INFO:
@@ -151,8 +156,8 @@ def _tiles_info() -> list:
 
 
 def kernel_info() -> dict:
-    """K29's and K30's tile and the builds of their kernels, from the
-    card."""
+    """K27's, K29's and K30's tile and the builds of their kernels, from
+    the card."""
     info = _tiles_info()
     keys = ("registers", "local_bytes", "shared_bytes", "threads",
             "blocks_an_sm")
@@ -162,8 +167,8 @@ def kernel_info() -> dict:
 
 
 def _tile_scratch(n: int, k1: int, k2: int, device):
-    """K29's and K30's scratch: a spill (int64 cell, int32 value) and a
-    sum a primary tile, a sum a side tile -> (tensor, its bytes)."""
+    """K27's, K29's and K30's scratch: a spill (int64 cell, int32 value)
+    and a sum a primary tile, a sum a side tile -> (tensor, its bytes)."""
     tile = _tiles_info()[0]
     tp, ts = max(1, -(-k1 // tile)), -(-k2 // tile)
     nbytes = n * tp * 16 + n * ts * 4

@@ -16,6 +16,13 @@ greya -> rgb as [g, g, g], the reference's deliberate deviation).
                        (N, H, W, C) uint8 / uint16 / float32, optional
                        crop window -> channel map -> uint8 / uint16
                        (pack), float32, or float32 clipped to [0, 1]
+  `map_plan`           K11's cut of the window into segments and work
+                       items within the kernel's limits (a pure host
+                       function, modelled in numpy by
+                       tests/test_torch_pixel_map_tiles.py)
+  `staging`            those limits, read from the library
+  `kernel_info`        the plan, grid and build of a K11 call, from the
+                       card
   `convert_batch`      the reference's `convert_batch` (`_jit_convert`):
                        one K11 launch per batch
   `color_convert_image` the Image-level op: a same-format request is a
@@ -23,6 +30,8 @@ greya -> rgb as [g, g, g], the reference's deliberate deviation).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -129,6 +138,114 @@ def pixel_map_plain(x, dst_channels: int, out_dtype, crop=None,
 
 
 _KIND = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}  # K11's codes
+_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.float32: 4}
+_INFO_KEYS = ("compiled_in", "registers", "local_bytes", "shared_bytes",
+              "threads", "blocks_an_sm", "sms", "builds", "stage_in_bytes",
+              "stage_out_bytes", "max_rows", "chunk_bytes")
+
+
+def row_words(span: int, bpi: int) -> int:
+    """Words of 16 bytes K11 stages for a row of `span` pixels of `bpi`
+    bytes: its bytes at any shift 0-15 into its first word."""
+    return (30 + span * bpi) >> 4
+
+
+@functools.lru_cache(maxsize=256)
+def map_plan(n, h, w, sc, y0, x0, oh, ow, dc, in_bytes, out_bytes,
+             limits) -> dict:
+    """K11's plan for the window (x0, y0, ow, oh) of (n, h, w, sc) pixels
+    of `in_bytes` a channel to dc channels of `out_bytes`: the window cut
+    into segments of contiguous input pixels (a crop row; an image where
+    the window takes whole rows; the batch where it takes the frame),
+    their input offsets in elements (segment s at base + (s //
+    segs_per_img) * img_stride + (s % segs_per_img) * row_stride), and
+    the work items: chunks of `chunk` pixels of a segment (rows 1), or
+    `rows` whole segments where a segment fits a chunk. `limits`: the
+    bytes an item's staged rows and staged output hold, the segments an
+    item and the bytes a chunk's input or output fills (`staging()`)."""
+    stage_in, _stage_out, max_rows, chunk_bytes = limits
+    if ow == w and oh == h:
+        seg_len, segs, spi, img_stride, row_stride, base = n * h * w, 1, 1, 0, \
+            0, 0
+    elif ow == w:
+        seg_len, segs, spi, img_stride, row_stride, base = oh * w, n, 1, \
+            h * w * sc, 0, y0 * w * sc
+    else:
+        seg_len, segs, spi, img_stride, row_stride, base = ow, n * oh, oh, \
+            h * w * sc, w * sc, (y0 * w + x0) * sc
+    bpi, bpo = sc * in_bytes, dc * out_bytes
+    chunk = chunk_bytes // max(bpi, bpo) // 16 * 16
+    if seg_len > chunk:
+        rows, cps = 1, -(-seg_len // chunk)
+    else:
+        rows = min(max_rows, chunk // seg_len,
+                   stage_in // (16 * row_words(seg_len, bpi)))
+        cps = 1
+    return dict(seg_len=seg_len, segs=segs, segs_per_img=spi,
+                img_stride=img_stride, row_stride=row_stride, base=base,
+                cps=cps, items=-(-segs // rows) * cps, chunk=chunk, rows=rows)
+
+
+_PLAN_KEYS = ("seg_len", "segs", "segs_per_img", "img_stride", "row_stride",
+              "base", "cps", "items", "chunk", "rows")
+
+
+def _info(in_kind, out_kind, sc, dc) -> dict:
+    """`picha_pixel_map_info` of a signature on the current card."""
+    from ..kernels._build import library
+
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    rc = library().picha_pixel_map_info(in_kind, out_kind, sc, dc, out)
+    if rc != 0:
+        raise RuntimeError(f"picha_pixel_map_info: CUDA error {rc}")
+    return dict(zip(_INFO_KEYS, out))
+
+
+@functools.lru_cache(maxsize=None)
+def staging() -> tuple:
+    """K11's limits (csrc/pixel_map.cu), asked of the library once: the
+    bytes an item's staged rows and staged output hold, the segments an
+    item, the bytes a chunk's input or output fills."""
+    info = _info(0, 0, 1, 1)
+    return tuple(info[k] for k in _INFO_KEYS[8:])
+
+
+def _args(x, dst_channels, out_dtype, crop, clip):
+    """K11's checks -> (plan, in_kind, out_kind, window) of a call."""
+    require_cuda(x, "K11")
+    if x.dim() != 4 or x.dtype not in _KIND:
+        raise TypeError("K11 takes an (N, H, W, C) uint8, uint16 or float32 "
+                        "tensor")
+    if out_dtype not in _KIND or (clip and out_dtype != torch.float32):
+        raise TypeError(f"K11 writes uint8, uint16 or float32 (clip only "
+                        f"float32), not {out_dtype}")
+    n, h, w, c = x.shape
+    window = x0, y0, cw, ch = _window(x, crop)
+    if not (1 <= c <= 4 and 1 <= dst_channels <= 4):
+        raise ValueError(f"K11 maps 1-4 channels, not {c} -> {dst_channels}")
+    if x0 < 0 or y0 < 0 or cw < 1 or ch < 1 or x0 + cw > w or y0 + ch > h:
+        raise ValueError(f"K11: crop {crop} outside the {w}x{h} frame")
+    plan = map_plan(n, h, w, c, y0, x0, ch, cw, dst_channels,
+                    _BYTES[x.dtype], _BYTES[out_dtype], staging())
+    return plan, _KIND[x.dtype], 3 if clip else _KIND[out_dtype], window
+
+
+def kernel_info(x, dst_channels: int, out_dtype, crop=None,
+                clip: bool = False) -> dict:
+    """The plan (`map_plan`), grid and build of `pixel_map(x, ...)` on x's
+    card: whether its channel counts are compiled in, the build's
+    registers, local bytes, shared bytes, threads and blocks an SM, the
+    SMs, the grid (the items, at most the blocks the card holds at once),
+    the kernels the library holds for K11 (`builds`) and its limits
+    (`staging`)."""
+    plan, in_kind, out_kind, _ = _args(x, dst_channels, out_dtype, crop,
+                                       clip)
+    with torch.cuda.device(x.device):
+        info = _info(in_kind, out_kind, x.shape[-1], dst_channels)
+    info["compiled_in"] = bool(info["compiled_in"])
+    return dict(plan=plan, grid=min(plan["items"],
+                                    info["blocks_an_sm"] * info["sms"]),
+                **info)
 
 
 def pixel_map(x, dst_channels: int, out_dtype, crop=None, clip: bool = False,
@@ -144,27 +261,18 @@ def pixel_map(x, dst_channels: int, out_dtype, crop=None, clip: bool = False,
     if x.device.type == "cpu":
         return pixel_map_plain(x, dst_channels, out_dtype, crop, clip,
                                weights)
-    require_cuda(x, "K11")
-    if x.dim() != 4 or x.dtype not in _KIND:
-        raise TypeError("K11 takes an (N, H, W, C) uint8, uint16 or float32 "
-                        "tensor")
-    if out_dtype not in _KIND or (clip and out_dtype != torch.float32):
-        raise TypeError(f"K11 writes uint8, uint16 or float32 (clip only "
-                        f"float32), not {out_dtype}")
-    n, h, w, c = x.shape
-    x0, y0, cw, ch = _window(x, crop)
-    if not (1 <= c <= 4 and 1 <= dst_channels <= 4):
-        raise ValueError(f"K11 maps 1-4 channels, not {c} -> {dst_channels}")
-    if x0 < 0 or y0 < 0 or cw < 1 or ch < 1 or x0 + cw > w or y0 + ch > h:
-        raise ValueError(f"K11: crop {crop} outside the {w}x{h} frame")
+    plan, in_kind, out_kind, (_x0, _y0, cw, ch) = _args(
+        x, dst_channels, out_dtype, crop, clip)
+    n, c = x.shape[0], x.shape[-1]
     wr, wg, wb = weights or normalize_weights()
     x = x.contiguous()
     out = torch.empty((n, ch, cw, dst_channels), dtype=out_dtype,
                       device=x.device)
-    out_kind = 3 if clip else _KIND[out_dtype]
-    KERNELS["pixel_map"](ptr(x), _KIND[x.dtype], n, h, w, c, y0, x0, ch,
-                         cw, dst_channels, out_kind, float(wr), float(wg),
-                         float(wb), ptr(out), stream_of(x))
+    if out.numel() == 0:
+        return out
+    KERNELS["pixel_map"](ptr(x), in_kind, c, dst_channels, out_kind,
+                         *(plan[k] for k in _PLAN_KEYS), float(wr),
+                         float(wg), float(wb), ptr(out), stream_of(x))
     return out
 
 

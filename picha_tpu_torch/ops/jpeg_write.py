@@ -30,6 +30,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
+import itertools
+import os
+import pathlib
 import struct
 
 import numpy as np
@@ -238,6 +242,32 @@ def scan_plain(planes, comp_sig) -> bytes:
         cap = 2 * n
 
 
+_DUMPS = itertools.count()
+
+
+def _writer_failed(rc: int, arrays: dict) -> ValueError:
+    """The host writer's error, with what it was given: each array's
+    shape, range and digest, and the code table's digest beside that of a
+    table built anew. Where $PICHA_JPEG_WRITER_DUMP names a directory, the
+    arrays and the table also go into an .npz there."""
+    table = _code_table()
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a)).hexdigest()[:16]
+
+    parts = [f"{k} {a.shape} {a.dtype} [{a.min()}, {a.max()}] {digest(a)}"
+             for k, a in arrays.items()]
+    parts.append(f"code table {digest(table)} (anew {digest(code_table())})")
+    where = os.environ.get("PICHA_JPEG_WRITER_DUMP")
+    if where:
+        path = pathlib.Path(where)
+        path.mkdir(parents=True, exist_ok=True)
+        path = path / f"writer_{os.getpid()}_{next(_DUMPS)}.npz"
+        np.savez(path, code_table=table, **arrays)
+        parts.append(f"dumped to {path}")
+    return ValueError(f"host JPEG writer failed ({rc}): " + "; ".join(parts))
+
+
 def scan_native(planes, comp_sig) -> bytes:
     """`scan_plain`'s bytes through the host C++
     (`picha_host_jpeg_write_coefficients`)."""
@@ -255,7 +285,8 @@ def scan_native(planes, comp_sig) -> bytes:
         n, ptrs, *(g.ctypes.data for g in geom), _code_table().ctypes.data,
         out.ctypes.data, cap, ctypes.addressof(nbytes))
     if rc != 0:
-        raise ValueError(f"host JPEG writer failed ({rc})")
+        raise _writer_failed(rc, {f"plane{i}": p for i, p in
+                                  enumerate(planes)})
     return out[:nbytes.value].tobytes()
 
 
@@ -306,7 +337,8 @@ def write_raw420(y, cb, cr, ew: int, eh: int, quality: int,
         q32[0].ctypes.data, q32[1].ctypes.data, _code_table().ctypes.data,
         out.ctypes.data, cap, ctypes.addressof(nbytes))
     if rc != 0:
-        raise ValueError(f"host JPEG writer failed ({rc})")
+        raise _writer_failed(rc, dict(y=y, cb=cb, cr=cr, qluma=q32[0],
+                                      qchroma=q32[1]))
     return header + out[:nbytes.value].tobytes() + b"\xff\xd9"
 
 

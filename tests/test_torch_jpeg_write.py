@@ -176,6 +176,29 @@ def test_write_raw420_has_no_budget():
     assert len(got) > 32 * (256 * 256 * 6 // 4 // 64)
 
 
+def test_writer_failure_names_and_dumps_what_it_was_given(tmp_path,
+                                                          monkeypatch):
+    """A failed host writer's error names each array's shape, range and
+    digest and the code table's digest beside a fresh one; with
+    $PICHA_JPEG_WRITER_DUMP set, the arrays and the table go into an
+    .npz there, bit for bit."""
+    y = np.arange(64, dtype=np.uint8).reshape(8, 8)
+    q = np.full(64, 3, np.int32)
+    monkeypatch.delenv("PICHA_JPEG_WRITER_DUMP", raising=False)
+    err = JW._writer_failed(1, dict(y=y, qluma=q))
+    assert str(err).startswith("host JPEG writer failed (1): y (8, 8) uint8 "
+                               "[0, 63] ")
+    table = str(err).split("code table ")[1]
+    assert table[:16] == table[23:39] and "dumped" not in str(err)
+    monkeypatch.setenv("PICHA_JPEG_WRITER_DUMP", str(tmp_path / "dump"))
+    err = JW._writer_failed(1, dict(y=y, qluma=q))
+    (path,) = (tmp_path / "dump").iterdir()
+    assert str(path) in str(err)
+    with np.load(path) as z:
+        assert np.array_equal(z["y"], y) and np.array_equal(z["qluma"], q)
+        assert np.array_equal(z["code_table"], JW._code_table())
+
+
 def test_libjpeg_header_differs_from_the_device_header_in_order_only():
     """libjpeg's header orders the Huffman tables DC0, AC0, DC1, AC1 (and
     a grey one has no chroma tables); the device encode's header (the

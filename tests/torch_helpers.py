@@ -14,6 +14,10 @@ import numpy as np
 from picha_tpu.ops.jpeg_tpu import CS_GRAYSCALE, CS_RGB, CS_YCBCR, CS_YCCK
 
 PORT_FIXTURES = pathlib.Path(__file__).parent / "fixtures" / "port"
+# K11's limits (csrc/pixel_map.cu): the bytes an item's staged rows and
+# staged output hold, the segments an item, a chunk's bytes; the CPU model
+# plans with them, and the card test holds `colorconvert.staging()` to them
+K11_LIMITS = (14336, 12304, 64, 12288)
 N_FIXTURES = 3
 
 
@@ -731,6 +735,160 @@ def gap8_tile_wires(seed: int, tile: int):
 RESTORE_SENTINEL = -(2 ** 40)
 
 
+def write_owned_model(out, writes, idx, val, lo, hi, cells, vec, cell0):
+    """`write_owned` of csrc/coef_restore.cu on one plane: the cells [lo,
+    hi) of `out` from a tile's entries (idx, val), staged `cells` at a
+    time and stored as a head, whole 16-byte words and a tail (`writes`
+    counts each cell's stores), then the entries at hi summed into the
+    tile's spill -> (cell0 + hi or -1, the spill's value)."""
+    m = out.shape[0]
+    assert not (idx < lo).any(), "an entry before its tile's cells"
+    for c0 in range(lo, hi, cells):
+        c1 = min(c0 + cells, hi)
+        cb = c0 & ~3
+        buf = np.zeros(-(-(c1 - cb) // 4) * 4, np.int64)
+        inside = (val != 0) & (idx >= c0) & (idx < c1)
+        np.add.at(buf, idx[inside] - cb, val[inside])
+        a = (c0 + 3) & ~3 if vec else c1
+        e = c1 & ~3 if vec else c1
+        if a >= e:
+            a = e = c1
+        assert a % 4 == 0 or a == c1
+        for c in list(range(c0, a)) + list(range(e, c1)):
+            out[c] = buf[c - cb]
+            writes[c] += 1
+        for q in range(a, e, 4):       # one 16-byte store
+            out[q:q + 4] = buf[q - cb:q - cb + 4]
+            writes[q:q + 4] += 1
+    past = (idx >= hi) & (idx < m)
+    assert (idx[past] == hi).all()
+    return cell0 + hi if hi < m else -1, int(val[past].sum())
+
+
+def densify_model(idx, val, m, tile, cells, vec=True):
+    """K27's tiled restore (`csrc/coef_restore.cu`: densify_write, then
+    densify_adds) on numpy arrays: idx (n, k) int32, val (n, k) int16 ->
+    ((n, m) int64 planes, (n, m) count of the owned-range writes of each
+    cell, whether every row's indices never decrease). Tile t of a row
+    owns [its first index, the next tile's first index), clamped to [0,
+    m] (tile 0 from 0, the last tile to m); an index outside [0, m) adds
+    nothing; the entries at a tile's end go to its spill. The output
+    starts as a sentinel: every cell the owned ranges miss keeps it. A
+    decrease is flagged where the kernel traps (each entry against the
+    next, the tile's last against the next tile's first)."""
+    n, k = idx.shape
+    tp = max(1, -(-k // tile))
+    out = np.full((n, m), RESTORE_SENTINEL, np.int64)
+    writes = np.zeros((n, m), np.int64)
+    ordered = bool((np.diff(idx.astype(np.int64), axis=1) >= 0).all())
+    spills = []
+    if not ordered:
+        return out, writes, False
+    for img in range(n):
+        row = idx[img].astype(np.int64)
+        for t in range(tp):
+            j = np.arange(t * tile, min((t + 1) * tile, k))
+            inside = (row[j] >= 0) & (row[j] < m)      # the others add 0
+            cell, v = row[j][inside], val[img, j][inside].astype(np.int64)
+            lo = 0 if t == 0 else int(np.clip(row[t * tile], 0, m))
+            hi = m if t + 1 == tp else int(np.clip(row[(t + 1) * tile], 0, m))
+            spills.append(write_owned_model(out[img], writes[img], cell, v,
+                                            lo, hi, cells, vec, img * m))
+    flat = out.reshape(-1)
+    for cell, v in spills:
+        if v and cell >= 0:
+            flat[cell] += v
+    return out, writes, True
+
+
+def densify_packed_wire(rng, n, bh, bw, density=0.1, pad_to=16):
+    """The sparse upload's wire (`stack_coefficients(..., "sparse")`) of
+    random planes: per image np.flatnonzero indices and their int16
+    values, padded at (m - 1, 0) to a common k (a multiple of
+    `pad_to`)."""
+    m = bh * bw * 64
+    planes = np.where(rng.random((n, m)) < density,
+                      rng.integers(-40, 41, (n, m)), 0).astype(np.int16)
+    nzs = [np.flatnonzero(p) for p in planes]
+    k = -(-max(1, max(z.size for z in nzs)) // pad_to) * pad_to
+    idx = np.full((n, k), m - 1, np.int32)
+    val = np.zeros((n, k), np.int16)
+    for j, z in enumerate(nzs):
+        idx[j, :z.size] = z
+        val[j, :z.size] = planes[j, z]
+    return idx, val
+
+
+def densify_tile_wires(seed: int, tile: int):
+    """Sparse wires (K27's upload) that cross many tiles of `tile`
+    entries: {name: (idx, val, bh, bw)} as numpy arrays, of 3 images
+    each, every row's indices non-decreasing. "packed": the packer's wire
+    of random planes; "padding_run": an image so sparse that its padding
+    run at m - 1 spans three or more tiles; "last_cell": a nonzero at m -
+    1 before the padding; "all_padding": an image with no nonzero;
+    "repeats": runs of one index with nonzero values across every tile
+    boundary; "past_m": indices past the plane at a row's end (dropped);
+    "negative": indices below 0 at a row's start (dropped)."""
+    rng = np.random.default_rng(seed)
+    n, bw = 3, 5
+    bh = max(1, -(-60 * tile // (64 * bw)))
+    m = bh * bw * 64
+    idx, val = densify_packed_wire(rng, n, bh, bw, pad_to=tile)
+    k = idx.shape[1]
+    out = {"packed": (idx, val, bh, bw)}
+    pr_i, pr_v = idx.copy(), val.copy()
+    keep = tile // 3
+    pr_i[1, keep:], pr_v[1, keep:] = m - 1, 0
+    assert k - keep >= 3 * tile
+    out["padding_run"] = (pr_i, pr_v, bh, bw)
+    lc_i, lc_v = pr_i.copy(), pr_v.copy()
+    lc_i[1, keep], lc_v[1, keep] = m - 1, 17
+    lc_i[1, keep + 1] = m - 1
+    out["last_cell"] = (lc_i, lc_v, bh, bw)
+    ap_i, ap_v = idx.copy(), val.copy()
+    ap_i[2], ap_v[2] = m - 1, 0
+    out["all_padding"] = (ap_i, ap_v, bh, bw)
+    rp_i, rp_v = idx.copy(), val.copy()
+    for t in range(tile, k, tile):
+        lo, hi = t - 3, min(t + 3, k)
+        rp_i[:, lo:hi] = rp_i[:, lo:lo + 1]
+        rp_v[:, lo:hi] = rng.integers(1, 100, (n, hi - lo))
+    out["repeats"] = (rp_i, rp_v, bh, bw)
+    pm_i, pm_v = idx.copy(), val.copy()
+    tail = min(k // 2, 2 * tile + 5)
+    pm_i[0, -tail:] = m + np.arange(tail) // 2
+    pm_v[0, -tail:] = rng.integers(1, 50, tail)
+    out["past_m"] = (pm_i, pm_v, bh, bw)
+    ng_i, ng_v = idx.copy(), val.copy()
+    head = tile + 7
+    ng_i[2, :head] = np.minimum(ng_i[2, :head], -1) - np.arange(head)[::-1]
+    ng_v[2, :head] = rng.integers(1, 50, head)
+    out["negative"] = (ng_i, ng_v, bh, bw)
+    for name, (i, _v, _bh, _bw) in out.items():
+        assert (np.diff(i.astype(np.int64), axis=1) >= 0).all(), name
+    return out
+
+
+def densify_decreasing_wires(tile: int):
+    """Sparse wires whose index decreases once in a row, where K27's
+    kernel checks it: {name: (idx, val, bh, bw)}: inside a thread's eight
+    entries, between two threads, across a tile's edge, and after the
+    padding run."""
+    bh, bw = 2, 3
+    m = bh * bw * 64
+    k = 3 * tile
+    base = np.minimum(np.arange(k) // 4, m - 1).astype(np.int32)
+    out = {}
+    for name, at in (("in_thread", 4), ("across_threads", 8),
+                     ("across_tile", tile), ("after_padding", k - 1)):
+        i = np.stack([base] * 2)
+        if name == "after_padding":
+            i[1, :] = m - 1
+        i[1, at] = i[1, at - 1] - 1
+        out[name] = (i, np.ones((2, k), np.int16), bh, bw)
+    return out
+
+
 def tiled_restore_model(pg, pval, sg, sv, ci, cv, m, tile, cells,
                         vec=True):
     """The tiled restore of K29 and K30 (`csrc/coef_restore.cu`: the
@@ -768,28 +926,8 @@ def tiled_restore_model(pg, pval, sg, sv, ci, cv, m, tile, cells,
             hi = m if t + 1 == tp else max(
                 base + total + int(pg[img, (t + 1) * tile]) - 1, 0)
             lo, hi = min(lo, m), min(hi, m)
-            assert not (idx < lo).any(), "an entry before its tile's cells"
-            for c0 in range(lo, hi, cells):
-                c1 = min(c0 + cells, hi)
-                cb = c0 & ~3
-                buf = np.zeros(-(-(c1 - cb) // 4) * 4, np.int64)
-                inside = (val != 0) & (idx >= c0) & (idx < c1)
-                np.add.at(buf, idx[inside] - cb, val[inside])
-                a = (c0 + 3) & ~3 if vec else c1
-                e = c1 & ~3 if vec else c1
-                if a >= e:
-                    a = e = c1
-                assert a % 4 == 0 or a == c1
-                for c in list(range(c0, a)) + list(range(e, c1)):
-                    out[img, c] = buf[c - cb]
-                    writes[img, c] += 1
-                for q in range(a, e, 4):       # one 16-byte store
-                    out[img, q:q + 4] = buf[q - cb:q - cb + 4]
-                    writes[img, q:q + 4] += 1
-            past = (idx >= hi) & (idx < m)
-            assert (idx[past] == hi).all()
-            spills.append((img * m + hi if hi < m else -1,
-                           int(val[past].sum())))
+            spills.append(write_owned_model(out[img], writes[img], idx, val,
+                                            lo, hi, cells, vec, img * m))
     flat = out.reshape(-1)
     # gap4_adds: side tiles, spills, corrections
     for img in range(n):

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's PNG encode filters (K12) and the ingest's clip +
-augment (K10) of several checkouts in turns on one CUDA card.
+"""Time the port's PNG encode filters (K12), the ingest's clip + augment
+(K10) and the pixel map (K11) of several checkouts in turns on one CUDA
+card.
 
-    python3 tools/torch_pixel_trees.py [--json OUT] LABEL=PATH ...
+    python3 tools/torch_pixel_trees.py [--json OUT] [--parts P,...]
+                                       LABEL=PATH ...
 
 Each LABEL=PATH is a checkout of this repository (its root directory);
 list them in the order to run, e.g. `old=a new=. new=. old=a` for a
@@ -23,20 +25,38 @@ reports, on seeded inputs (the same in every run):
        1.05], as a resize leaves it) with brightness, contrast and
        saturation 0.2 and a 32-pixel cutout, and with contrast off
        (`clone_ms`: a copy of the batch, the card's streaming rate);
+  K11  `K11_VARIANTS`: colorConvert's rgba -> greya and r16g16b16a16 ->
+       r16 at 16 x 1088 x 1920, config 4's head (256 x 256 x 384 rgba
+       uint8, the crop 352 x 224 at (16, 16), to float32) and tail (256 x
+       112 x 176 x 4 float32 to uint8) and `resize_batch`'s head (16 x
+       1088 x 1920 rgb uint8 to float32), seeded pixels made on the card;
+       the two heads also against their one PyTorch call, torch.div by a
+       255 on the card (`library_ms`, `library_equal`);
+  stage  config 4's head as chip_smoke's stage run meets it: the card
+       idle for 0.5 s (the host decode), the batch uploaded, then the
+       head between two CUDA events (`cold_ms`), its wrapper's host time
+       up to the launch's return (`wrapper_ms`), the same call again at
+       once (`again_ms`), the head behind a 1,000,000-cycle spin kernel
+       that hides the host's work (`behind_spin_ms`), and the kernel's
+       own device time in the first, cold call (`cold_kernel_ms`,
+       torch.profiler); medians of 5;
 
 each with a digest of the output bits, equality with the plain version
-(K12 bit for bit; K10 within 1e-6, and bit for bit the plain chain on
-the lane model's mean where the checkout has `augment_sum_lanes`), a
-repeat's equality, CUDA-event ms (median of 3 rounds of 20 calls), the
-call's kernels by name (torch.profiler), the bound (bytes read once and
-written once over 3.35 TB/s) and `kernel_info` where the checkout has
-it. Then the device-only time beside the call time of K20, K23 and K24
-at the MoE ViT-S forward's shapes (t = 50,176, E = 4, d = 384) and of
-K11's head and tail at config 4's call, and `nvcc -Xptxas -v` of the
-checkout's `png_filter.cu` and `augment.cu`. Prints the card's name and
-power limit, then one JSON line a run; with --json, also writes them
-all to OUT. The main process checks K12's and K10's digests against the
-first run's.
+(K12 and K11 bit for bit; K10 within 1e-6, and bit for bit the plain
+chain on the lane model's mean where the checkout has
+`augment_sum_lanes`), a repeat's equality, CUDA-event ms (median of 3
+rounds of 20 calls), the call's kernels by name (torch.profiler), the
+bound (bytes read once and written once over 3.35 TB/s) and
+`kernel_info` where the checkout has it. Then (`yardsticks`) the
+device-only time beside the call time of K20, K23 and K24 at the MoE
+ViT-S forward's shapes (t = 50,176, E = 4, d = 384), of K11's config-4
+head and tail and of K31 at the fused transcode's pixels (16 x 544 x
+960 x 3 float32), and `nvcc -Xptxas -v` of the
+checkout's `png_filter.cu`, `augment.cu` and `pixel_map.cu` (`ptxas`).
+--parts picks some of k12, k10, k11, stage, yardsticks, ptxas (all by
+default). Prints the card's name and power limit, then one JSON line a
+run; with --json, also writes them all to OUT. The main process checks
+K12's, K10's and K11's digests against the first run's.
 """
 import hashlib
 import json
@@ -49,6 +69,7 @@ import tempfile
 import time
 
 HBM = 3.35e12
+PARTS = ("k12", "k10", "k11", "stage", "yardsticks", "ptxas")
 AUGMENT = {"brightness_s": .2, "contrast_s": .2, "saturation_s": .2,
            "cutout_size": 32}
 NO_CONTRAST = {"brightness_s": .2, "saturation_s": .2, "cutout_size": 32}
@@ -57,6 +78,16 @@ K12_SHAPES = {"config4": (256, 112, 176, 4, "uint8", (-1, 1, 2)),
               "rgb8_1080p": (8, 1080, 1920, 3, "uint8", (-1,)),
               "rgba16_1920": (4, 1080, 1920, 4, "uint16", (-1,))}
 K10_SHAPE = (256, 224, 224)
+# name -> (input shape, input dtype, destination channels, output dtype,
+# crop): K11 at the shapes of its callers
+K11_VARIANTS = {
+    "rgba_greya": ((16, 1088, 1920, 4), "uint8", 2, "uint8", None),
+    "r16g16b16a16_r16": ((16, 1088, 1920, 4), "uint16", 1, "uint16", None),
+    "config4_head": ((256, 256, 384, 4), "uint8", 4, "float32",
+                     (16, 16, 352, 224)),
+    "config4_tail": ((256, 112, 176, 4), "float32", 4, "uint8", None),
+    "resize_head": ((16, 1088, 1920, 3), "uint8", 3, "float32", None),
+}
 
 
 def timed(fn, reps=20, rounds=3):
@@ -268,13 +299,134 @@ def k10(dev):
     return res
 
 
+def k11_input(shape, dtype, dev, seed):
+    """Seeded pixels on the card: uniform integers, or float32 in [-0.01,
+    1.01] (a resize's overshoot) for the tails."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == "float32":
+        return torch.rand(shape, generator=g, device=dev) * 1.02 - 0.01
+    top = 65536 if dtype == "uint16" else 256
+    return torch.randint(0, top, shape, generator=g, device=dev,
+                         dtype=torch.int32).to(getattr(torch, dtype))
+
+
+def library_call(x, dc, odt, crop):
+    """The one PyTorch call of an unpack head (the same channels to
+    float32): torch.div by a 255 on the card, IEEE v / 255 (for a CPU
+    scalar torch multiplies by a reciprocal); None for other variants."""
+    import torch
+
+    if x.dtype != torch.uint8 or odt != torch.float32 or dc != x.shape[-1]:
+        return None
+    x0, y0, w, h = crop or (0, 0, x.shape[2], x.shape[1])
+    win, t255 = x[:, y0:y0 + h, x0:x0 + w], torch.tensor(255.0,
+                                                        device=x.device)
+    return lambda: torch.div(win, t255)
+
+
+def k11(dev):
+    import torch
+
+    from picha_tpu_torch.ops import colorconvert as cc
+
+    res = {}
+    for i, (name, (shape, dtype, dc, odt, crop)) in enumerate(
+            K11_VARIANTS.items()):
+        x = k11_input(shape, dtype, dev, seed=110 + i)
+        odt = getattr(torch, odt)
+
+        def call(x=x, dc=dc, odt=odt, crop=crop):
+            return cc.pixel_map(x, dc, odt, crop=crop)
+
+        got = call()
+        want = cc.pixel_map_plain(x, dc, odt, crop=crop)
+        torch.cuda.synchronize()
+        lib = library_call(x, dc, odt, crop)
+        r = dict(shape=list(shape), dtype=dtype, out=list(got.shape),
+                 out_dtype=str(odt), crop=crop, bits=digest(got),
+                 equal_plain=bool(torch.equal(got, want)),
+                 repeat_equal=bool(torch.equal(got, call())),
+                 ms=timed(call), by_kernel=by_kernel(call),
+                 library_ms=timed(lib) if lib else None,
+                 library_equal=bool(torch.equal(got, lib())) if lib else None,
+                 bound_ms=(got.numel() // dc * shape[-1] * x.element_size()
+                           + got.numel() * got.element_size()) / HBM * 1e3)
+        if hasattr(cc, "kernel_info"):
+            r["kernel_info"] = cc.kernel_info(x, dc, odt, crop=crop)
+        res[name] = r
+        del x, got, want
+        torch.cuda.empty_cache()
+    return res
+
+
+def stage(dev, reps=5):
+    """Config 4's head as the stage run meets it (see the module doc)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from picha_tpu_torch.ops.colorconvert import pixel_map
+
+    crop = (16, 16, 352, 224)
+    batch = k11_input((256, 256, 384, 4), "uint8", dev, seed=120).cpu()
+
+    def head(xs):
+        return pixel_map(xs, 4, torch.float32, crop=crop)
+
+    def once(spin=False):
+        time.sleep(0.5)
+        xs = batch.to(dev)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        if spin:
+            torch.cuda._sleep(1_000_000)
+        ev[0].record()
+        t = time.perf_counter()
+        head(xs)
+        wrapper = (time.perf_counter() - t) * 1e3
+        ev[1].record()
+        head(xs)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return (ev[0].elapsed_time(ev[1]), wrapper,
+                ev[1].elapsed_time(ev[2]))
+
+    def med(v):
+        return sorted(v)[len(v) // 2]
+
+    once()
+    plain = [once() for _ in range(reps)]
+    spun = [once(spin=True) for _ in range(reps)]
+    cold = []
+    for _ in range(reps):
+        time.sleep(0.5)
+        xs = batch.to(dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            head(xs)
+            torch.cuda.synchronize()
+        cold.append(sum((getattr(e, "device_time_total", 0)
+                         or getattr(e, "cuda_time_total", 0))
+                        for e in prof.key_averages()
+                        if "pixel_map" in e.key) / 1e3)
+    return dict(cold_ms=med([r[0] for r in plain]),
+                wrapper_ms=med([r[1] for r in plain]),
+                again_ms=med([r[2] for r in plain]),
+                behind_spin_ms=med([r[0] for r in spun]),
+                cold_kernel_ms=med(cold) if any(cold) else "not measured",
+                runs=dict(plain=plain, spun=spun, cold_kernel=cold))
+
+
 def yardsticks(dev):
     """Device-only time beside the call time of K20, K23, K24 (MoE ViT-S
-    forward shapes) and K11's head and tail (config 4's call)."""
+    forward shapes), K11's head and tail (config 4's call) and K31 (the
+    fused transcode's pixels)."""
     import torch
 
     from picha_tpu_torch.ops import moe
     from picha_tpu_torch.ops.colorconvert import pixel_map
+    from picha_tpu_torch.ops.jpeg import yuv420_pack
 
     out = {}
     t, e, d = 50176, 4, 384
@@ -297,13 +449,15 @@ def yardsticks(dev):
     calls["K11_head"] = lambda: pixel_map(x, 4, torch.float32,
                                           crop=(16, 16, 352, 224))
     calls["K11_tail"] = lambda: pixel_map(xh, 4, torch.uint8)
+    px = torch.rand((16, 544, 960, 3), generator=g).to(dev) * 255
+    calls["K31"] = lambda: yuv420_pack(px)
     for name, fn in calls.items():
         out[name] = dict(ms=timed(fn), by_kernel=by_kernel(fn))
     del head
     return out
 
 
-def run(label):
+def run(label, parts):
     """One checkout, imported from the working directory."""
     import torch
 
@@ -314,50 +468,59 @@ def run(label):
     dev = torch.device("cuda", 0)
     res = {"label": label, "build_s": time.perf_counter() - t0,
            "device": torch.cuda.get_device_name(0)}
-    res["k12"] = k12(dev)
-    torch.cuda.empty_cache()
-    res["k10"] = k10(dev)
-    torch.cuda.empty_cache()
-    res["yardsticks"] = yardsticks(dev)
-    root = pathlib.Path.cwd()
-    res["ptxas"] = {s: ptxas(root, s) for s in ("png_filter.cu",
-                                                "augment.cu")}
+    for name, fn in (("k12", k12), ("k10", k10), ("k11", k11),
+                     ("stage", stage), ("yardsticks", yardsticks)):
+        if name in parts:
+            res[name] = fn(dev)
+            torch.cuda.empty_cache()
+    if "ptxas" in parts:
+        root = pathlib.Path.cwd()
+        res["ptxas"] = {s: ptxas(root, s) for s in ("png_filter.cu",
+                                                    "augment.cu",
+                                                    "pixel_map.cu")}
     print("RESULT " + json.dumps(res), flush=True)
 
 
 def bits_of(run_):
     out = {}
-    for name, r in run_["k12"].items():
+    for name, r in run_.get("k12", {}).items():
         if isinstance(r, dict):
             out.update({f"k12_{name}_{k}": v["bits"] for k, v in r.items()
                         if isinstance(v, dict) and "bits" in v})
-    out.update({f"k10_{k}": v["bits"] for k, v in run_["k10"].items()
+    out.update({f"k10_{k}": v["bits"] for k, v in run_.get("k10", {}).items()
                 if isinstance(v, dict)})
+    out.update({f"k11_{k}": v["bits"] for k, v in run_.get("k11", {}).items()})
     return out
 
 
 def checks_of(run_):
     ok = []
-    for r in run_["k12"].values():
+    for r in run_.get("k12", {}).values():
         if isinstance(r, dict):
             ok += [v["equal_plain"] for v in r.values()
                    if isinstance(v, dict) and "equal_plain" in v]
             ok.append(r["probe"]["repeat_equal"])
-    for r in run_["k10"].values():
+    for r in run_.get("k10", {}).values():
         if isinstance(r, dict):
             ok += [r["max_abs_err"] <= 1e-6, r["repeat_equal"],
                    r.get("equal_lanes_model", True)]
+    ok += [r["equal_plain"] and r["repeat_equal"]
+           and r.get("library_equal") is not False
+           for r in run_.get("k11", {}).values()]
     return all(ok)
 
 
 def main(argv):
-    if len(argv) == 3 and argv[1] == "--run":
-        return run(argv[2])
-    out = None
+    if len(argv) == 4 and argv[1] == "--run":
+        return run(argv[2], argv[3].split(","))
+    out, parts = None, ",".join(PARTS)
     if len(argv) > 2 and argv[1] == "--json":
         out, argv = pathlib.Path(argv[2]).resolve(), argv[2:]
+    if len(argv) > 2 and argv[1] == "--parts":
+        parts, argv = argv[2], argv[2:]
     trees = [a.split("=", 1) for a in argv[1:]]
-    if not trees or any(len(t) != 2 for t in trees):
+    if not trees or any(len(t) != 2 for t in trees) or \
+            not set(parts.split(",")) <= set(PARTS):
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -370,7 +533,7 @@ def main(argv):
         with tempfile.TemporaryDirectory() as tmp:
             p = subprocess.run(
                 [sys.executable, str(pathlib.Path(__file__).resolve()),
-                 "--run", label], cwd=root,
+                 "--run", label, parts], cwd=root,
                 env=dict(os.environ, PYTHONPATH=str(root), TMPDIR=tmp),
                 capture_output=True, text=True, timeout=1200)
         line = [x for x in p.stdout.splitlines() if x.startswith("RESULT ")]

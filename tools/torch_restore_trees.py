@@ -15,16 +15,18 @@ at q = 100, reports for each of the uploads sparse (K27), int8 (K28),
 gap8 (K29) and gap4 (K30): a digest of the planes and their equality
 with the restore's plain version; CUDA-event medians of
 `restore_planes` (the batch's call: the unpack and the three components'
-restores), of the restores alone and of the unpack alone (gap8, gap4);
-the call's device time split by kernel name (torch.profiler: K29's and
-K30's tile sums, writes and adds, or a parent's memsets, walks and
-corrections), the restores' alone likewise; the bound (wire and planes over
-3.35 TB/s); `kernel_info` of the restores where the checkout has it, and
-`nvcc -Xptxas -v` of its `coef_restore.cu`; then the whole
+restores), of the restores alone (sparse, gap8, gap4) and of the unpack
+alone (gap8, gap4); the call's device time split by kernel name
+(torch.profiler: K27's writes and adds, K29's and K30's tile sums,
+writes and adds, or a parent's memsets, walks and corrections), the
+restores' alone likewise; the bound (wire and planes over 3.35 TB/s);
+`kernel_info` of the restores where the checkout has it, and `nvcc
+-Xptxas -v` of its `coef_restore.cu`; then the whole
 `JpegBatchPipeline(upload="gap4")` and `upload="gap8"` call on the
 restart corpus (fused, 960x544 q85; wall-clock medians of 3). Prints the
 card's name and power limit, then one JSON line a run; with --json, also
-writes them all to OUT.
+writes them all to OUT. The main process checks every digest against the
+first run's.
 """
 import hashlib
 import io
@@ -199,22 +201,27 @@ def run(label):
                      call_ms=timed(lambda: restore_planes(sig, dargs, **kw)),
                      call_by_kernel=by_kernel(
                          lambda: restore_planes(sig, dargs, **kw)))
-            if upload in ("gap8", "gap4"):
-                unpack = cr.unpack_gap8 if upload == "gap8" else \
-                    cr.unpack_gap4
-                parts, _qt = unpack(dargs[0], ks, len(sig[3]))
+            if upload != "int8":
                 restore = getattr(cr, fn)
+                if upload == "sparse":
+                    parts = [dargs[2 * i:2 * i + 2]
+                             for i in range(len(sig[3]))]
+                else:
+                    unpack = cr.unpack_gap8 if upload == "gap8" else \
+                        cr.unpack_gap4
+                    parts, _qt = unpack(dargs[0], ks, len(sig[3]))
+                    r["unpack_ms"] = timed(
+                        lambda: unpack(dargs[0], ks, len(sig[3])))
 
                 def restores():
                     return [restore(*p, c[0], c[1])
                             for p, c in zip(parts, sig[3])]
                 r["restores_ms"] = timed(restores)
                 r["restores_by_kernel"] = by_kernel(restores)
-                r["unpack_ms"] = timed(
-                    lambda: unpack(dargs[0], ks, len(sig[3])))
                 r["per_component"] = [
-                    dict(entries=list(p[0].shape) + [p[1].shape[1],
-                                                     p[3].numel()],
+                    dict(entries=list(p[0].shape) + (
+                        [] if upload == "sparse" else
+                        [p[1].shape[1], p[-1].numel()]),
                          ms=timed(lambda p=p, c=c: restore(*p, c[0], c[1])))
                     for p, c in zip(parts, sig[3])]
             if hasattr(cr, "kernel_info"):
@@ -247,7 +254,7 @@ def main(argv):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    runs, failed = [], False
+    runs, failed, first = [], False, None
     for label, path in trees:
         root = pathlib.Path(path).resolve()
         p = subprocess.run(
@@ -261,6 +268,16 @@ def main(argv):
                   p.stderr[-4000:], flush=True)
             continue
         runs.append(json.loads(line[0][7:]))
+        bits = {f"{u}_{name}": r[name]["bits"]
+                for u, r in runs[-1]["uploads"].items()
+                for name in ("restart", "q100")}
+        first = first or dict(label=label, bits=bits)
+        same = {k: v == first["bits"][k] for k, v in bits.items()}
+        runs[-1]["same_bits_as_first_run"] = dict(label=first["label"],
+                                                  **same)
+        failed |= not all(same.values()) or not all(
+            r[name]["equal_plain"] for r in runs[-1]["uploads"].values()
+            for name in ("restart", "q100"))
         print(json.dumps(runs[-1]), flush=True)
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
